@@ -1,0 +1,32 @@
+"""Calibration observers (port of the min-max observer of
+qtpu/calib/observers.py).  The EMA and histogram observers and the KL
+threshold search are still to port (ROADMAP.md).
+
+State: ``{"min": 0-d float32 tensor, "max": 0-d float32 tensor, "count":
+int}``.  Min and max stay on the activations' device; the count is a host
+integer, so an update never waits on the device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+State = Dict[str, object]
+
+
+def minmax_init(device: Optional[torch.device] = None) -> State:
+    return {"min": torch.zeros((), dtype=torch.float32, device=device),
+            "max": torch.zeros((), dtype=torch.float32, device=device),
+            "count": 0}
+
+
+def minmax_update(state: State, x: torch.Tensor) -> State:
+    """Global (all-batches) running min/max."""
+    bmin = torch.amin(x).to(torch.float32)
+    bmax = torch.amax(x).to(torch.float32)
+    if state["count"] == 0:
+        return {"min": bmin, "max": bmax, "count": 1}
+    return {"min": torch.minimum(state["min"], bmin),
+            "max": torch.maximum(state["max"], bmax),
+            "count": state["count"] + 1}

@@ -1,0 +1,190 @@
+"""K1: fused int8 matmul with the folded epilogue (port of
+qtpu/ops/pallas/qmatmul.py:qmatmul_fused).
+
+``qmatmul_folded`` is the kernel wrapper: on a CUDA tensor it launches the
+hand-written kernel of ``csrc/qmatmul.cu`` (or raises), on a CPU tensor it
+takes ``qmatmul_folded_plain``, the same function in plain PyTorch.  Its
+``launches`` attribute counts kernel launches and nothing else.
+
+The weight is stored (N, K), K-contiguous — the kernel's layout, prepared
+once at engine build.  ``qmatmul_fused`` keeps qtpu's call form: a (K, N)
+weight and the unfolded grid arguments, folded here with
+:func:`qtpu_torch.ops.qops.epilogue_coeffs`.
+
+``raw_acc=True`` returns the int32 accumulator (the fc path: its exact
+``dequant_epilogue`` runs on the integer sum); the int4 ``w_packed`` mode is
+not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from qtpu_torch.ops import _build, qops
+from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+             _F, _F, _F, _F, _I, _I, _F, _P)
+OUT_KIND = {torch.int8: 0, torch.float32: 1, torch.int32: 2}
+RES_KIND = {None: 0, torch.int8: 1, torch.float32: 2}
+
+
+def out_dtype_of(mode: Optional[EpilogueMode], out_dtype: torch.dtype,
+                 raw_acc: bool) -> torch.dtype:
+    """int32 for the raw accumulator, int8 codes for requant, else f32."""
+    if raw_acc:
+        return torch.int32
+    if mode.requant:
+        return torch.int8
+    if out_dtype != torch.float32:
+        raise ValueError(f"f32-mode output must be float32, got {out_dtype}")
+    return out_dtype
+
+
+def launch_args(co: Optional[EpilogueCoeffs], mode: Optional[EpilogueMode]
+                ) -> Tuple:
+    """(A, B, C, lo, hi, shift, relu, use_act_max, act_max) for the C entry."""
+    if co is None:
+        return None, None, 0.0, 0.0, 0.0, 0.0, 0, 0, 0.0
+    act_max = mode.act_max if (mode.act_max is not None
+                               and not mode.requant) else None
+    return (co.A.data_ptr(), co.B.data_ptr(), co.C, co.lo, co.hi,
+            mode.shift, int(mode.relu), int(act_max is not None),
+            float(act_max or 0.0))
+
+
+def check_vectors(co: Optional[EpilogueCoeffs], n: int,
+                  device: torch.device) -> None:
+    if co is None:
+        return
+    for name, v in (("A", co.A), ("B", co.B)):
+        if (v.device != device or v.dtype != torch.float32
+                or not v.is_contiguous() or tuple(v.shape) != (n,)):
+            raise ValueError(f"epilogue {name} must be a contiguous float32 "
+                             f"({n},) tensor on {device}, got "
+                             f"{tuple(v.shape)} {v.dtype} on {v.device}")
+
+
+def check_residual(residual: Optional[torch.Tensor], shape: Tuple[int, ...],
+                   device: torch.device) -> int:
+    """The C entries' residual kind (0 none, 1 int8, 2 f32); raises on a
+    residual the kernels do not take."""
+    if residual is None:
+        return RES_KIND[None]
+    if (residual.dtype not in (torch.int8, torch.float32)
+            or tuple(residual.shape) != tuple(shape)
+            or not residual.is_contiguous() or residual.device != device):
+        raise ValueError(f"residual must be a contiguous int8 or float32 "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{tuple(residual.shape)} {residual.dtype}")
+    return RES_KIND[residual.dtype]
+
+
+def qmatmul_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
+                   co: Optional[EpilogueCoeffs],
+                   mode: Optional[EpilogueMode],
+                   residual: Optional[torch.Tensor] = None, *,
+                   out_dtype: torch.dtype = torch.float32,
+                   raw_acc: bool = False) -> torch.Tensor:
+    """int8 (M, K) × int8 (N, K)ᵀ → epilogue(acc) (M, N)."""
+    if x_q.device.type == "cpu":
+        return qmatmul_folded_plain(x_q, w_nk, co, mode, residual,
+                                    out_dtype=out_dtype, raw_acc=raw_acc)
+    if not x_q.is_cuda:
+        raise ValueError(f"unsupported device {x_q.device}")
+    M, K = x_q.shape
+    N, K2 = w_nk.shape
+    dev = x_q.device
+    if K != K2:
+        raise ValueError(f"K mismatch: x {tuple(x_q.shape)}, w {tuple(w_nk.shape)}")
+    for name, t in (("x_q", x_q), ("w_nk", w_nk)):
+        if t.dtype != torch.int8 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous int8 tensor on {dev}")
+    if not raw_acc:
+        check_vectors(co, N, dev)
+    res_kind = check_residual(residual, (M, N), dev)
+    odt = out_dtype_of(mode, out_dtype, raw_acc)
+    out = torch.empty((M, N), dtype=odt, device=dev)
+    A, B, C, lo, hi, shift, relu, use_am, am = launch_args(
+        None if raw_acc else co, mode)
+    fn = _build.load("qmatmul", "qtpu_qmatmul_fused", _ARGTYPES)
+    err = fn(x_q.data_ptr(), w_nk.data_ptr(), A, B,
+             None if residual is None else residual.data_ptr(),
+             res_kind, out.data_ptr(), OUT_KIND[odt], M, N, K,
+             C, lo, hi, shift, relu, use_am, am,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"qmatmul_fused kernel launch failed: CUDA error "
+                           f"{err} (M={M}, N={N}, K={K})")
+    qmatmul_folded.launches += 1
+    return out
+
+
+qmatmul_folded.launches = 0
+
+
+def qmatmul_folded_plain(x_q: torch.Tensor, w_nk: torch.Tensor,
+                         co: Optional[EpilogueCoeffs],
+                         mode: Optional[EpilogueMode],
+                         residual: Optional[torch.Tensor] = None, *,
+                         out_dtype: torch.dtype = torch.float32,
+                         raw_acc: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`qmatmul_folded` (exact float64
+    accumulator, then the folded epilogue step by step)."""
+    qmatmul_folded_plain.calls += 1
+    acc = qops.qmatmul(x_q, w_nk.t())
+    odt = out_dtype_of(mode, out_dtype, raw_acc)
+    if raw_acc:
+        return acc
+    return qops.apply_epilogue(acc, co, mode, residual=residual,
+                               out_dtype=odt)
+
+
+qmatmul_folded_plain.calls = 0
+
+
+def fold(*, act_scale, act_zp, w_scale, colsum, bias=None,
+         requant_scale=None, requant_zp=None, residual=None, res_scale=None,
+         res_zp=None, relu=False, act_max=None
+         ) -> Tuple[EpilogueCoeffs, EpilogueMode]:
+    """qtpu's kernel-side folding: an int8 residual brings its grid, an f32
+    residual is added at unit scale before the requant."""
+    res_int8 = residual is not None and residual.dtype == torch.int8
+    return qops.epilogue_coeffs(
+        act_scale=act_scale, act_zp=act_zp, w_scale=w_scale, colsum=colsum,
+        bias=bias, requant_scale=requant_scale, requant_zp=requant_zp,
+        relu=relu, act_max=act_max,
+        res_scale=res_scale if res_int8 else None,
+        res_zp=res_zp if res_int8 else None,
+        res_f32=residual is not None and not res_int8)
+
+
+def qmatmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, *, act_scale,
+                  act_zp, w_scale, colsum, bias=None, requant_scale=None,
+                  requant_zp=None, residual=None, res_scale=None,
+                  res_zp=None, out_dtype: torch.dtype = torch.float32,
+                  relu: bool = False, act_max: Optional[float] = None,
+                  raw_acc: bool = False) -> torch.Tensor:
+    """qtpu's call form: int8 (M, K) × int8 (K, N) → (M, N) with the fused
+    epilogue (int8 codes when ``requant_scale`` is given)."""
+    co, mode = fold(act_scale=act_scale, act_zp=act_zp, w_scale=w_scale,
+                    colsum=colsum, bias=bias, requant_scale=requant_scale,
+                    requant_zp=requant_zp, residual=residual,
+                    res_scale=res_scale, res_zp=res_zp, relu=relu,
+                    act_max=act_max)
+    return qmatmul_folded(x_q, w_q.t().contiguous(), co, mode, residual,
+                          out_dtype=out_dtype, raw_acc=raw_acc)
+
+
+def qmatmul_fused_plain(x_q: torch.Tensor, w_q: torch.Tensor, **kw
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`qmatmul_fused` (same arguments)."""
+    raw_acc = kw.pop("raw_acc", False)
+    out_dtype = kw.pop("out_dtype", torch.float32)
+    co, mode = fold(**kw)
+    return qmatmul_folded_plain(x_q, w_q.t().contiguous(), co, mode,
+                                kw.get("residual"), out_dtype=out_dtype,
+                                raw_acc=raw_acc)

@@ -1,0 +1,73 @@
+"""Serving stack assembly (port of ``build_engine`` of qtpu/serve/cli.py).
+
+model (seeded random weights) → min-max calibration on seeded normal
+batches → ``freeze`` → flat int8 engine → :class:`ServingEngine`, warmed on
+every bucket.  No mesh, checkpoint or torch-checkpoint import yet; the HTTP
+front and the CLI ``main`` wait too (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from qtpu_torch.models.resnet import get_model, init_weights
+from qtpu_torch.serve.dispatch import make_flat_forward
+from qtpu_torch.serve.engine import ServingEngine
+from qtpu_torch.transform import calibrate, freeze
+from qtpu_torch.utils.device import resolve_device
+
+
+def build_model(cfg, *, torch_pad: bool = False, seed: int = 0,
+                device=None) -> torch.nn.Module:
+    """The config's fp32 model with seeded random weights on ``device``."""
+    model = get_model(cfg.model, num_classes=cfg.num_classes,
+                      cifar_stem=cfg.cifar_stem, width=cfg.width,
+                      torch_pad=torch_pad,
+                      in_channels=1 if cfg.dataset == "mnist" else 3)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(resolve_device(device)).eval()
+
+
+def freeze_from_config(cfg, *, torch_pad: bool = False, seed: int = 0,
+                       device=None) -> dict:
+    """model → calibrate on ``calib_batches`` seeded normal batches →
+    freeze; returns the frozen tree."""
+    model = build_model(cfg, torch_pad=torch_pad, seed=seed, device=device)
+    shape = (cfg.image_size, cfg.image_size,
+             1 if cfg.dataset == "mnist" else 3)
+    rng = np.random.default_rng(seed)
+    batches = [rng.standard_normal((cfg.batch_size, *shape), np.float32)
+               for _ in range(cfg.calib_batches)]
+    policy = cfg.policy()
+    return freeze(model, policy, calibrate(model, policy, batches))
+
+
+def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
+                 uint8_ingest: bool = False, torch_pad: bool = False,
+                 max_wait_ms: float = 2.0, mean: Sequence[float] = (0.0,),
+                 std: Sequence[float] = (1.0,), pipeline: bool = True,
+                 seed: int = 0, device=None):
+    """Build the serving stack for an ExperimentConfig; returns
+    ``(engine, info)``."""
+    dev = resolve_device(device)
+    shape = (cfg.image_size, cfg.image_size,
+             1 if cfg.dataset == "mnist" else 3)
+    tree = freeze_from_config(cfg, torch_pad=torch_pad, seed=seed,
+                              device=dev)
+    forward_factory, preprocess_fn, raw_dtype, serve_path = make_flat_forward(
+        cfg.model, exclude=cfg.exclude, num_classes=cfg.num_classes,
+        image_size=cfg.image_size, width=cfg.width, torch_pad=torch_pad,
+        cifar_stem=cfg.cifar_stem, uint8_ingest=uint8_ingest, mean=mean,
+        std=std, device=dev)
+    engine = ServingEngine(
+        None, tree, batch_buckets=tuple(buckets), max_wait_ms=max_wait_ms,
+        forward_factory=forward_factory, preprocess_fn=preprocess_fn,
+        raw_dtype=raw_dtype, pipeline=pipeline, device=dev)
+    engine.warmup(shape)
+    info = dict(config=cfg.name, model=cfg.model, image_shape=shape,
+                buckets=list(engine.buckets), serve_path=serve_path,
+                torch_pad=torch_pad, device=str(dev),
+                raw_dtype=str(np.dtype(raw_dtype)))
+    return engine, info

@@ -1,0 +1,120 @@
+"""Flat-engine dispatch policy (port of the ResNet branches of
+qtpu/serve/dispatch.py).
+
+Eligibility is decided as the conversion decides exclusion — ``fnmatch``
+globs over the model's quantizable layer paths — and the flat engine runs
+``stem``/``fc`` exclusions in fp32 itself.  MobileNet engines and the
+host-quantized int8 ingest (which needs the native preprocessor) are still
+to port (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import fnmatch
+from typing import Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+
+_RESNET_STAGES = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3),
+                  "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3),
+                  "resnet56": (9, 9, 9), "resnet101": (3, 4, 23, 3)}
+_RESNET_BOTTLENECK = frozenset({"resnet50", "resnet101"})
+_RESNET_WIDTH = {"resnet20": 16, "resnet56": 16}
+_MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
+
+ENGINE_FP32_OK = frozenset({"stem", "fc"})
+
+
+def _no_mobilenet(model: str) -> None:
+    if model in _MOBILENETS:
+        raise NotImplementedError(
+            f"{model}: the MobileNet engines are not ported to qtpu_torch "
+            "yet (ROADMAP.md queue A)")
+
+
+def quantized_layer_paths(model: str) -> Tuple[str, ...]:
+    """Every quantizable layer path of a ResNet ``model``."""
+    _no_mobilenet(model)
+    if model not in _RESNET_STAGES:
+        return ()
+    bottleneck = model in _RESNET_BOTTLENECK
+    convs = ("conv1", "conv2", "conv3") if bottleneck else ("conv1", "conv2")
+    paths = ["stem", "fc"]
+    for i, n in enumerate(_RESNET_STAGES[model]):
+        for j in range(n):
+            blk = f"layer{i + 1}_{j}"
+            paths += [f"{blk}/{c}" for c in convs]
+            if j == 0 and (i > 0 or bottleneck):
+                paths.append(f"{blk}/down")
+    return tuple(paths)
+
+
+def excluded_paths(model: str, exclude: Iterable[str]) -> frozenset:
+    pats = tuple(exclude)
+    return frozenset(p for p in quantized_layer_paths(model)
+                     if any(fnmatch.fnmatch(p, pat) for pat in pats))
+
+
+def flat_engine_eligible(model: str, exclude: Iterable[str]
+                         ) -> Tuple[bool, frozenset]:
+    """(eligible, excluded-layer set) for the flat int8 engine."""
+    _no_mobilenet(model)
+    if model not in _RESNET_STAGES:
+        return False, frozenset()
+    exc = excluded_paths(model, exclude)
+    return exc <= ENGINE_FP32_OK, exc
+
+
+def resnet_arch(model: str, *, num_classes: int, image_size: int,
+                width: Optional[int] = None, torch_pad: bool = False,
+                cifar_stem: Optional[bool] = None) -> dict:
+    """ResNetInt8Engine arch dict.  ``cifar_stem`` defaults to qtpu's rule
+    (image_size ≤ 64); callers that built the model pass its own flag."""
+    return dict(stage_sizes=_RESNET_STAGES[model],
+                width=width or _RESNET_WIDTH.get(model, 64),
+                bottleneck=model in _RESNET_BOTTLENECK,
+                cifar_stem=(image_size <= 64 if cifar_stem is None
+                            else cifar_stem),
+                num_classes=num_classes, torch_pad=torch_pad)
+
+
+def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
+                      num_classes: int = 1000, image_size: int = 224,
+                      width: Optional[int] = None, torch_pad: bool = False,
+                      cifar_stem: Optional[bool] = None,
+                      uint8_ingest: bool = False,
+                      mean: Sequence[float] = (0.0,),
+                      std: Sequence[float] = (1.0,), device=None):
+    """(forward_factory, preprocess_fn, raw_dtype, serve_path).
+
+    f32 ingest → ``ResNetInt8Engine.forward``; with an excluded fp32 stem,
+    ``uint8_ingest`` puts raw 0-255 pixels on the wire, normalized on the
+    device (``forward_u8``).  The module SERVE path and host-quantized int8
+    ingest are not ported and raise."""
+    eligible, exc = flat_engine_eligible(model, exclude)
+    if not eligible:
+        raise NotImplementedError(
+            f"{model} with excludes {sorted(exc) or list(exclude)} needs the "
+            "module SERVE path, which is not ported yet (ROADMAP.md)")
+    stem_excluded = "stem" in exc
+    if uint8_ingest and not stem_excluded:
+        raise NotImplementedError(
+            "uint8 ingest onto a quantized stem needs the native host "
+            "preprocessor, not ported yet (ROADMAP.md)")
+    channels = 1 if image_size <= 28 else 3
+    normalize = (
+        tuple(np.broadcast_to(np.asarray(mean, np.float32),
+                              (channels,)).tolist()),
+        tuple(np.broadcast_to(np.asarray(std, np.float32),
+                              (channels,)).tolist()))
+    arch = resnet_arch(model, num_classes=num_classes, image_size=image_size,
+                       width=width, torch_pad=torch_pad, cifar_stem=cifar_stem)
+
+    def build(sv):
+        from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+        return ResNetInt8Engine(sv, arch, device=device, normalize=normalize)
+
+    if not uint8_ingest:
+        return (lambda sv: build(sv).forward), None, np.float32, "flat-engine"
+    return ((lambda sv: build(sv).forward_u8), None, np.uint8,
+            "flat-engine+u8-ingest")

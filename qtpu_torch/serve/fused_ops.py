@@ -1,0 +1,198 @@
+"""Shared fused-layer primitives for the flat int8 engines (port of
+qtpu/serve/fused_ops.py).
+
+Each op consumes a frozen node (qtpu's leaf names: ``kernel_q``,
+``w_scale``, ``colsum``, ``bias``, ``act_scale``, ``act_zp``, ``act_sym``)
+and an int8 NHWC activation, optionally fusing ReLU, an int8 or f32
+residual, and requantization onto the consumer's grid.  ``gemm_1x1`` runs
+on K1 and ``conv`` (the ``conv_xla`` counterpart) on K2 for CUDA tensors;
+on the CPU both take the kernels' plain versions.
+
+Engines call :func:`prepare_node` once per layer at build: it places the
+leaves on the device, stores the weight in the kernels' (N, K) layout and
+reads the activation grid into Python numbers, so the forward never waits
+on the device for a scalar.  The folded epilogue coefficients of each call
+site are computed at its first call and kept in the prepared node.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from qtpu_torch.ops import fakequant as fq
+from qtpu_torch.ops import qops
+from qtpu_torch.ops.qconv import qconv2d_folded
+from qtpu_torch.ops.qmatmul import qmatmul_folded
+
+Node = Dict[str, object]
+
+
+class Grid(NamedTuple):
+    """An activation grid: float32 scale and signed int zero point as Python
+    numbers, and the static symmetric/affine kind."""
+    scale: float
+    zp: int
+    sym: bool = False
+
+
+def _item(v) -> float:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu").reshape(()).item()
+    return np.asarray(v).reshape(()).item()
+
+
+def grid_of(node: Node) -> Grid:
+    """(scale, zp, symmetric) grid of a frozen node, read once."""
+    g = node.get("grid")
+    if g is not None:
+        return g
+    sym = node.get("act_sym")
+    return Grid(float(np.float32(_item(node["act_scale"]))),
+                int(_item(node["act_zp"])),
+                bool(_item(sym)) if sym is not None else False)
+
+
+def grid_parts(grid):
+    """(scale, zp, symmetric) of a grid; (None, None, False) for none."""
+    return (None, None, False) if grid is None else tuple(grid)
+
+
+def unpacked_kernel(node: Node) -> torch.Tensor:
+    """int8 weights of a frozen node, unpacking int4 nibbles if needed."""
+    w = node["kernel_q"]
+    if w.shape[-1] != node["colsum"].shape[0]:
+        w = fq.unpack_int4(w, axis=-1)
+    return w
+
+
+def dequant(x_q: torch.Tensor, grid) -> torch.Tensor:
+    s, zp, _ = grid_parts(grid)
+    return (x_q.to(torch.float32) - float(zp)) * s
+
+
+def fold_bn_fp32(params: Dict, batch_stats: Dict, name: str,
+                 bn_eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-time BN fold of an EXCLUDED ConvBN's fp32 params → (W HWIO, b),
+    the same fold freeze applies to quantized ConvBNs."""
+    p = (params or {}).get(name)
+    if p is None or "kernel" not in p:
+        raise ValueError(f"layer {name} neither quantized nor in params")
+    w = p["kernel"].to(torch.float32)
+    bn = (batch_stats or {}).get(name)
+    if bn is not None and "mean" in bn:
+        gamma = p["scale"].to(torch.float32)
+        sigma = torch.sqrt(bn["var"].to(torch.float32) + bn_eps)
+        b = p["bias"].to(torch.float32) - gamma * bn["mean"].to(
+            torch.float32) / sigma
+        w = w * (gamma / sigma)
+    else:
+        b = p.get("bias")
+        b = (torch.zeros(w.shape[-1], device=w.device) if b is None
+             else b.to(torch.float32))
+    return w, b
+
+
+def fc_fp32_params(params: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(kernel (in, out), bias) of an EXCLUDED fp32 fc layer."""
+    p = (params or {}).get("fc")
+    if p is None or "kernel" not in p:
+        raise ValueError("fc neither quantized nor present in params")
+    k = p["kernel"].to(torch.float32)
+    b = p.get("bias")
+    b = (torch.zeros(k.shape[-1], device=k.device) if b is None
+         else b.to(torch.float32))
+    return k, b
+
+
+def u8_normalize_coeffs(mean, std, channels: int,
+                        device: Optional[torch.device] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (a, b) with ``(x_u8/255 - mean)/std == x_u8*a + b``."""
+    mean = np.broadcast_to(np.asarray(mean, np.float32), (channels,))
+    std = np.broadcast_to(np.asarray(std, np.float32), (channels,))
+    a = (1.0 / (255.0 * std)).astype(np.float32)
+    b = (-mean / std).astype(np.float32)
+    return (torch.as_tensor(a, device=device),
+            torch.as_tensor(b, device=device))
+
+
+def prepare_node(node: Node, device: torch.device) -> Node:
+    """A serving copy of a frozen node on ``device``: the leaves, the weight
+    in the kernels' layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv),
+    its spatial size, the grid as Python numbers and an epilogue memo."""
+    out = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+           for k, v in node.items() if not k.startswith("_")}
+    w = unpacked_kernel(out)
+    out["w_nk"] = w.reshape(-1, w.shape[-1]).t().contiguous()
+    out["kernel_hw"] = tuple(w.shape[:2]) if w.dim() == 4 else (1, 1)
+    out["grid"] = grid_of(node)
+    out["_epi"] = {}
+    return out
+
+
+def _prepared(node: Node, device: torch.device) -> Node:
+    return node if "_epi" in node else prepare_node(node, device)
+
+
+def _epilogue(node: Node, *, relu: bool, act_max: Optional[float],
+              requant, res_kind: Optional[torch.dtype], res_grid):
+    """Folded coefficients of one call site, memoized in the prepared node
+    (keys are the static flags and grids, all Python values)."""
+    rs, rz, rsym = grid_parts(requant)
+    gs, gz, _ = (grid_parts(res_grid) if res_kind == torch.int8
+                 else (None, None, False))
+    key = (relu, act_max, rs, rz, rsym, res_kind, gs, gz)
+    hit = node["_epi"].get(key)
+    if hit is None:
+        g = node["grid"]
+        hit = node["_epi"][key] = qops.epilogue_coeffs(
+            act_scale=g.scale, act_zp=g.zp, w_scale=node["w_scale"],
+            colsum=node["colsum"], bias=node["bias"], requant_scale=rs,
+            requant_zp=rz, requant_symmetric=rsym, relu=relu,
+            act_max=act_max, res_scale=gs, res_zp=gz,
+            res_f32=res_kind is not None and res_kind != torch.int8)
+    return hit
+
+
+def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
+             act_max: Optional[float] = None, requant=None,
+             out_dtype: torch.dtype = torch.float32,
+             residual: Optional[torch.Tensor] = None, res_grid=None,
+             raw_acc: bool = False) -> torch.Tensor:
+    """1×1 conv (or fc on (B, 1, 1, C)) as a fused GEMM over a frozen node
+    (K1).  ``raw_acc`` returns the int32 accumulator."""
+    B, H, W, Ci = x_q.shape
+    node = _prepared(node, x_q.device)
+    Co = node["w_nk"].shape[0]
+    M = B * H * W
+    res2 = residual.reshape(M, Co) if residual is not None else None
+    if raw_acc:
+        co = mode = None
+    else:
+        co, mode = _epilogue(node, relu=relu, act_max=act_max,
+                             requant=requant,
+                             res_kind=None if res2 is None else res2.dtype,
+                             res_grid=res_grid)
+    y = qmatmul_folded(x_q.reshape(M, Ci), node["w_nk"], co, mode, res2,
+                       out_dtype=out_dtype, raw_acc=raw_acc)
+    return y.reshape(B, H, W, Co)
+
+
+def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
+         relu: bool = False, act_max: Optional[float] = None,
+         requant=None, padding="SAME") -> torch.Tensor:
+    """K×K conv (stride 1 or 2) over a frozen node (K2): zero-point pad per
+    ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi))), then the fused
+    conv; int8 codes with ``requant``, f32 otherwise."""
+    if strides[0] != strides[1]:
+        raise ValueError(f"unequal strides {strides} are not supported")
+    node = _prepared(node, x_q.device)
+    kh_kw = node["kernel_hw"]
+    xp = qops.resolve_and_pad(x_q, kh_kw, strides, padding,
+                              node["grid"].zp)
+    co, mode = _epilogue(node, relu=relu, act_max=act_max, requant=requant,
+                         res_kind=None, res_grid=None)
+    return qconv2d_folded(xp, node["w_nk"], co, mode, kernel_hw=kh_kw,
+                          stride=strides[0])

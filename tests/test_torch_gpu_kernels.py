@@ -1,0 +1,121 @@
+"""qtpu_torch CUDA kernels against their plain versions, on the card.
+
+The kernels have no CPU mode, so every test here is ``gpu``-marked and
+skips without a CUDA device.  Shapes include ragged M, N and K (masked
+edges), K not a multiple of 16 (the byte-gather path), Ci = 3 and both
+strides.  The kernel and its plain version apply the same epilogue formula
+in the same order, so every output must be bit-exact.
+
+This file imports no JAX, so it runs where JAX is absent:
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from qtpu_torch.ops import qconv as tconv
+from qtpu_torch.ops import qmatmul as tmm
+from qtpu_torch.ops import qops as tq
+from qtpu_torch.ops.qconv_dispatch import (qconv2d_strided,
+                                           qconv2d_strided_plain)
+
+RNG = np.random.default_rng(11)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _dev(a, dev):
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(37, 200, 13), (130, 64, 72),
+                                   (8, 2048, 1000), (300, 48, 256),
+                                   (2000, 256, 384)])
+@pytest.mark.parametrize("mode", ["requant_res_i8", "f32_res_f32", "raw",
+                                  "requant_sym"])
+def test_qmatmul_kernel_matches_plain(cuda, M, K, N, mode):
+    x = RNG.integers(-128, 128, (M, K)).astype(np.int8)
+    w = RNG.integers(-127, 128, (K, N)).astype(np.int8)
+    kw = dict(act_scale=0.02, act_zp=3,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
+                           cuda),
+              colsum=_dev(w.astype(np.int32).sum(0), cuda),
+              bias=_dev(RNG.standard_normal(N).astype(np.float32), cuda))
+    if mode == "requant_res_i8":
+        kw.update(requant_scale=0.05, requant_zp=-3, relu=True,
+                  residual=_dev(RNG.integers(-128, 128, (M, N)).astype(
+                      np.int8), cuda), res_scale=0.03, res_zp=-6.0)
+    elif mode == "f32_res_f32":
+        kw.update(relu=True, act_max=6.0, residual=_dev(
+            RNG.standard_normal((M, N)).astype(np.float32), cuda))
+    elif mode == "requant_sym":
+        kw.update(requant_scale=0.5)
+    raw = mode == "raw"
+    xt, wt = _dev(x, cuda), _dev(w, cuda)
+    n0 = tmm.qmatmul_folded.launches
+    got = tmm.qmatmul_fused(xt, wt, raw_acc=raw, **kw)
+    torch.cuda.synchronize()
+    assert tmm.qmatmul_folded.launches == n0 + 1
+    ref = tmm.qmatmul_fused_plain(xt, wt, raw_acc=raw, **kw)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Ci,Co,H,k,stride", [(16, 16, 12, 3, 1),
+                                              (3, 24, 17, 7, 2),
+                                              (64, 64, 14, 3, 2),
+                                              (40, 8, 9, 3, 1),
+                                              (128, 136, 9, 3, 1)])
+@pytest.mark.parametrize("mode", ["requant", "f32", "requant_res_i8",
+                                  "f32_res_f32"])
+def test_qconv_kernel_matches_plain(cuda, Ci, Co, H, k, stride, mode):
+    x = RNG.integers(-128, 128, (3, H, H, Ci)).astype(np.int8)
+    w = RNG.integers(-127, 128, (k, k, Ci, Co)).astype(np.int8)
+    kw = dict(act_scale=0.02, act_zp=-4,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (Co,)).astype(
+                  np.float32), cuda),
+              colsum=_dev(w.astype(np.int32).sum((0, 1, 2)), cuda),
+              bias=_dev(RNG.standard_normal(Co).astype(np.float32), cuda),
+              relu=True)
+    OH = -(-H // stride)
+    if mode.startswith("requant"):
+        kw.update(requant_scale=0.05, requant_zp=2)
+    if mode.endswith("res_i8"):
+        kw.update(residual=_dev(RNG.integers(-128, 128, (3, OH, OH, Co)).astype(
+            np.int8), cuda), res_scale=0.03, res_zp=-6.0)
+    elif mode.endswith("res_f32"):
+        kw.update(residual=_dev(RNG.standard_normal((3, OH, OH, Co)).astype(
+            np.float32), cuda))
+    xt, wt = _dev(x, cuda), _dev(w, cuda)
+    n0 = tconv.qconv2d_folded.launches
+    got = qconv2d_strided(xt, wt, strides=(stride, stride), **kw)
+    torch.cuda.synchronize()
+    assert tconv.qconv2d_folded.launches == n0 + 1
+    ref = qconv2d_strided_plain(xt, wt, strides=(stride, stride), **kw)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    xp = tq.resolve_and_pad(xt, (k, k), (stride, stride), "SAME", -4)
+    raw = tconv.qconv2d_fused(xp, wt, stride=stride, raw_acc=True, **kw)
+    raw_ref = tconv.qconv2d_fused_plain(xp, wt, stride=stride, raw_acc=True,
+                                        **kw)
+    np.testing.assert_array_equal(raw.cpu().numpy(), raw_ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_bad_inputs(cuda):
+    x = torch.zeros((4, 32), dtype=torch.int8, device=cuda)
+    w = torch.zeros((32, 8), dtype=torch.int8, device=cuda)
+    kw = dict(act_scale=0.1, act_zp=0,
+              w_scale=torch.ones(8, device=cuda),
+              colsum=torch.zeros(8, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        tmm.qmatmul_fused(x.float(), w, **kw)            # not int8
+    with pytest.raises(ValueError):
+        tmm.qmatmul_fused(x[:, ::2], w[::2], **kw)       # not contiguous
