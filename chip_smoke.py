@@ -11,24 +11,40 @@ success):
 2. build the CUDA kernels from ``qtpu_torch/csrc`` (one ``nvcc`` per source,
    all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the ResNet-50 main path gives it at batch 8 — outputs must be identical
-   (same formula, same order, same card);
-4. the slice: ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at
-   full width (224×224, 1000 classes, seeded random weights, calibrate,
-   freeze) serves requests spanning two batch buckets through
-   ``ServingEngine``; the launch counters, zeroed just before, show every
-   int8 layer on the kernels (37 K1 and 16 K2 launches per forward) and
-   none on the plain path; the served logits are finite and match the
-   flat engine's forward;
-5. the same frozen tree through the engine on the CPU (the plain path) on
-   two images: codes after every block follow the tie rule (equal except one
-   step on ≤ 0.1% of elements), logits agree to rel-L2 ≤ 1e-4;
-6. timings with CUDA events after warm-up: engine images/s at B = 32 and
-   128 as served (launched from Python), with the device time of the same
-   forward captured as one CUDA graph beside it; each kernel's device time
-   (repeated launches captured in a CUDA graph) beside its bound, its plain
-   version and, for K1, ``torch._int_mm`` (int32 accumulator only) as the
-   library yardstick; a profiler breakdown of one B = 128 forward.
+   the main paths give it at batch 8 — outputs must be identical (same
+   formula, same order, same card): K1 and K2 at ResNet-50's shapes, K1 at
+   MobileNet-v2's (K = 24 expand with relu6, a narrow project with the int8
+   residual, the f32 relu6 head), K3 at three of its depthwise shapes and
+   K2 at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather
+   path);
+4. the slices, each driven with the launch counters zeroed just before and
+   read just after:
+   * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
+     width (224×224, 1000 classes, seeded random weights, calibrate,
+     freeze) serves requests spanning two batch buckets through
+     ``ServingEngine``: 37 K1 and 16 K2 launches per forward, none on the
+     plain path; the served logits are finite and match the flat engine's
+     forward;
+   * the same for ``mobilenetv2_imagenet_int8_ptq_fp32stem`` (17 inverted
+     residuals, the 320→1280 head): 35 K1 and 17 K3 launches per forward,
+     no K2, none on the plain path;
+   * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
+     and ``mobilenetv1_imagenet_int8_ptq``: 14 K1 and 13 K3 launches, plus
+     one K2 for the quantized 3×3/2 stem;
+5. the ResNet-50, MobileNet-v2 and quantized-stem MobileNet-v1 frozen trees
+   through their engines on the CPU (the plain path) on two images: codes
+   after every block follow the tie rule (equal except one step on ≤ 0.1%
+   of elements; v1's last block emits f32, equal to rtol 1e-6), logits
+   agree to rel-L2 ≤ 1e-4;
+6. timings with CUDA events after warm-up: engine images/s as served
+   (launched from Python) with the device time of the same forward captured
+   as one CUDA graph beside it — ResNet-50 at B = 128, MobileNet-v2 at
+   B = 32 and 128; each kernel's device time (repeated launches captured in
+   a CUDA graph) beside its bound, its plain version and a library
+   yardstick that computes the int32 accumulator only, without the
+   epilogue: ``torch._int_mm`` for K1, cuDNN's fp32 ``F.conv2d`` (TF32 off;
+   ``groups=C`` for K3) on the zero-point-padded codes for K2 and K3; a
+   profiler breakdown of one B = 128 forward of each engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,12 +59,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate
+PEAK_CUDA_CORE_OPS = 67e12  # H100 SXM rate outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth
 SRC_K1 = "qtpu_torch/csrc/qmatmul.cu"
 SRC_K2 = "qtpu_torch/csrc/qconv.cu"
+SRC_K3 = "qtpu_torch/csrc/qdepthwise.cu"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
 TPU_K2S = "qtpu/ops/pallas/qconv_dispatch.py:42"
+TPU_K3 = "qtpu/ops/pallas/qdepthwise.py:53"
+RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
+MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
+MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
+        "mobilenetv1_imagenet_int8_ptq")
 
 
 class SmokeFailure(Exception):
@@ -64,6 +87,52 @@ def log(*a):
     print(*a, flush=True)
 
 
+def events_ms(torch, run, iters):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def timed(torch, fn, iters):
+    """Device ms per call: ``iters`` calls captured in one CUDA graph, the
+    replay timed with CUDA events.  Launched one by one from Python, a call
+    of a few tens of microseconds is bound by the host's launch rate, which
+    would be timed instead of the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return events_ms(torch, graph.replay, iters)
+
+
+def timed_eager(torch, fn, iters):
+    """ms per call issued from Python (host overhead included)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    return events_ms(torch, run, iters)
+
+
+def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS):
+    tb, to = nbytes / PEAK_BYTES, ops / peak_ops
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -71,15 +140,21 @@ def main() -> int:
               "and has no CPU mode", file=sys.stderr)
         return 2
     import numpy as np
+    import torch.nn.functional as F
 
     from qtpu_torch.examples.configs import CONFIGS
     from qtpu_torch.ops import _build, qops
     from qtpu_torch.ops import qconv as k2
+    from qtpu_torch.ops import qdepthwise as k3
     from qtpu_torch.ops import qmatmul as k1
-    from qtpu_torch.serve.cli import build_engine
+    from qtpu_torch.serve.cli import build_engine, freeze_from_config
     from qtpu_torch.serve.dispatch import resnet_arch
     from qtpu_torch.serve.fused_ops import grid_of
+    from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
+    from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
+                                                      MobileNetV1Int8Engine)
     from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+    from qtpu_torch.utils.device import fp32_exact
 
     dev = torch.device("cuda")
 
@@ -101,44 +176,6 @@ def main() -> int:
             if "registers" in line:
                 log(f"  {k}: {line.strip()}")
 
-    def events_ms(run, iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        run()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
-
-    def timed(fn, iters):
-        """Device ms per call: ``iters`` calls captured in one CUDA graph,
-        the replay timed with CUDA events.  Launched one by one from
-        Python, a call of a few tens of microseconds is bound by the host's
-        launch rate, which would be timed instead of the kernel."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        return events_ms(graph.replay, iters)
-
-    def timed_eager(fn, iters):
-        """ms per call issued from Python (host overhead included)."""
-        fn()
-        torch.cuda.synchronize()
-
-        def run():
-            for _ in range(iters):
-                fn()
-        return events_ms(run, iters)
-
     # -- 3. kernels against their plain versions, main-path shapes at B=8 ----------
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -155,20 +192,33 @@ def main() -> int:
                                     w_scale=w_scale, colsum=colsum,
                                     bias=bias, **kw)
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES, ops / PEAK_INT8_OPS
-        return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    def compare(label, run_k, run_p):
+        y, y_ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = (y.double() - y_ref.double()).abs().max().item()
+        check(y.dtype == y_ref.dtype and y.shape == y_ref.shape and err == 0,
+              f"{label}: kernel differs from plain (max abs {err})")
+        log(f"{label}: exact vs plain")
+        return y, err
 
     requant = dict(requant_scale=0.05, requant_zp=-20, relu=True)
+    relu6 = dict(requant_scale=0.05, requant_zp=-20, relu=True, act_max=6.0)
+    # (path, label, M, K, N, epilogue, residual)
     k1_cases = [
-        ("layer1 conv3 +int8 residual", 25088, 64, 256,
+        ("rn50", "layer1 conv3 +int8 residual", 25088, 64, 256,
          dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
-        ("layer1 conv1 requant", 25088, 256, 64, requant, None),
-        ("layer2_0 downsample f32", 6272, 256, 512, {}, None),
-        ("fc raw_acc", 8, 2048, 1000, None, None),
+        ("rn50", "layer1 conv1 requant", 25088, 256, 64, requant, None),
+        ("rn50", "layer2_0 downsample f32", 6272, 256, 512, {}, None),
+        ("rn50", "fc raw_acc", 8, 2048, 1000, None, None),
+        ("mnv2", "block2 expand relu6", 25088, 24, 144, relu6, None),
+        ("mnv2", "block2 project +int8 residual", 25088, 144, 24,
+         dict(requant_scale=0.05, requant_zp=-20, res_scale=0.04,
+              res_zp=-7), "i8"),
+        ("mnv2", "head f32 relu6", 392, 320, 1280,
+         dict(relu=True, act_max=6.0), None),
     ]
     kernels = []
-    for label, M, K, N, kw, res in k1_cases:
+    for path, label, M, K, N, kw, res in k1_cases:
         x, w = i8(M, K), i8(N, K, lo=-127)
         raw = kw is None
         co, mode = (None, None) if raw else coeffs(N, K, **kw)
@@ -180,32 +230,39 @@ def main() -> int:
         def run_p(x=x, w=w, co=co, mode=mode, r=r, raw=raw):
             return k1.qmatmul_folded_plain(x, w, co, mode, r, raw_acc=raw)
 
-        y, y_ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = (y.double() - y_ref.double()).abs().max().item()
-        check(y.dtype == y_ref.dtype and err == 0,
-              f"K1 {label}: kernel differs from plain (max abs {err})")
-        out_b = y.element_size() * M * N
-        nbytes = M * K + N * K + out_b + (0 if raw else 8 * N) + \
-            (M * N if r is not None else 0)
+        y, err = compare(f"K1 {label}", run_k, run_p)
+        nbytes = M * K + N * K + y.element_size() * M * N + \
+            (0 if raw else 8 * N) + (M * N if r is not None else 0)
         b_ms, b_by = bound(nbytes, 2 * M * N * K)
         lib_ms = None
         if M > 16:        # torch._int_mm needs more than 16 rows
             wt = w.t()
-            lib_ms = timed(lambda: torch._int_mm(x, wt), 50)
+            lib_ms = timed(torch, lambda: torch._int_mm(x, wt), 50)
         kernels.append(dict(
             name=f"qmatmul_fused [{label}]", route="cuda", source=SRC_K1,
-            replaces=TPU_K1, shape=f"M={M} K={K} N={N}",
-            max_abs_err=err, ms=timed(run_k, 50),
-            eager_ms=timed_eager(run_k, 50), plain_ms=timed(run_p, 5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"K1 {label}: exact vs plain")
+            replaces=TPU_K1, path=path, shape=f"M={M} K={K} N={N}",
+            max_abs_err=err, ms=timed(torch, run_k, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
 
+    def conv_fp32_ms(xp, w_oihw, s, groups=1):
+        """Library yardstick for K2/K3: cuDNN's fp32 conv (TF32 off) on the
+        zero-point-padded codes, channels-last as the codes lie — the int32
+        accumulator only (exact while |acc| < 2^24), no epilogue."""
+        xf = xp.float().permute(0, 3, 1, 2)
+        wf = w_oihw.float().contiguous(memory_format=torch.channels_last)
+        with fp32_exact():
+            return timed(torch, lambda: F.conv2d(xf, wf, stride=s,
+                                                 groups=groups), 50)
+
+    # (path, label, B, H, Ci, Co, stride, TPU kernel)
     k2_cases = [
-        ("layer1 conv2 3x3/1", 8, 56, 64, 64, 1, TPU_K2),
-        ("layer2_0 conv2 3x3/2", 8, 56, 128, 128, 2, TPU_K2S),
+        ("rn50", "layer1 conv2 3x3/1", 8, 56, 64, 64, 1, TPU_K2),
+        ("rn50", "layer2_0 conv2 3x3/2", 8, 56, 128, 128, 2, TPU_K2S),
+        ("mnv1", "MNv1 int8 stem 3x3/2", 8, 224, 3, 32, 2, TPU_K2S),
     ]
-    for label, B, H, Ci, Co, s, tpu in k2_cases:
+    for path, label, B, H, Ci, Co, s, tpu in k2_cases:
         x = i8(B, H, H, Ci)
         pads = qops.same_pads((H, H), (3, 3), (s, s))
         xp = qops.pad_nhwc(x, pads, -9).contiguous()
@@ -220,139 +277,258 @@ def main() -> int:
             return k2.qconv2d_folded_plain(xp, w, co, mode, kernel_hw=(3, 3),
                                            stride=s)
 
-        y, y_ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = (y.double() - y_ref.double()).abs().max().item()
-        check(y.dtype == y_ref.dtype and err == 0,
-              f"K2 {label}: kernel differs from plain (max abs {err})")
-        OH = y.shape[1]
-        M = B * OH * OH
+        y, err = compare(f"K2 {label}", run_k, run_p)
+        M = B * y.shape[1] * y.shape[2]
         nbytes = xp.numel() + w.numel() + 8 * Co + y.numel()
         b_ms, b_by = bound(nbytes, 2 * M * Co * 9 * Ci)
+        # K2's weight rows are (kh, kw, ci)-major: back to OIHW for cuDNN
+        w_oihw = w.reshape(Co, 3, 3, Ci).permute(0, 3, 1, 2)
         kernels.append(dict(
             name=f"qconv2d_fused [{label}]", route="cuda", source=SRC_K2,
-            replaces=tpu, shape=f"B={B} H={H} Ci={Ci} Co={Co} 3x3/{s}",
-            max_abs_err=err, ms=timed(run_k, 50),
-            eager_ms=timed_eager(run_k, 50), plain_ms=timed(run_p, 5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        log(f"K2 {label}: exact vs plain")
+            replaces=tpu, path=path,
+            shape=f"B={B} H={H} Ci={Ci} Co={Co} 3x3/{s}",
+            max_abs_err=err, ms=timed(torch, run_k, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=conv_fp32_ms(xp, w_oihw, s)))
 
-    # -- 4. the slice through ServingEngine -----------------------------------------
-    cfg = CONFIGS["resnet50_imagenet_int8_ptq_fp32stem"]
-    t0 = time.monotonic()
-    # a 20 ms collection window: the burst of 40 lands in a bucket above 8
-    engine, info = build_engine(cfg, buckets=(8, 32, 128), max_wait_ms=20.0,
-                                device=dev)
-    log(f"build_engine ({cfg.name}): {time.monotonic() - t0:.1f} s, "
-        f"{info['serve_path']}, buckets {info['buckets']}")
+    k3_cases = [
+        ("block1 dw 3x3/2", 8, 112, 96, 2),
+        ("block2 dw 3x3/1", 8, 56, 144, 1),
+        ("block14 dw 3x3/1", 8, 7, 960, 1),
+    ]
+    for label, B, H, C, s in k3_cases:
+        x = i8(B, H, H, C)
+        w = i8(9, C, lo=-127)
+        co, mode = coeffs(C, 9, **relu6)
+
+        def run_k(x=x, w=w, co=co, mode=mode, s=s):
+            return k3.qdepthwise_folded(x, w, co, mode, kernel_hw=(3, 3),
+                                        stride=s, padding="SAME", zp=-9)
+
+        def run_p(x=x, w=w, co=co, mode=mode, s=s):
+            return k3.qdepthwise_folded_plain(x, w, co, mode,
+                                              kernel_hw=(3, 3), stride=s,
+                                              padding="SAME", zp=-9)
+
+        y, err = compare(f"K3 {label}", run_k, run_p)
+        # memory-bound: input and output once, the (9, C) weight, A and B;
+        # 9 multiply-adds per output element on CUDA cores
+        nbytes = x.numel() + y.numel() + w.numel() + 8 * C
+        b_ms, b_by = bound(nbytes, 2 * 9 * y.numel(), PEAK_CUDA_CORE_OPS)
+        xp = qops.pad_nhwc(x, qops.same_pads((H, H), (3, 3), (s, s)), -9)
+        kernels.append(dict(
+            name=f"qdepthwise_fused [{label}]", route="cuda", source=SRC_K3,
+            replaces=TPU_K3, path="mnv2", shape=f"B={B} H={H} C={C} 3x3/{s}",
+            max_abs_err=err, ms=timed(torch, run_k, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=conv_fp32_ms(xp.contiguous(),
+                                    w.t().reshape(C, 1, 3, 3), s, groups=C)))
+
+    def zero_counts():
+        k1.qmatmul_folded.launches = k2.qconv2d_folded.launches = 0
+        k3.qdepthwise_folded.launches = 0
+        k1.qmatmul_folded_plain.calls = k2.qconv2d_folded_plain.calls = 0
+        k3.qdepthwise_folded_plain.calls = 0
+
+    def counts():
+        """(K1, K2, K3 launches, plain-version calls)."""
+        return (k1.qmatmul_folded.launches, k2.qconv2d_folded.launches,
+                k3.qdepthwise_folded.launches,
+                k1.qmatmul_folded_plain.calls + k2.qconv2d_folded_plain.calls
+                + k3.qdepthwise_folded_plain.calls)
+
+    def one_forward(flat, x, expect, what):
+        zero_counts()
+        with torch.inference_mode():
+            y = flat.forward(x)
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == expect, f"{what}: one forward launched K1/K2/K3/plain = "
+              f"{got}, expected {expect}")
+        check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
+        log(f"{what}, one forward: K1 {got[0]}, K2 {got[1]}, K3 {got[2]}, "
+            "plain path 0")
+        return got
+
+    # -- 4. the slices through ServingEngine ----------------------------------------
+    rng = np.random.default_rng(1)
+    imgs = rng.standard_normal((45, 224, 224, 3)).astype(np.float32)
+
+    def serve(cfg_name, make_flat, per_fwd):
+        cfg = CONFIGS[cfg_name]
+        t0 = time.monotonic()
+        # a 20 ms collection window: the burst of 40 lands in a bucket above 8
+        engine, info = build_engine(cfg, buckets=(8, 32, 128),
+                                    max_wait_ms=20.0, device=dev)
+        log(f"build_engine ({cfg.name}): {time.monotonic() - t0:.1f} s, "
+            f"{info['serve_path']}, buckets {info['buckets']}")
+        flat = make_flat(engine.vars)
+        try:
+            one_forward(flat, torch.from_numpy(imgs[:8]).to(dev), per_fwd,
+                        cfg.name)
+            rounds0 = engine.stats()["batches"]
+            zero_counts()
+            wave1 = [engine.submit(im) for im in imgs[:5]]
+            got1 = [f.result(timeout=300) for f in wave1]
+            wave2 = [engine.submit(im) for im in imgs[5:]]
+            served = np.stack(got1 + [f.result(timeout=300) for f in wave2])
+            torch.cuda.synchronize()
+            run_counts = counts()
+            st = engine.stats()
+        finally:
+            engine.stop()
+        rounds = st["batches"] - rounds0
+        check(run_counts == tuple(n * rounds for n in per_fwd),
+              f"{cfg.name}: serving {rounds} rounds launched K1/K2/K3/plain "
+              f"= {run_counts}")
+        check(len(st["rounds_per_bucket"]) >= 2,
+              f"requests did not span two buckets: {st['rounds_per_bucket']}")
+        check(served.shape == (45, cfg.num_classes) and
+              np.isfinite(served).all(), "served logits not finite / "
+              "mis-shaped")
+        with torch.inference_mode():
+            direct = flat.forward(torch.from_numpy(imgs)).cpu().numpy()
+        rel = float(np.linalg.norm(served - direct) / np.linalg.norm(direct))
+        check(rel <= 1e-4, f"{cfg.name}: served logits vs forward: rel-L2 "
+              f"{rel}")
+        log(f"{cfg.name}: served 45 requests in {rounds} rounds "
+            f"{st['rounds_per_bucket']}: K1 {run_counts[0]}, K2 "
+            f"{run_counts[1]}, K3 {run_counts[2]} launches, plain 0; rel-L2 "
+            f"vs forward {rel:.2e}")
+        return flat, run_counts, engine.vars
+
+    cfg = CONFIGS[RN50]
     arch = resnet_arch(cfg.model, num_classes=cfg.num_classes,
                        image_size=cfg.image_size, width=cfg.width,
                        cifar_stem=cfg.cifar_stem)
-    flat = ResNetInt8Engine(engine.vars, arch, device=dev)
-    rng = np.random.default_rng(1)
-    try:
-        imgs = rng.standard_normal((45, 224, 224, 3)).astype(np.float32)
-
-        def zero_counts():
-            k1.qmatmul_folded.launches = k2.qconv2d_folded.launches = 0
-            k1.qmatmul_folded_plain.calls = 0
-            k2.qconv2d_folded_plain.calls = 0
-
-        def counts():
-            return (k1.qmatmul_folded.launches, k2.qconv2d_folded.launches,
-                    k1.qmatmul_folded_plain.calls +
-                    k2.qconv2d_folded_plain.calls)
-
-        zero_counts()
-        with torch.inference_mode():
-            flat.forward(torch.from_numpy(imgs[:8]))
-        torch.cuda.synchronize()
-        per_fwd = counts()
-        check(per_fwd == (37, 16, 0),
-              f"one forward launched K1/K2/plain = {per_fwd}, "
-              "expected (37, 16, 0)")
-        log("per forward: K1 37, K2 16, plain path 0")
-
-        rounds0 = engine.stats()["batches"]
-        zero_counts()
-        wave1 = [engine.submit(im) for im in imgs[:5]]
-        got1 = [f.result(timeout=300) for f in wave1]
-        wave2 = [engine.submit(im) for im in imgs[5:]]
-        served = np.stack(got1 + [f.result(timeout=300) for f in wave2])
-        torch.cuda.synchronize()
-        run_counts = counts()
-        st = engine.stats()
-    finally:
-        engine.stop()
-    rounds = st["batches"] - rounds0
-    check(run_counts == (37 * rounds, 16 * rounds, 0),
-          f"serving {rounds} rounds launched K1/K2/plain = {run_counts}")
-    check(len(st["rounds_per_bucket"]) >= 2,
-          f"requests did not span two buckets: {st['rounds_per_bucket']}")
-    check(served.shape == (45, cfg.num_classes) and
-          np.isfinite(served).all(), "served logits not finite / mis-shaped")
-    with torch.inference_mode():
-        direct = flat.forward(torch.from_numpy(imgs)).cpu().numpy()
-    rel = float(np.linalg.norm(served - direct) / np.linalg.norm(direct))
-    check(rel <= 1e-4, f"served logits vs forward: rel-L2 {rel}")
-    log(f"served 45 requests in {rounds} rounds {st['rounds_per_bucket']}: "
-        f"K1 {run_counts[0]}, K2 {run_counts[1]} launches, plain 0; "
-        f"rel-L2 vs forward {rel:.2e}")
+    rn50, rn50_counts, rn50_vars = serve(
+        RN50, lambda v: ResNetInt8Engine(v, arch, device=dev), (37, 16, 0, 0))
+    mnv2, mnv2_counts, mnv2_vars = serve(
+        MNV2, lambda v: MobileNetV2Int8Engine(v, num_classes=1000,
+                                              device=dev), (35, 0, 17, 0))
+    for name in MNV1:
+        c = CONFIGS[name]
+        t0 = time.monotonic()
+        tree = freeze_from_config(c, device=dev)
+        log(f"freeze ({name}): {time.monotonic() - t0:.1f} s")
+        mnv1 = MobileNetV1Int8Engine(tree, num_classes=c.num_classes,
+                                     device=dev)
+        mnv1_counts = one_forward(mnv1, torch.from_numpy(imgs[:8]).to(dev),
+                                  (14, int("stem" in tree["qweights"]), 13,
+                                   0), name)
+    # the last of MNV1 has the quantized stem: K2 at Ci = 3
+    check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
+    path_counts = {"rn50": rn50_counts, "mnv2": mnv2_counts,
+                   "mnv1": mnv1_counts}
     for kern in kernels:
-        kern["launches"] = run_counts[0 if kern["source"] == SRC_K1 else 1]
+        kern["launches"] = path_counts[kern["path"]][
+            {SRC_K1: 0, SRC_K2: 1, SRC_K3: 2}[kern["source"]]]
 
-    # -- 5. the same tree on the CPU plain path ---------------------------------------
-    cpu = ResNetInt8Engine(engine.vars, arch, device="cpu")
+    # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
+
+    def tie_rule(a, b, where):
+        d = (a.cpu().int() - b.int()).abs()
+        frac = (d > 0).float().mean().item()
+        check(d.max().item() <= 1 and frac <= 1e-3,
+              f"{where}: card vs CPU codes max diff {d.max().item()}, "
+              f"{frac:.2e} of codes differ")
+        return frac
+
+    def logits_agree(flat, cpu, what):
+        with torch.inference_mode():
+            y_gpu = flat.forward(x2).cpu().numpy()
+            y_cpu = cpu.forward(x2).numpy()
+        rel = float(np.linalg.norm(y_gpu - y_cpu) / np.linalg.norm(y_cpu))
+        check(rel <= 1e-4, f"{what}: card vs CPU logits rel-L2 {rel}")
+        return rel
+
+    cpu = ResNetInt8Engine(rn50_vars, arch, device="cpu")
     worst = 0.0
     with torch.inference_mode():
-        names = flat._block_names()
-        gg = grid_of(flat._node(names[0][0], "conv1"))
+        names = rn50._block_names()
+        gg = grid_of(rn50._node(names[0][0], "conv1"))
         cg = grid_of(cpu._node(names[0][0], "conv1"))
-        g_codes = flat._stem(x2.to(dev), gg)
-        c_codes = cpu._stem(x2, cg)
-
-        def tie_rule(a, b, where):
-            d = (a.cpu().int() - b.int()).abs()
-            frac = (d > 0).float().mean().item()
-            check(d.max().item() <= 1 and frac <= 1e-3,
-                  f"{where}: card vs CPU codes max diff {d.max().item()}, "
-                  f"{frac:.2e} of codes differ")
-            return frac
-
-        worst = max(worst, tie_rule(g_codes, c_codes, "stem"))
+        g_codes = rn50._stem(x2.to(dev), gg)
+        worst = max(worst, tie_rule(g_codes, cpu._stem(x2, cg), "stem"))
         for idx, (name, i, j) in enumerate(names):
             s = (2, 2) if (i > 0 and j == 0) else (1, 1)
             nxt = (names[idx + 1][0], "conv1") if idx + 1 < len(names) \
                 else ("fc",)
-            gn, cn = grid_of(flat._node(*nxt)), grid_of(cpu._node(*nxt))
-            g_out = flat._bottleneck(g_codes, gg, name, s, gn)
+            gn, cn = grid_of(rn50._node(*nxt)), grid_of(cpu._node(*nxt))
+            g_out = rn50._bottleneck(g_codes, gg, name, s, gn)
             c_out = cpu._bottleneck(g_codes.cpu(), cg, name, s, cn)
             worst = max(worst, tie_rule(g_out, c_out, name))
             g_codes, gg, cg = g_out, gn, cn
-        y_gpu = flat.forward(x2).cpu().numpy()
-        y_cpu = cpu.forward(x2).numpy()
-    rel_cpu = float(np.linalg.norm(y_gpu - y_cpu) / np.linalg.norm(y_cpu))
-    check(rel_cpu <= 1e-4, f"card vs CPU logits rel-L2 {rel_cpu}")
-    log(f"card vs CPU plain path: worst block {worst:.2e} of codes differ, "
-        f"logits rel-L2 {rel_cpu:.2e}")
+    rel_cpu = logits_agree(rn50, cpu, RN50)
+    log(f"{RN50}, card vs CPU plain path: worst block {worst:.2e} of codes "
+        f"differ, logits rel-L2 {rel_cpu:.2e}")
+
+    cpu = MobileNetV2Int8Engine(mnv2_vars, num_classes=1000, device="cpu")
+    worst = 0.0
+    with torch.inference_mode():
+        blocks = mnv2._blocks()
+        gg = mnv2._block_in_grid(blocks[0][0])
+        g_codes = mnv2._stem(x2.to(dev), gg)
+        worst = max(worst, tie_rule(g_codes, cpu._stem(x2, gg), "stem"))
+        for i, (name, _, stride) in enumerate(blocks):
+            gn = (mnv2._block_in_grid(blocks[i + 1][0])
+                  if i + 1 < len(blocks) else grid_of(mnv2._node("head")))
+            g_out = mnv2._block(g_codes, gg, name, stride, gn)
+            c_out = cpu._block(g_codes.cpu(), gg, name, stride, gn)
+            worst = max(worst, tie_rule(g_out, c_out, name))
+            g_codes, gg = g_out, gn
+    rel_cpu = logits_agree(mnv2, cpu, MNV2)
+    log(f"{MNV2}, card vs CPU plain path: worst block {worst:.2e} of codes "
+        f"differ, logits rel-L2 {rel_cpu:.2e}")
+
+    # MobileNet-v1 with the quantized stem (K2 at Ci = 3), the tree of the
+    # last phase-4 forward
+    cpu = MobileNetV1Int8Engine(tree, num_classes=1000, device="cpu")
+    n = len(V1_STRIDES)
+
+    def dw_grid(eng, i):
+        return grid_of(eng._node(f"block{i}", "dw")) if i < n else None
+
+    with torch.inference_mode():
+        g_codes = mnv1._stem(x2.to(dev), dw_grid(mnv1, 0))
+        worst = tie_rule(g_codes, cpu._stem(x2, dw_grid(cpu, 0)), "stem")
+        for i in range(n):
+            g_out = mnv1._block(g_codes, i, dw_grid(mnv1, i + 1))
+            c_out = cpu._block(g_codes.cpu(), i, dw_grid(cpu, i + 1))
+            if i + 1 < n:
+                worst = max(worst, tie_rule(g_out, c_out, f"block{i}"))
+            else:       # the last pointwise emits f32 for the mean-pool
+                d = (g_out.cpu() - c_out).abs().max().item()
+                check(d <= 1e-6 * c_out.abs().max().item(),
+                      f"block{i}: card vs CPU f32 max diff {d}")
+            g_codes = g_out
+    rel_cpu = logits_agree(mnv1, cpu, MNV1[-1])
+    log(f"{MNV1[-1]}, card vs CPU plain path: worst block {worst:.2e} of "
+        f"codes differ, last block f32 equal to rtol 1e-6, logits rel-L2 "
+        f"{rel_cpu:.2e}")
 
     # -- 6. engine throughput and a profile ------------------------------------------
-    for B in (32, 128):
-        x = torch.randn((B, 224, 224, 3), generator=g).to(dev)
-        with torch.inference_mode():
-            ms = timed_eager(lambda: flat.forward(x), 10)
-            graph_ms = timed(lambda: flat.forward(x), 5)
-        log(f"engine forward B={B}: {ms:.3f} ms, {B / ms * 1e3:.1f} img/s "
-            f"(device time as one CUDA graph: {graph_ms:.3f} ms)")
-    profile_forward(flat, x, torch)
+    for what, flat, batches in ((RN50, rn50, (128,)), (MNV2, mnv2, (32, 128))):
+        for B in batches:
+            x = torch.randn((B, 224, 224, 3), generator=g).to(dev)
+            with torch.inference_mode():
+                ms = timed_eager(torch, lambda: flat.forward(x), 10)
+                graph_ms = timed(torch, lambda: flat.forward(x), 5)
+            log(f"{what} engine forward B={B}: {ms:.3f} ms, "
+                f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
+                f"{graph_ms:.3f} ms)")
+        profile_forward(what, flat, x, torch)
     for kern in kernels:
-        log(f"{kern['name']}: {kern['ms']:.4f} ms on the device, "
-            f"{kern['eager_ms']:.4f} ms launched from Python (bound "
+        log(f"{kern['name']} {kern['shape']}: {kern['ms']:.4f} ms on the "
+            f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
-            f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']})")
-    log("K2 library: none — no PyTorch call computes an int8 conv with an "
-        "int32 accumulator")
+            f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}; "
+            f"{kern['launches']} launches in the {kern['path']} serving run)")
+    log("library: K1 torch._int_mm, K2/K3 cuDNN fp32 F.conv2d (TF32 off) on "
+        "the zero-point-padded codes — the int32 accumulator only")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -361,7 +537,7 @@ def main() -> int:
     return 0
 
 
-def profile_forward(flat, x, torch):
+def profile_forward(what, flat, x, torch):
     """Device time of one forward by kernel (torch.profiler), and the share
     of the forward's wall time the card was busy."""
     from torch.autograd import DeviceType
@@ -381,16 +557,20 @@ def profile_forward(flat, x, torch):
         if e.device_type != DeviceType.CUDA:
             continue
         fam = ("K1 qmatmul_fused" if "GemmLoader" in e.key else
-               "K2 qconv2d_fused" if "ConvLoader" in e.key else e.key[:70])
+               "K2 qconv2d_fused" if "ConvLoader" in e.key else
+               "K3 qdepthwise_fused" if ("dw_vec_kernel" in e.key or
+                                         "dw_scalar_kernel" in e.key) else
+               e.key[:70])
         n, us = fams.get(fam, (0, 0.0))
         fams[fam] = (n + e.count, us + e.self_device_time_total)
     total = sum(us for _, us in fams.values())
     if not total:
-        log("profile: no device time reported (not measured)")
+        log(f"{what} profile: no device time reported (not measured)")
         return
     top = sorted(fams.items(), key=lambda kv: -kv[1][1])[:10]
-    log(f"profile B={x.shape[0]} forward: device busy {total / 1e3:.3f} ms of "
-        f"{wall_ms:.3f} ms wall (profiled); by kernel: " + "; ".join(
+    log(f"{what} profile B={x.shape[0]} forward: device busy "
+        f"{total / 1e3:.3f} ms of {wall_ms:.3f} ms wall (profiled); by "
+        "kernel: " + "; ".join(
             f"{k} x{n} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
             for k, (n, us) in top))
 

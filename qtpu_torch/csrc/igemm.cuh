@@ -1,5 +1,6 @@
-// Shared core of the int8 kernels: an int8 x int8 -> int32 tensor-core GEMM
-// tile loop (mma.sync m16n8k32 s8) and the folded requant epilogue.
+// Shared core of the int8 GEMM kernels: an int8 x int8 -> int32 tensor-core
+// GEMM tile loop (mma.sync m16n8k32 s8) ending in the folded requant
+// epilogue of epilogue.cuh.
 //
 // C[m, n] = sum_k A[m, k] * W[n, k], W stored (N, K) K-contiguous.  The A
 // operand is addressed through a loader policy, so the same core serves the
@@ -9,38 +10,18 @@
 // filled with cp.async (16-byte chunks, zero-filled past the ragged edges of
 // M, N and K) while the tensor cores work on the other stage.  Shared rows are
 // padded to 80 bytes so that the 32-bit fragment loads of a warp hit 32
-// distinct banks.
-//
-// The epilogue runs in registers on the int32 accumulators and reproduces
-// qtpu.ops.qops.apply_epilogue bit for bit: each multiply and add is rounded
-// on its own (__fmul_rn / __fadd_rn: no contraction into FMA, which would move
-// codes at ties), and rounding is half to even (rintf), as jnp.round.
+// distinct banks.  The epilogue runs in registers on the int32 accumulators.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "epilogue.cuh"
+
 namespace qtpu {
 
 constexpr int BK = 64;       // K bytes per pipeline stage
 constexpr int SK = BK + 16;  // padded shared row stride in bytes
-
-// Output kinds and residual kinds, shared with the Python wrappers.
-enum OutKind { OUT_I8 = 0, OUT_F32 = 1, OUT_I32 = 2 };
-enum ResKind { RES_NONE = 0, RES_I8 = 1, RES_F32 = 2 };
-
-struct Epilogue {
-  const float* A;    // (N,) folded scale
-  const float* B;    // (N,) folded offset
-  const void* res;   // (M, N) int8 codes or f32, or null
-  void* out;         // (M, N) int8 / f32 / int32
-  int res_kind;
-  int out_kind;
-  float C, lo, hi, shift;
-  int relu;
-  int use_act_max;
-  float act_max;
-};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -75,7 +56,7 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
     static_cast<int*>(ep.out)[idx] = acc;
     return;
   }
-  float t = __fadd_rn(__fmul_rn(__int2float_rn(acc), ep.A[n]), ep.B[n]);
+  float t = ep_affine(acc, ep.A[n], ep.B[n]);
   if (ep.res_kind == RES_I8) {
     float r = static_cast<float>(static_cast<const int8_t*>(ep.res)[idx]);
     t = __fadd_rn(t, __fmul_rn(r, ep.C));
@@ -83,14 +64,10 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
     t = __fadd_rn(t, __fmul_rn(static_cast<const float*>(ep.res)[idx], ep.C));
   }
   if (ep.out_kind == OUT_I8) {
-    float q = fminf(fmaxf(rintf(t), ep.lo), ep.hi);
-    q = __fsub_rn(q, ep.shift);
-    static_cast<int8_t*>(ep.out)[idx] = static_cast<int8_t>(__float2int_rn(q));
+    static_cast<int8_t*>(ep.out)[idx] = ep_code(ep, t);
     return;
   }
-  if (ep.relu) t = fmaxf(t, 0.0f);
-  if (ep.use_act_max) t = fminf(t, ep.act_max);
-  static_cast<float*>(ep.out)[idx] = t;
+  static_cast<float*>(ep.out)[idx] = ep_f32(ep, t);
 }
 
 // WARPS_M x WARPS_N warps; each warp owns a (BM/WARPS_M) x (BN/WARPS_N) tile.
@@ -261,27 +238,6 @@ cudaError_t launch_igemm(const ALoader& al, const int8_t* w, int M, int N,
         <<<grid, 128, 0, stream>>>(al, w, M, N, K, ep);
   }
   return cudaGetLastError();
-}
-
-inline Epilogue make_epilogue(const float* A, const float* B, const void* res,
-                              int res_kind, void* out, int out_kind, float C,
-                              float lo, float hi, float shift, int relu,
-                              int use_act_max, float act_max) {
-  Epilogue ep;
-  ep.A = A;
-  ep.B = B;
-  ep.res = res;
-  ep.out = out;
-  ep.res_kind = res_kind;
-  ep.out_kind = out_kind;
-  ep.C = C;
-  ep.lo = lo;
-  ep.hi = hi;
-  ep.shift = shift;
-  ep.relu = relu;
-  ep.use_act_max = use_act_max;
-  ep.act_max = act_max;
-  return ep;
 }
 
 }  // namespace qtpu

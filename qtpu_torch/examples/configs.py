@@ -1,6 +1,6 @@
-"""Typed experiment configs (port of qtpu/examples/configs.py): the two
-ResNet-50 INT8 PTQ serving configs.  The others, and the training fields,
-arrive with their models and the trainer (ROADMAP.md)."""
+"""Typed experiment configs (port of qtpu/examples/configs.py): the INT8
+PTQ serving configs of ResNet-50 and MobileNet-v1/v2.  The others, and the
+training fields, arrive with their models and the trainer (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +38,20 @@ CONFIGS = {
         per_channel=True, act_observer="minmax", batch_size=16),
     "resnet50_imagenet_int8_ptq_fp32stem": ExperimentConfig(
         name="resnet50_imagenet_int8_ptq_fp32stem", model="resnet50",
+        dataset="imagenet", num_classes=1000, image_size=224,
+        per_channel=True, act_observer="minmax", batch_size=16,
+        exclude=("stem*",)),
+    "mobilenetv1_imagenet_int8_ptq": ExperimentConfig(
+        name="mobilenetv1_imagenet_int8_ptq", model="mobilenet_v1",
+        dataset="imagenet", num_classes=1000, image_size=224,
+        per_channel=True, act_observer="minmax", batch_size=16),
+    "mobilenetv1_imagenet_int8_ptq_fp32stem": ExperimentConfig(
+        name="mobilenetv1_imagenet_int8_ptq_fp32stem", model="mobilenet_v1",
+        dataset="imagenet", num_classes=1000, image_size=224,
+        per_channel=True, act_observer="minmax", batch_size=16,
+        exclude=("stem*",)),
+    "mobilenetv2_imagenet_int8_ptq_fp32stem": ExperimentConfig(
+        name="mobilenetv2_imagenet_int8_ptq_fp32stem", model="mobilenet_v2",
         dataset="imagenet", num_classes=1000, image_size=224,
         per_channel=True, act_observer="minmax", batch_size=16,
         exclude=("stem*",)),

@@ -1,8 +1,48 @@
-"""Model zoo (torch modules, NHWC at the boundary) — the ResNet family so far;
-LeNet-5 and MobileNet-v1/v2 are still to port (ROADMAP.md)."""
-from qtpu_torch.models.resnet import (BasicBlock, Bottleneck, ConvBN, ResNet,
-                                      get_model, init_weights, layer_paths,
-                                      load_flax_variables)
+"""Model zoo (torch modules, NHWC at the boundary): the ResNet family and
+MobileNet-v1/v2; LeNet-5 is still to port (ROADMAP.md)."""
+import functools
 
-__all__ = ["BasicBlock", "Bottleneck", "ConvBN", "ResNet", "get_model",
-           "init_weights", "layer_paths", "load_flax_variables"]
+from qtpu_torch.models import resnet as _resnet
+from qtpu_torch.models.mobilenet import (DWSeparable, InvertedResidual,
+                                         MobileNetV1, MobileNetV2)
+from qtpu_torch.models.resnet import (BasicBlock, Bottleneck, ResNet,
+                                      init_weights)
+from qtpu_torch.nn.layers import ConvBN, layer_paths, load_flax_variables
+
+def _mobilenet(cls):
+    """A MobileNet constructor that also takes the ResNet fields of a
+    config and requires them at their neutral values: a MobileNet has no
+    base width, no CIFAR stem and three input channels."""
+    def build(*, width=None, cifar_stem=False, in_channels=3, **kwargs):
+        if width is not None or cifar_stem or in_channels != 3:
+            raise ValueError(
+                f"{cls.__name__} takes no width={width!r}, "
+                f"cifar_stem={cifar_stem!r} or in_channels={in_channels!r}")
+        return cls(**kwargs)
+    return build
+
+
+_REGISTRY = {
+    **{name: functools.partial(_resnet.get_model, name)
+       for name in _resnet.STAGES},
+    "mobilenet_v1": _mobilenet(MobileNetV1),
+    "mobilenet_v2": _mobilenet(MobileNetV2),
+}
+
+
+def get_model(name: str, **kwargs):
+    """qtpu.models.get_model.  Every family takes a config's common fields
+    (``num_classes``, ``torch_pad``, ``width``, ``cifar_stem``,
+    ``in_channels``); besides, ResNet takes ``stage_sizes`` and MobileNet
+    ``width_mult``."""
+    try:
+        ctor = _REGISTRY[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(_REGISTRY)} (others: ROADMAP.md)") from None
+    return ctor(**kwargs)
+
+
+__all__ = ["BasicBlock", "Bottleneck", "ConvBN", "DWSeparable",
+           "InvertedResidual", "MobileNetV1", "MobileNetV2", "ResNet",
+           "get_model", "init_weights", "layer_paths", "load_flax_variables"]

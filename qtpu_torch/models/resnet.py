@@ -7,56 +7,20 @@ Inputs are NHWC like qtpu's; inside, the convs run NCHW (torch's layout).
 Geometry is qtpu's: SAME pads asymmetrically (lo = total//2) as XLA does,
 ``torch_pad=True`` pads symmetrically (torchvision).
 
-BatchNorm runs on its running statistics with qtpu's formula
-``(y − mean) / sqrt(var + eps) · γ + β`` — the eval / calibration forward.
-Batch-statistics training comes with the training slice (ROADMAP.md).
-
-``load_flax_variables`` copies qtpu's ``params``/``batch_stats`` in: conv
-kernels HWIO → OIHW and dense kernels (in, out) → (out, in), the inverse of
-qtpu/data/import_torch.py.  It is strict both ways.
+The layers are :class:`qtpu_torch.nn.layers.ConvBN` (BatchNorm on running
+statistics — the eval / calibration forward; batch-statistics training
+comes with the training slice, ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from qtpu_torch.nn.layers import ConvBN, pad3
 from qtpu_torch.ops.qops import resolve_pads
-
-BN_EPS = 1e-5
-Padding = Union[str, Sequence[Tuple[int, int]]]
-
-
-def _pad3(torch_pad: bool) -> Padding:
-    return ((1, 1), (1, 1)) if torch_pad else "SAME"
-
-
-class ConvBN(nn.Module):
-    """Conv (no bias) + BatchNorm on running stats (+ ReLU), NCHW inside."""
-
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: Padding = "SAME", relu: bool = False):
-        super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
-        self.kernel, self.stride = (kernel, kernel), (stride, stride)
-        self.padding = padding
-        self.relu = relu
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (hlo, hhi), (wlo, whi) = resolve_pads(x.shape[2:], self.kernel,
-                                              self.stride, self.padding)
-        x = F.pad(x, (wlo, whi, hlo, hhi))
-        y = F.conv2d(x, self.conv.weight, stride=self.stride)
-        bn = self.bn
-        v = (-1, 1, 1)
-        y = ((y - bn.running_mean.view(v)) / torch.sqrt(
-            bn.running_var.view(v) + BN_EPS) * bn.weight.view(v)
-             + bn.bias.view(v))
-        return torch.relu(y) if self.relu else y
 
 
 class BasicBlock(nn.Module):
@@ -65,8 +29,8 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
                  torch_pad: bool = False):
         super().__init__()
-        pad = _pad3(torch_pad)
-        self.conv1 = ConvBN(cin, features, 3, stride, pad, relu=True)
+        pad = pad3(torch_pad)
+        self.conv1 = ConvBN(cin, features, 3, stride, pad, act="relu")
         self.conv2 = ConvBN(features, features, 3, 1, pad)
         self.down = (ConvBN(cin, features, 1, stride)
                      if stride != 1 or cin != features else None)
@@ -84,9 +48,9 @@ class Bottleneck(nn.Module):
                  torch_pad: bool = False):
         super().__init__()
         out = features * 4
-        self.conv1 = ConvBN(cin, features, 1, relu=True)
-        self.conv2 = ConvBN(features, features, 3, stride, _pad3(torch_pad),
-                            relu=True)
+        self.conv1 = ConvBN(cin, features, 1, act="relu")
+        self.conv2 = ConvBN(features, features, 3, stride, pad3(torch_pad),
+                            act="relu")
         self.conv3 = ConvBN(features, out, 1)
         self.down = (ConvBN(cin, out, 1, stride)
                      if stride != 1 or cin != out else None)
@@ -108,12 +72,12 @@ class ResNet(nn.Module):
         super().__init__()
         self.cifar_stem, self.torch_pad = cifar_stem, torch_pad
         if cifar_stem:
-            self.stem = ConvBN(in_channels, width, 3, 1, _pad3(torch_pad),
-                               relu=True)
+            self.stem = ConvBN(in_channels, width, 3, 1, pad3(torch_pad),
+                               act="relu")
         else:
             self.stem = ConvBN(in_channels, width, 7, 2,
                                ((3, 3), (3, 3)) if torch_pad else "SAME",
-                               relu=True)
+                               act="relu")
         self.block_names = []
         cin = width
         for i, n in enumerate(stage_sizes):
@@ -139,9 +103,9 @@ class ResNet(nn.Module):
         return self.fc(torch.mean(x, dim=(2, 3)))
 
 
-_STAGES = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3),
-           "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3),
-           "resnet56": (9, 9, 9), "resnet101": (3, 4, 23, 3)}
+STAGES = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3),
+          "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3),
+          "resnet56": (9, 9, 9), "resnet101": (3, 4, 23, 3)}
 _BOTTLENECK = frozenset({"resnet50", "resnet101"})
 # factory defaults (qtpu.models): cifar variants at width 16 with a cifar stem
 _CIFAR = frozenset({"resnet20", "resnet56"})
@@ -154,12 +118,12 @@ def get_model(name: str, *, num_classes: Optional[int] = None,
     """qtpu.models.get_model for the ResNet family, with qtpu's factory
     defaults; ``stage_sizes`` overrides the depth (qtpu's ``clone``)."""
     name = name.lower()
-    if name not in _STAGES:
+    if name not in STAGES:
         raise ValueError(f"unknown model {name!r}; available: "
-                         f"{sorted(_STAGES)} (others: ROADMAP.md)")
+                         f"{sorted(STAGES)} (others: ROADMAP.md)")
     cifar = name in _CIFAR or name == "resnet18"
     return ResNet(Bottleneck if name in _BOTTLENECK else BasicBlock,
-                  stage_sizes or _STAGES[name],
+                  stage_sizes or STAGES[name],
                   num_classes=num_classes or (10 if cifar else 1000),
                   width=width or (16 if name in _CIFAR else 64),
                   cifar_stem=cifar if cifar_stem is None else cifar_stem,
@@ -179,67 +143,4 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
-    return model
-
-
-def layer_paths(model: nn.Module) -> Dict[str, nn.Module]:
-    """qtpu-style path → quantizable layer (ConvBN or the fc)."""
-    return {name.replace(".", "/"): m for name, m in model.named_modules()
-            if isinstance(m, (ConvBN, nn.Linear))}
-
-
-def _flat(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    out = {}
-    for k, v in tree.items():
-        p = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, Mapping):
-            out.update(_flat(v, p))
-        else:
-            out[p] = np.asarray(v)
-    return out
-
-
-def load_flax_variables(model: nn.Module, params: Mapping,
-                        batch_stats: Mapping) -> nn.Module:
-    """Copy qtpu's fp32 ``params``/``batch_stats`` into ``model`` in place.
-
-    Strict both ways: every model tensor must be filled with a
-    shape-matching array and every array consumed (observer variables of
-    ``in_q`` submodules excepted — they are not weights)."""
-    src = {("params", k): v for k, v in _flat(params).items()}
-    src.update({("batch_stats", k): v for k, v in _flat(batch_stats).items()})
-    used = set()
-
-    def take(col, path, shape, perm=None):
-        key = (col, path)
-        if key not in src:
-            raise KeyError(f"qtpu variables lack {col}/{path}")
-        a = src[key]
-        if perm is not None:
-            a = np.transpose(a, perm)
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"{col}/{path}: shape {a.shape} != {tuple(shape)}")
-        used.add(key)
-        return torch.tensor(a, dtype=torch.float32)
-
-    with torch.no_grad():
-        for path, m in layer_paths(model).items():
-            if isinstance(m, ConvBN):
-                w = m.conv.weight
-                w.copy_(take("params", f"{path}/kernel", w.shape, (3, 2, 0, 1)))
-                bn = m.bn
-                bn.weight.copy_(take("params", f"{path}/scale", bn.weight.shape))
-                bn.bias.copy_(take("params", f"{path}/bias", bn.bias.shape))
-                bn.running_mean.copy_(take("batch_stats", f"{path}/mean",
-                                           bn.running_mean.shape))
-                bn.running_var.copy_(take("batch_stats", f"{path}/var",
-                                          bn.running_var.shape))
-            else:
-                m.weight.copy_(take("params", f"{path}/kernel",
-                                    m.weight.shape, (1, 0)))
-                m.bias.copy_(take("params", f"{path}/bias", m.bias.shape))
-    left = [f"{c}/{p}" for (c, p) in src if (c, p) not in used
-            and "/in_q/" not in f"/{p}/"]
-    if left:
-        raise ValueError(f"qtpu variables not consumed: {sorted(left)}")
     return model

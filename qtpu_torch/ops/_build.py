@@ -21,8 +21,9 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu"}
-HEADERS = ("igemm.cuh",)
+SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
+           "qdepthwise": "qdepthwise.cu"}
+HEADERS = ("epilogue.cuh", "igemm.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

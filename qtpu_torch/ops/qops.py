@@ -8,8 +8,9 @@ unsigned grid, the folded epilogue ``clip(round(acc·A + B [+ r·C]), lo, hi)
 ``qconv2d`` and ``qmatmul`` are the exact plain references the hand-written
 kernels are held against: the int8 products and their sums are computed in
 float64, where every partial sum is an integer below 2^53 and so exact in any
-order, then cast to int32.  int8 ``F.conv2d`` is never used: it returns int8
-and wraps on overflow.
+order, then cast to int32; a depthwise ``qconv2d`` (``groups`` = channels)
+sums its nine products per channel in int32 directly.  int8 ``F.conv2d`` is
+never used: it returns int8 and wraps on overflow.
 
 Scalar grid parameters (scales, zero points) may be Python numbers or 0-d
 tensors.  Epilogue folding reads them on the host in numpy float32, in the
@@ -92,17 +93,46 @@ def conv_acc_f64(xp: torch.Tensor, w: torch.Tensor,
     return acc.to(torch.int32).reshape(B, OH, OW, Co)
 
 
+def depthwise_acc(xp: torch.Tensor, w: torch.Tensor,
+                  stride: int = 1) -> torch.Tensor:
+    """Exact int32 accumulator of a VALID depthwise conv of padded int8 NHWC
+    ``xp`` with the (KH, KW, 1, C) weight: each strided tap slice times its
+    per-channel weights, summed in int32 (nine int8 products never leave
+    the int32 range)."""
+    B, Hp, Wp, C = xp.shape
+    KH, KW, one, C2 = w.shape
+    if one != 1 or C2 != C:
+        raise ValueError(f"depthwise weight {tuple(w.shape)} does not match "
+                         f"{C} channels")
+    OH, OW = (Hp - KH) // stride + 1, (Wp - KW) // stride + 1
+    acc = torch.zeros((B, OH, OW, C), dtype=torch.int32, device=xp.device)
+    wi = w.to(torch.int32)
+    for kh in range(KH):
+        for kw in range(KW):
+            tap = xp[:, kh:kh + (OH - 1) * stride + 1:stride,
+                     kw:kw + (OW - 1) * stride + 1:stride, :]
+            acc += tap.to(torch.int32) * wi[kh, kw, 0]
+    return acc
+
+
 def qconv2d(x_q: torch.Tensor, w_q: torch.Tensor, *,
             strides: Tuple[int, int] = (1, 1), padding: Padding = "SAME",
             groups: int = 1, zp: Optional[Scalar] = None) -> torch.Tensor:
-    """int8 NHWC × int8 HWIO → int32 NHWC convolution (exact)."""
-    if groups != 1:
-        raise NotImplementedError("grouped int8 conv is not ported yet "
-                                  "(ROADMAP.md queue B, qdepthwise)")
+    """int8 NHWC × int8 HWIO → int32 NHWC convolution (exact).  ``groups``
+    is 1, or the channel count with a (KH, KW, 1, C) weight (depthwise)."""
+    depthwise = groups != 1 and groups == x_q.shape[-1] == w_q.shape[-1] \
+        and w_q.shape[2] == 1
+    if groups != 1 and not depthwise:
+        raise NotImplementedError(
+            f"grouped int8 conv with groups={groups} (weight "
+            f"{tuple(w_q.shape)}): only groups == channels (depthwise) is "
+            "supported")
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     debug.check_int_inputs(x_q, w_q, what="qconv2d")
     xp = resolve_and_pad(x_q, w_q.shape[:2], strides, padding, zp)
+    if depthwise:
+        return depthwise_acc(xp, w_q, strides[0])
     return conv_acc_f64(xp, w_q, strides[0])
 
 

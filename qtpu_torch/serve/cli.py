@@ -12,7 +12,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from qtpu_torch.models.resnet import get_model, init_weights
+from qtpu_torch.models import get_model, init_weights
 from qtpu_torch.serve.dispatch import make_flat_forward
 from qtpu_torch.serve.engine import ServingEngine
 from qtpu_torch.transform import calibrate, freeze
@@ -23,8 +23,8 @@ def build_model(cfg, *, torch_pad: bool = False, seed: int = 0,
                 device=None) -> torch.nn.Module:
     """The config's fp32 model with seeded random weights on ``device``."""
     model = get_model(cfg.model, num_classes=cfg.num_classes,
-                      cifar_stem=cfg.cifar_stem, width=cfg.width,
-                      torch_pad=torch_pad,
+                      torch_pad=torch_pad, width=cfg.width,
+                      cifar_stem=cfg.cifar_stem,
                       in_channels=1 if cfg.dataset == "mnist" else 3)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(resolve_device(device)).eval()

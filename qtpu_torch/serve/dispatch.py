@@ -1,11 +1,10 @@
-"""Flat-engine dispatch policy (port of the ResNet branches of
-qtpu/serve/dispatch.py).
+"""Flat-engine dispatch policy (port of qtpu/serve/dispatch.py).
 
 Eligibility is decided as the conversion decides exclusion — ``fnmatch``
-globs over the model's quantizable layer paths — and the flat engine runs
-``stem``/``fc`` exclusions in fp32 itself.  MobileNet engines and the
-host-quantized int8 ingest (which needs the native preprocessor) are still
-to port (ROADMAP.md).
+globs over the model's quantizable layer paths — and the flat engines
+(ResNet, MobileNet-v1/v2) run ``stem``/``fc`` exclusions in fp32
+themselves.  The host-quantized int8 ingest (which needs the native
+preprocessor) is still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,26 +13,39 @@ from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
+from qtpu_torch.serve.mobilenet_engine import (V2_BLOCKS,
+                                               MobileNetV2Int8Engine)
+from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
+                                                  MobileNetV1Int8Engine)
+from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
 _RESNET_STAGES = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3),
                   "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3),
                   "resnet56": (9, 9, 9), "resnet101": (3, 4, 23, 3)}
 _RESNET_BOTTLENECK = frozenset({"resnet50", "resnet101"})
 _RESNET_WIDTH = {"resnet20": 16, "resnet56": 16}
-_MOBILENETS = ("mobilenet_v1", "mobilenet_v2")
+
+_MOBILENET_ENGINES = {"mobilenet_v1": MobileNetV1Int8Engine,
+                      "mobilenet_v2": MobileNetV2Int8Engine}
 
 ENGINE_FP32_OK = frozenset({"stem", "fc"})
 
 
-def _no_mobilenet(model: str) -> None:
-    if model in _MOBILENETS:
-        raise NotImplementedError(
-            f"{model}: the MobileNet engines are not ported to qtpu_torch "
-            "yet (ROADMAP.md queue A)")
-
-
 def quantized_layer_paths(model: str) -> Tuple[str, ...]:
-    """Every quantizable layer path of a ResNet ``model``."""
-    _no_mobilenet(model)
+    """Every quantizable layer path of ``model``, as the policy matcher
+    sees them."""
+    if model == "mobilenet_v2":
+        paths = ["stem", "head", "fc"]
+        for name, t, _ in V2_BLOCKS:
+            if t != 1:
+                paths.append(f"{name}/expand")
+            paths += [f"{name}/dw", f"{name}/project"]
+        return tuple(paths)
+    if model == "mobilenet_v1":
+        paths = ["stem", "fc"]
+        for i in range(len(V1_STRIDES)):
+            paths += [f"block{i}/dw", f"block{i}/pw"]
+        return tuple(paths)
     if model not in _RESNET_STAGES:
         return ()
     bottleneck = model in _RESNET_BOTTLENECK
@@ -56,9 +68,8 @@ def excluded_paths(model: str, exclude: Iterable[str]) -> frozenset:
 
 def flat_engine_eligible(model: str, exclude: Iterable[str]
                          ) -> Tuple[bool, frozenset]:
-    """(eligible, excluded-layer set) for the flat int8 engine."""
-    _no_mobilenet(model)
-    if model not in _RESNET_STAGES:
+    """(eligible, excluded-layer set) for the flat int8 engines."""
+    if model not in (*_RESNET_STAGES, *_MOBILENET_ENGINES):
         return False, frozenset()
     exc = excluded_paths(model, exclude)
     return exc <= ENGINE_FP32_OK, exc
@@ -86,7 +97,7 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                       std: Sequence[float] = (1.0,), device=None):
     """(forward_factory, preprocess_fn, raw_dtype, serve_path).
 
-    f32 ingest → ``ResNetInt8Engine.forward``; with an excluded fp32 stem,
+    f32 ingest → the engine's ``forward``; with an excluded fp32 stem,
     ``uint8_ingest`` puts raw 0-255 pixels on the wire, normalized on the
     device (``forward_u8``).  The module SERVE path and host-quantized int8
     ingest are not ported and raise."""
@@ -106,12 +117,15 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                               (channels,)).tolist()),
         tuple(np.broadcast_to(np.asarray(std, np.float32),
                               (channels,)).tolist()))
-    arch = resnet_arch(model, num_classes=num_classes, image_size=image_size,
-                       width=width, torch_pad=torch_pad, cifar_stem=cifar_stem)
 
     def build(sv):
-        from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
-
+        if model in _MOBILENET_ENGINES:
+            return _MOBILENET_ENGINES[model](
+                sv, num_classes=num_classes, torch_pad=torch_pad,
+                device=device, normalize=normalize)
+        arch = resnet_arch(model, num_classes=num_classes,
+                           image_size=image_size, width=width,
+                           torch_pad=torch_pad, cifar_stem=cifar_stem)
         return ResNetInt8Engine(sv, arch, device=device, normalize=normalize)
 
     if not uint8_ingest:

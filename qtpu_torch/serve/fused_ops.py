@@ -3,20 +3,22 @@ qtpu/serve/fused_ops.py).
 
 Each op consumes a frozen node (qtpu's leaf names: ``kernel_q``,
 ``w_scale``, ``colsum``, ``bias``, ``act_scale``, ``act_zp``, ``act_sym``)
-and an int8 NHWC activation, optionally fusing ReLU, an int8 or f32
-residual, and requantization onto the consumer's grid.  ``gemm_1x1`` runs
-on K1 and ``conv`` (the ``conv_xla`` counterpart) on K2 for CUDA tensors;
-on the CPU both take the kernels' plain versions.
+and an int8 NHWC activation, optionally fusing ReLU (or relu6 through
+``act_max``), an int8 or f32 residual, and requantization onto the
+consumer's grid.  ``gemm_1x1`` runs on K1, ``conv`` (the ``conv_xla``
+counterpart) on K2 and ``depthwise`` (``conv_xla(groups=C)``) on K3 for
+CUDA tensors; on the CPU they take the kernels' plain versions.
 
-Engines call :func:`prepare_node` once per layer at build: it places the
-leaves on the device, stores the weight in the kernels' (N, K) layout and
-reads the activation grid into Python numbers, so the forward never waits
-on the device for a scalar.  The folded epilogue coefficients of each call
-site are computed at its first call and kept in the prepared node.
+Engines call :func:`prepare_tree` once at build: it places the leaves on
+the device, stores each weight in its kernel's layout (``w_nk`` (N, K) for
+K1/K2, ``w_taps`` (KH·KW, C) for a depthwise node) and reads the activation
+grid into Python numbers, so the forward never waits on the device for a
+scalar.  The folded epilogue coefficients of each call site are computed at
+its first call and kept in the prepared node.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Collection, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ import torch
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops import qops
 from qtpu_torch.ops.qconv import qconv2d_folded
+from qtpu_torch.ops.qdepthwise import qdepthwise_folded
 from qtpu_torch.ops.qmatmul import qmatmul_folded
 
 Node = Dict[str, object]
@@ -118,22 +121,51 @@ def u8_normalize_coeffs(mean, std, channels: int,
             torch.as_tensor(b, device=device))
 
 
-def prepare_node(node: Node, device: torch.device) -> Node:
+def prepare_node(node: Node, device: torch.device,
+                 depthwise: bool = False) -> Node:
     """A serving copy of a frozen node on ``device``: the leaves, the weight
-    in the kernels' layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv),
-    its spatial size, the grid as Python numbers and an epilogue memo."""
+    in its kernel's layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv;
+    ``w_taps``: (KH·KW, C) for a ``depthwise`` (KH, KW, 1, C) node), its
+    spatial size, the grid as Python numbers and an epilogue memo."""
     out = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
            for k, v in node.items() if not k.startswith("_")}
     w = unpacked_kernel(out)
-    out["w_nk"] = w.reshape(-1, w.shape[-1]).t().contiguous()
+    if depthwise:
+        if w.dim() != 4 or w.shape[2] != 1:
+            raise ValueError(f"depthwise node weight {tuple(w.shape)} is not "
+                             "(KH, KW, 1, C)")
+        out["w_taps"] = w.reshape(-1, w.shape[-1]).contiguous()
+    else:
+        out["w_nk"] = w.reshape(-1, w.shape[-1]).t().contiguous()
     out["kernel_hw"] = tuple(w.shape[:2]) if w.dim() == 4 else (1, 1)
     out["grid"] = grid_of(node)
     out["_epi"] = {}
     return out
 
 
-def _prepared(node: Node, device: torch.device) -> Node:
-    return node if "_epi" in node else prepare_node(node, device)
+def _is_node(v) -> bool:
+    return isinstance(v, dict) and "kernel_q" in v
+
+
+def prepare_tree(tree: Dict[str, Any], device: torch.device,
+                 depthwise: Collection[str] = ()) -> Dict[str, Any]:
+    """Every frozen node of ``tree`` through :func:`prepare_node`; nodes
+    stored under a key in ``depthwise`` take the depthwise layout."""
+    return {k: (prepare_node(v, device, depthwise=k in depthwise)
+                if _is_node(v) else prepare_tree(v, device, depthwise))
+            for k, v in tree.items()}
+
+
+def tree_to_device(tree, device: torch.device):
+    """Every tensor of a nested dict moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _prepared(node: Node, device: torch.device,
+              depthwise: bool = False) -> Node:
+    return node if "_epi" in node else prepare_node(node, device, depthwise)
 
 
 def _epilogue(node: Node, *, relu: bool, act_max: Optional[float],
@@ -196,3 +228,20 @@ def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
                          res_kind=None, res_grid=None)
     return qconv2d_folded(xp, node["w_nk"], co, mode, kernel_hw=kh_kw,
                           stride=strides[0])
+
+
+def depthwise(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
+              relu: bool = False, act_max: Optional[float] = None,
+              requant=None, padding="SAME") -> torch.Tensor:
+    """Depthwise K×K conv (stride 1 or 2) over a frozen (KH, KW, 1, C) node
+    (K3): the pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi)))
+    read the zero point inside the kernel; int8 codes with ``requant``
+    (relu6 as ``relu`` with ``act_max=6``), f32 otherwise."""
+    if strides[0] != strides[1]:
+        raise ValueError(f"unequal strides {strides} are not supported")
+    node = _prepared(node, x_q.device, depthwise=True)
+    co, mode = _epilogue(node, relu=relu, act_max=act_max, requant=requant,
+                         res_kind=None, res_grid=None)
+    return qdepthwise_folded(x_q, node["w_taps"], co, mode,
+                             kernel_hw=node["kernel_hw"], stride=strides[0],
+                             padding=padding, zp=node["grid"].zp)

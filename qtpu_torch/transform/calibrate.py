@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from qtpu_torch.calib import observers as obs
-from qtpu_torch.models.resnet import layer_paths
+from qtpu_torch.nn.layers import layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.utils.device import fp32_exact

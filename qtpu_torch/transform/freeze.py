@@ -20,7 +20,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from qtpu_torch.models.resnet import BN_EPS, ConvBN, layer_paths
+from qtpu_torch.nn.layers import BN_EPS, ConvBN, layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.utils import debug

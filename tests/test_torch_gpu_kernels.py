@@ -3,8 +3,10 @@
 The kernels have no CPU mode, so every test here is ``gpu``-marked and
 skips without a CUDA device.  Shapes include ragged M, N and K (masked
 edges), K not a multiple of 16 (the byte-gather path), Ci = 3 and both
-strides.  The kernel and its plain version apply the same epilogue formula
-in the same order, so every output must be bit-exact.
+strides; for the depthwise kernel C not a multiple of 16 (the scalar path),
+odd H, B = 1..3, both strides and both paddings.  The kernel and its plain
+version apply the same epilogue formula in the same order, so every output
+must be bit-exact.
 
 This file imports no JAX, so it runs where JAX is absent:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py``.
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from qtpu_torch.ops import qconv as tconv
+from qtpu_torch.ops import qdepthwise as tdw
 from qtpu_torch.ops import qmatmul as tmm
 from qtpu_torch.ops import qops as tq
 from qtpu_torch.ops.qconv_dispatch import (qconv2d_strided,
@@ -109,6 +112,46 @@ def test_qconv_kernel_matches_plain(cuda, Ci, Co, H, k, stride, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,C,stride", [(1, 9, 24, 1), (2, 17, 40, 2),
+                                         (3, 7, 8, 2), (2, 12, 96, 1),
+                                         (1, 15, 32, 2), (2, 6, 144, 2)])
+@pytest.mark.parametrize("padding", ["SAME", ((1, 1), (1, 1))])
+@pytest.mark.parametrize("mode", ["requant_relu6", "f32_relu6", "raw"])
+def test_qdepthwise_kernel_matches_plain(cuda, B, H, C, stride, padding,
+                                         mode):
+    x = RNG.integers(-128, 128, (B, H, H + 1, C)).astype(np.int8)
+    w = RNG.integers(-127, 128, (3, 3, 1, C)).astype(np.int8)
+    zp = int(RNG.integers(-20, 20))
+    kw = dict(act_scale=0.02, act_zp=zp,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (C,)).astype(np.float32),
+                           cuda),
+              colsum=_dev(w.astype(np.int32).sum((0, 1, 2)), cuda),
+              bias=_dev(RNG.standard_normal(C).astype(np.float32), cuda),
+              relu=True, act_max=6.0)
+    if mode == "requant_relu6":
+        kw.update(requant_scale=0.05, requant_zp=-3)
+    co, emode = tmm.fold(**kw)
+    xt = _dev(x, cuda)
+    wt = tdw.weight_taps(_dev(w, cuda))
+    args = dict(kernel_hw=(3, 3), stride=stride, padding=padding, zp=zp,
+                raw_acc=mode == "raw")
+    n0 = tdw.qdepthwise_folded.launches
+    got = tdw.qdepthwise_folded(xt, wt, co, emode, **args)
+    torch.cuda.synchronize()
+    assert tdw.qdepthwise_folded.launches == n0 + 1
+    ref = tdw.qdepthwise_folded_plain(xt, wt, co, emode, **args)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    if stride == 1 and padding == "SAME" and mode != "raw":
+        # qtpu's call form on the zero-point-prepadded input
+        xp = tq.resolve_and_pad(xt, (3, 3), (1, 1), "SAME", zp)
+        wq = _dev(w, cuda)
+        np.testing.assert_array_equal(
+            tdw.qdepthwise_fused(xp, wq, **kw).cpu().numpy(),
+            tdw.qdepthwise_fused_plain(xp, wq, **kw).cpu().numpy())
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((4, 32), dtype=torch.int8, device=cuda)
     w = torch.zeros((32, 8), dtype=torch.int8, device=cuda)
@@ -119,3 +162,11 @@ def test_wrappers_refuse_bad_inputs(cuda):
         tmm.qmatmul_fused(x.float(), w, **kw)            # not int8
     with pytest.raises(ValueError):
         tmm.qmatmul_fused(x[:, ::2], w[::2], **kw)       # not contiguous
+    xd = torch.zeros((1, 5, 5, 8), dtype=torch.int8, device=cuda)
+    wd = torch.zeros((9, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                      # stride 3
+        tdw.qdepthwise_folded(xd, wd, None, None, kernel_hw=(3, 3),
+                              stride=3, raw_acc=True)
+    with pytest.raises(ValueError):                      # weight not (9, C)
+        tdw.qdepthwise_folded(xd, wd[:, :4].contiguous(), None, None,
+                              kernel_hw=(3, 3), raw_acc=True)

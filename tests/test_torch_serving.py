@@ -5,7 +5,8 @@ saturation with the pipeline on and off, submit-time dtype/shape refusal, a
 failing forward fails its futures and the engine, ``stop`` mid-stream never
 hangs a caller, and ``build_engine`` for the fp32-stem config at a tiny size
 answers ``predict`` like its flat engine, with f32 or raw-uint8 ingest.  The
-dispatch policy's ResNet branches equal qtpu's.
+dispatch policy's ResNet branches equal qtpu's (the MobileNet branches:
+tests/test_torch_mobilenet.py).
 """
 import dataclasses
 import threading
@@ -162,8 +163,8 @@ def test_dispatch_matches_qtpu(model):
 def test_dispatch_refusals():
     from qtpu_torch.serve import dispatch as td
 
-    with pytest.raises(NotImplementedError, match="MobileNet"):
-        td.flat_engine_eligible("mobilenet_v2", ())
+    # MobileNet-v2 now serves on the flat engine: no refusal
+    assert td.flat_engine_eligible("mobilenet_v2", ()) == (True, frozenset())
     with pytest.raises(NotImplementedError, match="module SERVE"):
         td.make_flat_forward("resnet50", exclude=("layer1_0/*",))
     with pytest.raises(NotImplementedError, match="preprocessor"):
