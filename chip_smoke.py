@@ -14,9 +14,11 @@ success):
    the main paths give it at batch 8 — outputs must be identical (same
    formula, same order, same card): K1 and K2 at ResNet-50's shapes, K1 at
    MobileNet-v2's (K = 24 expand with relu6, a narrow project with the int8
-   residual, the f32 relu6 head), K3 at three of its depthwise shapes and
-   K2 at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather
-   path);
+   residual, the f32 relu6 head), K3 at three of its depthwise shapes, K2
+   at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather path),
+   and the fused bottleneck kernels at one ResNet-50 block per stage: K4
+   (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
+   (qtail) and K6 (qblock) at layer1-layer4;
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -25,26 +27,36 @@ success):
      ``ServingEngine``: 37 K1 and 16 K2 launches per forward, none on the
      plain path; the served logits are finite and match the flat engine's
      forward;
+   * the same frozen tree served by ``ExperimentalResNetInt8Engine`` in its
+     two configurations, through ``ServingEngine`` with a forward factory:
+     ``tail`` (``use_qtail`` + ``use_qproj``: 17 K1, 4 K2, 4 K4, 12 K5 per
+     forward) and ``block`` (``use_qblock`` + ``use_qproj``: 5 K1, 4 K2,
+     4 K4, 12 K6);
    * the same for ``mobilenetv2_imagenet_int8_ptq_fp32stem`` (17 inverted
      residuals, the 320→1280 head): 35 K1 and 17 K3 launches per forward,
      no K2, none on the plain path;
    * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
      and ``mobilenetv1_imagenet_int8_ptq``: 14 K1 and 13 K3 launches, plus
      one K2 for the quantized 3×3/2 stem;
-5. the ResNet-50, MobileNet-v2 and quantized-stem MobileNet-v1 frozen trees
-   through their engines on the CPU (the plain path) on two images: codes
-   after every block follow the tie rule (equal except one step on ≤ 0.1%
-   of elements; v1's last block emits f32, equal to rtol 1e-6), logits
-   agree to rel-L2 ≤ 1e-4;
+5. the ResNet-50 (product, tail, block), MobileNet-v2 and quantized-stem
+   MobileNet-v1 engines against the same engines on the CPU (the plain
+   path) on two images: codes after every block follow the tie rule (equal
+   except one step on ≤ 0.1% of elements; v1's last block emits f32, equal
+   to rtol 1e-6), logits agree to rel-L2 ≤ 1e-4; on the card, the tail and
+   block engines' codes after every block against the product engine's
+   (the fused kernels are bit-exact against the sequence they replace);
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
-   as one CUDA graph beside it — ResNet-50 at B = 128, MobileNet-v2 at
-   B = 32 and 128; each kernel's device time (repeated launches captured in
-   a CUDA graph) beside its bound, its plain version and a library
-   yardstick that computes the int32 accumulator only, without the
-   epilogue: ``torch._int_mm`` for K1, cuDNN's fp32 ``F.conv2d`` (TF32 off;
-   ``groups=C`` for K3) on the zero-point-padded codes for K2 and K3; a
-   profiler breakdown of one B = 128 forward of each engine.
+   as one CUDA graph beside it — ResNet-50 (product, tail, block) at
+   B = 128, MobileNet-v2 at B = 32 and 128; each kernel's device time
+   (repeated launches captured in a CUDA graph) beside its bound, its plain
+   version and a library yardstick that computes the int32 accumulator
+   only, without the epilogue: ``torch._int_mm`` for K1, cuDNN's fp32
+   ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the zero-point-padded
+   codes for K2 and K3 (no single PyTorch call computes a fused bottleneck
+   piece, so K4-K6 have none); for K4-K6 also the device time of the
+   unfused K1/K2 sequence each replaces, at B = 8 and B = 128; a profiler
+   breakdown of one B = 128 forward of each engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -64,10 +76,25 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth
 SRC_K1 = "qtpu_torch/csrc/qmatmul.cu"
 SRC_K2 = "qtpu_torch/csrc/qconv.cu"
 SRC_K3 = "qtpu_torch/csrc/qdepthwise.cu"
+SRC_K4 = "qtpu_torch/csrc/qproj.cu"
+SRC_K5 = "qtpu_torch/csrc/qtail.cu"
+SRC_K6 = "qtpu_torch/csrc/qblock.cu"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
 TPU_K2S = "qtpu/ops/pallas/qconv_dispatch.py:42"
 TPU_K3 = "qtpu/ops/pallas/qdepthwise.py:53"
+TPU_K4 = "qtpu/ops/pallas/qproj.py:69"
+TPU_K4_2D = "qtpu/ops/pallas/qproj.py:152"
+TPU_K5 = "qtpu/ops/pallas/qtail.py:94"
+TPU_K6 = "qtpu/ops/pallas/qblock.py:93"
+NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
+              "(two or three convolutions with requants between)")
+# experimental engine configurations: flags, launches per forward
+# (K1, K2, K3, K4, K5, K6, plain)
+RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
+                       (17, 4, 0, 4, 12, 0, 0)),
+              "block": (dict(use_qblock=True, use_qproj=True),
+                        (5, 4, 0, 4, 0, 12, 0))}
 RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
@@ -144,11 +171,16 @@ def main() -> int:
 
     from qtpu_torch.examples.configs import CONFIGS
     from qtpu_torch.ops import _build, qops
+    from qtpu_torch.ops import qblock as k6
     from qtpu_torch.ops import qconv as k2
     from qtpu_torch.ops import qdepthwise as k3
     from qtpu_torch.ops import qmatmul as k1
+    from qtpu_torch.ops import qproj as k4
+    from qtpu_torch.ops import qtail as k5
     from qtpu_torch.serve.cli import build_engine, freeze_from_config
     from qtpu_torch.serve.dispatch import resnet_arch
+    from qtpu_torch.serve.engine import ServingEngine
+    from qtpu_torch.serve.experimental import ExperimentalResNetInt8Engine
     from qtpu_torch.serve.fused_ops import grid_of
     from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
@@ -326,18 +358,123 @@ def main() -> int:
             library_ms=conv_fp32_ms(xp.contiguous(),
                                     w.t().reshape(C, 1, 3, 3), s, groups=C)))
 
+    def fused_case(kind, B, H, cmid, cout, cin, stride=1):
+        """K4/K5/K6 at one ResNet-50 shape: (run kernel, run plain, run the
+        unfused K1/K2 sequence it replaces, bytes, operations).  All three
+        take the same coefficients; the zero point -9 of ``coeffs`` is
+        conv2's pad code."""
+        Ho = -(-H // stride)
+        M = B * Ho * Ho
+        res_i8 = dict(res_scale=0.04, res_zp=-7, **requant)
+        if kind == "K4":
+            b, x = i8(B, Ho, Ho, cmid), i8(B, H, H, cin)
+            w3, wd = i8(cout, cmid, lo=-127), i8(cout, cin, lo=-127)
+            co3, mode3 = coeffs(cout, cmid, res_f32=True, **requant)
+            cod, dmode = coeffs(cout, cin)
+            args = (b, x, w3, wd, co3, mode3, cod)
+
+            def unfused():
+                xd = x[:, ::stride, ::stride, :].reshape(-1, cin)
+                td = k1.qmatmul_folded(xd, wd, cod, dmode)
+                return k1.qmatmul_folded(b.reshape(-1, cmid), w3, co3, mode3,
+                                         td).reshape(B, Ho, Ho, cout)
+            return (lambda: k4.qproj_folded(*args, stride=stride),
+                    lambda: k4.qproj_folded_plain(*args, stride=stride),
+                    unfused,
+                    b.numel() + M * cin + w3.numel() + wd.numel() + M * cout
+                    + 16 * cout, 2 * M * cout * (cmid + cin))
+        w2 = i8(cmid, 9 * cmid, lo=-127)
+        w3 = i8(cout, cmid, lo=-127)
+        co2, mode2 = coeffs(cmid, 9 * cmid, **requant)
+        co3, mode3 = coeffs(cout, cmid, **res_i8)
+        tail_ops = 2 * M * cmid * 9 * cmid + 2 * M * cout * cmid
+
+        def tail_unfused(a, r):
+            bq = k2.qconv2d_folded(qops.pad_nhwc(a, ((1, 1), (1, 1)), -9),
+                                   w2, co2, mode2, kernel_hw=(3, 3))
+            return k1.qmatmul_folded(bq.reshape(-1, cmid), w3, co3, mode3,
+                                     r.reshape(-1, cout)).reshape(
+                                         B, H, H, cout)
+        if kind == "K5":
+            a, r = i8(B, H, H, cmid), i8(B, H, H, cout)
+            args = (a, r, w2, w3, co2, mode2, co3, mode3)
+            return (lambda: k5.qtail_folded(*args, pad=1, zp=-9),
+                    lambda: k5.qtail_folded_plain(*args, pad=1, zp=-9),
+                    lambda: tail_unfused(a, r),
+                    a.numel() + 2 * M * cout + w2.numel() + w3.numel()
+                    + 8 * (cmid + cout), tail_ops)
+        x = i8(B, H, H, cout)
+        w1 = i8(cmid, cout, lo=-127)
+        co1, mode1 = coeffs(cmid, cout, **requant)
+        args = (x, w1, w2, w3, co1, mode1, co2, mode2, co3, mode3)
+
+        def block_unfused():
+            a = k1.qmatmul_folded(x.reshape(-1, cout), w1, co1, mode1)
+            return tail_unfused(a.reshape(B, H, H, cmid), x)
+        return (lambda: k6.qblock_folded(*args, zp2=-9),
+                lambda: k6.qblock_folded_plain(*args, zp2=-9),
+                block_unfused,
+                2 * x.numel() + w1.numel() + w2.numel() + w3.numel()
+                + 8 * (2 * cmid + cout),
+                tail_ops + 2 * M * cout * cmid)
+
+    # (kind, label, H, Cmid, Cout, Cin, stride): ResNet-50's blocks at B = 8,
+    # one case of each kernel per stage (H is the block input's)
+    fused_cases = [
+        ("K4", "layer1_0 proj, stride 1", 56, 64, 256, 64, 1),
+        ("K4", "layer2_0 proj, stride 2", 56, 128, 512, 256, 2),
+        ("K4", "layer3_0 proj, stride 2", 28, 256, 1024, 512, 2),
+        ("K4", "layer4_0 proj, stride 2", 14, 512, 2048, 1024, 2),
+        ("K5", "layer1 tail", 56, 64, 256, 256, 1),
+        ("K5", "layer2 tail", 28, 128, 512, 512, 1),
+        ("K5", "layer3 tail", 14, 256, 1024, 1024, 1),
+        ("K5", "layer4 tail", 7, 512, 2048, 2048, 1),
+        ("K6", "layer1 block", 56, 64, 256, 256, 1),
+        ("K6", "layer2 block", 28, 128, 512, 512, 1),
+        ("K6", "layer3 block", 14, 256, 1024, 1024, 1),
+        ("K6", "layer4 block", 7, 512, 2048, 2048, 1),
+    ]
+    fused_meta = {"K4": ("qproj2d_fused", SRC_K4, TPU_K4_2D, "tail"),
+                  "K5": ("qtail_fused", SRC_K5, TPU_K5, "tail"),
+                  "K6": ("qbottleneck_fused", SRC_K6, TPU_K6, "block")}
+    for kind, label, H, cmid, cout, cin, s in fused_cases:
+        run_k, run_p, run_u, nbytes, ops = fused_case(kind, 8, H, cmid,
+                                                      cout, cin, s)
+        y, err = compare(f"{kind} {label}", run_k, run_p)
+        check(torch.equal(run_u(), y), f"{kind} {label}: kernel differs "
+              "from the unfused K1/K2 sequence")
+        b_ms, b_by = bound(nbytes, ops)
+        name, src, tpu, path = fused_meta[kind]
+        kernels.append(dict(
+            name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
+            path=path, kind=kind, case=(H, cmid, cout, cin, s),
+            shape=f"B=8 H={H} Cmid={cmid} Cout={cout} Cin={cin} /{s}",
+            max_abs_err=err, ms=timed(torch, run_k, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 5),
+            unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_note=NO_LIBRARY))
+    log("K4-K6 equal to the unfused K1/K2 sequences they replace")
+
+    kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
+             k4.qproj_folded, k5.qtail_folded, k6.qblock_folded)
+    plains = (k1.qmatmul_folded_plain, k2.qconv2d_folded_plain,
+              k3.qdepthwise_folded_plain, k4.qproj_folded_plain,
+              k5.qtail_folded_plain, k6.qblock_folded_plain)
+
     def zero_counts():
-        k1.qmatmul_folded.launches = k2.qconv2d_folded.launches = 0
-        k3.qdepthwise_folded.launches = 0
-        k1.qmatmul_folded_plain.calls = k2.qconv2d_folded_plain.calls = 0
-        k3.qdepthwise_folded_plain.calls = 0
+        for k in kmods:
+            k.launches = 0
+        for p in plains:
+            p.calls = 0
 
     def counts():
-        """(K1, K2, K3 launches, plain-version calls)."""
-        return (k1.qmatmul_folded.launches, k2.qconv2d_folded.launches,
-                k3.qdepthwise_folded.launches,
-                k1.qmatmul_folded_plain.calls + k2.qconv2d_folded_plain.calls
-                + k3.qdepthwise_folded_plain.calls)
+        """(K1, K2, K3, K4, K5, K6 launches, plain-version calls)."""
+        return (*(k.launches for k in kmods), sum(p.calls for p in plains))
+
+    def fmt_counts(c):
+        return ", ".join(f"K{i + 1} {n}" for i, n in enumerate(c[:6])) + \
+            f", plain path {c[6]}"
 
     def one_forward(flat, x, expect, what):
         zero_counts()
@@ -345,29 +482,22 @@ def main() -> int:
             y = flat.forward(x)
         torch.cuda.synchronize()
         got = counts()
-        check(got == expect, f"{what}: one forward launched K1/K2/K3/plain = "
+        check(got == expect, f"{what}: one forward launched K1..K6/plain = "
               f"{got}, expected {expect}")
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
-        log(f"{what}, one forward: K1 {got[0]}, K2 {got[1]}, K3 {got[2]}, "
-            "plain path 0")
+        log(f"{what}, one forward: {fmt_counts(got)}")
         return got
 
     # -- 4. the slices through ServingEngine ----------------------------------------
     rng = np.random.default_rng(1)
     imgs = rng.standard_normal((45, 224, 224, 3)).astype(np.float32)
 
-    def serve(cfg_name, make_flat, per_fwd):
-        cfg = CONFIGS[cfg_name]
-        t0 = time.monotonic()
-        # a 20 ms collection window: the burst of 40 lands in a bucket above 8
-        engine, info = build_engine(cfg, buckets=(8, 32, 128),
-                                    max_wait_ms=20.0, device=dev)
-        log(f"build_engine ({cfg.name}): {time.monotonic() - t0:.1f} s, "
-            f"{info['serve_path']}, buckets {info['buckets']}")
-        flat = make_flat(engine.vars)
+    def drive(what, engine, flat, per_fwd, classes):
+        """One direct forward, then 45 requests in two waves through
+        ``engine`` (a ServingEngine over ``flat``'s forward)."""
         try:
             one_forward(flat, torch.from_numpy(imgs[:8]).to(dev), per_fwd,
-                        cfg.name)
+                        what)
             rounds0 = engine.stats()["batches"]
             zero_counts()
             wave1 = [engine.submit(im) for im in imgs[:5]]
@@ -381,22 +511,32 @@ def main() -> int:
             engine.stop()
         rounds = st["batches"] - rounds0
         check(run_counts == tuple(n * rounds for n in per_fwd),
-              f"{cfg.name}: serving {rounds} rounds launched K1/K2/K3/plain "
+              f"{what}: serving {rounds} rounds launched K1..K6/plain "
               f"= {run_counts}")
         check(len(st["rounds_per_bucket"]) >= 2,
               f"requests did not span two buckets: {st['rounds_per_bucket']}")
-        check(served.shape == (45, cfg.num_classes) and
-              np.isfinite(served).all(), "served logits not finite / "
-              "mis-shaped")
+        check(served.shape == (45, classes) and np.isfinite(served).all(),
+              "served logits not finite / mis-shaped")
         with torch.inference_mode():
             direct = flat.forward(torch.from_numpy(imgs)).cpu().numpy()
         rel = float(np.linalg.norm(served - direct) / np.linalg.norm(direct))
-        check(rel <= 1e-4, f"{cfg.name}: served logits vs forward: rel-L2 "
-              f"{rel}")
-        log(f"{cfg.name}: served 45 requests in {rounds} rounds "
-            f"{st['rounds_per_bucket']}: K1 {run_counts[0]}, K2 "
-            f"{run_counts[1]}, K3 {run_counts[2]} launches, plain 0; rel-L2 "
+        check(rel <= 1e-4, f"{what}: served logits vs forward: rel-L2 {rel}")
+        log(f"{what}: served 45 requests in {rounds} rounds "
+            f"{st['rounds_per_bucket']}: {fmt_counts(run_counts)}; rel-L2 "
             f"vs forward {rel:.2e}")
+        return run_counts
+
+    def serve(cfg_name, make_flat, per_fwd):
+        cfg = CONFIGS[cfg_name]
+        t0 = time.monotonic()
+        # a 20 ms collection window: the burst of 40 lands in a bucket above 8
+        engine, info = build_engine(cfg, buckets=(8, 32, 128),
+                                    max_wait_ms=20.0, device=dev)
+        log(f"build_engine ({cfg.name}): {time.monotonic() - t0:.1f} s, "
+            f"{info['serve_path']}, buckets {info['buckets']}")
+        flat = make_flat(engine.vars)
+        run_counts = drive(cfg.name, engine, flat, per_fwd,
+                           cfg.num_classes)
         return flat, run_counts, engine.vars
 
     cfg = CONFIGS[RN50]
@@ -404,10 +544,25 @@ def main() -> int:
                        image_size=cfg.image_size, width=cfg.width,
                        cifar_stem=cfg.cifar_stem)
     rn50, rn50_counts, rn50_vars = serve(
-        RN50, lambda v: ResNetInt8Engine(v, arch, device=dev), (37, 16, 0, 0))
+        RN50, lambda v: ResNetInt8Engine(v, arch, device=dev),
+        (37, 16, 0, 0, 0, 0, 0))
+    # the experimental engine's two configurations on the same frozen tree,
+    # served as qtpu serves it: ServingEngine with a forward factory
+    fused, path_counts = {}, {"rn50": rn50_counts}
+    for cname, (flags, per_fwd) in RN50_FUSED.items():
+        what = f"{RN50} [{cname}]"
+        flat = fused[cname] = ExperimentalResNetInt8Engine(
+            rn50_vars, arch, device=dev, **flags)
+        engine = ServingEngine(None, rn50_vars, batch_buckets=(8, 32, 128),
+                               max_wait_ms=20.0,
+                               forward_factory=lambda sv, f=flat: f.forward,
+                               device=dev)
+        engine.warmup((224, 224, 3))
+        path_counts[cname] = drive(what, engine, flat, per_fwd, 1000)
     mnv2, mnv2_counts, mnv2_vars = serve(
         MNV2, lambda v: MobileNetV2Int8Engine(v, num_classes=1000,
-                                              device=dev), (35, 0, 17, 0))
+                                              device=dev),
+        (35, 0, 17, 0, 0, 0, 0))
     for name in MNV1:
         c = CONFIGS[name]
         t0 = time.monotonic()
@@ -417,14 +572,14 @@ def main() -> int:
                                      device=dev)
         mnv1_counts = one_forward(mnv1, torch.from_numpy(imgs[:8]).to(dev),
                                   (14, int("stem" in tree["qweights"]), 13,
-                                   0), name)
+                                   0, 0, 0, 0), name)
     # the last of MNV1 has the quantized stem: K2 at Ci = 3
     check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
-    path_counts = {"rn50": rn50_counts, "mnv2": mnv2_counts,
-                   "mnv1": mnv1_counts}
+    path_counts.update(mnv2=mnv2_counts, mnv1=mnv1_counts)
+    srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
         kern["launches"] = path_counts[kern["path"]][
-            {SRC_K1: 0, SRC_K2: 1, SRC_K3: 2}[kern["source"]]]
+            srcs.index(kern["source"])]
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -445,26 +600,45 @@ def main() -> int:
         check(rel <= 1e-4, f"{what}: card vs CPU logits rel-L2 {rel}")
         return rel
 
-    cpu = ResNetInt8Engine(rn50_vars, arch, device="cpu")
-    worst = 0.0
-    with torch.inference_mode():
-        names = rn50._block_names()
-        gg = grid_of(rn50._node(names[0][0], "conv1"))
-        cg = grid_of(cpu._node(names[0][0], "conv1"))
-        g_codes = rn50._stem(x2.to(dev), gg)
-        worst = max(worst, tie_rule(g_codes, cpu._stem(x2, cg), "stem"))
-        for idx, (name, i, j) in enumerate(names):
-            s = (2, 2) if (i > 0 and j == 0) else (1, 1)
-            nxt = (names[idx + 1][0], "conv1") if idx + 1 < len(names) \
-                else ("fc",)
-            gn, cn = grid_of(rn50._node(*nxt)), grid_of(cpu._node(*nxt))
-            g_out = rn50._bottleneck(g_codes, gg, name, s, gn)
-            c_out = cpu._bottleneck(g_codes.cpu(), cg, name, s, cn)
-            worst = max(worst, tie_rule(g_out, c_out, name))
-            g_codes, gg, cg = g_out, gn, cn
-    rel_cpu = logits_agree(rn50, cpu, RN50)
-    log(f"{RN50}, card vs CPU plain path: worst block {worst:.2e} of codes "
-        f"differ, logits rel-L2 {rel_cpu:.2e}")
+    def resnet_vs_cpu(flat, cpu, what, ref=None):
+        """Block by block, card against CPU (tie rule), and, given the
+        product engine ``ref`` on the card, the codes that differ from its
+        (the fused kernels are bit-exact against the sequence they
+        replace, so none should)."""
+        worst, differ = 0.0, 0
+        with torch.inference_mode():
+            names = flat._block_names()
+            gg = grid_of(flat._node(names[0][0], "conv1"))
+            cg = grid_of(cpu._node(names[0][0], "conv1"))
+            g_codes = flat._stem(x2.to(dev), gg)
+            worst = max(worst, tie_rule(g_codes, cpu._stem(x2, cg), "stem"))
+            for idx, (name, i, j) in enumerate(names):
+                s = (2, 2) if (i > 0 and j == 0) else (1, 1)
+                nxt = (names[idx + 1][0], "conv1") if idx + 1 < len(names) \
+                    else ("fc",)
+                gn, cn = grid_of(flat._node(*nxt)), grid_of(cpu._node(*nxt))
+                g_out = flat._bottleneck(g_codes, gg, name, s, gn)
+                c_out = cpu._bottleneck(g_codes.cpu(), cg, name, s, cn)
+                worst = max(worst, tie_rule(g_out, c_out, f"{what} {name}"))
+                if ref is not None:
+                    r_out = ref._bottleneck(g_codes, gg, name, s, gn)
+                    tie_rule(g_out, r_out.cpu(), f"{what} {name} vs product")
+                    differ += int((g_out != r_out).sum().item())
+                g_codes, gg, cg = g_out, gn, cn
+        rel_cpu = logits_agree(flat, cpu, what)
+        log(f"{what}, card vs CPU plain path: worst block {worst:.2e} of "
+            f"codes differ, logits rel-L2 {rel_cpu:.2e}" + (
+                "" if ref is None else
+                f"; card vs the product engine on the card: {differ} codes "
+                "differ over all blocks"))
+        return differ
+
+    resnet_vs_cpu(rn50, ResNetInt8Engine(rn50_vars, arch, device="cpu"),
+                  RN50)
+    for cname, (flags, _) in RN50_FUSED.items():
+        resnet_vs_cpu(fused[cname], ExperimentalResNetInt8Engine(
+            rn50_vars, arch, device="cpu", **flags), f"{RN50} [{cname}]",
+            ref=rn50)
 
     cpu = MobileNetV2Int8Engine(mnv2_vars, num_classes=1000, device="cpu")
     worst = 0.0
@@ -511,7 +685,10 @@ def main() -> int:
         f"{rel_cpu:.2e}")
 
     # -- 6. engine throughput and a profile ------------------------------------------
-    for what, flat, batches in ((RN50, rn50, (128,)), (MNV2, mnv2, (32, 128))):
+    for what, flat, batches in ((RN50, rn50, (128,)),
+                                (f"{RN50} [tail]", fused["tail"], (128,)),
+                                (f"{RN50} [block]", fused["block"], (128,)),
+                                (MNV2, mnv2, (32, 128))):
         for B in batches:
             x = torch.randn((B, 224, 224, 3), generator=g).to(dev)
             with torch.inference_mode():
@@ -521,14 +698,32 @@ def main() -> int:
                 f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
                 f"{graph_ms:.3f} ms)")
         profile_forward(what, flat, x, torch)
+    # K4-K6 against the unfused sequence at the B = 128 operating point
     for kern in kernels:
+        if "kind" not in kern:
+            continue
+        H, cmid, cout, cin, s = kern.pop("case")
+        run_k, _, run_u, _, _ = fused_case(kern.pop("kind"), 128, H, cmid,
+                                           cout, cin, s)
+        check(torch.equal(run_k(), run_u()), f"{kern['name']}: kernel "
+              "differs from the unfused sequence at B = 128")
+        kern["ms_b128"] = timed(torch, run_k, 10)
+        kern["unfused_ms_b128"] = timed(torch, run_u, 10)
+        del run_k, run_u
+        torch.cuda.empty_cache()
+    for kern in kernels:
+        extra = ("" if "unfused_ms" not in kern else
+                 f"; the unfused K1/K2 sequence {kern['unfused_ms']:.4f} ms; "
+                 f"at B = 128 {kern['ms_b128']:.4f} ms against "
+                 f"{kern['unfused_ms_b128']:.4f} ms unfused")
         log(f"{kern['name']} {kern['shape']}: {kern['ms']:.4f} ms on the "
             f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
-            f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}; "
+            f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}{extra}; "
             f"{kern['launches']} launches in the {kern['path']} serving run)")
     log("library: K1 torch._int_mm, K2/K3 cuDNN fp32 F.conv2d (TF32 off) on "
-        "the zero-point-padded codes — the int32 accumulator only")
+        "the zero-point-padded codes — the int32 accumulator only; K4-K6 "
+        f"none: {NO_LIBRARY}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -556,7 +751,10 @@ def profile_forward(what, flat, x, torch):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        fam = ("K1 qmatmul_fused" if "GemmLoader" in e.key else
+        fam = ("K4 qproj_fused" if "qproj_kernel" in e.key else
+               "K5 qtail_fused" if "qtail_kernel" in e.key else
+               "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
+               "K1 qmatmul_fused" if "GemmLoader" in e.key else
                "K2 qconv2d_fused" if "ConvLoader" in e.key else
                "K3 qdepthwise_fused" if ("dw_vec_kernel" in e.key or
                                          "dw_scalar_kernel" in e.key) else

@@ -1,5 +1,5 @@
 // The folded requant epilogue shared by the int8 kernels (K1 qmatmul.cu,
-// K2 qconv.cu, K3 qdepthwise.cu).
+// K2 qconv.cu, K3 qdepthwise.cu, K4 qproj.cu, K5 qtail.cu, K6 qblock.cu).
 //
 // On an int32 accumulator it computes, per output channel n,
 //   t = acc * A[n] + B[n]  (+ r * C for a residual r)
@@ -37,11 +37,16 @@ __device__ __forceinline__ float ep_affine(int acc, float a, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), a), b);
 }
 
-// requant mode: the int8 code of t.
-__device__ __forceinline__ int8_t ep_code(const Epilogue& ep, float t) {
-  float q = fminf(fmaxf(rintf(t), ep.lo), ep.hi);
-  q = __fsub_rn(q, ep.shift);
+// requant mode: the int8 code clip(round(t), lo, hi) - shift.
+__device__ __forceinline__ int8_t ep_code(float t, float lo, float hi,
+                                          float shift) {
+  float q = fminf(fmaxf(rintf(t), lo), hi);
+  q = __fsub_rn(q, shift);
   return static_cast<int8_t>(__float2int_rn(q));
+}
+
+__device__ __forceinline__ int8_t ep_code(const Epilogue& ep, float t) {
+  return ep_code(t, ep.lo, ep.hi, ep.shift);
 }
 
 // f32 mode: relu and act_max on t.

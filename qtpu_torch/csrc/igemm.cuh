@@ -1,16 +1,24 @@
 // Shared core of the int8 GEMM kernels: an int8 x int8 -> int32 tensor-core
-// GEMM tile loop (mma.sync m16n8k32 s8) ending in the folded requant
+// GEMM tile loop (mma.sync m16n8k32 s8) that leaves the accumulator fragment
+// in registers, and the plain GEMM kernel that ends it in the folded requant
 // epilogue of epilogue.cuh.
 //
-// C[m, n] = sum_k A[m, k] * W[n, k], W stored (N, K) K-contiguous.  The A
-// operand is addressed through a loader policy, so the same core serves the
-// plain GEMM (qmatmul.cu) and the implicit-GEMM convolution (qconv.cu).
+// C[m, n] = sum_k A[m, k] * W[n, k], W stored (N, K) K-contiguous.  The main
+// loop (`mainloop`) takes its A operand from a source policy:
+//   * StagedA copies it from global memory stage by stage through a loader
+//     (the plain GEMM of qmatmul.cu, the implicit-GEMM conv of qconv.cu, the
+//     two GEMMs of qproj.cu, conv1 of qblock.cu);
+//   * a resident source reads it from a tile that already lies in shared
+//     memory (conv2 and conv3 of the fused bottleneck tail, fused_tail.cuh).
+// W always streams through StagedB.  So one block can chain GEMM phases: the
+// accumulator of one phase is requantised in registers and feeds the next
+// through shared memory, never through device memory.
 //
 // Block tile BM x BN, depth BK = 64 bytes per stage, two shared-memory stages
 // filled with cp.async (16-byte chunks, zero-filled past the ragged edges of
 // M, N and K) while the tensor cores work on the other stage.  Shared rows are
 // padded to 80 bytes so that the 32-bit fragment loads of a warp hit 32
-// distinct banks.  The epilogue runs in registers on the int32 accumulators.
+// distinct banks.
 #pragma once
 
 #include <cstdint>
@@ -39,6 +47,10 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
 __device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
                                        unsigned a2, unsigned a3, unsigned b0,
                                        unsigned b1) {
@@ -47,6 +59,212 @@ __device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned ld32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// A BM x BN block tile over WARPS_M x WARPS_N warps; each warp owns a
+// WM x WN tile of MT x NT mma tiles.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
+struct TileCfg {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int NTHREADS = WARPS_M * WARPS_N * 32;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MT = WM / 16;   // m16 tiles per warp
+  static constexpr int NT = WN / 8;    // n8 tiles per warp
+  static constexpr int CPR = BK / 16;  // 16-byte chunks per row and stage
+  static constexpr int STAGE_A = BM * SK;  // bytes of one A stage
+  static constexpr int STAGE_B = BN * SK;  // bytes of one B stage
+};
+
+// Where this thread's accumulator entries lie in the block tile:
+// acc[i][j][2 * h + e] holds C[row(i, h), col(j, e)].
+template <class T>
+struct Frag {
+  int warp_m, warp_n, g, tg;
+  __device__ Frag() {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    warp_m = warp / T::WARPS_N;
+    warp_n = warp % T::WARPS_N;
+    g = lane >> 2;   // groupID
+    tg = lane & 3;   // thread in group
+  }
+  __device__ int row(int i, int h) const {
+    return warp_m * T::WM + i * 16 + g + 8 * h;
+  }
+  __device__ int col(int j, int e) const {
+    return warp_n * T::WN + j * 8 + tg * 2 + e;
+  }
+};
+
+// A operand copied from global memory, stage by stage, rows m0.. of an
+// M x K matrix addressed through a loader (row(m), ptr(row, k), base()).
+// VEC: every 16-byte chunk of K lies in one row of the source and is 16-byte
+// aligned (the loader guarantees it when K, or Ci for the conv, is a multiple
+// of 16); otherwise chunks are gathered byte by byte.
+template <class T, bool VEC, class ALoader>
+struct StagedA {
+  static constexpr int CHUNKS = T::BM * T::CPR / T::NTHREADS;
+  static_assert(T::BM * T::CPR % T::NTHREADS == 0,
+                "A tile does not split evenly over the threads");
+  ALoader al;
+  int8_t* As;  // two stages of T::STAGE_A bytes
+  int K;
+  // Each thread loads the same rows at every stage: resolve them once.
+  typename ALoader::Row row[CHUNKS];
+  int r[CHUNKS], c[CHUNKS];
+  bool ok[CHUNKS];
+
+  __device__ StagedA(const ALoader& al_, int8_t* As_, int M, int K_, int m0)
+      : al(al_), As(As_), K(K_) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int cc = threadIdx.x + i * T::NTHREADS;
+      r[i] = cc / T::CPR;
+      c[i] = (cc % T::CPR) * 16;
+      ok[i] = m0 + r[i] < M;
+      row[i] = al.row(ok[i] ? m0 + r[i] : 0);
+    }
+  }
+  __device__ void load(int s, int k0) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      int8_t* dst = As + s * T::STAGE_A + r[i] * SK + c[i];
+      const int k = k0 + c[i];
+      if (VEC) {
+        const bool v = ok[i] && k < K;
+        cp_async16(dst, v ? al.ptr(row[i], k) : al.base(), v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          dst[j] = (ok[i] && k + j < K) ? *al.ptr(row[i], k + j)
+                                        : static_cast<int8_t>(0);
+      }
+    }
+  }
+  __device__ const int8_t* base(int s) const { return As + s * T::STAGE_A; }
+  __device__ int row_off(int rr) const { return rr * SK; }
+  __device__ int k_off(int, int kk) const { return kk; }
+};
+
+// A operand already resident in shared memory as a row-major tile.
+struct TileA {
+  const int8_t* t;
+  int stride;  // bytes per row
+  __device__ void load(int, int) {}
+  __device__ const int8_t* base(int) const { return t; }
+  __device__ int row_off(int rr) const { return rr * stride; }
+  __device__ int k_off(int k0, int kk) const { return k0 + kk; }
+};
+
+// W (N, K) K-contiguous, rows n0.. of a BN-row tile, stage by stage.
+template <class T, bool VEC>
+struct StagedB {
+  static constexpr int CHUNKS = T::BN * T::CPR / T::NTHREADS;
+  static_assert(T::BN * T::CPR % T::NTHREADS == 0,
+                "B tile does not split evenly over the threads");
+  const int8_t* w;
+  int8_t* Bs;  // two stages of T::STAGE_B bytes
+  int K, n0;
+  int r[CHUNKS], c[CHUNKS];
+  bool ok[CHUNKS];
+
+  __device__ StagedB(const int8_t* w_, int8_t* Bs_, int N, int K_, int n0_)
+      : w(w_), Bs(Bs_), K(K_), n0(n0_) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int cc = threadIdx.x + i * T::NTHREADS;
+      r[i] = cc / T::CPR;
+      c[i] = (cc % T::CPR) * 16;
+      ok[i] = n0 + r[i] < N;
+    }
+  }
+  __device__ void load(int s, int k0) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      int8_t* dst = Bs + s * T::STAGE_B + r[i] * SK + c[i];
+      const int k = k0 + c[i];
+      const int8_t* src = w + static_cast<size_t>(n0 + r[i]) * K + k;
+      if (VEC) {
+        const bool v = ok[i] && k < K;
+        cp_async16(dst, v ? src : w, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          dst[j] = (ok[i] && k + j < K) ? src[j] : static_cast<int8_t>(0);
+      }
+    }
+  }
+  __device__ const int8_t* base(int s) const { return Bs + s * T::STAGE_B; }
+};
+
+// acc = A[m0.., :] x W[n0.., :]^T over the whole depth K, into registers.
+// Every thread of the block calls it (it synchronises the block), and it ends
+// on a barrier, so the stage buffers are free for the next phase on return.
+template <class T, class ASrc, class BSrc>
+__device__ __forceinline__ void mainloop(ASrc& a, BSrc& b, int K,
+                                         int (&acc)[T::MT][T::NT][4]) {
+  const Frag<T> f;
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  int roff[T::MT][2];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) roff[i][h] = a.row_off(f.row(i, h));
+
+  const int ktiles = (K + BK - 1) / BK;
+  a.load(0, 0);
+  b.load(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    if (kt + 1 < ktiles) {
+      a.load((kt + 1) & 1, (kt + 1) * BK);
+      b.load((kt + 1) & 1, (kt + 1) * BK);
+    }
+    cp_async_commit();
+    cp_async_wait_1();  // every group but the newest has landed
+    __syncthreads();
+    const int8_t* as = a.base(kt & 1);
+    const int8_t* bs = b.base(kt & 1);
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      const int ko0 = a.k_off(k0, kk + f.tg * 4);
+      const int ko1 = a.k_off(k0, kk + f.tg * 4 + 16);
+      unsigned af[T::MT][4];
+      unsigned bf[T::NT][2];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        af[i][0] = ld32(as + roff[i][0] + ko0);
+        af[i][1] = ld32(as + roff[i][1] + ko0);
+        af[i][2] = ld32(as + roff[i][0] + ko1);
+        af[i][3] = ld32(as + roff[i][1] + ko1);
+      }
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int8_t* p = bs + (f.warp_n * T::WN + j * 8 + f.g) * SK + kk +
+                          f.tg * 4;
+        bf[j][0] = ld32(p);
+        bf[j][1] = ld32(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j)
+          mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3], bf[j][0],
+                 bf[j][1]);
+    }
+    __syncthreads();  // the next iteration refills the stage just read
+  }
 }
 
 __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
@@ -70,151 +288,34 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
   static_cast<float*>(ep.out)[idx] = ep_f32(ep, t);
 }
 
-// WARPS_M x WARPS_N warps; each warp owns a (BM/WARPS_M) x (BN/WARPS_N) tile.
-// VEC: every 16-byte chunk of K lies in one row of the source and is 16-byte
-// aligned (the loader guarantees it when K, or Ci for the conv, is a multiple
-// of 16); otherwise chunks are gathered byte by byte.
+// The plain GEMM: one block per BM x BN output tile, the main loop, then the
+// folded epilogue in registers.
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC, class ALoader>
 __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
     igemm_kernel(ALoader al, const int8_t* __restrict__ w, int M, int N,
                  int K, Epilogue ep) {
-  constexpr int NTHREADS = WARPS_M * WARPS_N * 32;
-  constexpr int WM = BM / WARPS_M;
-  constexpr int WN = BN / WARPS_N;
-  constexpr int MT = WM / 16;  // m16 tiles per warp
-  constexpr int NT = WN / 8;   // n8 tiles per warp
-  constexpr int CPR = BK / 16; // 16-byte chunks per row and stage
-  constexpr int A_CHUNKS = BM * CPR / NTHREADS;
-  constexpr int B_CHUNKS = BN * CPR / NTHREADS;
-  static_assert(BM * CPR % NTHREADS == 0 && BN * CPR % NTHREADS == 0,
-                "tile does not split evenly over the threads");
-
-  __shared__ __align__(16) int8_t As[2][BM * SK];
-  __shared__ __align__(16) int8_t Bs[2][BN * SK];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp / WARPS_N;
-  const int warp_n = warp % WARPS_N;
-  const int g = lane >> 2;  // groupID
-  const int tg = lane & 3;  // thread in group
+  typedef TileCfg<BM, BN, WARPS_M, WARPS_N> T;
+  __shared__ __align__(16) int8_t As[2 * T::STAGE_A];
+  __shared__ __align__(16) int8_t Bs[2 * T::STAGE_B];
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  StagedA<T, VEC, ALoader> a(al, As, M, K, m0);
+  StagedB<T, VEC> b(w, Bs, N, K, n0);
+  int acc[T::MT][T::NT][4];
+  mainloop<T>(a, b, K, acc);
 
-  // Each thread loads the same rows at every stage: resolve them once.
-  typename ALoader::Row arow[A_CHUNKS];
-  int a_r[A_CHUNKS], a_c[A_CHUNKS];
-  bool a_ok[A_CHUNKS];
+  const Frag<T> f;
 #pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    const int c = tid + i * NTHREADS;
-    a_r[i] = c / CPR;
-    a_c[i] = (c % CPR) * 16;
-    a_ok[i] = m0 + a_r[i] < M;
-    arow[i] = al.row(a_ok[i] ? m0 + a_r[i] : 0);
-  }
-  int b_r[B_CHUNKS], b_c[B_CHUNKS];
-  bool b_ok[B_CHUNKS];
+  for (int i = 0; i < T::MT; ++i) {
 #pragma unroll
-  for (int i = 0; i < B_CHUNKS; ++i) {
-    const int c = tid + i * NTHREADS;
-    b_r[i] = c / CPR;
-    b_c[i] = (c % CPR) * 16;
-    b_ok[i] = n0 + b_r[i] < N;
-  }
-
-  auto load_stage = [&](int s, int k0) {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      int8_t* dst = &As[s][a_r[i] * SK + a_c[i]];
-      const int k = k0 + a_c[i];
-      if (VEC) {
-        const bool ok = a_ok[i] && k < K;
-        cp_async16(dst, ok ? al.ptr(arow[i], k) : al.base(), ok);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          dst[j] = (a_ok[i] && k + j < K) ? *al.ptr(arow[i], k + j)
-                                          : static_cast<int8_t>(0);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_CHUNKS; ++i) {
-      int8_t* dst = &Bs[s][b_r[i] * SK + b_c[i]];
-      const int k = k0 + b_c[i];
-      const int8_t* src = w + static_cast<size_t>(n0 + b_r[i]) * K + k;
-      if (VEC) {
-        const bool ok = b_ok[i] && k < K;
-        cp_async16(dst, ok ? src : w, ok);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          dst[j] = (b_ok[i] && k + j < K) ? src[j] : static_cast<int8_t>(0);
-      }
-    }
-  };
-
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const int ktiles = (K + BK - 1) / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load_stage((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait_1();  // every group but the newest has landed
-    __syncthreads();
-    const int8_t* as = As[kt & 1];
-    const int8_t* bs = Bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[MT][4];
-      unsigned bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = warp_m * WM + i * 16 + g;
-        const int8_t* p0 = as + r * SK + kk + tg * 4;
-        const int8_t* p1 = p0 + 8 * SK;
-        af[i][0] = *reinterpret_cast<const unsigned*>(p0);
-        af[i][1] = *reinterpret_cast<const unsigned*>(p1);
-        af[i][2] = *reinterpret_cast<const unsigned*>(p0 + 16);
-        af[i][3] = *reinterpret_cast<const unsigned*>(p1 + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = warp_n * WN + j * 8 + g;
-        const int8_t* p = bs + c * SK + kk + tg * 4;
-        bf[j][0] = *reinterpret_cast<const unsigned*>(p);
-        bf[j][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3], bf[j][0],
-                 bf[j][1]);
-    }
-    __syncthreads();  // the next iteration refills the stage just read
-  }
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < T::NT; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + warp_m * WM + i * 16 + g + 8 * h;
+        const int m = m0 + f.row(i, h);
         if (m >= M) continue;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int n = n0 + warp_n * WN + j * 8 + tg * 2 + e;
+          const int n = n0 + f.col(j, e);
           if (n < N) store_one(ep, m, n, N, acc[i][j][2 * h + e]);
         }
       }
@@ -222,13 +323,18 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
   }
 }
 
-// Launch on the largest tile that still gives the card about two waves of
-// blocks; small or narrow problems take the 64 x 64 tile.
+// Large tiles while they still give the card about two waves of blocks;
+// small or narrow problems take the 64 x 64 tile.
+inline bool use_big_tiles(int M, int N) {
+  const long big_tiles =
+      static_cast<long>((M + 127) / 128) * ((N + 127) / 128);
+  return N >= 128 && big_tiles >= 264;
+}
+
 template <bool VEC, class ALoader>
 cudaError_t launch_igemm(const ALoader& al, const int8_t* w, int M, int N,
                          int K, const Epilogue& ep, cudaStream_t stream) {
-  const long big_tiles = static_cast<long>((M + 127) / 128) * ((N + 127) / 128);
-  if (N >= 128 && big_tiles >= 264) {
+  if (use_big_tiles(M, N)) {
     dim3 grid((N + 127) / 128, (M + 127) / 128);
     igemm_kernel<128, 128, 2, 4, VEC, ALoader>
         <<<grid, 256, 0, stream>>>(al, w, M, N, K, ep);

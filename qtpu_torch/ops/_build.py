@@ -22,8 +22,9 @@ from typing import Dict, Iterable, Optional, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
-           "qdepthwise": "qdepthwise.cu"}
-HEADERS = ("epilogue.cuh", "igemm.cuh")
+           "qdepthwise": "qdepthwise.cu", "qproj": "qproj.cu",
+           "qtail": "qtail.cu", "qblock": "qblock.cu"}
+HEADERS = ("epilogue.cuh", "igemm.cuh", "fused_tail.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

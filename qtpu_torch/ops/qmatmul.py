@@ -68,6 +68,17 @@ def check_vectors(co: Optional[EpilogueCoeffs], n: int,
                              f"{tuple(v.shape)} {v.dtype} on {v.device}")
 
 
+def check_int8(dev: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous int8 on ``dev`` and 16-byte
+    aligned (the fused kernels load 16-byte chunks)."""
+    for name, t in tensors.items():
+        if (t.dtype != torch.int8 or not t.is_contiguous() or t.device != dev
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"int8 tensor on {dev}, got {t.dtype} on "
+                             f"{t.device}")
+
+
 def check_residual(residual: Optional[torch.Tensor], shape: Tuple[int, ...],
                    device: torch.device) -> int:
     """The C entries' residual kind (0 none, 1 int8, 2 f32); raises on a

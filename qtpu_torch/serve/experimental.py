@@ -1,0 +1,184 @@
+"""The ResNet engine with the fused bottleneck kernels (port of the
+per-block part of qtpu/serve/experimental.py:ExperimentalResNetInt8Engine).
+
+The product :class:`~qtpu_torch.serve.resnet_engine.ResNetInt8Engine` runs
+every bottleneck as K1 → K2 → K1 (plus a downsample K1 in a projection
+block), and each intermediate makes a round trip through device memory.
+This subclass fills the dispatch tables the product engine leaves empty, so
+``_bottleneck`` hands whole pieces of a block to one kernel each:
+
+* ``use_qproj`` — a projection block's conv3 + downsample + relu + requant
+  as K4 (``ops/qproj.py``), on the stages in ``qproj_stages``; the
+  downsample's f32 output never reaches device memory and its stride is
+  read in the kernel;
+* ``use_qtail`` — an identity block's conv2 → requant → conv3 + residual
+  → relu → requant as K5 (``ops/qtail.py``); conv1 stays on K1, and no
+  zero-point-padded copy of its output is made;
+* ``use_qblock`` — a whole identity block as K6 (``ops/qblock.py``);
+  ``use_qtail`` is ignored when it is set.
+
+The flags mean what qtpu's do, and the eligibility rules are qtpu's: an
+identity block (no downsample, stride 1) for K5/K6, a projection block for
+K4, affine grids only, a 3×3 conv2, and a next grid that is present and
+affine (checked at dispatch).  The kernels add their own: channel counts in
+multiples of 16 (their 16-byte loads) and a conv2 tile that fits in shared
+memory.  Every kernel takes the same folded coefficients as the unfused
+calls it replaces (``fused_ops``), built here once per block, so with any
+flags the codes are those of the product engine.
+
+Left out on purpose: qtpu's TPU-only ``*_interpret`` arguments and its
+``pair`` with the ``W % pair`` guard — pairing block-diagonalises weights
+for the TPU's 128-lane layout and adds only zero products, and at
+ResNet-50's full width every block qtpu fuses is fused here too;
+``use_pallas`` and ``min_ci_pallas`` (the port always runs its kernels);
+``packed_int4`` (waits for K1's int4 mode); ``use_qstage``,
+``qstage_stages`` and ``qstage_proj`` (wait for the chained stage kernels).
+qtpu has no CLI flag for this engine and neither has the port: serve it
+with ``ServingEngine(None, tree, forward_factory=lambda sv:
+ExperimentalResNetInt8Engine(sv, arch, ...).forward, ...)``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from qtpu_torch.ops.qblock import CONV1_SMEM
+from qtpu_torch.ops.qtail import SMEM_LIMIT, tail_smem_bytes
+from qtpu_torch.serve import fused_ops as fo
+from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+
+def _affine(*grids) -> bool:
+    return all(g is not None and not fo.grid_parts(g)[2] for g in grids)
+
+
+class ExperimentalResNetInt8Engine(ResNetInt8Engine):
+    """ResNetInt8Engine with the fused bottleneck kernels (module doc).
+    With every flag off it is the product engine: the tables stay empty.
+    A table maps an eligible block to its folded coefficients, built here
+    once (the nodes' epilogue memo hands the same objects to the forward),
+    or to None when its next grid is not affine (the dispatch guard then
+    keeps the block on the unfused path, as qtpu's does)."""
+
+    def __init__(self, variables: Dict[str, Any], arch: Dict[str, Any],
+                 device=None, normalize=None,
+                 use_qblock: Optional[bool] = None,
+                 use_qtail: Optional[bool] = None,
+                 use_qproj: Optional[bool] = None,
+                 qproj_stages: Optional[Tuple[int, ...]] = None):
+        super().__init__(variables, arch, device=device, normalize=normalize)
+        bottleneck = self.arch.get("bottleneck", True)
+        self.use_qblock = bool(use_qblock) and bottleneck
+        self.use_qtail = bool(use_qtail) and bottleneck and not self.use_qblock
+        self.use_qproj = bool(use_qproj) and bottleneck
+        self.qproj_stages = ((0, 1, 2, 3) if qproj_stages is None
+                             else tuple(qproj_stages))
+        if self.use_qtail:
+            self._prepare_qtails()
+        if self.use_qproj:
+            self._prepare_qprojs()
+        if self.use_qblock:
+            self._prepare_qblocks()
+
+    # -- eligibility ---------------------------------------------------------
+
+    def _grids(self, name: str):
+        """(input grid, next grid) the forward gives block ``name``: its
+        conv1's grid, and the next block's conv1's (the fc's after the last;
+        None when the fc is excluded)."""
+        names = [n for n, _, _ in self._block_names()]
+        idx = names.index(name)
+        nxt = (self._node(names[idx + 1], "conv1") if idx + 1 < len(names)
+               else self._node("fc"))
+        return (fo.grid_of(self._node(name, "conv1")),
+                None if nxt is None else fo.grid_of(nxt))
+
+    def _identity_nodes(self, name: str, j: int, need_conv1: bool):
+        """(c1, c2, c3) of an identity block the tail kernels take, else
+        None."""
+        if j == 0 or self._node(name, "down") is not None:
+            return None     # projection / strided block: unfused path
+        nodes = tuple(self._node(name, k) for k in ("conv1", "conv2",
+                                                    "conv3"))
+        if any(n is None for n in nodes):
+            return None
+        c1, c2, c3 = nodes
+        if any(fo.grid_of(n).sym for n in (nodes if need_conv1
+                                           else (c2, c3))):
+            return None     # the tail requants onto affine grids only
+        cmid = c2["w_nk"].shape[0]
+        if (c2["kernel_hw"] != (3, 3) or c2["w_nk"].shape[1] != 9 * cmid
+                or c3["w_nk"].shape[1] != cmid or cmid % 16):
+            return None
+        extra = CONV1_SMEM if need_conv1 else 0
+        if tail_smem_bytes(cmid) + extra > SMEM_LIMIT:
+            return None
+        if need_conv1:
+            cin = c1["w_nk"].shape[1]
+            if c1["w_nk"].shape[0] != cmid or c3["w_nk"].shape[0] != cin \
+                    or cin % 16:
+                return None
+        return nodes
+
+    def _prepare_qtails(self) -> None:
+        """Identity blocks for K5; their coefficients folded once."""
+        for name, _, j in self._block_names():
+            nodes = self._identity_nodes(name, j, need_conv1=False)
+            if nodes is None:
+                continue
+            x_grid, nxt = self._grids(name)
+            self._qtail_prep[name] = (
+                fo.tail_coeffs(nodes[1], nodes[2], x_grid, nxt)
+                if _affine(x_grid, nxt) else None)
+
+    def _prepare_qblocks(self) -> None:
+        """Identity blocks for K6; their coefficients folded once."""
+        for name, _, j in self._block_names():
+            nodes = self._identity_nodes(name, j, need_conv1=True)
+            if nodes is None:
+                continue
+            x_grid, nxt = self._grids(name)
+            self._qblock_prep[name] = (
+                fo.block_coeffs(*nodes, x_grid, nxt)
+                if _affine(nxt) else None)
+
+    def _prepare_qprojs(self) -> None:
+        """Projection blocks of ``qproj_stages`` for K4; their coefficients
+        folded once."""
+        for name, i, j in self._block_names():
+            if j != 0 or i not in self.qproj_stages:
+                continue
+            c3, down = self._node(name, "conv3"), self._node(name, "down")
+            if c3 is None or down is None:
+                continue
+            if fo.grid_of(c3).sym or fo.grid_of(down).sym:
+                continue    # K4 requants onto affine grids only
+            if c3["w_nk"].shape[1] % 16 or down["w_nk"].shape[1] % 16:
+                continue
+            _, nxt = self._grids(name)
+            self._qproj_prep[name] = (fo.proj_coeffs(c3, down, nxt)
+                                      if _affine(nxt) else None)
+
+    # -- the fused pieces ----------------------------------------------------
+
+    def _qblock(self, x_q: torch.Tensor, x_grid, name: str, next_grid
+                ) -> torch.Tensor:
+        c1, c2, c3 = (self._node(name, k) for k in ("conv1", "conv2",
+                                                     "conv3"))
+        return fo.bottleneck(x_q, c1, c2, c3, x_grid=x_grid,
+                             requant=next_grid)
+
+    def _qtail(self, x_q: torch.Tensor, x_grid, name: str, next_grid
+               ) -> torch.Tensor:
+        c1, c2, c3 = (self._node(name, k) for k in ("conv1", "conv2",
+                                                     "conv3"))
+        a = fo.gemm_1x1(x_q, c1, relu=True, requant=fo.grid_of(c2),
+                        out_dtype=torch.int8)
+        return fo.tail(a, x_q, c2, c3, x_grid=x_grid, requant=next_grid)
+
+    def _qproj(self, b: torch.Tensor, x_q: torch.Tensor, name: str, strides,
+               next_grid) -> torch.Tensor:
+        return fo.proj(b, x_q, self._node(name, "conv3"),
+                       self._node(name, "down"), strides=strides,
+                       requant=next_grid)

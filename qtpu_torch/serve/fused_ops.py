@@ -7,7 +7,10 @@ and an int8 NHWC activation, optionally fusing ReLU (or relu6 through
 ``act_max``), an int8 or f32 residual, and requantization onto the
 consumer's grid.  ``gemm_1x1`` runs on K1, ``conv`` (the ``conv_xla``
 counterpart) on K2 and ``depthwise`` (``conv_xla(groups=C)``) on K3 for
-CUDA tensors; on the CPU they take the kernels' plain versions.
+CUDA tensors; on the CPU they take the kernels' plain versions.  The fused
+bottleneck pieces of the experimental engine — ``proj`` (K4), ``tail``
+(K5) and ``bottleneck`` (K6) — take the same coefficients as the unfused
+calls they replace, so their codes are the same.
 
 Engines call :func:`prepare_tree` once at build: it places the leaves on
 the device, stores each weight in its kernel's layout (``w_nk`` (N, K) for
@@ -27,7 +30,10 @@ from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops import qops
 from qtpu_torch.ops.qconv import qconv2d_folded
 from qtpu_torch.ops.qdepthwise import qdepthwise_folded
+from qtpu_torch.ops.qblock import qblock_folded
 from qtpu_torch.ops.qmatmul import qmatmul_folded
+from qtpu_torch.ops.qproj import qproj_folded
+from qtpu_torch.ops.qtail import qtail_folded
 
 Node = Dict[str, object]
 
@@ -245,3 +251,69 @@ def depthwise(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
     return qdepthwise_folded(x_q, node["w_taps"], co, mode,
                              kernel_hw=node["kernel_hw"], stride=strides[0],
                              padding=padding, zp=node["grid"].zp)
+
+
+# -- the fused bottleneck pieces (experimental engine) -------------------------
+# Each folds its convs with the keys the unfused calls use, so both paths
+# share one memoized set of coefficients per node.
+
+def proj_coeffs(c3: Node, down: Node, requant):
+    """(co3, mode3, cod): conv3 with an f32 residual requantised onto
+    ``requant``, and the downsample's plain dequant."""
+    co3, mode3 = _epilogue(c3, relu=True, act_max=None, requant=requant,
+                           res_kind=torch.float32, res_grid=None)
+    cod, _ = _epilogue(down, relu=False, act_max=None, requant=None,
+                       res_kind=None, res_grid=None)
+    return co3, mode3, cod
+
+
+def tail_coeffs(c2: Node, c3: Node, x_grid, requant):
+    """((co2, mode2), (co3, mode3)): conv2 requantised onto conv3's grid,
+    conv3 with the int8 residual on ``x_grid`` onto ``requant``."""
+    return (_epilogue(c2, relu=True, act_max=None, requant=c3["grid"],
+                      res_kind=None, res_grid=None),
+            _epilogue(c3, relu=True, act_max=None, requant=requant,
+                      res_kind=torch.int8, res_grid=x_grid))
+
+
+def block_coeffs(c1: Node, c2: Node, c3: Node, x_grid, requant):
+    """((co1, mode1), (co2, mode2), (co3, mode3)) of a whole identity
+    block: conv1 requantised onto conv2's grid, then :func:`tail_coeffs`."""
+    return (_epilogue(c1, relu=True, act_max=None, requant=c2["grid"],
+                      res_kind=None, res_grid=None),
+            *tail_coeffs(c2, c3, x_grid, requant))
+
+
+def proj(b_q: torch.Tensor, x_q: torch.Tensor, c3: Node, down: Node, *,
+         strides=(1, 1), requant) -> torch.Tensor:
+    """Projection-block tail over frozen nodes (K4): conv3 of conv2's codes
+    ``b_q`` plus the downsample of the block input ``x_q`` at ``strides``,
+    relu, requant onto ``requant``."""
+    if strides[0] != strides[1]:
+        raise ValueError(f"unequal strides {strides} are not supported")
+    c3, down = _prepared(c3, b_q.device), _prepared(down, b_q.device)
+    co3, mode3, cod = proj_coeffs(c3, down, requant)
+    return qproj_folded(b_q, x_q, c3["w_nk"], down["w_nk"], co3, mode3, cod,
+                        stride=strides[0])
+
+
+def tail(a_q: torch.Tensor, x_q: torch.Tensor, c2: Node, c3: Node, *,
+         x_grid, requant) -> torch.Tensor:
+    """Identity-block tail over frozen nodes (K5): conv2 (3×3/1, pads of
+    its zero point read in the kernel) of conv1's codes ``a_q``, requant,
+    conv3 + the block input ``x_q`` on ``x_grid``, relu, requant onto
+    ``requant``."""
+    c2, c3 = _prepared(c2, a_q.device), _prepared(c3, a_q.device)
+    (co2, mode2), (co3, mode3) = tail_coeffs(c2, c3, x_grid, requant)
+    return qtail_folded(a_q, x_q, c2["w_nk"], c3["w_nk"], co2, mode2, co3,
+                        mode3, pad=1, zp=c2["grid"].zp)
+
+
+def bottleneck(x_q: torch.Tensor, c1: Node, c2: Node, c3: Node, *, x_grid,
+               requant) -> torch.Tensor:
+    """A whole identity bottleneck over frozen nodes (K6)."""
+    c1, c2, c3 = (_prepared(c, x_q.device) for c in (c1, c2, c3))
+    (co1, mode1), (co2, mode2), (co3, mode3) = block_coeffs(
+        c1, c2, c3, x_grid, requant)
+    return qblock_folded(x_q, c1["w_nk"], c2["w_nk"], c3["w_nk"], co1, mode1,
+                         co2, mode2, co3, mode3, zp2=c2["grid"].zp)

@@ -15,6 +15,11 @@ pipeline:
 * an excluded stem runs in fp32 (BN folded at build, TF32 off), an excluded
   fc as a plain fp32 matmul.
 
+The fused bottleneck kernels (K4-K6) run only through
+:class:`qtpu_torch.serve.experimental.ExperimentalResNetInt8Engine`, which
+fills the dispatch tables that ``_bottleneck`` checks and this class leaves
+empty.
+
 Build, entry points and devices: :class:`qtpu_torch.serve.flat_engine.
 FlatInt8Engine`.
 """
@@ -26,7 +31,8 @@ import torch
 
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
-from qtpu_torch.serve.fused_ops import conv, dequant, gemm_1x1, grid_of
+from qtpu_torch.serve.fused_ops import (conv, dequant, gemm_1x1, grid_of,
+                                        grid_parts)
 
 
 def maxpool_codes(y_q: torch.Tensor, pads) -> torch.Tensor:
@@ -59,6 +65,12 @@ class ResNetInt8Engine(FlatInt8Engine):
         super().__init__(variables, torch_pad=arch.get("torch_pad", False),
                          device=device, normalize=normalize)
         self.arch = dict(arch)
+        # Fused-kernel dispatch tables (block name -> entry): empty here, so
+        # the guards in _bottleneck never fire; filled, with the _qblock /
+        # _qtail / _qproj methods, only by the experimental subclass.
+        self._qtail_prep: Dict[str, Any] = {}
+        self._qproj_prep: Dict[str, Any] = {}
+        self._qblock_prep: Dict[str, Any] = {}
 
     def _block_names(self):
         out = []
@@ -108,11 +120,20 @@ class ResNetInt8Engine(FlatInt8Engine):
         c1, c2, c3 = (self._node(name, k) for k in ("conv1", "conv2",
                                                      "conv3"))
         down = self._node(name, "down")
+        affine_next = next_grid is not None and not grid_parts(next_grid)[2]
+        if (down is None and strides == (1, 1) and affine_next
+                and name in self._qblock_prep):
+            return self._qblock(x_q, x_grid, name, next_grid)
+        if (down is None and strides == (1, 1) and affine_next
+                and not grid_parts(x_grid)[2] and name in self._qtail_prep):
+            return self._qtail(x_q, x_grid, name, next_grid)
         a = gemm_1x1(x_q, c1, relu=True, requant=grid_of(c2),
                      out_dtype=torch.int8)
         b = conv(a, c2, strides=strides, relu=True, requant=grid_of(c3),
                  padding=self._pad3)
         if down is not None:
+            if affine_next and name in self._qproj_prep:
+                return self._qproj(b, x_q, name, strides, next_grid)
             x_d = x_q[:, ::strides[0], ::strides[1], :]
             res = gemm_1x1(x_d, down, relu=False, requant=None,
                            out_dtype=torch.float32)

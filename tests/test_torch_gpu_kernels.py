@@ -4,9 +4,11 @@ The kernels have no CPU mode, so every test here is ``gpu``-marked and
 skips without a CUDA device.  Shapes include ragged M, N and K (masked
 edges), K not a multiple of 16 (the byte-gather path), Ci = 3 and both
 strides; for the depthwise kernel C not a multiple of 16 (the scalar path),
-odd H, B = 1..3, both strides and both paddings.  The kernel and its plain
-version apply the same epilogue formula in the same order, so every output
-must be bit-exact.
+odd H, B = 1..3, both strides and both paddings; for the fused bottleneck kernels (K4-K6) odd H,
+W = H + 1, Cmid 16-512, B = 1..3, both strides of K4's downsample, K5 with
+the pad in the kernel (1) and on a zero-point-prepadded input (0), and
+ResNet-50's widths.  The kernel and its plain version apply the same
+epilogue formula in the same order, so every output must be bit-exact.
 
 This file imports no JAX, so it runs where JAX is absent:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py``.
@@ -15,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from qtpu_torch.ops import qblock as tblock
 from qtpu_torch.ops import qconv as tconv
 from qtpu_torch.ops import qdepthwise as tdw
 from qtpu_torch.ops import qmatmul as tmm
 from qtpu_torch.ops import qops as tq
+from qtpu_torch.ops import qproj as tproj
+from qtpu_torch.ops import qtail as ttail
 from qtpu_torch.ops.qconv_dispatch import (qconv2d_strided,
                                            qconv2d_strided_plain)
 
@@ -170,3 +175,115 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):                      # weight not (9, C)
         tdw.qdepthwise_folded(xd, wd[:, :4].contiguous(), None, None,
                               kernel_hw=(3, 3), raw_acc=True)
+
+
+# -- K4 qproj, K5 qtail, K6 qblock -------------------------------------------
+
+def _requant(n, k, dev, zp_out, **kw):
+    """Folded coefficients of an affine requant with relu, on ``dev``."""
+    return tq.epilogue_coeffs(
+        act_scale=0.02, act_zp=int(RNG.integers(-20, 20)),
+        w_scale=_dev(RNG.uniform(0.001, 0.01, n).astype(np.float32), dev),
+        colsum=_dev(RNG.integers(-127 * k // 8, 127 * k // 8, n).astype(
+            np.int32), dev),
+        bias=_dev(RNG.standard_normal(n).astype(np.float32), dev),
+        requant_scale=0.05, requant_zp=zp_out, relu=True, **kw)
+
+
+def _i8(dev, *shape):
+    return _dev(RNG.integers(-128, 128, shape).astype(np.int8), dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hx,Wx,cmid,cin,cout,stride", [
+    (1, 7, 8, 16, 32, 64, 1), (2, 9, 10, 64, 64, 256, 2),
+    (3, 5, 6, 128, 256, 72, 2), (8, 56, 56, 64, 64, 256, 1),
+    (1, 14, 14, 512, 1024, 2048, 2), (2, 28, 28, 128, 256, 512, 2)])
+def test_qproj_kernel_matches_plain(cuda, B, Hx, Wx, cmid, cin, cout,
+                                    stride):
+    H, W = -(-Hx // stride), -(-Wx // stride)
+    b, x = _i8(cuda, B, H, W, cmid), _i8(cuda, B, Hx, Wx, cin)
+    w3, wd = _i8(cuda, cout, cmid), _i8(cuda, cout, cin)
+    co3, mode3 = _requant(cout, cmid, cuda, -3, res_f32=True)
+    cod, _ = tq.epilogue_coeffs(
+        act_scale=0.03, act_zp=-4,
+        w_scale=_dev(RNG.uniform(0.001, 0.01, cout).astype(np.float32),
+                     cuda),
+        colsum=_dev(RNG.integers(-2000, 2000, cout).astype(np.int32), cuda))
+    n0 = tproj.qproj_folded.launches
+    got = tproj.qproj_folded(b, x, w3, wd, co3, mode3, cod, stride=stride)
+    torch.cuda.synchronize()
+    assert tproj.qproj_folded.launches == n0 + 1
+    ref = tproj.qproj_folded_plain(b, x, w3, wd, co3, mode3, cod,
+                                   stride=stride)
+    assert got.dtype == ref.dtype == torch.int8
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hin,Win,cmid,cout,pad", [
+    (1, 7, 8, 16, 64, 1), (2, 9, 10, 64, 256, 1), (3, 5, 6, 32, 40, 1),
+    (2, 14, 14, 256, 1024, 1), (1, 7, 7, 512, 2048, 1),
+    (2, 8, 9, 48, 192, 0), (1, 3, 3, 16, 64, 0)])
+def test_qtail_kernel_matches_plain(cuda, B, Hin, Win, cmid, cout, pad):
+    H, W = Hin + 2 * pad - 2, Win + 2 * pad - 2
+    a, r = _i8(cuda, B, Hin, Win, cmid), _i8(cuda, B, H, W, cout)
+    w2, w3 = _i8(cuda, cmid, 9 * cmid), _i8(cuda, cout, cmid)
+    co2, mode2 = _requant(cmid, 9 * cmid, cuda, 7)
+    co3, mode3 = _requant(cout, cmid, cuda, -3, res_scale=0.03, res_zp=6)
+    zp = int(RNG.integers(-20, 20))
+    n0 = ttail.qtail_folded.launches
+    got = ttail.qtail_folded(a, r, w2, w3, co2, mode2, co3, mode3, pad=pad,
+                             zp=zp)
+    torch.cuda.synchronize()
+    assert ttail.qtail_folded.launches == n0 + 1
+    ref = ttail.qtail_folded_plain(a, r, w2, w3, co2, mode2, co3, mode3,
+                                   pad=pad, zp=zp)
+    assert got.shape == ref.shape == (B, H, W, cout)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cin,cmid", [
+    (1, 7, 8, 64, 16), (2, 9, 10, 256, 64), (3, 5, 6, 48, 32),
+    (2, 14, 14, 1024, 256), (1, 7, 7, 2048, 512), (2, 1, 2, 64, 16)])
+def test_qblock_kernel_matches_plain(cuda, B, H, W, cin, cmid):
+    x = _i8(cuda, B, H, W, cin)
+    w1, w2, w3 = (_i8(cuda, cmid, cin), _i8(cuda, cmid, 9 * cmid),
+                  _i8(cuda, cin, cmid))
+    co1, mode1 = _requant(cmid, cin, cuda, 11)
+    co2, mode2 = _requant(cmid, 9 * cmid, cuda, 7)
+    co3, mode3 = _requant(cin, cmid, cuda, -3, res_scale=0.03, res_zp=6)
+    zp2 = int(RNG.integers(-20, 20))
+    n0 = tblock.qblock_folded.launches
+    got = tblock.qblock_folded(x, w1, w2, w3, co1, mode1, co2, mode2, co3,
+                               mode3, zp2=zp2)
+    torch.cuda.synchronize()
+    assert tblock.qblock_folded.launches == n0 + 1
+    ref = tblock.qblock_folded_plain(x, w1, w2, w3, co1, mode1, co2, mode2,
+                                     co3, mode3, zp2=zp2)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_fused_wrappers_refuse_bad_inputs(cuda):
+    co, mode = _requant(64, 16, cuda, 0)
+    co16, mode16 = _requant(16, 16, cuda, 0)
+    a = _i8(cuda, 1, 4, 4, 16)
+    with pytest.raises(ValueError):                      # residual shape
+        ttail.qtail_folded(a, _i8(cuda, 1, 3, 4, 64), _i8(cuda, 16, 144),
+                           _i8(cuda, 64, 16), co16, mode16, co, mode)
+    with pytest.raises(ValueError):                      # Cmid % 16
+        ttail.qtail_folded(_i8(cuda, 1, 4, 4, 8), _i8(cuda, 1, 4, 4, 64),
+                           _i8(cuda, 8, 72), _i8(cuda, 64, 8), co16, mode16,
+                           co, mode)
+    with pytest.raises(ValueError):                      # not int8
+        tproj.qproj_folded(a.float(), a, _i8(cuda, 64, 16), _i8(cuda, 64, 16),
+                           co, mode, co)
+    with pytest.raises(ValueError):                      # stride 3
+        tproj.qproj_folded(a[:, :2, :2].contiguous(), a, _i8(cuda, 64, 16),
+                           _i8(cuda, 64, 16), co, mode, co, stride=3)
+    with pytest.raises(ValueError):                      # conv1 shape
+        tblock.qblock_folded(_i8(cuda, 1, 4, 4, 64), _i8(cuda, 16, 32),
+                             _i8(cuda, 16, 144), _i8(cuda, 64, 16), co16,
+                             mode16, co16, mode16, co, mode, zp2=0)
