@@ -18,7 +18,11 @@ success):
    at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather path),
    and the fused bottleneck kernels at one ResNet-50 block per stage: K4
    (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
-   (qtail) and K6 (qblock) at layer1-layer4;
+   (qtail) and K6 (qblock) at layer1-layer4, and the chained kernels at the
+   runs the chained engines give them — K7 (qstage) at ResNet-50's four
+   identity runs, K8 (qstage_proj) at its whole layer1, K9 (qivr) at
+   MobileNet-v2's five inverted-residual runs; K4-K9 also against the
+   unfused K1/K2/K3 sequence each replaces;
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -28,41 +32,48 @@ success):
      plain path; the served logits are finite and match the flat engine's
      forward;
    * the same frozen tree served by ``ExperimentalResNetInt8Engine`` in its
-     two configurations, through ``ServingEngine`` with a forward factory:
+     three configurations, through ``ServingEngine`` with a forward factory:
      ``tail`` (``use_qtail`` + ``use_qproj``: 17 K1, 4 K2, 4 K4, 12 K5 per
-     forward) and ``block`` (``use_qblock`` + ``use_qproj``: 5 K1, 4 K2,
-     4 K4, 12 K6);
+     forward), ``block`` (``use_qblock`` + ``use_qproj``: 5 K1, 4 K2,
+     4 K4, 12 K6) and ``stage`` (``use_qstage`` + ``qstage_proj`` +
+     ``use_qproj``: 4 K1, 3 K2, 3 K4, 3 K7, 1 K8);
    * the same for ``mobilenetv2_imagenet_int8_ptq_fp32stem`` (17 inverted
      residuals, the 320→1280 head): 35 K1 and 17 K3 launches per forward,
-     no K2, none on the plain path;
+     no K2, none on the plain path; the same tree through
+     ``ExperimentalMobileNetV2Int8Engine`` ``ivr`` (``use_qivr``: 15 K1,
+     7 K3, 5 K9);
    * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
      and ``mobilenetv1_imagenet_int8_ptq``: 14 K1 and 13 K3 launches, plus
      one K2 for the quantized 3×3/2 stem;
-5. the ResNet-50 (product, tail, block), MobileNet-v2 and quantized-stem
-   MobileNet-v1 engines against the same engines on the CPU (the plain
-   path) on two images: codes after every block follow the tie rule (equal
-   except one step on ≤ 0.1% of elements; v1's last block emits f32, equal
-   to rtol 1e-6), logits agree to rel-L2 ≤ 1e-4; on the card, the tail and
-   block engines' codes after every block against the product engine's
-   (the fused kernels are bit-exact against the sequence they replace);
+5. the ResNet-50 (product, tail, block, stage), MobileNet-v2 (product,
+   ivr) and quantized-stem MobileNet-v1 engines against the same engines on
+   the CPU (the plain path) on two images: codes after every step of the
+   forward (a block, or a chained run) follow the tie rule (equal except
+   one step on ≤ 0.1% of elements; v1's last block emits f32, equal to rtol
+   1e-6), logits agree to rel-L2 ≤ 1e-4; on the card, the tail, block,
+   stage and ivr engines' codes after every step equal the product
+   engine's (the fused and chained kernels are bit-exact against the
+   sequence they replace);
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
-   as one CUDA graph beside it — ResNet-50 (product, tail, block) at
-   B = 128, MobileNet-v2 at B = 32 and 128; each kernel's device time
-   (repeated launches captured in a CUDA graph) beside its bound, its plain
-   version and a library yardstick that computes the int32 accumulator
-   only, without the epilogue: ``torch._int_mm`` for K1, cuDNN's fp32
-   ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the zero-point-padded
-   codes for K2 and K3 (no single PyTorch call computes a fused bottleneck
-   piece, so K4-K6 have none); for K4-K6 also the device time of the
-   unfused K1/K2 sequence each replaces, at B = 8 and B = 128; a profiler
-   breakdown of one B = 128 forward of each engine.
+   as one CUDA graph beside it — ResNet-50 (product, tail, block, stage)
+   at B = 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
+   device time (repeated launches captured in a CUDA graph) beside its
+   bound, its plain version and a library yardstick that computes the
+   int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1,
+   cuDNN's fp32 ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the
+   zero-point-padded codes for K2 and K3 (no single PyTorch call computes
+   a fused bottleneck piece or a chained run, so K4-K9 have none); for
+   K4-K9 also the device
+   time of the unfused K1/K2/K3 sequence each replaces, at B = 8 and
+   B = 128; a profiler breakdown of one B = 128 forward of each engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +90,8 @@ SRC_K3 = "qtpu_torch/csrc/qdepthwise.cu"
 SRC_K4 = "qtpu_torch/csrc/qproj.cu"
 SRC_K5 = "qtpu_torch/csrc/qtail.cu"
 SRC_K6 = "qtpu_torch/csrc/qblock.cu"
+SRC_K78 = "qtpu_torch/csrc/qstage.cu"
+SRC_K9 = "qtpu_torch/csrc/qivr.cu"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
 TPU_K2S = "qtpu/ops/pallas/qconv_dispatch.py:42"
@@ -87,14 +100,22 @@ TPU_K4 = "qtpu/ops/pallas/qproj.py:69"
 TPU_K4_2D = "qtpu/ops/pallas/qproj.py:152"
 TPU_K5 = "qtpu/ops/pallas/qtail.py:94"
 TPU_K6 = "qtpu/ops/pallas/qblock.py:93"
+TPU_K7 = "qtpu/ops/pallas/qstage.py:159"
+TPU_K8 = "qtpu/ops/pallas/qstage.py:268"
+TPU_K9 = "qtpu/ops/pallas/qivr.py:112"
 NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
-              "(two or three convolutions with requants between)")
+              "or a chained run (two or more convolutions with requants "
+              "between)")
 # experimental engine configurations: flags, launches per forward
-# (K1, K2, K3, K4, K5, K6, plain)
+# (K1, K2, K3, K4, K5, K6, K7, K8, K9, plain)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
-                       (17, 4, 0, 4, 12, 0, 0)),
+                       (17, 4, 0, 4, 12, 0, 0, 0, 0, 0)),
               "block": (dict(use_qblock=True, use_qproj=True),
-                        (5, 4, 0, 4, 0, 12, 0))}
+                        (5, 4, 0, 4, 0, 12, 0, 0, 0, 0)),
+              "stage": (dict(use_qstage=True, qstage_proj=True,
+                             use_qproj=True),
+                        (4, 3, 0, 3, 0, 0, 3, 1, 0, 0))}
+MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0)
 RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
@@ -155,8 +176,12 @@ def timed_eager(torch, fn, iters):
     return events_ms(torch, run, iters)
 
 
-def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS):
-    tb, to = nbytes / PEAK_BYTES, ops / peak_ops
+def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS, cuda_core_ops=0):
+    """The least time (ms) for the work, and what bounds it: bytes at the
+    memory rate, operations at their unit's peak — the int8 tensor cores,
+    or outside them for ``cuda_core_ops`` (the depthwise taps)."""
+    tb = nbytes / PEAK_BYTES
+    to = max(ops / peak_ops, cuda_core_ops / PEAK_CUDA_CORE_OPS)
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
@@ -174,13 +199,16 @@ def main() -> int:
     from qtpu_torch.ops import qblock as k6
     from qtpu_torch.ops import qconv as k2
     from qtpu_torch.ops import qdepthwise as k3
+    from qtpu_torch.ops import qivr as k9
     from qtpu_torch.ops import qmatmul as k1
     from qtpu_torch.ops import qproj as k4
+    from qtpu_torch.ops import qstage as k78
     from qtpu_torch.ops import qtail as k5
     from qtpu_torch.serve.cli import build_engine, freeze_from_config
     from qtpu_torch.serve.dispatch import resnet_arch
     from qtpu_torch.serve.engine import ServingEngine
-    from qtpu_torch.serve.experimental import ExperimentalResNetInt8Engine
+    from qtpu_torch.serve.experimental import (
+        ExperimentalMobileNetV2Int8Engine, ExperimentalResNetInt8Engine)
     from qtpu_torch.serve.fused_ops import grid_of
     from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
@@ -447,7 +475,7 @@ def main() -> int:
         name, src, tpu, path = fused_meta[kind]
         kernels.append(dict(
             name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
-            path=path, kind=kind, case=(H, cmid, cout, cin, s),
+            path=path, kernel=kind, kind=kind, case=(H, cmid, cout, cin, s),
             shape=f"B=8 H={H} Cmid={cmid} Cout={cout} Cin={cin} /{s}",
             max_abs_err=err, ms=timed(torch, run_k, 50),
             eager_ms=timed_eager(torch, run_k, 50),
@@ -456,11 +484,151 @@ def main() -> int:
             library_ms=None, library_note=NO_LIBRARY))
     log("K4-K6 equal to the unfused K1/K2 sequences they replace")
 
+    pad1 = ((1, 1), (1, 1))
+
+    def chain_unfused(x, w1, w2, w3, co, B, H, cin, cmid):
+        """K7's chain as the product engine runs it: K1 → K2 (zero-point
+        pad) → K1 + residual per block, the blocks' coefficients."""
+        for i in range(w1.shape[0]):
+            (co1, m1), (co2, m2), (co3, m3), zp = co.block(i)
+            a = k1.qmatmul_folded(x.reshape(-1, cin), w1[i], co1, m1)
+            b = k2.qconv2d_folded(qops.pad_nhwc(a.reshape(B, H, H, cmid),
+                                                pad1, zp), w2[i], co2, m2,
+                                  kernel_hw=(3, 3))
+            x = k1.qmatmul_folded(b.reshape(-1, cmid), w3[i], co3, m3,
+                                  x.reshape(-1, cin)).reshape(B, H, H, cin)
+        return x
+
+    def chain_case(kind, B, H, dims):
+        """K7/K8/K9 at one run of the chained engines: (run kernel, run
+        plain, run the unfused K1/K2/K3 sequence it replaces, bytes, int8
+        GEMM operations, CUDA-core operations).  Bytes count x once in and
+        once out, the weights and the coefficient rows."""
+        M = B * H * H
+        res_i8 = dict(res_scale=0.04, res_zp=-7, **requant)
+        if kind == "K9":
+            c, e, n = dims
+            x = i8(B, H, H, c)
+            w1, wd, w3 = (i8(n, e, c, lo=-127), i8(n, 9, e, lo=-127),
+                          i8(n, c, e, lo=-127))
+            co = k78.stack_chain([
+                (coeffs(e, c, **relu6), coeffs(e, 9, **relu6),
+                 coeffs(c, e, requant_scale=0.05, requant_zp=-20,
+                        res_scale=0.04, res_zp=-7), -9) for _ in range(n)])
+            args = (x, w1, wd, w3, co)
+
+            def unfused():
+                y = x
+                for i in range(n):
+                    (co1, m1), (co2, m2), (co3, m3), zp = co.block(i)
+                    a = k1.qmatmul_folded(y.reshape(-1, c), w1[i], co1, m1)
+                    d = k3.qdepthwise_folded(
+                        a.reshape(B, H, H, e), wd[i], co2, m2,
+                        kernel_hw=(3, 3), stride=1, padding="SAME", zp=zp)
+                    y = k1.qmatmul_folded(d.reshape(-1, e), w3[i], co3, m3,
+                                          y.reshape(-1, c)).reshape(
+                                              B, H, H, c)
+                return y
+            return (lambda: k9.qivr_folded(*args),
+                    lambda: k9.qivr_folded_plain(*args), unfused,
+                    2 * x.numel() + w1.numel() + wd.numel() + w3.numel()
+                    + n * (16 * e + 8 * c + 48),
+                    2 * M * n * e * 2 * c, 2 * M * n * e * 9)
+        if kind == "K7":
+            cin, cmid, n = dims
+        else:
+            cp, cm, cin, cmid, n = dims
+        x = i8(B, H, H, cin if kind == "K7" else cp)
+        w1, w2, w3 = (i8(n, cmid, cin, lo=-127), i8(n, cmid, 9 * cmid,
+                                                     lo=-127),
+                      i8(n, cin, cmid, lo=-127))
+        co = k78.stack_chain([
+            (coeffs(cmid, cin, **requant), coeffs(cmid, 9 * cmid, **requant),
+             coeffs(cin, cmid, **res_i8), -9) for _ in range(n)])
+        nbytes = (x.numel() + M * cin + w1.numel() + w2.numel() + w3.numel()
+                  + n * (16 * cmid + 8 * cin + 48))
+        ops = 2 * M * n * cmid * (2 * cin + 9 * cmid)
+        if kind == "K7":
+            args = (x, w1, w2, w3, co)
+            return (lambda: k78.qstage_folded(*args),
+                    lambda: k78.qstage_folded_plain(*args),
+                    lambda: chain_unfused(x, w1, w2, w3, co, B, H, cin,
+                                          cmid),
+                    nbytes, ops, 0)
+        wp = (i8(cm, cp, lo=-127), i8(cm, 9 * cm, lo=-127),
+              i8(cin, cm, lo=-127), i8(cin, cp, lo=-127))
+        pco = k78.stack_chain([(coeffs(cm, cp, **requant),
+                                coeffs(cm, 9 * cm, **requant),
+                                coeffs(cin, cm, res_f32=True, **requant),
+                                -9)])
+        cod, dmode = coeffs(cin, cp)
+        args = (x, *wp, pco, cod, w1, w2, w3, co)
+
+        def unfused():
+            (co1, m1), (co2, m2), (co3, m3), zp = pco.block(0)
+            a = k1.qmatmul_folded(x.reshape(-1, cp), wp[0], co1, m1)
+            b = k2.qconv2d_folded(qops.pad_nhwc(a.reshape(B, H, H, cm), pad1,
+                                                zp), wp[1], co2, m2,
+                                  kernel_hw=(3, 3))
+            td = k1.qmatmul_folded(x.reshape(-1, cp), wp[3], cod, dmode)
+            x1 = k1.qmatmul_folded(b.reshape(-1, cm), wp[2], co3, m3, td)
+            return chain_unfused(x1.reshape(B, H, H, cin), w1, w2, w3, co, B,
+                                 H, cin, cmid)
+        return (lambda: k78.qstage_proj_folded(*args),
+                lambda: k78.qstage_proj_folded_plain(*args), unfused,
+                nbytes + sum(w.numel() for w in wp) + 16 * cm + 16 * cin
+                + 48, ops + 2 * M * (cm * (cp + 9 * cm + cin) + cp * cin), 0)
+
+    # (kind, label, H, dims): the chained engines' runs at B = 8 — K7
+    # (Cin, Cmid, blocks), K8 (Cp, Cm, Co, Cmid, chained blocks), K9 (C, E,
+    # blocks); H is the run's
+    chain_cases = [
+        ("K7", "layer1 run", 56, (256, 64, 2)),
+        ("K7", "layer2 run", 28, (512, 128, 3)),
+        ("K7", "layer3 run", 14, (1024, 256, 5)),
+        ("K7", "layer4 run", 7, (2048, 512, 2)),
+        ("K8", "layer1 whole stage", 56, (64, 64, 256, 64, 2)),
+        ("K9", "block2 run", 56, (24, 144, 1)),
+        ("K9", "block4-5 run", 28, (32, 192, 2)),
+        ("K9", "block7-9 run", 14, (64, 384, 3)),
+        ("K9", "block11-12 run", 14, (96, 576, 2)),
+        ("K9", "block14-15 run", 7, (160, 960, 2)),
+    ]
+    chain_meta = {"K7": ("qstage_fused", SRC_K78, TPU_K7, "stage"),
+                  "K8": ("qstage_proj_fused", SRC_K78, TPU_K8, "stage"),
+                  "K9": ("qivr_fused", SRC_K9, TPU_K9, "ivr")}
+    for kind, label, H, dims in chain_cases:
+        run_k, run_p, run_u, nbytes, ops, dw_ops = chain_case(kind, 8, H,
+                                                              dims)
+        y, err = compare(f"{kind} {label}", run_k, run_p)
+        check(torch.equal(run_u(), y), f"{kind} {label}: kernel differs "
+              "from the unfused K1/K2/K3 sequence")
+        b_ms, b_by = bound(nbytes, ops, cuda_core_ops=dw_ops)
+        name, src, tpu, path = chain_meta[kind]
+        kernels.append(dict(
+            name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
+            path=path, kernel=kind, kind=kind, case=(H, dims),
+            shape=f"B=8 H={H} " + " ".join(
+                f"{k}={v}" for k, v in zip(
+                    {"K7": ("Cin", "Cmid", "N"),
+                     "K8": ("Cp", "Cm", "Co", "Cmid", "N"),
+                     "K9": ("C", "E", "N")}[kind], dims)),
+            max_abs_err=err, ms=timed(torch, run_k, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 3),
+            unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_note=NO_LIBRARY))
+        del run_k, run_p, run_u
+    log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace")
+
     kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
-             k4.qproj_folded, k5.qtail_folded, k6.qblock_folded)
+             k4.qproj_folded, k5.qtail_folded, k6.qblock_folded,
+             k78.qstage_folded, k78.qstage_proj_folded, k9.qivr_folded)
     plains = (k1.qmatmul_folded_plain, k2.qconv2d_folded_plain,
               k3.qdepthwise_folded_plain, k4.qproj_folded_plain,
-              k5.qtail_folded_plain, k6.qblock_folded_plain)
+              k5.qtail_folded_plain, k6.qblock_folded_plain,
+              k78.qstage_folded_plain, k78.qstage_proj_folded_plain,
+              k9.qivr_folded_plain)
 
     def zero_counts():
         for k in kmods:
@@ -469,12 +637,12 @@ def main() -> int:
             p.calls = 0
 
     def counts():
-        """(K1, K2, K3, K4, K5, K6 launches, plain-version calls)."""
+        """(K1 .. K9 launches, plain-version calls)."""
         return (*(k.launches for k in kmods), sum(p.calls for p in plains))
 
     def fmt_counts(c):
-        return ", ".join(f"K{i + 1} {n}" for i, n in enumerate(c[:6])) + \
-            f", plain path {c[6]}"
+        return ", ".join(f"K{i + 1} {n}" for i, n in enumerate(c[:-1])) + \
+            f", plain path {c[-1]}"
 
     def one_forward(flat, x, expect, what):
         zero_counts()
@@ -482,7 +650,7 @@ def main() -> int:
             y = flat.forward(x)
         torch.cuda.synchronize()
         got = counts()
-        check(got == expect, f"{what}: one forward launched K1..K6/plain = "
+        check(got == expect, f"{what}: one forward launched K1..K9/plain = "
               f"{got}, expected {expect}")
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
         log(f"{what}, one forward: {fmt_counts(got)}")
@@ -511,7 +679,7 @@ def main() -> int:
             engine.stop()
         rounds = st["batches"] - rounds0
         check(run_counts == tuple(n * rounds for n in per_fwd),
-              f"{what}: serving {rounds} rounds launched K1..K6/plain "
+              f"{what}: serving {rounds} rounds launched K1..K9/plain "
               f"= {run_counts}")
         check(len(st["rounds_per_bucket"]) >= 2,
               f"requests did not span two buckets: {st['rounds_per_bucket']}")
@@ -545,24 +713,35 @@ def main() -> int:
                        cifar_stem=cfg.cifar_stem)
     rn50, rn50_counts, rn50_vars = serve(
         RN50, lambda v: ResNetInt8Engine(v, arch, device=dev),
-        (37, 16, 0, 0, 0, 0, 0))
+        (37, 16, 0, 0, 0, 0, 0, 0, 0, 0))
     # the experimental engine's two configurations on the same frozen tree,
     # served as qtpu serves it: ServingEngine with a forward factory
     fused, path_counts = {}, {"rn50": rn50_counts}
-    for cname, (flags, per_fwd) in RN50_FUSED.items():
-        what = f"{RN50} [{cname}]"
-        flat = fused[cname] = ExperimentalResNetInt8Engine(
-            rn50_vars, arch, device=dev, **flags)
-        engine = ServingEngine(None, rn50_vars, batch_buckets=(8, 32, 128),
+    def serve_factory(what, tree, flat, per_fwd):
+        """``flat`` served as qtpu serves an experimental engine:
+        ServingEngine with a forward factory, over ``tree``."""
+        engine = ServingEngine(None, tree, batch_buckets=(8, 32, 128),
                                max_wait_ms=20.0,
-                               forward_factory=lambda sv, f=flat: f.forward,
+                               forward_factory=lambda sv: flat.forward,
                                device=dev)
         engine.warmup((224, 224, 3))
-        path_counts[cname] = drive(what, engine, flat, per_fwd, 1000)
+        return drive(what, engine, flat, per_fwd, 1000)
+
+    for cname, (flags, per_fwd) in RN50_FUSED.items():
+        flat = fused[cname] = ExperimentalResNetInt8Engine(
+            rn50_vars, arch, device=dev, **flags)
+        path_counts[cname] = serve_factory(f"{RN50} [{cname}]", rn50_vars,
+                                           flat, per_fwd)
     mnv2, mnv2_counts, mnv2_vars = serve(
         MNV2, lambda v: MobileNetV2Int8Engine(v, num_classes=1000,
                                               device=dev),
-        (35, 0, 17, 0, 0, 0, 0))
+        (35, 0, 17, 0, 0, 0, 0, 0, 0, 0))
+    ivr = ExperimentalMobileNetV2Int8Engine(mnv2_vars, num_classes=1000,
+                                            device=dev, use_qivr=True)
+    check(sum(p["nrun"] for p in ivr._qivr_prep.values()) == 10
+          and len(ivr._qivr_prep) == 5, "ivr: not 10 blocks in 5 runs")
+    path_counts["ivr"] = serve_factory(f"{MNV2} [ivr]", mnv2_vars, ivr,
+                                       MNV2_IVR)
     for name in MNV1:
         c = CONFIGS[name]
         t0 = time.monotonic()
@@ -572,14 +751,16 @@ def main() -> int:
                                      device=dev)
         mnv1_counts = one_forward(mnv1, torch.from_numpy(imgs[:8]).to(dev),
                                   (14, int("stem" in tree["qweights"]), 13,
-                                   0, 0, 0, 0), name)
+                                   0, 0, 0, 0, 0, 0, 0), name)
     # the last of MNV1 has the quantized stem: K2 at Ci = 3
     check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
     path_counts.update(mnv2=mnv2_counts, mnv1=mnv1_counts)
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
+        if "kernel" not in kern:
+            kern["kernel"] = f"K{srcs.index(kern['source']) + 1}"
         kern["launches"] = path_counts[kern["path"]][
-            srcs.index(kern["source"])]
+            int(kern["kernel"][1:]) - 1]
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -600,63 +781,53 @@ def main() -> int:
         check(rel <= 1e-4, f"{what}: card vs CPU logits rel-L2 {rel}")
         return rel
 
-    def resnet_vs_cpu(flat, cpu, what, ref=None):
-        """Block by block, card against CPU (tie rule), and, given the
-        product engine ``ref`` on the card, the codes that differ from its
-        (the fused kernels are bit-exact against the sequence they
-        replace, so none should)."""
+    def first_grid(eng):
+        if isinstance(eng, MobileNetV2Int8Engine):
+            return eng._block_in_grid(eng._blocks()[0][0])
+        return grid_of(eng._node(eng._block_names()[0][0], "conv1"))
+
+    def walk_vs_cpu(flat, cpu, what, ref=None):
+        """Step by step through the forward's plan (a block, or a chained
+        run), card against CPU (tie rule), and, given the product engine
+        ``ref`` on the card, the codes after each step against its blocks'
+        (the fused and chained kernels are bit-exact against the sequence
+        they replace, so none may differ)."""
         worst, differ = 0.0, 0
         with torch.inference_mode():
-            names = flat._block_names()
-            gg = grid_of(flat._node(names[0][0], "conv1"))
-            cg = grid_of(cpu._node(names[0][0], "conv1"))
+            gg, cg = first_grid(flat), first_grid(cpu)
             g_codes = flat._stem(x2.to(dev), gg)
             worst = max(worst, tie_rule(g_codes, cpu._stem(x2, cg), "stem"))
-            for idx, (name, i, j) in enumerate(names):
-                s = (2, 2) if (i > 0 and j == 0) else (1, 1)
-                nxt = (names[idx + 1][0], "conv1") if idx + 1 < len(names) \
-                    else ("fc",)
-                gn, cn = grid_of(flat._node(*nxt)), grid_of(cpu._node(*nxt))
-                g_out = flat._bottleneck(g_codes, gg, name, s, gn)
-                c_out = cpu._bottleneck(g_codes.cpu(), cg, name, s, cn)
-                worst = max(worst, tie_rule(g_out, c_out, f"{what} {name}"))
+            plan = flat._plan()
+            for step in plan:
+                g_out, gn = flat._step(g_codes, gg, step)
+                c_out, cn = cpu._step(g_codes.cpu(), cg, step)
+                worst = max(worst, tie_rule(g_out, c_out,
+                                            f"{what} step {step}"))
                 if ref is not None:
-                    r_out = ref._bottleneck(g_codes, gg, name, s, gn)
-                    tie_rule(g_out, r_out.cpu(), f"{what} {name} vs product")
+                    r_out, rg = g_codes, gg
+                    for k in range(step[0], step[0] + step[1]):
+                        r_out, rg = ref._step(r_out, rg, (k, 1, None))
                     differ += int((g_out != r_out).sum().item())
                 g_codes, gg, cg = g_out, gn, cn
         rel_cpu = logits_agree(flat, cpu, what)
-        log(f"{what}, card vs CPU plain path: worst block {worst:.2e} of "
-            f"codes differ, logits rel-L2 {rel_cpu:.2e}" + (
-                "" if ref is None else
-                f"; card vs the product engine on the card: {differ} codes "
-                "differ over all blocks"))
-        return differ
+        check(differ == 0, f"{what}: {differ} codes differ from the product "
+              "engine's on the card")
+        log(f"{what}, card vs CPU plain path over {len(plan)} steps: worst "
+            f"step {worst:.2e} of codes differ, logits rel-L2 {rel_cpu:.2e}"
+            + ("" if ref is None else
+               "; card vs the product engine on the card: 0 codes differ "
+               "at every step"))
 
-    resnet_vs_cpu(rn50, ResNetInt8Engine(rn50_vars, arch, device="cpu"),
-                  RN50)
+    walk_vs_cpu(rn50, ResNetInt8Engine(rn50_vars, arch, device="cpu"), RN50)
     for cname, (flags, _) in RN50_FUSED.items():
-        resnet_vs_cpu(fused[cname], ExperimentalResNetInt8Engine(
+        walk_vs_cpu(fused[cname], ExperimentalResNetInt8Engine(
             rn50_vars, arch, device="cpu", **flags), f"{RN50} [{cname}]",
             ref=rn50)
-
-    cpu = MobileNetV2Int8Engine(mnv2_vars, num_classes=1000, device="cpu")
-    worst = 0.0
-    with torch.inference_mode():
-        blocks = mnv2._blocks()
-        gg = mnv2._block_in_grid(blocks[0][0])
-        g_codes = mnv2._stem(x2.to(dev), gg)
-        worst = max(worst, tie_rule(g_codes, cpu._stem(x2, gg), "stem"))
-        for i, (name, _, stride) in enumerate(blocks):
-            gn = (mnv2._block_in_grid(blocks[i + 1][0])
-                  if i + 1 < len(blocks) else grid_of(mnv2._node("head")))
-            g_out = mnv2._block(g_codes, gg, name, stride, gn)
-            c_out = cpu._block(g_codes.cpu(), gg, name, stride, gn)
-            worst = max(worst, tie_rule(g_out, c_out, name))
-            g_codes, gg = g_out, gn
-    rel_cpu = logits_agree(mnv2, cpu, MNV2)
-    log(f"{MNV2}, card vs CPU plain path: worst block {worst:.2e} of codes "
-        f"differ, logits rel-L2 {rel_cpu:.2e}")
+    walk_vs_cpu(mnv2, MobileNetV2Int8Engine(mnv2_vars, num_classes=1000,
+                                            device="cpu"), MNV2)
+    walk_vs_cpu(ivr, ExperimentalMobileNetV2Int8Engine(
+        mnv2_vars, num_classes=1000, device="cpu", use_qivr=True),
+        f"{MNV2} [ivr]", ref=mnv2)
 
     # MobileNet-v1 with the quantized stem (K2 at Ci = 3), the tree of the
     # last phase-4 forward
@@ -688,7 +859,9 @@ def main() -> int:
     for what, flat, batches in ((RN50, rn50, (128,)),
                                 (f"{RN50} [tail]", fused["tail"], (128,)),
                                 (f"{RN50} [block]", fused["block"], (128,)),
-                                (MNV2, mnv2, (32, 128))):
+                                (f"{RN50} [stage]", fused["stage"], (128,)),
+                                (MNV2, mnv2, (32, 128)),
+                                (f"{MNV2} [ivr]", ivr, (32, 128))):
         for B in batches:
             x = torch.randn((B, 224, 224, 3), generator=g).to(dev)
             with torch.inference_mode():
@@ -698,13 +871,21 @@ def main() -> int:
                 f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
                 f"{graph_ms:.3f} ms)")
         profile_forward(what, flat, x, torch)
-    # K4-K6 against the unfused sequence at the B = 128 operating point
+    # K4-K9 against the unfused sequence at the B = 128 operating point
     for kern in kernels:
         if "kind" not in kern:
             continue
-        H, cmid, cout, cin, s = kern.pop("case")
-        run_k, _, run_u, _, _ = fused_case(kern.pop("kind"), 128, H, cmid,
-                                           cout, cin, s)
+        kind = kern.pop("kind")
+        if kind in chain_meta:
+            H, dims = kern.pop("case")
+            run_k, _, run_u, nbytes, ops, dw_ops = chain_case(kind, 128, H,
+                                                              dims)
+            kern["bound_ms_b128"] = bound(nbytes, ops,
+                                          cuda_core_ops=dw_ops)[0]
+        else:
+            H, cmid, cout, cin, s = kern.pop("case")
+            run_k, _, run_u, _, _ = fused_case(kind, 128, H, cmid, cout,
+                                               cin, s)
         check(torch.equal(run_k(), run_u()), f"{kern['name']}: kernel "
               "differs from the unfused sequence at B = 128")
         kern["ms_b128"] = timed(torch, run_k, 10)
@@ -713,16 +894,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     for kern in kernels:
         extra = ("" if "unfused_ms" not in kern else
-                 f"; the unfused K1/K2 sequence {kern['unfused_ms']:.4f} ms; "
-                 f"at B = 128 {kern['ms_b128']:.4f} ms against "
-                 f"{kern['unfused_ms_b128']:.4f} ms unfused")
+                 f"; the unfused K1/K2/K3 sequence {kern['unfused_ms']:.4f} "
+                 f"ms; at B = 128 {kern['ms_b128']:.4f} ms against "
+                 f"{kern['unfused_ms_b128']:.4f} ms unfused" + (
+                     "" if "bound_ms_b128" not in kern else
+                     f" (bound {kern['bound_ms_b128']:.4f} ms)"))
         log(f"{kern['name']} {kern['shape']}: {kern['ms']:.4f} ms on the "
             f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
             f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}{extra}; "
             f"{kern['launches']} launches in the {kern['path']} serving run)")
     log("library: K1 torch._int_mm, K2/K3 cuDNN fp32 F.conv2d (TF32 off) on "
-        "the zero-point-padded codes — the int32 accumulator only; K4-K6 "
+        "the zero-point-padded codes — the int32 accumulator only; K4-K9 "
         f"none: {NO_LIBRARY}")
 
     print(json.dumps({"kernels": kernels}))
@@ -751,7 +934,11 @@ def profile_forward(what, flat, x, torch):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        fam = ("K4 qproj_fused" if "qproj_kernel" in e.key else
+        fam = ("K8 qstage_proj_fused" if re.search(
+            r"qstage_kernel<\w+, true>", e.key) else
+               "K7 qstage_fused" if "qstage_kernel" in e.key else
+               "K9 qivr_fused" if "qivr_kernel" in e.key else
+               "K4 qproj_fused" if "qproj_kernel" in e.key else
                "K5 qtail_fused" if "qtail_kernel" in e.key else
                "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
                "K1 qmatmul_fused" if "GemmLoader" in e.key else

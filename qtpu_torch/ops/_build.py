@@ -23,8 +23,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qdepthwise": "qdepthwise.cu", "qproj": "qproj.cu",
-           "qtail": "qtail.cu", "qblock": "qblock.cu"}
-HEADERS = ("epilogue.cuh", "igemm.cuh", "fused_tail.cuh")
+           "qtail": "qtail.cu", "qblock": "qblock.cu",
+           "qstage": "qstage.cu", "qivr": "qivr.cu"}
+HEADERS = ("epilogue.cuh", "igemm.cuh", "fused_tail.cuh", "grid_phase.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

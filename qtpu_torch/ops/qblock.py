@@ -99,13 +99,21 @@ def qblock_folded_plain(x_q: torch.Tensor, w1: torch.Tensor,
     accumulator and its requant, then the unfused tail
     (:func:`qtpu_torch.ops.qtail.tail_plain`) with ``x_q`` as residual."""
     qblock_folded_plain.calls += 1
+    return block_plain(x_q, w1, w2, w3, co1, mode1, co2, mode2, co3, mode3,
+                       zp2=zp2)
+
+
+qblock_folded_plain.calls = 0
+
+
+def block_plain(x_q, w1, w2, w3, co1, mode1, co2, mode2, co3, mode3, *,
+                zp2):
+    """The unfused K1 → K2 → K1 sequence of an identity block in plain
+    PyTorch (counts nothing; the chained kernels' plain versions run it)."""
     B, H, W, Cin = x_q.shape
     a = qops.apply_epilogue(qops.qmatmul(x_q.reshape(-1, Cin), w1.t()),
                             co1, mode1).reshape(B, H, W, -1)
     return tail_plain(a, x_q, w2, w3, co2, mode2, co3, mode3, pad=1, zp=zp2)
-
-
-qblock_folded_plain.calls = 0
 
 
 def qbottleneck_fused(x_q: torch.Tensor, *, w1: torch.Tensor,

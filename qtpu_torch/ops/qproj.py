@@ -114,6 +114,15 @@ def qproj_folded_plain(b_q: torch.Tensor, x_q: torch.Tensor,
     the downsample's exact accumulator dequantized to f32, then conv3's
     with that f32 residual in its folded epilogue."""
     qproj_folded_plain.calls += 1
+    return proj_plain(b_q, x_q, w3_nk, wd_nk, co3, mode3, cod, stride=stride)
+
+
+qproj_folded_plain.calls = 0
+
+
+def proj_plain(b_q, x_q, w3_nk, wd_nk, co3, mode3, cod, *, stride):
+    """The unfused K1 pair of a projection block's tail in plain PyTorch
+    (counts nothing; K8's plain version runs it)."""
     B, H, W, Cmid = b_q.shape
     xd = x_q[:, ::stride, ::stride, :]
     td = qops.apply_epilogue(qops.qmatmul(xd.reshape(-1, xd.shape[-1]),
@@ -122,9 +131,6 @@ def qproj_folded_plain(b_q: torch.Tensor, x_q: torch.Tensor,
     acc = qops.qmatmul(b_q.reshape(-1, Cmid), w3_nk.t())
     out = qops.apply_epilogue(acc, co3, mode3, residual=td)
     return out.reshape(B, H, W, -1)
-
-
-qproj_folded_plain.calls = 0
 
 
 def flat_f32(v: torch.Tensor) -> torch.Tensor:

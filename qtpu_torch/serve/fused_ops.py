@@ -10,7 +10,10 @@ counterpart) on K2 and ``depthwise`` (``conv_xla(groups=C)``) on K3 for
 CUDA tensors; on the CPU they take the kernels' plain versions.  The fused
 bottleneck pieces of the experimental engine — ``proj`` (K4), ``tail``
 (K5) and ``bottleneck`` (K6) — take the same coefficients as the unfused
-calls they replace, so their codes are the same.
+calls they replace, so their codes are the same; so do the chained runs
+of the experimental engines — ``stage`` (K7), ``proj_stage`` (K8) and
+``ivr`` (K9) — whose operands (``chain_operands``, ``proj_operands``,
+``ivr_operands``) stack those coefficients once, at engine build.
 
 Engines call :func:`prepare_tree` once at build: it places the leaves on
 the device, stores each weight in its kernel's layout (``w_nk`` (N, K) for
@@ -31,8 +34,12 @@ from qtpu_torch.ops import qops
 from qtpu_torch.ops.qconv import qconv2d_folded
 from qtpu_torch.ops.qdepthwise import qdepthwise_folded
 from qtpu_torch.ops.qblock import qblock_folded
+from qtpu_torch.ops.qivr import qivr_folded
 from qtpu_torch.ops.qmatmul import qmatmul_folded
+from qtpu_torch.ops.qops import EpilogueCoeffs
 from qtpu_torch.ops.qproj import qproj_folded
+from qtpu_torch.ops.qstage import (ChainCoeffs, qstage_folded,
+                                   qstage_proj_folded, stack_chain)
 from qtpu_torch.ops.qtail import qtail_folded
 
 Node = Dict[str, object]
@@ -317,3 +324,95 @@ def bottleneck(x_q: torch.Tensor, c1: Node, c2: Node, c3: Node, *, x_grid,
         c1, c2, c3, x_grid, requant)
     return qblock_folded(x_q, c1["w_nk"], c2["w_nk"], c3["w_nk"], co1, mode1,
                          co2, mode2, co3, mode3, zp2=c2["grid"].zp)
+
+
+# -- the chained runs (experimental engines) ------------------------------------
+# The operands are built once per run, at engine build, from the coefficients
+# the unfused calls memoize, and stacked for the kernels.
+
+class ChainOperands(NamedTuple):
+    """A chained run's stacked weights (the kernels' layouts) and
+    coefficients."""
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+    co: ChainCoeffs
+
+
+class ProjOperands(NamedTuple):
+    """A stride-1 projection block's weights and coefficients for K8."""
+    wp1: torch.Tensor
+    wp2: torch.Tensor
+    wp3: torch.Tensor
+    wd: torch.Tensor
+    pco: ChainCoeffs
+    cod: EpilogueCoeffs
+
+
+def _conv_coeffs(node: Node, nxt: Node, act_max=None):
+    """A conv requantised onto the next conv's grid with relu (relu6 with
+    ``act_max``), as the unfused path folds it."""
+    return _epilogue(node, relu=True, act_max=act_max, requant=nxt["grid"],
+                     res_kind=None, res_grid=None)
+
+
+def chain_operands(blocks, requant) -> ChainOperands:
+    """A run of identity bottlenecks [(c1, c2, c3), ...] (prepared nodes),
+    block i requantised onto block i+1's conv1 grid, the last onto
+    ``requant``: :func:`block_coeffs` per block, the residual on the
+    block's own conv1 grid (the grid the forward gives its input)."""
+    per = []
+    for i, (c1, c2, c3) in enumerate(blocks):
+        tgt = blocks[i + 1][0]["grid"] if i + 1 < len(blocks) else requant
+        per.append((*block_coeffs(c1, c2, c3, c1["grid"], tgt),
+                    c2["grid"].zp))
+    return ChainOperands(*(torch.stack([b[k]["w_nk"] for b in blocks])
+                           for k in range(3)), stack_chain(per))
+
+
+def proj_operands(c1: Node, c2: Node, c3: Node, down: Node, requant
+                  ) -> ProjOperands:
+    """A stride-1 projection block (prepared nodes) requantised onto
+    ``requant`` (the first chained block's conv1 grid): conv1 onto conv2's
+    grid, conv2 onto conv3's, conv3 + downsample as :func:`proj_coeffs`."""
+    co3, mode3, cod = proj_coeffs(c3, down, requant)
+    pco = stack_chain([(_conv_coeffs(c1, c2), _conv_coeffs(c2, c3),
+                        (co3, mode3), c2["grid"].zp)])
+    return ProjOperands(c1["w_nk"], c2["w_nk"], c3["w_nk"], down["w_nk"],
+                        pco, cod)
+
+
+def ivr_operands(blocks, requant) -> ChainOperands:
+    """A run of identity inverted residuals [(expand, dw, project), ...]
+    (prepared nodes; dw in the depthwise layout), block i requantised onto
+    block i+1's expand grid, the last onto ``requant``: relu6 on expand and
+    depthwise, the project with the int8 residual on the expand's grid."""
+    per = []
+    for i, (c1, c2, c3) in enumerate(blocks):
+        tgt = blocks[i + 1][0]["grid"] if i + 1 < len(blocks) else requant
+        per.append((_conv_coeffs(c1, c2, 6.0), _conv_coeffs(c2, c3, 6.0),
+                    _epilogue(c3, relu=False, act_max=None, requant=tgt,
+                              res_kind=torch.int8, res_grid=c1["grid"]),
+                    c2["grid"].zp))
+    return ChainOperands(torch.stack([b[0]["w_nk"] for b in blocks]),
+                         torch.stack([b[1]["w_taps"] for b in blocks]),
+                         torch.stack([b[2]["w_nk"] for b in blocks]),
+                         stack_chain(per))
+
+
+def stage(x_q: torch.Tensor, run: ChainOperands) -> torch.Tensor:
+    """A chained run of identity bottlenecks (K7)."""
+    return qstage_folded(x_q, run.w1, run.w2, run.w3, run.co)
+
+
+def proj_stage(x_q: torch.Tensor, proj: ProjOperands, run: ChainOperands
+               ) -> torch.Tensor:
+    """A whole stride-1 stage: the projection block, then the run (K8)."""
+    return qstage_proj_folded(x_q, proj.wp1, proj.wp2, proj.wp3, proj.wd,
+                              proj.pco, proj.cod, run.w1, run.w2, run.w3,
+                              run.co)
+
+
+def ivr(x_q: torch.Tensor, run: ChainOperands) -> torch.Tensor:
+    """A chained run of identity inverted residuals (K9)."""
+    return qivr_folded(x_q, run.w1, run.w2, run.w3, run.co)

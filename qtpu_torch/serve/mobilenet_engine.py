@@ -13,6 +13,11 @@ An int8-resident pipeline over a frozen MobileNet-v2 tree:
 * an excluded stem runs in fp32 (BN folded at build, TF32 off); a quantized
   stem is K2 at 3×3/2.
 
+The chained inverted-residual runs (K9) run only through
+:class:`qtpu_torch.serve.experimental.ExperimentalMobileNetV2Int8Engine`,
+which fills the ``_qivr_prep`` table that ``_plan`` checks and this class
+leaves empty.
+
 Layer names mirror :class:`qtpu_torch.models.mobilenet.MobileNetV2`:
 ``stem``, ``block{i}`` with ``expand`` (absent when t = 1) / ``dw`` /
 ``project``, ``head``, ``fc``.  qtpu's TPU dispatch options (``use_pallas``,
@@ -49,6 +54,9 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
         super().__init__(variables, torch_pad=torch_pad, device=device,
                          normalize=normalize)
         self.num_classes = num_classes
+        # chained-run dispatch table (first block index -> run): empty here;
+        # filled, with _qivr, only by the experimental subclass
+        self._qivr_prep: Dict[int, Any] = {}
 
     def _blocks(self):
         return V2_BLOCKS
@@ -95,9 +103,36 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
         return gemm_1x1(y, project, relu=False, requant=nxt,
                         out_dtype=torch.int8)
 
+    def _next_grid(self, i: int) -> Grid:
+        """The grid block ``i``'s output goes to: the next block's input
+        grid, or the head's."""
+        blocks = self._blocks()
+        return (self._block_in_grid(blocks[i + 1][0]) if i + 1 < len(blocks)
+                else grid_of(self._node("head")))
+
+    def _plan(self):
+        """The forward's steps, (first block index, block count, run): a
+        chained run of a ``_qivr_prep`` entry (``run`` True) or one block."""
+        plan, i = [], 0
+        while i < len(self._blocks()):
+            run = self._qivr_prep.get(i)
+            n = 1 if run is None else run["nrun"]
+            plan.append((i, n, run is not None))
+            i += n
+        return plan
+
+    def _step(self, x_q: torch.Tensor, grid: Grid, step):
+        """One step of :meth:`_plan` on the block input ``x_q`` on ``grid``
+        → (its output, the output's grid)."""
+        i, _, run = step
+        if run:
+            return self._qivr(x_q, i), self._qivr_prep[i]["tgt"]
+        name, _, stride = self._blocks()[i]
+        nxt = self._next_grid(i)
+        return self._block(x_q, grid, name, stride, nxt), nxt
+
     def _forward(self, x: torch.Tensor, pre_quantized: bool = False,
                  raw_u8: bool = False) -> torch.Tensor:
-        blocks = self._blocks()
         head = self._node("head")
         if head is None:
             raise NotImplementedError(
@@ -105,13 +140,10 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
                 "ported (ROADMAP.md)")
         if raw_u8:
             x = self._normalize_u8(x)
-        grid = self._block_in_grid(blocks[0][0])
+        grid = self._block_in_grid(self._blocks()[0][0])
         x_q = self._stem(x, grid, pre_quantized=pre_quantized)
-        for i, (name, _, stride) in enumerate(blocks):
-            nxt = (self._block_in_grid(blocks[i + 1][0])
-                   if i + 1 < len(blocks) else grid_of(head))
-            x_q = self._block(x_q, grid, name, stride, nxt)
-            grid = nxt
+        for step in self._plan():
+            x_q, grid = self._step(x_q, grid, step)
         y = gemm_1x1(x_q, head, relu=True, act_max=6.0, requant=None,
                      out_dtype=torch.float32)
         return self._fc(torch.mean(y, dim=(1, 2)))

@@ -15,10 +15,10 @@ pipeline:
 * an excluded stem runs in fp32 (BN folded at build, TF32 off), an excluded
   fc as a plain fp32 matmul.
 
-The fused bottleneck kernels (K4-K6) run only through
-:class:`qtpu_torch.serve.experimental.ExperimentalResNetInt8Engine`, which
-fills the dispatch tables that ``_bottleneck`` checks and this class leaves
-empty.
+The fused bottleneck kernels (K4-K6) and the chained runs (K7/K8) run only
+through :class:`qtpu_torch.serve.experimental.ExperimentalResNetInt8Engine`,
+which fills the dispatch tables that ``_bottleneck`` and ``_plan`` check and
+this class leaves empty.
 
 Build, entry points and devices: :class:`qtpu_torch.serve.flat_engine.
 FlatInt8Engine`.
@@ -65,12 +65,15 @@ class ResNetInt8Engine(FlatInt8Engine):
         super().__init__(variables, torch_pad=arch.get("torch_pad", False),
                          device=device, normalize=normalize)
         self.arch = dict(arch)
-        # Fused-kernel dispatch tables (block name -> entry): empty here, so
-        # the guards in _bottleneck never fire; filled, with the _qblock /
-        # _qtail / _qproj methods, only by the experimental subclass.
+        self._names = self._block_names()
+        # Fused-kernel dispatch tables (block name -> entry, and stage index
+        # -> chained run): empty here, so the guards in _bottleneck and
+        # _plan never fire; filled, with the _qblock / _qtail / _qproj /
+        # _qstage methods, only by the experimental subclass.
         self._qtail_prep: Dict[str, Any] = {}
         self._qproj_prep: Dict[str, Any] = {}
         self._qblock_prep: Dict[str, Any] = {}
+        self._qstage_prep: Dict[int, Any] = {}
 
     def _block_names(self):
         out = []
@@ -167,25 +170,56 @@ class ResNetInt8Engine(FlatInt8Engine):
         ns, nz, nsym = next_grid
         return qops.quantize_act(y, ns, nz, symmetric=nsym)
 
+    def _next_grid(self, idx: int):
+        """The grid block ``idx``'s output goes to: the next block's conv1
+        grid, or the fc's (None when the fc is excluded: f32 out)."""
+        names = self._names
+        if idx + 1 < len(names):
+            return grid_of(self._node(names[idx + 1][0], "conv1"))
+        fc = self._node("fc")
+        return grid_of(fc) if fc is not None else None
+
+    def _plan(self):
+        """The forward's steps, (first block index, block count, stage):
+        a chained run of a ``_qstage_prep`` entry (``stage`` its stage
+        index) — the whole stage when it chains the projection block, the
+        identity blocks from ``j == 1`` otherwise — or one block (``stage``
+        None)."""
+        names, plan, idx = self._names, [], 0
+        while idx < len(names):
+            _, i, j = names[idx]
+            run = self._qstage_prep.get(i)
+            if run is not None and j == (1 if run["proj"] is None else 0):
+                n, stage = run["nrun"] + (1 - j), i
+            else:
+                n, stage = 1, None
+            plan.append((idx, n, stage))
+            idx += n
+        return plan
+
+    def _step(self, x_q: torch.Tensor, grid, step):
+        """One step of :meth:`_plan` on the block input ``x_q`` on ``grid``
+        → (its output, the output's grid)."""
+        idx, _, stage = step
+        if stage is not None:
+            return self._qstage(x_q, stage)
+        name, i, j = self._names[idx]
+        strides = (2, 2) if (i > 0 and j == 0) else (1, 1)
+        nxt = self._next_grid(idx)
+        block = (self._bottleneck if self.arch.get("bottleneck", True)
+                 else self._basic)
+        return block(x_q, grid, name, strides, nxt), nxt
+
     def _forward(self, x: torch.Tensor, pre_quantized: bool = False,
                  raw_u8: bool = False) -> torch.Tensor:
-        bottleneck = self.arch.get("bottleneck", True)
-        names = self._block_names()
-        first = self._node(names[0][0], "conv1")
+        first = self._node(self._names[0][0], "conv1")
         fc = self._node("fc")
         if raw_u8:
             x = self._normalize_u8(x)
         x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized)
         grid = grid_of(first)
-        step = self._bottleneck if bottleneck else self._basic
-        for idx, (name, i, j) in enumerate(names):
-            strides = (2, 2) if (i > 0 and j == 0) else (1, 1)
-            if idx + 1 < len(names):
-                nxt = grid_of(self._node(names[idx + 1][0], "conv1"))
-            else:
-                nxt = grid_of(fc) if fc is not None else None
-            x_q = step(x_q, grid, name, strides, nxt)
-            grid = nxt
+        for step in self._plan():
+            x_q, grid = self._step(x_q, grid, step)
         if fc is None:
             pooled = torch.mean(x_q, dim=(1, 2))   # fp32 from final block
         else:

@@ -13,6 +13,20 @@ op-by-op ``_forward``; the port runs the kernels' plain versions.
   the logits agree to rel-L2 ≤ 1e-4.
 * With every flag off the engine is the product engine, and the product
   engine's tables are empty.
+
+The chained configuration ``stage`` (``use_qstage`` + ``qstage_proj`` +
+``use_qproj``) runs on a second frozen tree, ``stage_sizes=(3, 3, 2, 2)``,
+so that stage 0 chains its projection block with two identity blocks (K8),
+stage 1 runs two identity blocks (K7) and stages 2-3 one each:
+
+* ``_qstage_prep`` names the same stages as qtpu's, with the same ``nrun``
+  and the projection block in the same one;
+* walked run by run (the port's ``_plan``), each step fed qtpu's codes
+  from the step before, the codes follow the tie rule; the logits agree
+  with qtpu's (its chained kernels in interpret mode) to rel-L2 ≤ 1e-4 and
+  equal the port's product engine's;
+* one forward runs the plain versions of K8 once, K7 three times, K4
+  three times and the unfused K1/K2 only where no run covers a block.
 """
 import jax
 import jax.numpy as jnp
@@ -26,7 +40,7 @@ from qtpu.serve.experimental import ExperimentalResNetInt8Engine as JExp
 from qtpu.serve.fused_ops import grid_of as j_grid_of
 from qtpu.transform import calibrate as j_calibrate
 from qtpu.transform import convert_model, freeze as j_freeze
-from qtpu_torch.ops import qblock, qconv, qmatmul, qproj, qtail
+from qtpu_torch.ops import qblock, qconv, qivr, qmatmul, qproj, qstage, qtail
 from qtpu_torch.serve.experimental import ExperimentalResNetInt8Engine
 from qtpu_torch.serve.frozen import from_numpy_tree
 from qtpu_torch.serve.fused_ops import grid_of as t_grid_of
@@ -55,10 +69,14 @@ def assert_codes(a, b, frac=1e-3):
     assert (d > 0).mean() <= frac, (d > 0).mean()
 
 
-@pytest.fixture(scope="module")
-def frozen():
+STAGE_SIZES = (3, 3, 2, 2)
+STAGE_ARCH = dict(ARCH, stage_sizes=STAGE_SIZES)
+STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
+
+
+def _freeze(stages):
     m = j_get_model("resnet50", num_classes=10, cifar_stem=True).clone(
-        stage_sizes=STAGES)
+        stage_sizes=stages)
     x = jax.random.normal(KEY, (2, 16, 16, 3))
     qm = convert_model(m, JPolicy.int8_ptq())
     v = dict(jax.jit(qm.init, static_argnames="train")(KEY, x, train=True))
@@ -67,6 +85,16 @@ def frozen():
     tree = from_numpy_tree(jax.tree_util.tree_map(np.asarray, sv),
                            device="cpu")
     return sv, tree, np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def frozen():
+    return _freeze(STAGES)
+
+
+@pytest.fixture(scope="module")
+def frozen_stage():
+    return _freeze(STAGE_SIZES)
 
 
 def _engines(frozen, config):
@@ -149,3 +177,78 @@ def test_fused_engine_equals_product_engine(frozen, config):
                                        **CONFIGS[config])
     np.testing.assert_array_equal(prod.forward(torch.tensor(x)).numpy(),
                                   exp.forward(torch.tensor(x)).numpy())
+
+
+# -- the chained stage configuration -----------------------------------------
+
+def _plain_calls():
+    return (qstage.qstage_proj_folded_plain.calls,
+            qstage.qstage_folded_plain.calls, qproj.qproj_folded_plain.calls,
+            qconv.qconv2d_folded_plain.calls,
+            qmatmul.qmatmul_folded_plain.calls,
+            qtail.qtail_folded_plain.calls, qblock.qblock_folded_plain.calls,
+            qivr.qivr_folded_plain.calls)
+
+
+@pytest.fixture(scope="module")
+def stage_engines(frozen_stage):
+    sv, tree, x = frozen_stage
+    jeng = JExp(sv, STAGE_ARCH, qstage_interpret=True, qtail_interpret=True,
+                **STAGE_FLAGS)
+    teng = ExperimentalResNetInt8Engine(tree, STAGE_ARCH, device="cpu",
+                                        **STAGE_FLAGS)
+    return jeng, teng, x
+
+
+def test_qstage_prep_matches_qtpu(stage_engines):
+    jeng, teng, _ = stage_engines
+    got = {i: (p["nrun"], p["proj"] is not None)
+           for i, p in teng._qstage_prep.items()}
+    ref = {i: (p["nrun"], "wp1" in p["weights"])
+           for i, p in jeng._qstage_prep.items()}
+    assert got == ref == {0: (2, True), 1: (2, False), 2: (1, False),
+                          3: (1, False)}
+    for i, p in teng._qstage_prep.items():
+        assert tuple(p["tgt"][:2]) == pytest.approx(
+            tuple(jeng._qstage_prep[i]["tgt"][:2]))
+    # one step per run, one per block left over
+    assert teng._plan() == [(0, 3, 0), (3, 1, None), (4, 2, 1),
+                            (6, 1, None), (7, 1, 2), (8, 1, None),
+                            (9, 1, 3)]
+
+
+def test_stage_runs_and_logits_match_qtpu(stage_engines, frozen_stage):
+    jeng, teng, x = stage_engines
+    names = teng._block_names()
+    jg = j_grid_of(jeng._node(names[0][0], "conv1"))
+    tg = t_grid_of(teng._node(names[0][0], "conv1"))
+    j_codes = jeng._stem(jnp.asarray(x), jg)
+    assert_codes(teng._stem(torch.tensor(x), tg).numpy(), j_codes)
+    for step in teng._plan():
+        idx, n, stage = step
+        t_out, tg = teng._step(torch.tensor(np.asarray(j_codes)), tg, step)
+        if stage is not None:
+            j_codes, jg = jeng._qstage(j_codes, stage)
+        else:
+            name, i, j = names[idx]
+            nxt = ((names[idx + 1][0], "conv1") if idx + 1 < len(names)
+                   else ("fc",))
+            nj = j_grid_of(jeng._node(*nxt))
+            j_codes = jeng._bottleneck(j_codes, jg, name,
+                                       (2, 2) if j == 0 else (1, 1), nj)
+            jg = nj
+        assert_codes(t_out.numpy(), j_codes)
+
+    ref = np.asarray(jeng._forward(jnp.asarray(x)))
+    before = _plain_calls()
+    got = teng.forward(torch.tensor(x)).numpy()
+    ran = tuple(a - b for a, b in zip(_plain_calls(), before))
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert rel_l2(got, ref) <= 1e-4, rel_l2(got, ref)
+    # K8 once, K7 three times, K4 for layer2_0-layer4_0, whose conv2 (K2,
+    # + the stem) and conv1 (K1, + the fc) stay unfused
+    assert ran == (1, 3, 3, 3 + 1, 3 + 1, 0, 0, 0)
+    for k in (qstage.qstage_folded, qstage.qstage_proj_folded):
+        assert k.launches == 0
+    prod = ResNetInt8Engine(frozen_stage[1], STAGE_ARCH, device="cpu")
+    np.testing.assert_array_equal(prod.forward(torch.tensor(x)).numpy(), got)

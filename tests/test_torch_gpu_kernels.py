@@ -7,7 +7,11 @@ strides; for the depthwise kernel C not a multiple of 16 (the scalar path),
 odd H, B = 1..3, both strides and both paddings; for the fused bottleneck kernels (K4-K6) odd H,
 W = H + 1, Cmid 16-512, B = 1..3, both strides of K4's downsample, K5 with
 the pad in the kernel (1) and on a zero-point-prepadded input (0), and
-ResNet-50's widths.  The kernel and its plain version apply the same
+ResNet-50's widths; for the chained kernels (K7-K9) runs of 1-5 blocks,
+H = W in {4, 5, 7} (and 5 x 6), B in {1, 3}, channel counts that are not
+multiples of 16 (the byte-gather loads: Cmid 24, MobileNet-v2's C = 24), C
+= 160 / E = 960, a projection with Cp != Co, and a CUDA-graph capture of
+each cooperative launch.  The kernel and its plain version apply the same
 epilogue formula in the same order, so every output must be bit-exact.
 
 This file imports no JAX, so it runs where JAX is absent:
@@ -20,9 +24,11 @@ import torch
 from qtpu_torch.ops import qblock as tblock
 from qtpu_torch.ops import qconv as tconv
 from qtpu_torch.ops import qdepthwise as tdw
+from qtpu_torch.ops import qivr as tivr
 from qtpu_torch.ops import qmatmul as tmm
 from qtpu_torch.ops import qops as tq
 from qtpu_torch.ops import qproj as tproj
+from qtpu_torch.ops import qstage as tstage
 from qtpu_torch.ops import qtail as ttail
 from qtpu_torch.ops.qconv_dispatch import (qconv2d_strided,
                                            qconv2d_strided_plain)
@@ -287,3 +293,139 @@ def test_fused_wrappers_refuse_bad_inputs(cuda):
         tblock.qblock_folded(_i8(cuda, 1, 4, 4, 64), _i8(cuda, 16, 32),
                              _i8(cuda, 16, 144), _i8(cuda, 64, 16), co16,
                              mode16, co16, mode16, co, mode, zp2=0)
+
+
+# -- K7 qstage, K8 qstage_proj, K9 qivr ---------------------------------------
+
+def _fold(n, k, dev, **kw):
+    """Folded coefficients onto an affine grid with a random zero point."""
+    return tq.epilogue_coeffs(
+        act_scale=0.02, act_zp=int(RNG.integers(-20, 20)),
+        w_scale=_dev(RNG.uniform(0.001, 0.01, n).astype(np.float32), dev),
+        colsum=_dev(RNG.integers(-127 * k // 8, 127 * k // 8, n).astype(
+            np.int32), dev),
+        bias=_dev(RNG.standard_normal(n).astype(np.float32), dev),
+        requant_scale=0.05, requant_zp=int(RNG.integers(-30, 30)), **kw)
+
+
+def _zp():
+    return int(RNG.integers(-128, 40))
+
+
+def _stage_chain(dev, n, cin, cmid):
+    """Weights and coefficients of ``n`` identity bottlenecks."""
+    w = (_i8(dev, n, cmid, cin), _i8(dev, n, cmid, 9 * cmid),
+         _i8(dev, n, cin, cmid))
+    co = tstage.stack_chain([
+        (_fold(cmid, cin, dev, relu=True),
+         _fold(cmid, 9 * cmid, dev, relu=True),
+         _fold(cin, cmid, dev, relu=True, res_scale=0.03, res_zp=6), _zp())
+        for _ in range(n)])
+    return w, co
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cin,cmid,n", [
+    (1, 4, 4, 64, 16, 1), (3, 5, 5, 128, 32, 2), (1, 7, 7, 256, 64, 3),
+    (3, 7, 7, 64, 16, 4), (1, 5, 5, 32, 16, 5), (3, 5, 6, 48, 24, 2),
+    (2, 14, 14, 1024, 256, 2), (1, 7, 7, 2048, 512, 1)])
+def test_qstage_kernel_matches_plain(cuda, B, H, W, cin, cmid, n):
+    (w1, w2, w3), co = _stage_chain(cuda, n, cin, cmid)
+    x = _i8(cuda, B, H, W, cin)
+    n0 = tstage.qstage_folded.launches
+    got = tstage.qstage_folded(x, w1, w2, w3, co)
+    torch.cuda.synchronize()
+    assert tstage.qstage_folded.launches == n0 + 1
+    ref = tstage.qstage_folded_plain(x, w1, w2, w3, co)
+    assert got.shape == ref.shape == x.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,cp,cm,co,cmid,n", [
+    (1, 7, 7, 64, 64, 256, 64, 2), (3, 5, 5, 32, 16, 64, 16, 1),
+    (1, 4, 4, 48, 24, 40, 24, 1), (3, 4, 5, 128, 32, 96, 32, 3)])
+def test_qstage_proj_kernel_matches_plain(cuda, B, H, W, cp, cm, co, cmid,
+                                          n):
+    wp = (_i8(cuda, cm, cp), _i8(cuda, cm, 9 * cm), _i8(cuda, co, cm),
+          _i8(cuda, co, cp))
+    pco = tstage.stack_chain([(
+        _fold(cm, cp, cuda, relu=True), _fold(cm, 9 * cm, cuda, relu=True),
+        _fold(co, cm, cuda, relu=True, res_f32=True), _zp())])
+    cod, _ = tq.epilogue_coeffs(
+        act_scale=0.03, act_zp=-4,
+        w_scale=_dev(RNG.uniform(0.001, 0.01, co).astype(np.float32), cuda),
+        colsum=_dev(RNG.integers(-2000, 2000, co).astype(np.int32), cuda))
+    (w1, w2, w3), cco = _stage_chain(cuda, n, co, cmid)
+    x = _i8(cuda, B, H, W, cp)
+    args = (x, *wp, pco, cod, w1, w2, w3, cco)
+    n0 = tstage.qstage_proj_folded.launches
+    got = tstage.qstage_proj_folded(*args)
+    torch.cuda.synchronize()
+    assert tstage.qstage_proj_folded.launches == n0 + 1
+    ref = tstage.qstage_proj_folded_plain(*args)
+    assert got.shape == ref.shape == (B, H, W, co)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def _ivr_run(dev, n, c, e):
+    """Weights and coefficients of ``n`` inverted residuals."""
+    w = (_i8(dev, n, e, c), _i8(dev, n, 9, e), _i8(dev, n, c, e))
+    return w, tstage.stack_chain([
+        (_fold(e, c, dev, relu=True, act_max=6.0),
+         _fold(e, 9, dev, relu=True, act_max=6.0),
+         _fold(c, e, dev, res_scale=0.03, res_zp=6), _zp())
+        for _ in range(n)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,c,e,n", [
+    (1, 4, 4, 24, 144, 1), (3, 5, 5, 24, 144, 2), (1, 7, 7, 160, 960, 2),
+    (3, 7, 7, 32, 192, 3), (1, 5, 5, 64, 384, 5), (3, 4, 4, 96, 576, 4),
+    (1, 5, 6, 40, 240, 2)])
+def test_qivr_kernel_matches_plain(cuda, B, H, W, c, e, n):
+    (w1, wd, w3), co = _ivr_run(cuda, n, c, e)
+    x = _i8(cuda, B, H, W, c)
+    n0 = tivr.qivr_folded.launches
+    got = tivr.qivr_folded(x, w1, wd, w3, co)
+    torch.cuda.synchronize()
+    assert tivr.qivr_folded.launches == n0 + 1
+    ref = tivr.qivr_folded_plain(x, w1, wd, w3, co)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_chained_kernels_in_a_cuda_graph(cuda):
+    """The cooperative launches are captured and replayed by a CUDA graph,
+    several in a row, with the results of eager launches."""
+    (w1, w2, w3), co = _stage_chain(cuda, 3, 64, 16)
+    x = _i8(cuda, 3, 7, 7, 64)
+    (v1, vd, v3), vco = _ivr_run(cuda, 2, 24, 144)
+    y = _i8(cuda, 3, 5, 5, 24)
+
+    def run():
+        return (tstage.qstage_folded(x, w1, w2, w3, co),
+                tivr.qivr_folded(y, v1, vd, v3, vco))
+    eager = [t.cpu() for t in run()]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [run() for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for pair in outs:
+            for got, ref in zip(pair, eager):
+                np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.gpu
+def test_chained_wrappers_refuse_bad_inputs(cuda):
+    (w1, w2, w3), co = _stage_chain(cuda, 2, 64, 16)
+    with pytest.raises(ValueError):                      # channels
+        tstage.qstage_folded(_i8(cuda, 1, 4, 4, 32), w1, w2, w3, co)
+    with pytest.raises(ValueError):                      # coefficient rows
+        tstage.qstage_folded(_i8(cuda, 1, 4, 4, 64), w1[:1].contiguous(),
+                             w2[:1].contiguous(), w3[:1].contiguous(), co)
+    (v1, vd, v3), vco = _ivr_run(cuda, 1, 16, 72)
+    with pytest.raises(ValueError):                      # E % 16
+        tivr.qivr_folded(_i8(cuda, 1, 4, 4, 16), v1, vd, v3, vco)

@@ -23,6 +23,11 @@ into the port's model with ``load_flax_variables``:
   and the fp32 stem (the frozen tree with its stem moved to fp32) with
   SAME geometry, through ``forward`` and ``forward_u8``.
 
+The chained engine (``ExperimentalMobileNetV2Int8Engine`` with ``use_qivr``)
+on the same frozen tree has qtpu's runs — 10 blocks in 5 runs — and, walked
+run by run, follows qtpu's codes (its chained kernel in interpret mode) by
+the tie rule; its logits equal the port's product engine's.
+
 The dispatch paths equal qtpu's, and ``build_engine`` serves narrowed
 ``mobilenetv2_imagenet_int8_ptq_fp32stem`` and ``mobilenetv1_imagenet_int8_ptq``
 through ``ServingEngine``.
@@ -45,8 +50,9 @@ from qtpu.transform import convert_model, freeze as j_freeze
 from qtpu_torch.examples.configs import CONFIGS
 from qtpu_torch.models import get_model, load_flax_variables
 from qtpu_torch.nn import QuantPolicy
-from qtpu_torch.ops import qconv, qdepthwise, qmatmul
+from qtpu_torch.ops import qconv, qdepthwise, qivr, qmatmul
 from qtpu_torch.serve import cli
+from qtpu_torch.serve.experimental import ExperimentalMobileNetV2Int8Engine
 from qtpu_torch.serve.frozen import from_numpy_tree, to_numpy_tree
 from qtpu_torch.serve.fused_ops import grid_of as t_grid_of
 from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine as TEngine
@@ -267,6 +273,47 @@ def test_engine_blocks_and_logits_match_qtpu(qtpu_v2, monkeypatch, case):
     else:
         with pytest.raises(ValueError):
             teng.stem_grid()        # an excluded stem has no ingest grid
+
+
+def test_ivr_engine_runs_and_logits_match_qtpu(qtpu_v2, monkeypatch):
+    from qtpu.serve.experimental import ExperimentalMobileNetV2Int8Engine \
+        as JExpV2
+    x, _, sv = qtpu_v2
+    jtree = jax.tree_util.tree_map(jnp.asarray, sv)
+    jeng = JExpV2(jtree, num_classes=10, use_qivr=True, qivr_interpret=True)
+    teng = ExperimentalMobileNetV2Int8Engine(
+        from_numpy_tree(sv, device="cpu"), num_classes=10, device="cpu",
+        use_qivr=True)
+    runs = {i: p["nrun"] for i, p in teng._qivr_prep.items()}
+    assert runs == {i: p["nrun"] for i, p in jeng._qivr_prep.items()}
+    assert runs == {2: 1, 4: 2, 7: 3, 11: 2, 14: 2}
+    # each step's input and the single blocks' outputs from qtpu's product
+    # engine run op by op; the runs' from qtpu's chained kernel
+    calls = record_qtpu(monkeypatch, jmod2)
+    JEngine(jtree, num_classes=10)._forward(jnp.asarray(x))
+    monkeypatch.undo()
+    grid = teng._block_in_grid("block0")
+    for step in teng._plan():
+        i, n, run = step
+        name = teng._blocks()[i][0]
+        j_in, _ = recorded(calls, jeng._node(name, "expand")
+                           or jeng._node(name, "dw"))
+        t_out, grid = teng._step(torch.tensor(j_in), grid, step)
+        j_out = (jeng._qivr(jnp.asarray(j_in), i) if run else
+                 recorded(calls, jeng._node(name, "project"))[1])
+        assert_codes(t_out.numpy(), j_out)
+    ref = np.asarray(jeng._forward(jnp.asarray(x)))
+    n0, r0 = count_plain(), qivr.qivr_folded_plain.calls
+    got = teng.forward(torch.tensor(x)).numpy()
+    n1, r1 = count_plain(), qivr.qivr_folded_plain.calls
+    assert rel_l2(got, ref) <= 1e-4, rel_l2(got, ref)
+    # 5 runs on K9; K1/K3 for the 7 blocks outside them, the head, the fc
+    # and the quantized stem on K2
+    assert r1 - r0 == 5 and qivr.qivr_folded.launches == 0
+    assert tuple(b - a for a, b in zip(n0, n1)) == (15, 7, 1)
+    prod = TEngine(from_numpy_tree(sv, device="cpu"), num_classes=10,
+                   device="cpu")
+    np.testing.assert_array_equal(prod.forward(torch.tensor(x)).numpy(), got)
 
 
 def test_forward_u8_matches_qtpu(qtpu_v2):
