@@ -22,7 +22,11 @@ success):
    runs the chained engines give them — K7 (qstage) at ResNet-50's four
    identity runs, K8 (qstage_proj) at its whole layer1, K9 (qivr) at
    MobileNet-v2's five inverted-residual runs; K4-K9 also against the
-   unfused K1/K2/K3 sequence each replaces;
+   unfused K1/K2/K3 sequence each replaces; K1's int4 entry at
+   ``resnet50_int4w_int8a_qat``'s shapes (layer1_0 conv3 with the int8
+   residual, layer3 conv1, layer4 conv3, layer4_0's f32 downsample), also
+   against the int8 entry on the unpacked weights; the im2col conv at
+   ResNet-50's quantized 7×7/2 stem, also against K2;
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -45,6 +49,13 @@ success):
    * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
      and ``mobilenetv1_imagenet_int8_ptq``: 14 K1 and 13 K3 launches, plus
      one K2 for the quantized 3×3/2 stem;
+   * ``build_engine`` for ``resnet50_int4w_int8a_qat`` (int4 weights, EMA
+     calibration, stem and fc in fp32) serves through ``ServingEngine``:
+     36 K1 and 16 K2 per forward; the same tree on
+     ``ResNetInt8Engine(packed_int4=True)`` through a forward factory: 36 of
+     K1's int4 entry and 16 K2, no int8 K1; one forward of its ``stage``
+     configuration with ``packed_int4``: 7 K1 int4, 5 K2, 3 K4, 2 K7, 1 K8
+     (layer4 stays unchained: its consumer is the fp32 fc);
 5. the ResNet-50 (product, tail, block, stage), MobileNet-v2 (product,
    ivr) and quantized-stem MobileNet-v1 engines against the same engines on
    the CPU (the plain path) on two images: codes after every step of the
@@ -53,16 +64,22 @@ success):
    1e-6), logits agree to rel-L2 ≤ 1e-4; on the card, the tail, block,
    stage and ivr engines' codes after every step equal the product
    engine's (the fused and chained kernels are bit-exact against the
-   sequence they replace);
+   sequence they replace); the same for config 5's packed and packed
+   ``stage`` engines, against its product engine (the int8 entry on the
+   unpacked weights) on the card, the last block's f32 output (the fp32
+   fc's input) equal to the CPU's to 1e-6 of its largest value;
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
-   as one CUDA graph beside it — ResNet-50 (product, tail, block, stage)
-   at B = 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
+   as one CUDA graph beside it — ResNet-50 (product at B = 8 and 128,
+   tail, block, stage at 128), config 5's product and packed engines at
+   B = 8 and 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
    device time (repeated launches captured in a CUDA graph) beside its
    bound, its plain version and a library yardstick that computes the
-   int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1,
-   cuDNN's fp32 ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the
-   zero-point-padded codes for K2 and K3 (no single PyTorch call computes
+   int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
+   (for the int4 entry on the unpacked weight, beside the int8 entry's
+   time), cuDNN's fp32 ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the
+   zero-point-padded codes for K2, K3 and the im2col conv (which also has
+   K2's time beside it) (no single PyTorch call computes
    a fused bottleneck piece or a chained run, so K4-K9 have none); for
    K4-K9 also the device
    time of the unfused K1/K2/K3 sequence each replaces, at B = 8 and
@@ -92,6 +109,7 @@ SRC_K5 = "qtpu_torch/csrc/qtail.cu"
 SRC_K6 = "qtpu_torch/csrc/qblock.cu"
 SRC_K78 = "qtpu_torch/csrc/qstage.cu"
 SRC_K9 = "qtpu_torch/csrc/qivr.cu"
+SRC_IM2COL = "qtpu_torch/ops/qim2col.py"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
 TPU_K2S = "qtpu/ops/pallas/qconv_dispatch.py:42"
@@ -103,20 +121,33 @@ TPU_K6 = "qtpu/ops/pallas/qblock.py:93"
 TPU_K7 = "qtpu/ops/pallas/qstage.py:159"
 TPU_K8 = "qtpu/ops/pallas/qstage.py:268"
 TPU_K9 = "qtpu/ops/pallas/qivr.py:112"
+TPU_IM2COL = "qtpu/ops/pallas/qim2col.py:31"
 NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
               "or a chained run (two or more convolutions with requants "
               "between)")
+# launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
+# plain-version calls)
+KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
 # experimental engine configurations: flags, launches per forward
-# (K1, K2, K3, K4, K5, K6, K7, K8, K9, plain)
+STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
-                       (17, 4, 0, 4, 12, 0, 0, 0, 0, 0)),
+                       (17, 4, 0, 4, 12, 0, 0, 0, 0, 0, 0, 0)),
               "block": (dict(use_qblock=True, use_qproj=True),
-                        (5, 4, 0, 4, 0, 12, 0, 0, 0, 0)),
-              "stage": (dict(use_qstage=True, qstage_proj=True,
-                             use_qproj=True),
-                        (4, 3, 0, 3, 0, 0, 3, 1, 0, 0))}
-MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0)
+                        (5, 4, 0, 4, 0, 12, 0, 0, 0, 0, 0, 0)),
+              "stage": (STAGE_FLAGS, (4, 3, 0, 3, 0, 0, 3, 1, 0, 0, 0, 0))}
+MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0, 0, 0)
+# config 5 (stem and fc in fp32): the product engine runs its 36 1×1 GEMMs
+# on K1's int8 entry (unpacked weights), the packed engine on the int4
+# entry; the stage engine chains layer1 (K8) and the layer2/layer3 runs
+# (K7), K4 takes layer2_0-layer4_0's conv3 + downsample, and layer4 stays
+# unchained (its consumer is the fp32 fc): the int4 entry runs the conv1 of
+# layer2_0-layer4_0 and layer4_1-4_2's conv1 and conv3 (7), K2 the five
+# unchained 3×3s
+CFG5_PRODUCT = (36, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+CFG5_PACKED = (0, 16, 0, 0, 0, 0, 0, 0, 0, 36, 0, 0)
+CFG5_STAGE = (0, 5, 0, 3, 0, 0, 2, 1, 0, 7, 0, 0)
 RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
+CFG5 = "resnet50_int4w_int8a_qat"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
         "mobilenetv1_imagenet_int8_ptq")
@@ -199,6 +230,7 @@ def main() -> int:
     from qtpu_torch.ops import qblock as k6
     from qtpu_torch.ops import qconv as k2
     from qtpu_torch.ops import qdepthwise as k3
+    from qtpu_torch.ops import qim2col
     from qtpu_torch.ops import qivr as k9
     from qtpu_torch.ops import qmatmul as k1
     from qtpu_torch.ops import qproj as k4
@@ -306,6 +338,49 @@ def main() -> int:
             plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
+    # K1's int4 entry at config 5's B = 8 shapes: exact against its plain
+    # version and against the int8 entry on the unpacked weight
+    k1w4_cases = [
+        ("layer1_0 conv3 +int8 residual", 25088, 64, 256,
+         dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
+        ("layer3 conv1 requant", 1568, 1024, 256, requant, None),
+        ("layer4 conv3 +int8 residual", 392, 512, 2048,
+         dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
+        ("layer4_0 downsample f32", 392, 1024, 2048, {}, None),
+    ]
+    for label, M, K, N, kw, res in k1w4_cases:
+        x, w = i8(M, K), i8(N, K, lo=-7, hi=8)
+        w4 = k1.pack_int4_nk(w)
+        co, mode = coeffs(N, K, **kw)
+        r = i8(M, N) if res == "i8" else None
+
+        def run_k(x=x, w4=w4, co=co, mode=mode, r=r):
+            return k1.qmatmul_folded_w4(x, w4, co, mode, r)
+
+        def run_p(x=x, w4=w4, co=co, mode=mode, r=r):
+            return k1.qmatmul_folded_w4_plain(x, w4, co, mode, r)
+
+        def run_8(x=x, w=w, co=co, mode=mode, r=r):
+            return k1.qmatmul_folded(x, w, co, mode, r)
+
+        y, err = compare(f"K1 int4 {label}", run_k, run_p)
+        check(torch.equal(y, run_8()), f"K1 int4 {label}: differs from the "
+              "int8 entry on the unpacked weight")
+        out_res = y.element_size() * M * N + 8 * N + \
+            (M * N if r is not None else 0)
+        b_ms, b_by = bound(M * K + N * K // 2 + out_res, 2 * M * N * K)
+        wt = w.t()
+        kernels.append(dict(
+            name=f"qmatmul_fused w_packed=True [{label}]", route="cuda",
+            source=SRC_K1, replaces=TPU_K1, path="cfg5_packed",
+            kernel="K1w4", shape=f"M={M} K={K} N={N}", max_abs_err=err,
+            ms=timed(torch, run_k, 50), eager_ms=timed_eager(torch, run_k, 50),
+            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            int8_ms=timed(torch, run_8, 50),
+            int8_bound_ms=bound(M * K + N * K + out_res, 2 * M * N * K)[0],
+            library_ms=timed(torch, lambda: torch._int_mm(x, wt), 50)))
+    log("K1 int4 equal to K1 int8 on the unpacked weights")
+
     def conv_fp32_ms(xp, w_oihw, s, groups=1):
         """Library yardstick for K2/K3: cuDNN's fp32 conv (TF32 off) on the
         zero-point-padded codes, channels-last as the codes lie — the int32
@@ -351,6 +426,44 @@ def main() -> int:
             eager_ms=timed_eager(torch, run_k, 50),
             plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
             library_ms=conv_fp32_ms(xp, w_oihw, s)))
+
+    # the im2col conv (patches in PyTorch + one K1 launch) at ResNet-50's
+    # quantized 7×7/2 stem, against its plain version and K2
+    B, H, Ci, Co = 8, 224, 3, 64
+    x, w_hwio = i8(B, H, H, Ci), i8(7, 7, Ci, Co, lo=-127)
+    ikw = dict(act_scale=0.02, act_zp=-9,
+               w_scale=(torch.rand(Co, generator=g) * 0.01 + 1e-3).to(dev),
+               colsum=w_hwio.int().sum((0, 1, 2)),
+               bias=torch.randn(Co, generator=g).to(dev), **requant)
+    xp = qops.pad_nhwc(x, qops.same_pads((H, H), (7, 7), (2, 2)),
+                       -9).contiguous()
+    w_nk = k2.weight_ohwi(w_hwio)
+    co, mode = k1.fold(**ikw)
+
+    def run_k():
+        return qim2col.qconv2d_im2col(x, w_hwio, strides=(2, 2), **ikw)
+
+    def run_p():
+        return qim2col.qconv2d_im2col_plain(x, w_hwio, strides=(2, 2), **ikw)
+
+    def run_k2():
+        return k2.qconv2d_folded(xp, w_nk, co, mode, kernel_hw=(7, 7),
+                                 stride=2)
+
+    y, err = compare("im2col RN50 int8 stem 7x7/2", run_k, run_p)
+    check(torch.equal(y, run_k2()), "im2col: differs from K2 at the stem")
+    log("im2col equal to K2 at ResNet-50's stem")
+    M = B * 112 * 112
+    b_ms, b_by = bound(x.numel() + w_hwio.numel() + 8 * Co + y.numel(),
+                       2 * M * Co * 147)
+    kernels.append(dict(
+        name="qconv2d_im2col [RN50 int8 stem 7x7/2]", route="cuda",
+        source=SRC_IM2COL, replaces=TPU_IM2COL, path=None, kernel="im2col",
+        shape=f"B={B} H={H} Ci={Ci} Co={Co} 7x7/2 (K=147 padded to 160)",
+        max_abs_err=err, ms=timed(torch, run_k, 50),
+        eager_ms=timed_eager(torch, run_k, 50), plain_ms=timed(torch, run_p, 3),
+        k2_ms=timed(torch, run_k2, 50), bound_ms=b_ms, bound_by=b_by,
+        library_ms=conv_fp32_ms(xp, w_hwio.permute(3, 2, 0, 1), 2)))
 
     k3_cases = [
         ("block1 dw 3x3/2", 8, 112, 96, 2),
@@ -623,12 +736,13 @@ def main() -> int:
 
     kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
              k4.qproj_folded, k5.qtail_folded, k6.qblock_folded,
-             k78.qstage_folded, k78.qstage_proj_folded, k9.qivr_folded)
+             k78.qstage_folded, k78.qstage_proj_folded, k9.qivr_folded,
+             k1.qmatmul_folded_w4, qim2col.qconv2d_im2col)
     plains = (k1.qmatmul_folded_plain, k2.qconv2d_folded_plain,
               k3.qdepthwise_folded_plain, k4.qproj_folded_plain,
               k5.qtail_folded_plain, k6.qblock_folded_plain,
               k78.qstage_folded_plain, k78.qstage_proj_folded_plain,
-              k9.qivr_folded_plain)
+              k9.qivr_folded_plain, k1.qmatmul_folded_w4_plain)
 
     def zero_counts():
         for k in kmods:
@@ -637,11 +751,11 @@ def main() -> int:
             p.calls = 0
 
     def counts():
-        """(K1 .. K9 launches, plain-version calls)."""
+        """(K1 .. K9, K1 int4, im2col launches, plain-version calls)."""
         return (*(k.launches for k in kmods), sum(p.calls for p in plains))
 
     def fmt_counts(c):
-        return ", ".join(f"K{i + 1} {n}" for i, n in enumerate(c[:-1])) + \
+        return ", ".join(f"{k} {c[i]}" for k, i in KIDX.items()) + \
             f", plain path {c[-1]}"
 
     def one_forward(flat, x, expect, what):
@@ -650,8 +764,8 @@ def main() -> int:
             y = flat.forward(x)
         torch.cuda.synchronize()
         got = counts()
-        check(got == expect, f"{what}: one forward launched K1..K9/plain = "
-              f"{got}, expected {expect}")
+        check(got == expect, f"{what}: one forward launched K1..K9/K1 "
+              f"int4/im2col/plain = {got}, expected {expect}")
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
         log(f"{what}, one forward: {fmt_counts(got)}")
         return got
@@ -679,8 +793,8 @@ def main() -> int:
             engine.stop()
         rounds = st["batches"] - rounds0
         check(run_counts == tuple(n * rounds for n in per_fwd),
-              f"{what}: serving {rounds} rounds launched K1..K9/plain "
-              f"= {run_counts}")
+              f"{what}: serving {rounds} rounds launched K1..K9/K1 int4/"
+              f"im2col/plain = {run_counts}")
         check(len(st["rounds_per_bucket"]) >= 2,
               f"requests did not span two buckets: {st['rounds_per_bucket']}")
         check(served.shape == (45, classes) and np.isfinite(served).all(),
@@ -713,7 +827,7 @@ def main() -> int:
                        cifar_stem=cfg.cifar_stem)
     rn50, rn50_counts, rn50_vars = serve(
         RN50, lambda v: ResNetInt8Engine(v, arch, device=dev),
-        (37, 16, 0, 0, 0, 0, 0, 0, 0, 0))
+        (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0))
     # the experimental engine's two configurations on the same frozen tree,
     # served as qtpu serves it: ServingEngine with a forward factory
     fused, path_counts = {}, {"rn50": rn50_counts}
@@ -735,7 +849,7 @@ def main() -> int:
     mnv2, mnv2_counts, mnv2_vars = serve(
         MNV2, lambda v: MobileNetV2Int8Engine(v, num_classes=1000,
                                               device=dev),
-        (35, 0, 17, 0, 0, 0, 0, 0, 0, 0))
+        (35, 0, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0))
     ivr = ExperimentalMobileNetV2Int8Engine(mnv2_vars, num_classes=1000,
                                             device=dev, use_qivr=True)
     check(sum(p["nrun"] for p in ivr._qivr_prep.values()) == 10
@@ -751,16 +865,37 @@ def main() -> int:
                                      device=dev)
         mnv1_counts = one_forward(mnv1, torch.from_numpy(imgs[:8]).to(dev),
                                   (14, int("stem" in tree["qweights"]), 13,
-                                   0, 0, 0, 0, 0, 0, 0), name)
+                                   0, 0, 0, 0, 0, 0, 0, 0, 0), name)
     # the last of MNV1 has the quantized stem: K2 at Ci = 3
     check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
     path_counts.update(mnv2=mnv2_counts, mnv1=mnv1_counts)
+
+    # config 5: int4 weights, EMA calibration, stem and fc in fp32
+    cfg5 = CONFIGS[CFG5]
+    arch5 = resnet_arch(cfg5.model, num_classes=cfg5.num_classes,
+                        image_size=cfg5.image_size, width=cfg5.width,
+                        cifar_stem=cfg5.cifar_stem)
+    prod5, path_counts["cfg5"], vars5 = serve(
+        CFG5, lambda v: ResNetInt8Engine(v, arch5, device=dev), CFG5_PRODUCT)
+    packed5 = ResNetInt8Engine(vars5, arch5, device=dev, packed_int4=True)
+    path_counts["cfg5_packed"] = serve_factory(f"{CFG5} [packed_int4]",
+                                               vars5, packed5, CFG5_PACKED)
+    stage5 = ExperimentalResNetInt8Engine(vars5, arch5, device=dev,
+                                          packed_int4=True, **STAGE_FLAGS)
+    path_counts["cfg5_stage"] = one_forward(
+        stage5, torch.from_numpy(imgs[:8]).to(dev), CFG5_STAGE,
+        f"{CFG5} [stage, packed_int4]")
+
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
         if "kernel" not in kern:
             kern["kernel"] = f"K{srcs.index(kern['source']) + 1}"
-        kern["launches"] = path_counts[kern["path"]][
-            int(kern["kernel"][1:]) - 1]
+        # no engine calls the im2col conv: its launches are those counted
+        # over every path's serving run (each checked to be 0 above)
+        kern["launches"] = (
+            sum(c[KIDX["im2col"]] for c in path_counts.values())
+            if kern["path"] is None else
+            path_counts[kern["path"]][KIDX[kern["kernel"]]])
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -801,8 +936,13 @@ def main() -> int:
             for step in plan:
                 g_out, gn = flat._step(g_codes, gg, step)
                 c_out, cn = cpu._step(g_codes.cpu(), cg, step)
-                worst = max(worst, tie_rule(g_out, c_out,
-                                            f"{what} step {step}"))
+                if g_out.is_floating_point():   # f32 for an excluded fc
+                    d = (g_out.cpu() - c_out).abs().max().item()
+                    check(d <= 1e-6 * c_out.abs().max().item(),
+                          f"{what} step {step}: card vs CPU f32 max diff {d}")
+                else:
+                    worst = max(worst, tie_rule(g_out, c_out,
+                                                f"{what} step {step}"))
                 if ref is not None:
                     r_out, rg = g_codes, gg
                     for k in range(step[0], step[0] + step[1]):
@@ -828,6 +968,14 @@ def main() -> int:
     walk_vs_cpu(ivr, ExperimentalMobileNetV2Int8Engine(
         mnv2_vars, num_classes=1000, device="cpu", use_qivr=True),
         f"{MNV2} [ivr]", ref=mnv2)
+    # config 5: the packed engines against the CPU, and against the product
+    # engine (the int8 entry on the unpacked weights) on the card
+    walk_vs_cpu(packed5, ResNetInt8Engine(vars5, arch5, device="cpu",
+                                          packed_int4=True),
+                f"{CFG5} [packed_int4]", ref=prod5)
+    walk_vs_cpu(stage5, ExperimentalResNetInt8Engine(
+        vars5, arch5, device="cpu", packed_int4=True, **STAGE_FLAGS),
+        f"{CFG5} [stage, packed_int4]", ref=prod5)
 
     # MobileNet-v1 with the quantized stem (K2 at Ci = 3), the tree of the
     # last phase-4 forward
@@ -856,7 +1004,9 @@ def main() -> int:
         f"{rel_cpu:.2e}")
 
     # -- 6. engine throughput and a profile ------------------------------------------
-    for what, flat, batches in ((RN50, rn50, (128,)),
+    for what, flat, batches in ((RN50, rn50, (8, 128)),
+                                (CFG5, prod5, (8, 128)),
+                                (f"{CFG5} [packed_int4]", packed5, (8, 128)),
                                 (f"{RN50} [tail]", fused["tail"], (128,)),
                                 (f"{RN50} [block]", fused["block"], (128,)),
                                 (f"{RN50} [stage]", fused["stage"], (128,)),
@@ -893,20 +1043,32 @@ def main() -> int:
         del run_k, run_u
         torch.cuda.empty_cache()
     for kern in kernels:
-        extra = ("" if "unfused_ms" not in kern else
-                 f"; the unfused K1/K2/K3 sequence {kern['unfused_ms']:.4f} "
-                 f"ms; at B = 128 {kern['ms_b128']:.4f} ms against "
-                 f"{kern['unfused_ms_b128']:.4f} ms unfused" + (
-                     "" if "bound_ms_b128" not in kern else
-                     f" (bound {kern['bound_ms_b128']:.4f} ms)"))
+        extra = ""
+        if "int8_ms" in kern:
+            extra = (f"; K1's int8 entry on the unpacked weight "
+                     f"{kern['int8_ms']:.4f} ms (its bound "
+                     f"{kern['int8_bound_ms']:.4f} ms)")
+        elif "k2_ms" in kern:
+            extra = f"; K2 on the same conv {kern['k2_ms']:.4f} ms"
+        if "unfused_ms" in kern:
+            extra += (f"; the unfused K1/K2/K3 sequence "
+                      f"{kern['unfused_ms']:.4f} ms; at B = 128 "
+                      f"{kern['ms_b128']:.4f} ms against "
+                      f"{kern['unfused_ms_b128']:.4f} ms unfused" + (
+                          "" if "bound_ms_b128" not in kern else
+                          f" (bound {kern['bound_ms_b128']:.4f} ms)"))
         log(f"{kern['name']} {kern['shape']}: {kern['ms']:.4f} ms on the "
             f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
             f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}{extra}; "
-            f"{kern['launches']} launches in the {kern['path']} serving run)")
-    log("library: K1 torch._int_mm, K2/K3 cuDNN fp32 F.conv2d (TF32 off) on "
-        "the zero-point-padded codes — the int32 accumulator only; K4-K9 "
-        f"none: {NO_LIBRARY}")
+            + (f"{kern['launches']} launches in the {kern['path']} serving "
+               "run)" if kern["path"] else
+               f"no engine calls it: {kern['launches']} launches over every "
+               "serving run)"))
+    log("library: K1 torch._int_mm (K1 int4: on the unpacked weight; no "
+        "PyTorch call takes int4), K2/K3 and the im2col conv cuDNN fp32 "
+        "F.conv2d (TF32 off) on the zero-point-padded codes — the int32 "
+        f"accumulator only; K4-K9 none: {NO_LIBRARY}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -941,6 +1103,7 @@ def profile_forward(what, flat, x, torch):
                "K4 qproj_fused" if "qproj_kernel" in e.key else
                "K5 qtail_fused" if "qtail_kernel" in e.key else
                "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
+               "K1 int4 qmatmul_fused_w4" if "GemmLoader, true>" in e.key else
                "K1 qmatmul_fused" if "GemmLoader" in e.key else
                "K2 qconv2d_fused" if "ConvLoader" in e.key else
                "K3 qdepthwise_fused" if ("dw_vec_kernel" in e.key or

@@ -10,18 +10,22 @@
 //     two GEMMs of qproj.cu, conv1 of qblock.cu);
 //   * a resident source reads it from a tile that already lies in shared
 //     memory (conv2 and conv3 of the fused bottleneck tail, fused_tail.cuh).
-// W always streams through StagedB.  So one block can chain GEMM phases: the
-// accumulator of one phase is requantised in registers and feeds the next
-// through shared memory, never through device memory.
+// W streams through a B source too: StagedB for int8 weights, StagedB4 for
+// int4 weights nibble-packed along K (K1's int4 entry, qmatmul.cu), which
+// copies the packed bytes and unpacks them at the fragment load.  So one
+// block can chain GEMM phases: the accumulator of one phase is requantised in
+// registers and feeds the next through shared memory, never through device
+// memory.
 //
-// Block tile BM x BN, depth BK = 64 bytes per stage, two shared-memory stages
-// filled with cp.async (16-byte chunks, zero-filled past the ragged edges of
-// M, N and K) while the tensor cores work on the other stage.  Shared rows are
-// padded to 80 bytes so that the 32-bit fragment loads of a warp hit 32
-// distinct banks.
+// Block tile BM x BN, depth BK = 64 (k values) per stage, two shared-memory
+// stages filled with cp.async (16-byte chunks, zero-filled past the ragged
+// edges of M, N and K) while the tensor cores work on the other stage.
+// Shared rows are padded (80 bytes, 48 for packed int4) so that the fragment
+// loads of a warp hit distinct banks.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
@@ -30,6 +34,7 @@ namespace qtpu {
 
 constexpr int BK = 64;       // K bytes per pipeline stage
 constexpr int SK = BK + 16;  // padded shared row stride in bytes
+constexpr int SK4 = BK / 2 + 16;  // the same for a packed int4 B stage
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -63,6 +68,17 @@ __device__ __forceinline__ void mma_s8(int* c, unsigned a0, unsigned a1,
 
 __device__ __forceinline__ unsigned ld32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Four int4 values, nibbles n0..n3 of the low 16 bits of p (n0 lowest: k, k+1
+// of the first byte, then k+2, k+3), as the 32-bit register of four int8
+// values that mma.sync takes (byte i = n_i, sign-extended).
+__device__ __forceinline__ unsigned unpack_s4x4(unsigned p) {
+  unsigned t = (p | (p << 12)) & 0x0F0F0F0Fu;  // bytes n0, n2, n1, n3
+  t = __byte_perm(t, 0, 0x3120);               // bytes n0, n1, n2, n3
+  // arithmetic sign extension per byte: a set bit 3 fills bits 4-7
+  // (0x08 * 0x1E = 0xF0, no carry into the next byte)
+  return t | ((t & 0x08080808u) * 0x1Eu);
 }
 
 // A BM x BN block tile over WARPS_M x WARPS_N warps; each warp owns a
@@ -164,6 +180,7 @@ struct TileA {
 // W (N, K) K-contiguous, rows n0.. of a BN-row tile, stage by stage.
 template <class T, bool VEC>
 struct StagedB {
+  static constexpr int STAGE = T::STAGE_B;  // bytes of one stage
   static constexpr int CHUNKS = T::BN * T::CPR / T::NTHREADS;
   static_assert(T::BN * T::CPR % T::NTHREADS == 0,
                 "B tile does not split evenly over the threads");
@@ -200,6 +217,71 @@ struct StagedB {
     }
   }
   __device__ const int8_t* base(int s) const { return Bs + s * T::STAGE_B; }
+  // The mma B fragment of tile row n at stage depth k (k = kk + 4 tg): k..k+3
+  // and k+16..k+19.
+  __device__ void frag(const int8_t* bs, int n, int k, unsigned& b0,
+                       unsigned& b1) const {
+    const int8_t* p = bs + n * SK + k;
+    b0 = ld32(p);
+    b1 = ld32(p + 16);
+  }
+};
+
+// int4 W nibble-packed along K: (N, K/2) bytes, byte j of a row holding k =
+// 2j (low nibble) and 2j + 1 (high nibble).  cp.async copies the packed
+// (BN x BK/2) tile, so the weight crosses device and shared memory at half a
+// byte per value; `frag` unpacks 16 bits into the four int8 values of an mma
+// register (unpack_s4x4).  Unpacking at the fragment load instead of into an
+// int8 shared tile keeps one pass through shared memory and no extra
+// barrier; each packed byte is unpacked once per warp row that reads it (the
+// WARPS_M warps of a block column), a few integer operations beside the mma.
+// VEC: K/2 a multiple of 16 and the rows 16-byte aligned; otherwise bytes.
+template <class T, bool VEC>
+struct StagedB4 {
+  static constexpr int STAGE = T::BN * SK4;
+  static constexpr int CPR = BK / 32;  // 16-byte chunks per row and stage
+  static constexpr int CHUNKS = T::BN * CPR / T::NTHREADS;
+  static_assert(T::BN * CPR % T::NTHREADS == 0,
+                "packed B tile does not split evenly over the threads");
+  const int8_t* w;
+  int8_t* Bs;  // two stages of STAGE bytes
+  int KB, n0;  // KB = K / 2 bytes per row
+  int r[CHUNKS], c[CHUNKS];
+  bool ok[CHUNKS];
+
+  __device__ StagedB4(const int8_t* w_, int8_t* Bs_, int N, int K, int n0_)
+      : w(w_), Bs(Bs_), KB(K / 2), n0(n0_) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int cc = threadIdx.x + i * T::NTHREADS;
+      r[i] = cc / CPR;
+      c[i] = (cc % CPR) * 16;
+      ok[i] = n0 + r[i] < N;
+    }
+  }
+  __device__ void load(int s, int k0) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      int8_t* dst = Bs + s * STAGE + r[i] * SK4 + c[i];
+      const int kb = k0 / 2 + c[i];
+      const int8_t* src = w + static_cast<size_t>(n0 + r[i]) * KB + kb;
+      if (VEC) {
+        const bool v = ok[i] && kb < KB;
+        cp_async16(dst, v ? src : w, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          dst[j] = (ok[i] && kb + j < KB) ? src[j] : static_cast<int8_t>(0);
+      }
+    }
+  }
+  __device__ const int8_t* base(int s) const { return Bs + s * STAGE; }
+  __device__ void frag(const int8_t* bs, int n, int k, unsigned& b0,
+                       unsigned& b1) const {
+    const int8_t* p = bs + n * SK4 + k / 2;
+    b0 = unpack_s4x4(*reinterpret_cast<const unsigned short*>(p));
+    b1 = unpack_s4x4(*reinterpret_cast<const unsigned short*>(p + 8));
+  }
 };
 
 // acc = A[m0.., :] x W[n0.., :]^T over the whole depth K, into registers.
@@ -250,12 +332,9 @@ __device__ __forceinline__ void mainloop(ASrc& a, BSrc& b, int K,
         af[i][3] = ld32(as + roff[i][1] + ko1);
       }
 #pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const int8_t* p = bs + (f.warp_n * T::WN + j * 8 + f.g) * SK + kk +
-                          f.tg * 4;
-        bf[j][0] = ld32(p);
-        bf[j][1] = ld32(p + 16);
-      }
+      for (int j = 0; j < T::NT; ++j)
+        b.frag(bs, f.warp_n * T::WN + j * 8 + f.g, kk + f.tg * 4, bf[j][0],
+               bf[j][1]);
 #pragma unroll
       for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -289,18 +368,22 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
 }
 
 // The plain GEMM: one block per BM x BN output tile, the main loop, then the
-// folded epilogue in registers.
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC, class ALoader>
+// folded epilogue in registers.  W4: the weight is int4 nibble-packed along K
+// (StagedB4), K still counts values.
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC, class ALoader,
+          bool W4>
 __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
     igemm_kernel(ALoader al, const int8_t* __restrict__ w, int M, int N,
                  int K, Epilogue ep) {
   typedef TileCfg<BM, BN, WARPS_M, WARPS_N> T;
+  typedef typename std::conditional<W4, StagedB4<T, VEC>,
+                                    StagedB<T, VEC>>::type BSrc;
   __shared__ __align__(16) int8_t As[2 * T::STAGE_A];
-  __shared__ __align__(16) int8_t Bs[2 * T::STAGE_B];
+  __shared__ __align__(16) int8_t Bs[2 * BSrc::STAGE];
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   StagedA<T, VEC, ALoader> a(al, As, M, K, m0);
-  StagedB<T, VEC> b(w, Bs, N, K, n0);
+  BSrc b(w, Bs, N, K, n0);
   int acc[T::MT][T::NT][4];
   mainloop<T>(a, b, K, acc);
 
@@ -331,16 +414,16 @@ inline bool use_big_tiles(int M, int N) {
   return N >= 128 && big_tiles >= 264;
 }
 
-template <bool VEC, class ALoader>
+template <bool VEC, class ALoader, bool W4 = false>
 cudaError_t launch_igemm(const ALoader& al, const int8_t* w, int M, int N,
                          int K, const Epilogue& ep, cudaStream_t stream) {
   if (use_big_tiles(M, N)) {
     dim3 grid((N + 127) / 128, (M + 127) / 128);
-    igemm_kernel<128, 128, 2, 4, VEC, ALoader>
+    igemm_kernel<128, 128, 2, 4, VEC, ALoader, W4>
         <<<grid, 256, 0, stream>>>(al, w, M, N, K, ep);
   } else {
     dim3 grid((N + 63) / 64, (M + 63) / 64);
-    igemm_kernel<64, 64, 2, 2, VEC, ALoader>
+    igemm_kernel<64, 64, 2, 2, VEC, ALoader, W4>
         <<<grid, 128, 0, stream>>>(al, w, M, N, K, ep);
   }
   return cudaGetLastError();

@@ -15,6 +15,16 @@
 // the int32 accumulator never reaches device memory, and the epilogue writes
 // one byte per int8 output.  This first version uses mma.sync with a two-stage
 // cp.async pipeline; wgmma and TMA are later work (ROADMAP.md).
+//
+// The int4 entry (qtpu_qmatmul_fused_w4) replaces the same TPU kernel's
+// w_packed=True mode (its in-VMEM unpack of pack_int4_halves, qmatmul.py:51).
+// w is int4 in [-7, 7], nibble-packed along K: (N, K/2) bytes, low nibble
+// k even, high nibble k odd.  The packed bytes cross device and shared memory
+// (half the weight traffic of the int8 entry, which is what bounds the
+// weight-heavy GEMMs at a small batch: ResNet-50's layer4 at B = 8) and are
+// sign-extended into the mma's int8 registers at the fragment load
+// (igemm.cuh: StagedB4).  The main loop, tiles and epilogue are the int8
+// entry's, so both give the same codes.  No library multiplies int8 by int4.
 #include "igemm.cuh"
 
 namespace {
@@ -51,4 +61,27 @@ extern "C" int qtpu_qmatmul_fused(const void* x, const void* w, const void* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) return qtpu::launch_igemm<true>(al, ws, M, N, K, ep, s);
   return qtpu::launch_igemm<false>(al, ws, M, N, K, ep, s);
+}
+
+extern "C" int qtpu_qmatmul_fused_w4(const void* x, const void* w4,
+                                     const void* A, const void* B,
+                                     const void* res, int res_kind, void* out,
+                                     int out_kind, int M, int N, int K,
+                                     float C, float lo, float hi, float shift,
+                                     int relu, int use_act_max, float act_max,
+                                     void* stream) {
+  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* xs = static_cast<const int8_t*>(x);
+  const int8_t* ws = static_cast<const int8_t*>(w4);
+  qtpu::Epilogue ep = qtpu::make_epilogue(
+      static_cast<const float*>(A), static_cast<const float*>(B), res,
+      res_kind, out, out_kind, C, lo, hi, shift, relu, use_act_max, act_max);
+  GemmLoader al{xs, K};
+  // 16-byte copies of x need K % 16, of the packed rows (K/2) % 16
+  const bool vec = K % 32 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) return qtpu::launch_igemm<true, GemmLoader, true>(al, ws, M, N, K,
+                                                             ep, s);
+  return qtpu::launch_igemm<false, GemmLoader, true>(al, ws, M, N, K, ep, s);
 }

@@ -1,5 +1,9 @@
 """Typed experiment configs (port of qtpu/examples/configs.py): the INT8
-PTQ serving configs of ResNet-50 and MobileNet-v1/v2.  The others, and the
+PTQ serving configs of ResNet-50 and MobileNet-v1/v2, and
+``resnet50_int4w_int8a_qat`` (BASELINE config 5: int4 per-channel weights,
+int8 affine activations on the EMA observer, stem and fc in fp32).  The
+port serves config 5 as qtpu's ``build_engine`` does — calibrate and freeze
+— since its QAT loop waits for the trainer.  The other configs, and the
 training fields, arrive with their models and the trainer (ROADMAP.md)."""
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ class ExperimentConfig:
     dataset: str
     num_classes: int
     image_size: int
+    method: str = "ptq"           # 'ptq' | 'qat' | 'online'
+    w_bits: int = 8
+    a_bits: int = 8
     per_channel: bool = True
     act_observer: str = "minmax"
     exclude: Tuple[str, ...] = ()
@@ -25,8 +32,9 @@ class ExperimentConfig:
     calib_batches: int = 8
 
     def policy(self) -> QuantPolicy:
-        """INT8 PTQ with this config's granularity, observer and excludes."""
-        spec = LayerQuantSpec(per_channel=self.per_channel,
+        """This config's bits, granularity, observer and excludes."""
+        spec = LayerQuantSpec(w_bits=self.w_bits, a_bits=self.a_bits,
+                              per_channel=self.per_channel,
                               act_observer=self.act_observer)
         return QuantPolicy(default=spec, exclude=self.exclude)
 
@@ -55,4 +63,9 @@ CONFIGS = {
         dataset="imagenet", num_classes=1000, image_size=224,
         per_channel=True, act_observer="minmax", batch_size=16,
         exclude=("stem*",)),
+    "resnet50_int4w_int8a_qat": ExperimentConfig(
+        name="resnet50_int4w_int8a_qat", model="resnet50",
+        dataset="imagenet", num_classes=1000, image_size=224, method="qat",
+        w_bits=4, a_bits=8, act_observer="ema", batch_size=16,
+        exclude=("stem*", "fc")),
 }

@@ -7,8 +7,8 @@
   per-layer overrides over the "/"-joined layer path (the reference's
   ``exclude=[first, last]`` idiom).
 
-The quantization modes, STE choice, EMA momentum, PACT and fake-BN settings
-arrive with the QAT slice (ROADMAP.md).
+The quantization modes, STE choice, PACT and fake-BN settings arrive with
+the QAT slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ class LayerQuantSpec:
     per_channel: bool = True
     act_observer: str = "minmax"      # 'minmax' | 'ema' | 'kl' | 'pact'
     act_symmetric: bool = False
+    ema_momentum: float = 0.99        # the 'ema' observer's momentum
     quantize_weights: bool = True
     quantize_acts: bool = True
 

@@ -12,8 +12,14 @@ weight and the unfolded grid arguments, folded here with
 :func:`qtpu_torch.ops.qops.epilogue_coeffs`.
 
 ``raw_acc=True`` returns the int32 accumulator (the fc path: its exact
-``dequant_epilogue`` runs on the integer sum); the int4 ``w_packed`` mode is
-not ported yet (ROADMAP.md).
+``dequant_epilogue`` runs on the integer sum).
+
+int4 weights (qtpu's ``w_packed=True`` mode): ``qmatmul_folded_w4`` takes
+the weight nibble-packed along K (:func:`pack_int4_nk`, (N, K/2) bytes) and
+launches the int4 entry of the same kernel, which unpacks in the kernel; its
+own ``launches`` count keeps int4 launches apart from int8 ones.
+``qmatmul_fused(w_packed=True, bn=...)`` keeps qtpu's call form, a
+:func:`pack_int4_halves` weight, and repacks it for the kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from qtpu_torch.ops import _build, qops
+from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -104,37 +111,61 @@ def qmatmul_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     if x_q.device.type == "cpu":
         return qmatmul_folded_plain(x_q, w_nk, co, mode, residual,
                                     out_dtype=out_dtype, raw_acc=raw_acc)
-    if not x_q.is_cuda:
-        raise ValueError(f"unsupported device {x_q.device}")
-    M, K = x_q.shape
-    N, K2 = w_nk.shape
-    dev = x_q.device
-    if K != K2:
-        raise ValueError(f"K mismatch: x {tuple(x_q.shape)}, w {tuple(w_nk.shape)}")
-    for name, t in (("x_q", x_q), ("w_nk", w_nk)):
-        if t.dtype != torch.int8 or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name} must be a contiguous int8 tensor on {dev}")
-    if not raw_acc:
-        check_vectors(co, N, dev)
-    res_kind = check_residual(residual, (M, N), dev)
-    odt = out_dtype_of(mode, out_dtype, raw_acc)
-    out = torch.empty((M, N), dtype=odt, device=dev)
-    A, B, C, lo, hi, shift, relu, use_am, am = launch_args(
-        None if raw_acc else co, mode)
-    fn = _build.load("qmatmul", "qtpu_qmatmul_fused", _ARGTYPES)
-    err = fn(x_q.data_ptr(), w_nk.data_ptr(), A, B,
-             None if residual is None else residual.data_ptr(),
-             res_kind, out.data_ptr(), OUT_KIND[odt], M, N, K,
-             C, lo, hi, shift, relu, use_am, am,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"qmatmul_fused kernel launch failed: CUDA error "
-                           f"{err} (M={M}, N={N}, K={K})")
+    res_kind = _check(x_q, w_nk, "w_nk", w_nk.shape[1], co, residual,
+                      raw_acc)
+    out = _launch("qtpu_qmatmul_fused", x_q, w_nk, co, mode, residual,
+                  res_kind, out_dtype, raw_acc)
     qmatmul_folded.launches += 1
     return out
 
 
 qmatmul_folded.launches = 0
+
+
+def _check(x_q: torch.Tensor, w: torch.Tensor, wname: str, w_k: int,
+           co: Optional[EpilogueCoeffs], residual: Optional[torch.Tensor],
+           raw_acc: bool) -> int:
+    """Raise on operands K1 does not take (``w_k``: the K the weight
+    holds); returns the residual kind."""
+    if not x_q.is_cuda:
+        raise ValueError(f"unsupported device {x_q.device}")
+    M, K = x_q.shape
+    N = w.shape[0]
+    dev = x_q.device
+    if K != w_k:
+        raise ValueError(f"K mismatch: x {tuple(x_q.shape)}, {wname} "
+                         f"{tuple(w.shape)}")
+    for name, t in (("x_q", x_q), (wname, w)):
+        if t.dtype != torch.int8 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous int8 tensor on {dev}")
+    if not raw_acc:
+        check_vectors(co, N, dev)
+    return check_residual(residual, (M, N), dev)
+
+
+def _launch(symbol: str, x_q: torch.Tensor, w: torch.Tensor,
+            co: Optional[EpilogueCoeffs], mode: Optional[EpilogueMode],
+            residual: Optional[torch.Tensor], res_kind: int,
+            out_dtype: torch.dtype, raw_acc: bool) -> torch.Tensor:
+    """Allocate the output and launch K1's C entry ``symbol`` (the int8 or
+    the int4 one: the same arguments)."""
+    M, K = x_q.shape
+    N = w.shape[0]
+    dev = x_q.device
+    odt = out_dtype_of(mode, out_dtype, raw_acc)
+    out = torch.empty((M, N), dtype=odt, device=dev)
+    A, B, C, lo, hi, shift, relu, use_am, am = launch_args(
+        None if raw_acc else co, mode)
+    fn = _build.load("qmatmul", symbol, _ARGTYPES)
+    err = fn(x_q.data_ptr(), w.data_ptr(), A, B,
+             None if residual is None else residual.data_ptr(),
+             res_kind, out.data_ptr(), OUT_KIND[odt], M, N, K,
+             C, lo, hi, shift, relu, use_am, am,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
+                           f"{err} (M={M}, N={N}, K={K})")
+    return out
 
 
 def qmatmul_folded_plain(x_q: torch.Tensor, w_nk: torch.Tensor,
@@ -155,6 +186,86 @@ def qmatmul_folded_plain(x_q: torch.Tensor, w_nk: torch.Tensor,
 
 
 qmatmul_folded_plain.calls = 0
+
+
+# -- int4 weights (qtpu's w_packed mode) ------------------------------------------
+
+def pack_int4_nk(w_nk: torch.Tensor) -> torch.Tensor:
+    """The int4 entry's weight layout: int8-held int4 codes (N, K), values
+    in ±7, packed along K into (N, K/2) bytes — low nibble k even, high
+    nibble k odd.  Raises on odd K."""
+    if w_nk.dim() != 2 or w_nk.shape[1] % 2:
+        raise ValueError(f"pack_int4_nk needs an (N, K) weight with even K, "
+                         f"got {tuple(w_nk.shape)}")
+    return fq.pack_int4(w_nk, axis=-1)
+
+
+def pack_int4_halves(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """qtpu's tile-halves layout (qtpu/ops/pallas/qmatmul.py:
+    pack_int4_halves): int8-held int4 codes (K, N) → (K, N/2) bytes; within
+    each ``bn``-column tile, byte t holds tile column t (low nibble) and
+    tile column t + bn/2 (high nibble).  Needs N % bn == 0 and an even bn
+    (qtpu also asks (bn/2) % 128 == 0, its TPU lane rule)."""
+    K, N = w.shape
+    if bn % 2 or N % bn:
+        raise ValueError(f"pack_int4_halves: N={N} does not tile by an even "
+                         f"bn={bn}")
+    t = w.reshape(K, N // bn, 2, bn // 2)
+    lo, hi = t[:, :, 0, :], t[:, :, 1, :]
+    return ((lo & 0x0F) | (hi << 4)).to(torch.int8).reshape(K, N // 2)
+
+
+def unpack_int4_halves(wp: torch.Tensor, bn: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_halves`: (K, N/2) bytes → int8 (K, N),
+    each nibble sign-extended."""
+    K, half_n = wp.shape
+    t = wp.reshape(K, half_n * 2 // bn, bn // 2)
+    lo = (t << 4) >> 4
+    hi = t >> 4
+    return torch.stack([lo, hi], dim=2).reshape(K, half_n * 2)
+
+
+def qmatmul_folded_w4(x_q: torch.Tensor, w_nk4: torch.Tensor,
+                      co: Optional[EpilogueCoeffs],
+                      mode: Optional[EpilogueMode],
+                      residual: Optional[torch.Tensor] = None, *,
+                      out_dtype: torch.dtype = torch.float32,
+                      raw_acc: bool = False) -> torch.Tensor:
+    """int8 (M, K) × int4 (N, K)ᵀ → epilogue(acc) (M, N), the weight packed
+    by :func:`pack_int4_nk` ((N, K/2) bytes) and unpacked in the kernel.
+    Raises on odd K."""
+    if x_q.shape[-1] % 2:
+        raise ValueError(f"the int4 entry needs an even K, got x "
+                         f"{tuple(x_q.shape)}")
+    if x_q.device.type == "cpu":
+        return qmatmul_folded_w4_plain(x_q, w_nk4, co, mode, residual,
+                                       out_dtype=out_dtype, raw_acc=raw_acc)
+    res_kind = _check(x_q, w_nk4, "w_nk4", 2 * w_nk4.shape[1], co, residual,
+                      raw_acc)
+    out = _launch("qtpu_qmatmul_fused_w4", x_q, w_nk4, co, mode, residual,
+                  res_kind, out_dtype, raw_acc)
+    qmatmul_folded_w4.launches += 1
+    return out
+
+
+qmatmul_folded_w4.launches = 0
+
+
+def qmatmul_folded_w4_plain(x_q: torch.Tensor, w_nk4: torch.Tensor,
+                            co: Optional[EpilogueCoeffs],
+                            mode: Optional[EpilogueMode],
+                            residual: Optional[torch.Tensor] = None, *,
+                            out_dtype: torch.dtype = torch.float32,
+                            raw_acc: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`qmatmul_folded_w4`: unpack, then
+    :func:`qmatmul_folded_plain`."""
+    qmatmul_folded_w4_plain.calls += 1
+    return qmatmul_folded_plain(x_q, fq.unpack_int4(w_nk4, axis=-1), co,
+                                mode, residual, out_dtype=out_dtype,
+                                raw_acc=raw_acc)
+
+
+qmatmul_folded_w4_plain.calls = 0
 
 
 def fold(*, act_scale, act_zp, w_scale, colsum, bias=None,
@@ -178,21 +289,31 @@ def qmatmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, *, act_scale,
                   requant_zp=None, residual=None, res_scale=None,
                   res_zp=None, out_dtype: torch.dtype = torch.float32,
                   relu: bool = False, act_max: Optional[float] = None,
-                  raw_acc: bool = False) -> torch.Tensor:
+                  raw_acc: bool = False, w_packed: bool = False,
+                  bn: Optional[int] = None) -> torch.Tensor:
     """qtpu's call form: int8 (M, K) × int8 (K, N) → (M, N) with the fused
-    epilogue (int8 codes when ``requant_scale`` is given)."""
+    epilogue (int8 codes when ``requant_scale`` is given).  ``w_packed``:
+    ``w_q`` is qtpu's :func:`pack_int4_halves` (K, N/2) at tile width
+    ``bn`` (qtpu's default 512, at most N), repacked by
+    :func:`pack_int4_nk` for the int4 entry."""
     co, mode = fold(act_scale=act_scale, act_zp=act_zp, w_scale=w_scale,
                     colsum=colsum, bias=bias, requant_scale=requant_scale,
                     requant_zp=requant_zp, residual=residual,
                     res_scale=res_scale, res_zp=res_zp, relu=relu,
                     act_max=act_max)
+    if w_packed:
+        w = unpack_int4_halves(w_q, min(bn or 512, 2 * w_q.shape[1]))
+        return qmatmul_folded_w4(x_q, pack_int4_nk(w.t().contiguous()), co,
+                                 mode, residual, out_dtype=out_dtype,
+                                 raw_acc=raw_acc)
     return qmatmul_folded(x_q, w_q.t().contiguous(), co, mode, residual,
                           out_dtype=out_dtype, raw_acc=raw_acc)
 
 
 def qmatmul_fused_plain(x_q: torch.Tensor, w_q: torch.Tensor, **kw
                         ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`qmatmul_fused` (same arguments)."""
+    """Plain PyTorch version of :func:`qmatmul_fused` (same arguments, an
+    int8 weight)."""
     raw_acc = kw.pop("raw_acc", False)
     out_dtype = kw.pop("out_dtype", torch.float32)
     co, mode = fold(**kw)

@@ -1,8 +1,12 @@
 """Serving stack assembly (port of ``build_engine`` of qtpu/serve/cli.py).
 
-model (seeded random weights) → min-max calibration on seeded normal
-batches → ``freeze`` → flat int8 engine → :class:`ServingEngine`, warmed on
-every bucket.  No mesh, checkpoint or torch-checkpoint import yet; the HTTP
+model (seeded random weights) → calibration on seeded normal batches (the
+config's observer: min-max, or EMA for ``resnet50_int4w_int8a_qat``) →
+``freeze`` (int8, or nibble-packed int4 weights) → flat int8 engine →
+:class:`ServingEngine`, warmed on every bucket.  As qtpu's, the engine
+runs int4 trees on the unpacked weights; ``ResNetInt8Engine(...,
+packed_int4=True)`` served through a forward factory runs K1's int4
+entry.  No mesh, checkpoint or torch-checkpoint import yet; the HTTP
 front and the CLI ``main`` wait too (ROADMAP.md).
 """
 from __future__ import annotations

@@ -44,8 +44,10 @@ Left out on purpose: qtpu's TPU-only ``*_interpret`` arguments and its
 for the TPU's 128-lane layout and adds only zero products, and at
 ResNet-50's full width every block qtpu fuses is fused here too;
 ``use_pallas``, ``min_ci_pallas`` and ``dw_shifted`` (the port always runs
-its kernels); ``packed_int4`` (waits for K1's int4 mode).  qtpu has no CLI
-flag for these engines and neither has the port: serve one with
+its kernels).  ``packed_int4`` passes to the base class, as qtpu's: the
+unfused 1×1 GEMMs of int4 nodes run on K1's int4 entry, while K4-K9 take
+the unpacked int8 weights.  qtpu has no CLI flag for these engines and
+neither has the port: serve one with
 ``ServingEngine(None, tree, forward_factory=lambda sv:
 ExperimentalResNetInt8Engine(sv, arch, ...).forward, ...)``.
 """
@@ -78,7 +80,7 @@ class ExperimentalResNetInt8Engine(ResNetInt8Engine):
     operands ``run`` and, for a whole stage, ``proj``."""
 
     def __init__(self, variables: Dict[str, Any], arch: Dict[str, Any],
-                 device=None, normalize=None,
+                 device=None, normalize=None, packed_int4: bool = False,
                  use_qblock: Optional[bool] = None,
                  use_qtail: Optional[bool] = None,
                  use_qproj: Optional[bool] = None,
@@ -86,7 +88,8 @@ class ExperimentalResNetInt8Engine(ResNetInt8Engine):
                  use_qstage: Optional[bool] = None,
                  qstage_stages: Optional[Tuple[int, ...]] = None,
                  qstage_proj: bool = False):
-        super().__init__(variables, arch, device=device, normalize=normalize)
+        super().__init__(variables, arch, device=device, normalize=normalize,
+                         packed_int4=packed_int4)
         bottleneck = self.arch.get("bottleneck", True)
         self.use_qblock = bool(use_qblock) and bottleneck
         self.use_qtail = bool(use_qtail) and bottleneck and not self.use_qblock

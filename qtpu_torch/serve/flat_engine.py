@@ -14,7 +14,9 @@ on the device for a scalar.  The entry points are qtpu's:
 ``torch_pad=True`` runs torchvision's geometry: explicit (1, 1) pads on
 the strided 3×3 convs, where SAME pads (0, 1).  ``device``: ``None`` means
 the card (raises without one); pass ``"cpu"`` for the plain path, where
-the same code runs the kernels' plain versions.
+the same code runs the kernels' plain versions.  ``packed_int4``: the 1×1
+int4 nodes keep their weights nibble-packed for K1's int4 entry
+(:func:`qtpu_torch.serve.fused_ops.prepare_node`).
 Subclasses implement ``_forward(x, pre_quantized, raw_u8)``.
 """
 from __future__ import annotations
@@ -42,12 +44,13 @@ class FlatInt8Engine:
     depthwise_keys: Collection[str] = ()
 
     def __init__(self, variables: Dict[str, Any], torch_pad: bool = False,
-                 device=None, normalize=None):
+                 device=None, normalize=None, packed_int4: bool = False):
         self.device = resolve_device(device)
         self.torch_pad = bool(torch_pad)
         self._pad3 = pad3(self.torch_pad)
+        self.packed_int4 = bool(packed_int4)
         self.qw = prepare_tree(variables["qweights"], self.device,
-                               self.depthwise_keys)
+                               self.depthwise_keys, self.packed_int4)
         self.params = tree_to_device(variables.get("params", {}),
                                      self.device)
         self.batch_stats = tree_to_device(variables.get("batch_stats", {}),

@@ -17,8 +17,10 @@ of the experimental engines — ``stage`` (K7), ``proj_stage`` (K8) and
 
 Engines call :func:`prepare_tree` once at build: it places the leaves on
 the device, stores each weight in its kernel's layout (``w_nk`` (N, K) for
-K1/K2, ``w_taps`` (KH·KW, C) for a depthwise node) and reads the activation
-grid into Python numbers, so the forward never waits on the device for a
+K1/K2, ``w_taps`` (KH·KW, C) for a depthwise node, and with
+``packed_int4`` also ``w_nk4`` (N, K/2) for a 1×1 int4 node, which
+``gemm_1x1`` then runs on K1's int4 entry) and reads the activation grid
+into Python numbers, so the forward never waits on the device for a
 scalar.  The folded epilogue coefficients of each call site are computed at
 its first call and kept in the prepared node.
 """
@@ -35,7 +37,8 @@ from qtpu_torch.ops.qconv import qconv2d_folded
 from qtpu_torch.ops.qdepthwise import qdepthwise_folded
 from qtpu_torch.ops.qblock import qblock_folded
 from qtpu_torch.ops.qivr import qivr_folded
-from qtpu_torch.ops.qmatmul import qmatmul_folded
+from qtpu_torch.ops.qmatmul import (pack_int4_nk, qmatmul_folded,
+                                    qmatmul_folded_w4)
 from qtpu_torch.ops.qops import EpilogueCoeffs
 from qtpu_torch.ops.qproj import qproj_folded
 from qtpu_torch.ops.qstage import (ChainCoeffs, qstage_folded,
@@ -81,6 +84,11 @@ def unpacked_kernel(node: Node) -> torch.Tensor:
     if w.shape[-1] != node["colsum"].shape[0]:
         w = fq.unpack_int4(w, axis=-1)
     return w
+
+
+def is_int4(node: Node) -> bool:
+    """Whether a frozen node holds nibble-packed int4 weights."""
+    return node["kernel_q"].shape[-1] != node["colsum"].shape[0]
 
 
 def dequant(x_q: torch.Tensor, grid) -> torch.Tensor:
@@ -135,11 +143,14 @@ def u8_normalize_coeffs(mean, std, channels: int,
 
 
 def prepare_node(node: Node, device: torch.device,
-                 depthwise: bool = False) -> Node:
+                 depthwise: bool = False, packed_int4: bool = False) -> Node:
     """A serving copy of a frozen node on ``device``: the leaves, the weight
     in its kernel's layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv;
     ``w_taps``: (KH·KW, C) for a ``depthwise`` (KH, KW, 1, C) node), its
-    spatial size, the grid as Python numbers and an epilogue memo."""
+    spatial size, the grid as Python numbers and an epilogue memo.  With
+    ``packed_int4`` a 1×1 int4 node (even K) also keeps ``w_nk4``, its
+    weight packed for K1's int4 entry; ``w_nk`` stays for the kernels that
+    take int8 weights."""
     out = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
            for k, v in node.items() if not k.startswith("_")}
     w = unpacked_kernel(out)
@@ -151,6 +162,9 @@ def prepare_node(node: Node, device: torch.device,
     else:
         out["w_nk"] = w.reshape(-1, w.shape[-1]).t().contiguous()
     out["kernel_hw"] = tuple(w.shape[:2]) if w.dim() == 4 else (1, 1)
+    if (packed_int4 and not depthwise and is_int4(out)
+            and out["kernel_hw"] == (1, 1) and out["w_nk"].shape[1] % 2 == 0):
+        out["w_nk4"] = pack_int4_nk(out["w_nk"])
     out["grid"] = grid_of(node)
     out["_epi"] = {}
     return out
@@ -161,11 +175,14 @@ def _is_node(v) -> bool:
 
 
 def prepare_tree(tree: Dict[str, Any], device: torch.device,
-                 depthwise: Collection[str] = ()) -> Dict[str, Any]:
+                 depthwise: Collection[str] = (),
+                 packed_int4: bool = False) -> Dict[str, Any]:
     """Every frozen node of ``tree`` through :func:`prepare_node`; nodes
     stored under a key in ``depthwise`` take the depthwise layout."""
-    return {k: (prepare_node(v, device, depthwise=k in depthwise)
-                if _is_node(v) else prepare_tree(v, device, depthwise))
+    return {k: (prepare_node(v, device, depthwise=k in depthwise,
+                             packed_int4=packed_int4)
+                if _is_node(v) else prepare_tree(v, device, depthwise,
+                                                 packed_int4))
             for k, v in tree.items()}
 
 
@@ -207,7 +224,8 @@ def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
              residual: Optional[torch.Tensor] = None, res_grid=None,
              raw_acc: bool = False) -> torch.Tensor:
     """1×1 conv (or fc on (B, 1, 1, C)) as a fused GEMM over a frozen node
-    (K1).  ``raw_acc`` returns the int32 accumulator."""
+    (K1; its int4 entry when the prepared node has ``w_nk4``).  ``raw_acc``
+    returns the int32 accumulator."""
     B, H, W, Ci = x_q.shape
     node = _prepared(node, x_q.device)
     Co = node["w_nk"].shape[0]
@@ -220,8 +238,13 @@ def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
                              requant=requant,
                              res_kind=None if res2 is None else res2.dtype,
                              res_grid=res_grid)
-    y = qmatmul_folded(x_q.reshape(M, Ci), node["w_nk"], co, mode, res2,
-                       out_dtype=out_dtype, raw_acc=raw_acc)
+    w4 = node.get("w_nk4")
+    if w4 is not None:
+        y = qmatmul_folded_w4(x_q.reshape(M, Ci), w4, co, mode, res2,
+                              out_dtype=out_dtype, raw_acc=raw_acc)
+    else:
+        y = qmatmul_folded(x_q.reshape(M, Ci), node["w_nk"], co, mode, res2,
+                           out_dtype=out_dtype, raw_acc=raw_acc)
     return y.reshape(B, H, W, Co)
 
 

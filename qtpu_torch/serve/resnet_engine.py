@@ -4,7 +4,8 @@ Runs ResNet-18/50-style nets from a frozen tree (``qweights`` plus the fp32
 ``params``/``batch_stats`` of excluded layers) as an int8-resident
 pipeline:
 
-* every 1×1 conv and the int8 fc run on K1, every K×K conv on K2, with the
+* every 1×1 conv and the int8 fc run on K1 (int4 nodes on its int4 entry
+  with ``packed_int4``), every K×K conv on K2, with the
   dequant → (residual) → relu → requant chain folded into the kernels'
   epilogues — activations stay int8 codes between layers, each on its
   consumer's calibrated grid;
@@ -58,12 +59,25 @@ class ResNetInt8Engine(FlatInt8Engine):
     strided 3×3 convs, where SAME pads (0, 1).
     ``device``: ``None`` means the card (raises without one); pass
     ``"cpu"`` for the plain path.
+
+    ``packed_int4`` (qtpu's flag): every 1×1 GEMM of an int4 node — conv1,
+    conv3, the downsample, and an int4 fc — keeps its weight nibble-packed
+    and runs on K1's int4 entry, which unpacks it in the kernel; the 3×3
+    convs run the unpacked int8 weight on K2, as qtpu's ``conv_xla``.  The
+    codes are those of the int8 entry on the unpacked weight.  Deviations
+    from qtpu, with the same codes: its extra guard ``(bn // 2) % 128 == 0
+    and Co % bn == 0`` (qtpu/serve/fused_ops.py:157-158) is the TPU's
+    128-lane rule for its tile-halves layout and is left out on purpose
+    (the port's layout, ``ops.qmatmul.pack_int4_nk``, takes any even K);
+    qtpu runs an int4 fc on its unpacked weight, the port on the int4 entry
+    like every other 1×1 GEMM.
     """
 
     def __init__(self, variables: Dict[str, Any], arch: Dict[str, Any],
-                 device=None, normalize=None):
+                 device=None, normalize=None, packed_int4: bool = False):
         super().__init__(variables, torch_pad=arch.get("torch_pad", False),
-                         device=device, normalize=normalize)
+                         device=device, normalize=normalize,
+                         packed_int4=packed_int4)
         self.arch = dict(arch)
         self._names = self._block_names()
         # Fused-kernel dispatch tables (block name -> entry, and stage index

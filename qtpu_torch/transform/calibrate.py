@@ -1,12 +1,15 @@
-"""Post-training min-max calibration (port of the range pass of
-qtpu/transform/calibrate.py).
+"""Post-training calibration (port of the range pass of
+qtpu/transform/calibrate.py): min-max and EMA observers.
 
 qtpu records each quantized layer's *input* range during the fp32 forward
 that ``QuantMode.CALIB_RANGE`` runs: BatchNorm on running statistics, no
 weight fake-quant.  Here the fp32 model's eval forward is that forward, and
 forward pre-hooks — the reference's own idiom — observe each quantized
-layer's input.  The observer state is fresh on every call, so calibration is
-idempotent.  The histogram / KL pass is still to port (ROADMAP.md).
+layer's input, with the layer's observer: ``"minmax"`` the running
+min/max, ``"ema"`` qtpu's ``ema_update`` at the spec's ``ema_momentum``
+over the batches in order.  The observer state is fresh on every call, so
+calibration is idempotent.  The histogram / KL pass and PACT are still to
+port (ROADMAP.md) and raise.
 
 Returns ``{"quant_stats": {path: state}, "quant_params": {path: {"act_scale",
 "act_zp", "calibrated"}}}`` keyed by qtpu's "/"-joined layer paths.
@@ -35,15 +38,21 @@ def calibrate(model: nn.Module, policy: QuantPolicy,
               if policy.spec_for(p) is not None
               and policy.spec_for(p).quantize_acts}
     for p in layers:
-        if policy.spec_for(p).act_observer != "minmax":
+        if policy.spec_for(p).act_observer not in ("minmax", "ema"):
             raise NotImplementedError(
-                f"{p}: only the min-max observer is ported "
-                "(EMA / KL / PACT: ROADMAP.md)")
+                f"{p}: only the min-max and EMA observers are ported "
+                "(KL / PACT: ROADMAP.md)")
     stats = {p: obs.minmax_init(device) for p in layers}
 
     def observer(path):
+        spec = policy.spec_for(path)
+
         def hook(_module, args):
-            stats[path] = obs.minmax_update(stats[path], args[0])
+            if spec.act_observer == "ema":
+                stats[path] = obs.ema_update(stats[path], args[0],
+                                             spec.ema_momentum)
+            else:
+                stats[path] = obs.minmax_update(stats[path], args[0])
         return hook
 
     hooks = [m.register_forward_pre_hook(observer(p))

@@ -11,7 +11,12 @@ ResNet-50's widths; for the chained kernels (K7-K9) runs of 1-5 blocks,
 H = W in {4, 5, 7} (and 5 x 6), B in {1, 3}, channel counts that are not
 multiples of 16 (the byte-gather loads: Cmid 24, MobileNet-v2's C = 24), C
 = 160 / E = 960, a projection with Cp != Co, and a CUDA-graph capture of
-each cooperative launch.  The kernel and its plain version apply the same
+each cooperative launch; for K1's int4 entry M in {1, 37, 392, 2000}, K with
+K/2 on (64, 96, 1024) and off (48, 200) the 16-byte path, N in {64, 72,
+256, 2048}, every epilogue mode, also against the int8 entry on the
+unpacked weight and qtpu's ``w_packed`` call form, a CUDA-graph capture and
+the refusal of odd K; the im2col conv at the 7×7×3 stem shape and two 3×3
+shapes, also against K2.  The kernel and its plain version apply the same
 epilogue formula in the same order, so every output must be bit-exact.
 
 This file imports no JAX, so it runs where JAX is absent:
@@ -160,6 +165,107 @@ def test_qdepthwise_kernel_matches_plain(cuda, B, H, C, stride, padding,
         np.testing.assert_array_equal(
             tdw.qdepthwise_fused(xp, wq, **kw).cpu().numpy(),
             tdw.qdepthwise_fused_plain(xp, wq, **kw).cpu().numpy())
+
+
+# -- K1's int4 entry and the im2col conv ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1, 64, 64), (37, 96, 72), (392, 1024, 2048),
+                                   (37, 48, 64), (392, 200, 72), (1, 1024, 72),
+                                   (2000, 64, 256), (37, 1024, 2048)])
+@pytest.mark.parametrize("mode", ["requant_res_i8", "f32_res_f32", "raw",
+                                  "requant_sym"])
+def test_qmatmul_int4_kernel_matches_plain(cuda, M, K, N, mode):
+    """The int4 entry (K/2 on the 16-byte path when K % 32 == 0, else the
+    byte path; ragged M and N) against its plain version, against the int8
+    entry on the unpacked weight, and qtpu's ``w_packed`` call form."""
+    x = RNG.integers(-128, 128, (M, K)).astype(np.int8)
+    w = RNG.integers(-7, 8, (K, N)).astype(np.int8)
+    w[0, : min(N, 2)] = (-7, 7)[: min(N, 2)]
+    kw = dict(act_scale=0.02, act_zp=3,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
+                           cuda),
+              colsum=_dev(w.astype(np.int32).sum(0), cuda),
+              bias=_dev(RNG.standard_normal(N).astype(np.float32), cuda))
+    if mode == "requant_res_i8":
+        kw.update(requant_scale=0.05, requant_zp=-3, relu=True,
+                  residual=_dev(RNG.integers(-128, 128, (M, N)).astype(
+                      np.int8), cuda), res_scale=0.03, res_zp=-6.0)
+    elif mode == "f32_res_f32":
+        kw.update(relu=True, act_max=6.0, residual=_dev(
+            RNG.standard_normal((M, N)).astype(np.float32), cuda))
+    elif mode == "requant_sym":
+        kw.update(requant_scale=0.5)
+    raw = mode == "raw"
+    xt, wt = _dev(x, cuda), _dev(w, cuda)
+    co, emode = tmm.fold(**kw)
+    w4 = tmm.pack_int4_nk(wt.t().contiguous())
+    n0, n8 = tmm.qmatmul_folded_w4.launches, tmm.qmatmul_folded.launches
+    got = tmm.qmatmul_folded_w4(xt, w4, co, emode, kw.get("residual"),
+                                raw_acc=raw)
+    torch.cuda.synchronize()
+    assert tmm.qmatmul_folded_w4.launches == n0 + 1
+    assert tmm.qmatmul_folded.launches == n8
+    ref = tmm.qmatmul_folded_w4_plain(xt, w4, co, emode, kw.get("residual"),
+                                      raw_acc=raw)
+    i8 = tmm.qmatmul_folded(xt, wt.t().contiguous(), co, emode,
+                            kw.get("residual"), raw_acc=raw)
+    assert got.dtype == ref.dtype and got.shape == (M, N)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), i8.cpu().numpy())
+    if N % 64 == 0:
+        bn = 64 if N == 64 else 128
+        packed = tmm.pack_int4_halves(wt, bn)
+        np.testing.assert_array_equal(
+            tmm.qmatmul_fused(xt, packed, w_packed=True, bn=bn, raw_acc=raw,
+                              **kw).cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_qmatmul_int4_captures_in_a_cuda_graph(cuda):
+    x = _dev(RNG.integers(-128, 128, (64, 256)).astype(np.int8), cuda)
+    w4 = tmm.pack_int4_nk(_dev(RNG.integers(-7, 8, (128, 256)).astype(
+        np.int8), cuda))
+    ref = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError):                      # odd K
+        tmm.qmatmul_folded_w4(x[:, :255].contiguous(), w4, None, None,
+                              raw_acc=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Ci,Co,k,stride", [(2, 17, 3, 64, 7, 2),
+                                                (1, 12, 16, 24, 3, 1),
+                                                (3, 9, 32, 32, 3, 2)])
+def test_im2col_conv_matches_plain_and_k2(cuda, B, H, Ci, Co, k, stride):
+    from qtpu_torch.ops import qim2col
+    from qtpu_torch.ops.qconv_dispatch import qconv2d_strided
+
+    x = RNG.integers(-128, 128, (B, H, H, Ci)).astype(np.int8)
+    w = RNG.integers(-127, 128, (k, k, Ci, Co)).astype(np.int8)
+    kw = dict(act_scale=0.02, act_zp=6,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (Co,)).astype(
+                  np.float32), cuda),
+              colsum=_dev(w.astype(np.int32).sum((0, 1, 2)), cuda),
+              bias=_dev(RNG.standard_normal(Co).astype(np.float32), cuda),
+              requant_scale=0.05, requant_zp=-3, relu=True)
+    xt, wt = _dev(x, cuda), _dev(w, cuda)
+    n0, i0 = tmm.qmatmul_folded.launches, qim2col.qconv2d_im2col.launches
+    got = qim2col.qconv2d_im2col(xt, wt, strides=(stride, stride), **kw)
+    torch.cuda.synchronize()
+    assert tmm.qmatmul_folded.launches == n0 + 1
+    assert qim2col.qconv2d_im2col.launches == i0 + 1
+    ref = qim2col.qconv2d_im2col_plain(xt, wt, strides=(stride, stride),
+                                       **kw)
+    k2 = qconv2d_strided(xt, wt, strides=(stride, stride), **kw)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), k2.cpu().numpy())
 
 
 @pytest.mark.gpu
