@@ -12,7 +12,11 @@ success):
    all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it at batch 8 — outputs must be identical (same
-   formula, same order, same card): K1 and K2 at ResNet-50's shapes, K1 at
+   formula, same order, same card): K1 and K2 at ResNet-50's shapes (K1
+   also at B = 128: layer1 conv3 and conv1, layer2_0's downsample, layer4
+   conv3, the fc; every K1 row on both of its kernels, the TMA + wgmma
+   kernel its dispatch picks and the old mma.sync loop forced, which must
+   agree), K1 at
    MobileNet-v2's (K = 24 expand with relu6, a narrow project with the int8
    residual, the f32 relu6 head), K3 at three of its depthwise shapes, K2
    at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather path),
@@ -56,6 +60,10 @@ success):
      K1's int4 entry and 16 K2, no int8 K1; one forward of its ``stage``
      configuration with ``packed_int4``: 7 K1 int4, 5 K2, 3 K4, 2 K7, 1 K8
      (layer4 stays unchained: its consumer is the fp32 fc);
+   * on every one of these runs K1's launches are also counted by kernel
+     (``launches_wgmma``, ``launches_igemm`` of both entries, which must add
+     up to the entries' launch counts); every K1 launch of the ResNet-50
+     and config-5 engines must take the wgmma kernel;
 5. the ResNet-50 (product, tail, block, stage), MobileNet-v2 (product,
    ivr) and quantized-stem MobileNet-v1 engines against the same engines on
    the CPU (the plain path) on two images: codes after every step of the
@@ -74,7 +82,8 @@ success):
    tail, block, stage at 128), config 5's product and packed engines at
    B = 8 and 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
    device time (repeated launches captured in a CUDA graph) beside its
-   bound, its plain version and a library yardstick that computes the
+   bound, its plain version (K1 also beside its old mma.sync loop) and a
+   library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
    (for the int4 entry on the unpacked weight, beside the int8 entry's
    time), cuDNN's fp32 ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the
@@ -126,8 +135,12 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
               "or a chained run (two or more convolutions with requants "
               "between)")
 # launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
-# plain-version calls)
+# plain-version calls, then K1's launches by kernel: int8 entry on wgmma,
+# on igemm, int4 entry on wgmma, on igemm); expected counts give the first
+# twelve
 KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
+PLAIN = 11
+K1_SPLIT = {"K1": (12, 13), "K1w4": (14, 15)}
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
@@ -264,9 +277,15 @@ def main() -> int:
     log(f"build: {time.monotonic() - t0:.1f} s (" + ", ".join(
         f"{k} {v['seconds']:.1f} s" for k, v in info.items()) + ")")
     for k, v in info.items():
+        entry = spill = ""
         for line in v["log"].splitlines():
-            if "registers" in line:
-                log(f"  {k}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:     # entry, spills, then registers
+                log(f"  {k} {entry[:60]}: {line.strip()}; {spill}")
 
     # -- 3. kernels against their plain versions, main-path shapes at B=8 ----------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -308,6 +327,15 @@ def main() -> int:
               res_zp=-7), "i8"),
         ("mnv2", "head f32 relu6", 392, 320, 1280,
          dict(relu=True, act_max=6.0), None),
+        # the same ResNet-50 GEMMs at B = 128, the engines' timed batch
+        ("rn50", "B=128 layer1 conv3 +int8 residual", 401408, 64, 256,
+         dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
+        ("rn50", "B=128 layer1 conv1 requant", 401408, 256, 64, requant,
+         None),
+        ("rn50", "B=128 layer2_0 downsample f32", 100352, 256, 512, {}, None),
+        ("rn50", "B=128 layer4 conv3 +int8 residual", 6272, 512, 2048,
+         dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
+        ("rn50", "B=128 fc raw_acc", 128, 2048, 1000, None, None),
     ]
     kernels = []
     for path, label, M, K, N, kw, res in k1_cases:
@@ -322,7 +350,14 @@ def main() -> int:
         def run_p(x=x, w=w, co=co, mode=mode, r=r, raw=raw):
             return k1.qmatmul_folded_plain(x, w, co, mode, r, raw_acc=raw)
 
+        def run_old(x=x, w=w, co=co, mode=mode, r=r, raw=raw):
+            return k1.qmatmul_folded(x, w, co, mode, r, raw_acc=raw,
+                                     path="igemm")
+
         y, err = compare(f"K1 {label}", run_k, run_p)
+        check(torch.equal(y, run_old()), f"K1 {label}: the wgmma and igemm "
+              "kernels differ")
+        kpath = k1.k1_path(x, w, y.dtype, r, co, mode)
         nbytes = M * K + N * K + y.element_size() * M * N + \
             (0 if raw else 8 * N) + (M * N if r is not None else 0)
         b_ms, b_by = bound(nbytes, 2 * M * N * K)
@@ -333,10 +368,13 @@ def main() -> int:
         kernels.append(dict(
             name=f"qmatmul_fused [{label}]", route="cuda", source=SRC_K1,
             replaces=TPU_K1, path=path, shape=f"M={M} K={K} N={N}",
-            max_abs_err=err, ms=timed(torch, run_k, 50),
+            k1_path=kpath, max_abs_err=err, ms=timed(torch, run_k, 50),
+            igemm_ms=timed(torch, run_old, 50),
             eager_ms=timed_eager(torch, run_k, 50),
             plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
+        del x, w, r, y, run_k, run_p, run_old
+        torch.cuda.empty_cache()
 
     # K1's int4 entry at config 5's B = 8 shapes: exact against its plain
     # version and against the int8 entry on the unpacked weight
@@ -363,9 +401,14 @@ def main() -> int:
         def run_8(x=x, w=w, co=co, mode=mode, r=r):
             return k1.qmatmul_folded(x, w, co, mode, r)
 
+        def run_old(x=x, w4=w4, co=co, mode=mode, r=r):
+            return k1.qmatmul_folded_w4(x, w4, co, mode, r, path="igemm")
+
         y, err = compare(f"K1 int4 {label}", run_k, run_p)
         check(torch.equal(y, run_8()), f"K1 int4 {label}: differs from the "
               "int8 entry on the unpacked weight")
+        check(torch.equal(y, run_old()), f"K1 int4 {label}: the wgmma and "
+              "igemm kernels differ")
         out_res = y.element_size() * M * N + 8 * N + \
             (M * N if r is not None else 0)
         b_ms, b_by = bound(M * K + N * K // 2 + out_res, 2 * M * N * K)
@@ -374,7 +417,9 @@ def main() -> int:
             name=f"qmatmul_fused w_packed=True [{label}]", route="cuda",
             source=SRC_K1, replaces=TPU_K1, path="cfg5_packed",
             kernel="K1w4", shape=f"M={M} K={K} N={N}", max_abs_err=err,
-            ms=timed(torch, run_k, 50), eager_ms=timed_eager(torch, run_k, 50),
+            k1_path=k1.k1_path(x, w4, y.dtype, r, co, mode),
+            ms=timed(torch, run_k, 50), igemm_ms=timed(torch, run_old, 50),
+            eager_ms=timed_eager(torch, run_k, 50),
             plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
             int8_ms=timed(torch, run_8, 50),
             int8_bound_ms=bound(M * K + N * K + out_res, 2 * M * N * K)[0],
@@ -747,16 +792,28 @@ def main() -> int:
     def zero_counts():
         for k in kmods:
             k.launches = 0
+        for k in (k1.qmatmul_folded, k1.qmatmul_folded_w4):
+            k.launches_wgmma = k.launches_igemm = 0
         for p in plains:
             p.calls = 0
 
     def counts():
-        """(K1 .. K9, K1 int4, im2col launches, plain-version calls)."""
-        return (*(k.launches for k in kmods), sum(p.calls for p in plains))
+        """(K1 .. K9, K1 int4, im2col launches, plain-version calls, K1
+        int8 on wgmma, on igemm, K1 int4 on wgmma, on igemm); raises
+        unless each entry's kernels add up to its launches."""
+        c = (*(k.launches for k in kmods), sum(p.calls for p in plains),
+             *(getattr(k, f"launches_{kp}")
+               for k in (k1.qmatmul_folded, k1.qmatmul_folded_w4)
+               for kp in k1.PATHS))
+        for name, (iw, ii) in K1_SPLIT.items():
+            check(c[iw] + c[ii] == c[KIDX[name]], f"{name}: wgmma "
+                  f"{c[iw]} + igemm {c[ii]} launches != {c[KIDX[name]]}")
+        return c
 
     def fmt_counts(c):
         return ", ".join(f"{k} {c[i]}" for k, i in KIDX.items()) + \
-            f", plain path {c[-1]}"
+            f", plain path {c[PLAIN]}; K1 on wgmma {c[12]}, on igemm " \
+            f"{c[13]}; K1 int4 on wgmma {c[14]}, on igemm {c[15]}"
 
     def one_forward(flat, x, expect, what):
         zero_counts()
@@ -764,7 +821,8 @@ def main() -> int:
             y = flat.forward(x)
         torch.cuda.synchronize()
         got = counts()
-        check(got == expect, f"{what}: one forward launched K1..K9/K1 "
+        check(got[:PLAIN + 1] == expect, f"{what}: one forward launched "
+              f"K1..K9/K1 "
               f"int4/im2col/plain = {got}, expected {expect}")
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
         log(f"{what}, one forward: {fmt_counts(got)}")
@@ -792,7 +850,7 @@ def main() -> int:
         finally:
             engine.stop()
         rounds = st["batches"] - rounds0
-        check(run_counts == tuple(n * rounds for n in per_fwd),
+        check(run_counts[:PLAIN + 1] == tuple(n * rounds for n in per_fwd),
               f"{what}: serving {rounds} rounds launched K1..K9/K1 int4/"
               f"im2col/plain = {run_counts}")
         check(len(st["rounds_per_bucket"]) >= 2,
@@ -886,6 +944,16 @@ def main() -> int:
         stage5, torch.from_numpy(imgs[:8]).to(dev), CFG5_STAGE,
         f"{CFG5} [stage, packed_int4]")
 
+    # K1 by kernel: every launch of the ResNet-50 and config-5 engines on
+    # the wgmma kernel, the others as their shapes allow
+    for key, c in path_counts.items():
+        if key in ("rn50", "tail", "block", "stage", "cfg5", "cfg5_packed",
+                   "cfg5_stage"):
+            check(c[13] == 0 and c[15] == 0, f"{key}: {c[13]} K1 and "
+                  f"{c[15]} K1 int4 launches took the igemm kernel")
+    log("K1 launches by kernel (int8 entry + int4 entry) per serving run: "
+        + "; ".join(f"{k} wgmma {c[12]} + {c[14]}, igemm {c[13]} + {c[15]}"
+                    for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
         if "kernel" not in kern:
@@ -896,6 +964,10 @@ def main() -> int:
             sum(c[KIDX["im2col"]] for c in path_counts.values())
             if kern["path"] is None else
             path_counts[kern["path"]][KIDX[kern["kernel"]]])
+        if kern["kernel"] in K1_SPLIT:
+            iw, ii = K1_SPLIT[kern["kernel"]]
+            c = path_counts[kern["path"]]
+            kern["path_launches"] = {"wgmma": c[iw], "igemm": c[ii]}
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -1044,10 +1116,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     for kern in kernels:
         extra = ""
+        if "k1_path" in kern:
+            extra = (f"; on {kern['k1_path']}, the old mma.sync loop "
+                     f"{kern['igemm_ms']:.4f} ms; the serving run's "
+                     f"launches by kernel {kern['path_launches']}")
         if "int8_ms" in kern:
-            extra = (f"; K1's int8 entry on the unpacked weight "
-                     f"{kern['int8_ms']:.4f} ms (its bound "
-                     f"{kern['int8_bound_ms']:.4f} ms)")
+            extra += (f"; K1's int8 entry on the unpacked weight "
+                      f"{kern['int8_ms']:.4f} ms (its bound "
+                      f"{kern['int8_bound_ms']:.4f} ms)")
         elif "k2_ms" in kern:
             extra = f"; K2 on the same conv {kern['k2_ms']:.4f} ms"
         if "unfused_ms" in kern:
@@ -1103,8 +1179,12 @@ def profile_forward(what, flat, x, torch):
                "K4 qproj_fused" if "qproj_kernel" in e.key else
                "K5 qtail_fused" if "qtail_kernel" in e.key else
                "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
-               "K1 int4 qmatmul_fused_w4" if "GemmLoader, true>" in e.key else
-               "K1 qmatmul_fused" if "GemmLoader" in e.key else
+               "K1 int4 qmatmul_fused_w4 [wgmma]" if re.search(
+                   r"wgmma_gemm_kernel<\d+, \d+, true>", e.key) else
+               "K1 qmatmul_fused [wgmma]" if "wgmma_gemm_kernel" in e.key else
+               "K1 int4 qmatmul_fused_w4 [igemm]" if "GemmLoader, true>" in
+               e.key else
+               "K1 qmatmul_fused [igemm]" if "GemmLoader" in e.key else
                "K2 qconv2d_fused" if "ConvLoader" in e.key else
                "K3 qdepthwise_fused" if ("dw_vec_kernel" in e.key or
                                          "dw_scalar_kernel" in e.key) else

@@ -367,6 +367,14 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
   static_cast<float*>(ep.out)[idx] = ep_f32(ep, t);
 }
 
+#ifdef QTPU_IGEMM_PROBE
+// Probe build only (-DQTPU_IGEMM_PROBE, qtpu_torch/ops/probe_k1.py):
+// thread 0 of every block writes four int64s — its clock64() at the start,
+// after the main loop, after the epilogue's stores were issued, and its SM —
+// to this buffer, indexed by the block's linear id.
+__device__ long long* qtpu_probe_stamps;
+#endif
+
 // The plain GEMM: one block per BM x BN output tile, the main loop, then the
 // folded epilogue in registers.  W4: the weight is int4 nibble-packed along K
 // (StagedB4), K still counts values.
@@ -380,12 +388,18 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
                                     StagedB<T, VEC>>::type BSrc;
   __shared__ __align__(16) int8_t As[2 * T::STAGE_A];
   __shared__ __align__(16) int8_t Bs[2 * BSrc::STAGE];
+#ifdef QTPU_IGEMM_PROBE
+  const long long t_start = clock64();
+#endif
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   StagedA<T, VEC, ALoader> a(al, As, M, K, m0);
   BSrc b(w, Bs, N, K, n0);
   int acc[T::MT][T::NT][4];
   mainloop<T>(a, b, K, acc);
+#ifdef QTPU_IGEMM_PROBE
+  const long long t_loop = clock64();  // mainloop ends on a block barrier
+#endif
 
   const Frag<T> f;
 #pragma unroll
@@ -404,6 +418,20 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
       }
     }
   }
+#ifdef QTPU_IGEMM_PROBE
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    long long* s = qtpu_probe_stamps +
+                   4 * (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                        blockIdx.x);
+    s[0] = t_start;
+    s[1] = t_loop;
+    s[2] = clock64();
+    s[3] = smid;
+  }
+#endif
 }
 
 // Large tiles while they still give the card about two waves of blocks;

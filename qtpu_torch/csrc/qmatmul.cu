@@ -10,22 +10,31 @@
 // What bounds it on the H100: the 1x1 convs of ResNet-50 have K = 64..2048, so
 // at the 1,979 TOP/s int8 tensor-core peak their arithmetic intensity (2K
 // operations per output byte, fewer per input byte when K is small) leaves
-// most of them bound by memory traffic at 3.35 TB/s, the narrow-K ones
-// (K = 64, 256) clearly so.  The design keeps every intermediate in registers:
-// the int32 accumulator never reaches device memory, and the epilogue writes
-// one byte per int8 output.  This first version uses mma.sync with a two-stage
-// cp.async pipeline; wgmma and TMA are later work (ROADMAP.md).
+// them bound by memory traffic at 3.35 TB/s, the narrow-K ones (K = 64, 256)
+// clearly so.  The int32 accumulator never reaches device memory; the
+// epilogue writes one byte per int8 output.
 //
-// The int4 entry (qtpu_qmatmul_fused_w4) replaces the same TPU kernel's
-// w_packed=True mode (its in-VMEM unpack of pack_int4_halves, qmatmul.py:51).
-// w is int4 in [-7, 7], nibble-packed along K: (N, K/2) bytes, low nibble
-// k even, high nibble k odd.  The packed bytes cross device and shared memory
-// (half the weight traffic of the int8 entry, which is what bounds the
-// weight-heavy GEMMs at a small batch: ResNet-50's layer4 at B = 8) and are
-// sign-extended into the mma's int8 registers at the fragment load
-// (igemm.cuh: StagedB4).  The main loop, tiles and epilogue are the int8
+// Two kernels, chosen per call by the wrapper (ops/qmatmul.py: k1_path):
+// * qtpu_qmatmul_fused runs wgmma_gemm.cuh: TMA loads into a ring of stages,
+//   wgmma s8, a persistent grid and a coalesced, TMA-stored epilogue.  It
+//   takes every operand TMA can address (16-byte aligned bases, rows of x,
+//   w, the output and the residual multiples of 16 bytes): every 1x1 GEMM
+//   of ResNet-50.
+// * qtpu_qmatmul_fused_igemm runs igemm.cuh's mma.sync loop (two cp.async
+//   stages, one block per output tile, an element-wise epilogue), which
+//   also takes K not a multiple of 16 (byte gathers) and unaligned rows:
+//   MobileNet-v2's K = 24 expand and N = 24 project GEMMs.
+//
+// The int4 entries (qtpu_qmatmul_fused_w4, _w4_igemm) replace the same TPU
+// kernel's w_packed=True mode (its in-VMEM unpack of pack_int4_halves,
+// qmatmul.py:51).  w is int4 in [-7, 7], nibble-packed along K: (N, K/2)
+// bytes, low nibble k even, high nibble k odd.  The packed bytes cross device
+// memory (half the weight traffic of the int8 entry) and are sign-extended
+// into int8 in shared memory (wgmma path) or at the mma fragment load
+// (igemm.cuh: StagedB4).  Main loop, tiles and epilogue are the int8
 // entry's, so both give the same codes.  No library multiplies int8 by int4.
 #include "igemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -42,46 +51,79 @@ struct GemmLoader {
   __device__ __forceinline__ const int8_t* base() const { return x; }
 };
 
+qtpu::Epilogue epilogue_of(const void* A, const void* B, const void* res,
+                           int res_kind, void* out, int out_kind, float C,
+                           float lo, float hi, float shift, int relu,
+                           int use_act_max, float act_max) {
+  return qtpu::make_epilogue(static_cast<const float*>(A),
+                             static_cast<const float*>(B), res, res_kind,
+                             out, out_kind, C, lo, hi, shift, relu,
+                             use_act_max, act_max);
+}
+
 }  // namespace
 
-extern "C" int qtpu_qmatmul_fused(const void* x, const void* w, const void* A,
-                                  const void* B, const void* res, int res_kind,
-                                  void* out, int out_kind, int M, int N, int K,
-                                  float C, float lo, float hi, float shift,
-                                  int relu, int use_act_max, float act_max,
-                                  void* stream) {
+#define K1_ARGS                                                            \
+  const void *x, const void *w, const void *A, const void *B,             \
+      const void *res, int res_kind, void *out, int out_kind, int M, int N, \
+      int K, float C, float lo, float hi, float shift, int relu,            \
+      int use_act_max, float act_max, void *stream
+#define K1_EPILOGUE                                                       \
+  epilogue_of(A, B, res, res_kind, out, out_kind, C, lo, hi, shift, relu, \
+              use_act_max, act_max)
+
+extern "C" int qtpu_qmatmul_fused(K1_ARGS) {
+  return qtpu::wg::launch_gemm<false>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), M, N, K,
+      K1_EPILOGUE, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int qtpu_qmatmul_fused_w4(K1_ARGS) {
+  if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return qtpu::wg::launch_gemm<true>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), M, N, K,
+      K1_EPILOGUE, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int qtpu_qmatmul_fused_igemm(K1_ARGS) {
   const int8_t* xs = static_cast<const int8_t*>(x);
   const int8_t* ws = static_cast<const int8_t*>(w);
-  qtpu::Epilogue ep = qtpu::make_epilogue(
-      static_cast<const float*>(A), static_cast<const float*>(B), res,
-      res_kind, out, out_kind, C, lo, hi, shift, relu, use_act_max, act_max);
   GemmLoader al{xs, K};
   const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ws) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return qtpu::launch_igemm<true>(al, ws, M, N, K, ep, s);
-  return qtpu::launch_igemm<false>(al, ws, M, N, K, ep, s);
+  if (vec) return qtpu::launch_igemm<true>(al, ws, M, N, K, K1_EPILOGUE, s);
+  return qtpu::launch_igemm<false>(al, ws, M, N, K, K1_EPILOGUE, s);
 }
 
-extern "C" int qtpu_qmatmul_fused_w4(const void* x, const void* w4,
-                                     const void* A, const void* B,
-                                     const void* res, int res_kind, void* out,
-                                     int out_kind, int M, int N, int K,
-                                     float C, float lo, float hi, float shift,
-                                     int relu, int use_act_max, float act_max,
-                                     void* stream) {
+extern "C" int qtpu_qmatmul_fused_w4_igemm(K1_ARGS) {
   if (K % 2) return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xs = static_cast<const int8_t*>(x);
-  const int8_t* ws = static_cast<const int8_t*>(w4);
-  qtpu::Epilogue ep = qtpu::make_epilogue(
-      static_cast<const float*>(A), static_cast<const float*>(B), res,
-      res_kind, out, out_kind, C, lo, hi, shift, relu, use_act_max, act_max);
+  const int8_t* ws = static_cast<const int8_t*>(w);
   GemmLoader al{xs, K};
   // 16-byte copies of x need K % 16, of the packed rows (K/2) % 16
   const bool vec = K % 32 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ws) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return qtpu::launch_igemm<true, GemmLoader, true>(al, ws, M, N, K,
-                                                             ep, s);
-  return qtpu::launch_igemm<false, GemmLoader, true>(al, ws, M, N, K, ep, s);
+  if (vec)
+    return qtpu::launch_igemm<true, GemmLoader, true>(al, ws, M, N, K,
+                                                      K1_EPILOGUE, s);
+  return qtpu::launch_igemm<false, GemmLoader, true>(al, ws, M, N, K,
+                                                     K1_EPILOGUE, s);
 }
+
+#ifdef QTPU_IGEMM_PROBE
+// Probe build only: where igemm_kernel writes its clock64 stamps.
+extern "C" int qtpu_probe_set_stamps(void* stamps) {
+  return static_cast<int>(cudaMemcpyToSymbol(qtpu::qtpu_probe_stamps, &stamps,
+                                             sizeof(stamps)));
+}
+#endif
+
+#ifdef QTPU_WGMMA_PROBE
+// Probe build only: where wgmma_gemm_kernel writes its cycles by phase.
+extern "C" int qtpu_wgmma_probe_set(void* buf) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(qtpu::wg::qtpu_wgmma_probe, &buf, sizeof(buf)));
+}
+#endif

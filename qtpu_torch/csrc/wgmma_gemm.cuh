@@ -1,0 +1,796 @@
+// K1's Hopper GEMM: TMA operand loads into a ring of swizzled shared-memory
+// stages, wgmma s8 consumers, a persistent grid and a coalesced epilogue.
+//
+// C[m, n] = epilogue(sum_k x[m, k] * w[n, k]), x int8 (M, K) and w int8
+// (N, K), both K-contiguous — the K-major layout wgmma takes for .s8 — or w
+// int4 nibble-packed along K ((N, K/2) bytes, pack_int4_nk).  The epilogue
+// is igemm.cuh's store_one step for step (ep_affine, the residual term,
+// ep_f32, each operation rounded on its own); the int8 code and the int8
+// residual's float come from adds on float bits instead of conversion
+// instructions (code_bits, residual_pair below), the same values.  So every
+// output is the igemm path's bit for bit.
+//
+// What bounds K1 on the H100 is bytes: every ResNet-50 1x1 GEMM moves more
+// bytes than its operations can hide at 1,979 TOP/s (K = 64: 2 operations
+// per byte of x).  The clock64 probe of the mma.sync loop
+// (qtpu_torch/ops/probe_k1.py) found its epilogue taking 90% of a block's
+// cycles at K = 64 — one store and one residual load per element, the loads
+// serialised behind the stores — and nothing in flight while it ran.  So:
+//
+// * a block is one or two consumer warpgroups (64 rows each) and one
+//   producer warp.  The producer issues cp.async.bulk.tensor loads (TMA) of
+//   the x tile (64 or 128 rows x 64) and the w tile (BN x 64, or BN x 32
+//   packed bytes) into a ring of at least four stages with full / empty
+//   mbarriers, and each tile's residual into one of two buffers;
+// * the consumers run wgmma.m64nBNk32 from shared-memory descriptors
+//   (64-byte swizzle: BK = 64 is one swizzle row, so K = 64 loads no zero
+//   half), keep one group in flight and free each stage when its wgmmas are
+//   done;
+// * the epilogue keeps A[n], B[n] in shared memory while the tile column
+//   stays, reads the residual from its shared tile, requantises in
+//   registers and writes the tile into a swizzled shared tile (two, used in
+//   turn) that one TMA store per 128-byte column band copies out
+//   (coalesced; TMA clips the ragged edges);
+// * the grid is persistent: up to six blocks per SM (as many as the tiles
+//   fill and shared memory and registers allow), tiles in a static order
+//   (tile += gridDim.x), so one block's epilogue runs beside the others'
+//   loads and main loops, and each producer loads its next tiles during its
+//   own epilogue.  No global counter: CUDA graphs replay it.
+// For int4 weights the consumers unpack each packed stage into an int8
+// swizzled B stage (unpack_s4x4, igemm.cuh), fence it into the async proxy
+// and then run the same wgmmas.
+//
+// TMA needs 16-byte aligned bases and rows that are multiples of 16 bytes
+// (x, w, the output, the residual); ops/qmatmul.py sends other calls to
+// igemm.cuh's loop and counts them apart.  Ragged M, N and K are TMA's
+// zero fill on load and clipping on store.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
+#include <cuda_runtime.h>
+
+#include "epilogue.cuh"
+#include "igemm.cuh"  // unpack_s4x4
+
+namespace qtpu {
+namespace wg {
+
+constexpr int BK = 64;          // k values per stage (one 64-byte row)
+constexpr int MIN_STAGES = 4;   // stages of a block's ring
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_BLOCK_MAX = 232448;  // dynamic shared memory of one block
+constexpr int SMEM_SM = 233472;         // of one SM, 1 KB of it per block
+
+// ---- PTX wrappers ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the shared-memory source of all but the newest N committed stores has
+// been read
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory become visible to TMA and wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// all but the newest committed group of wgmmas are done
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile of 64-byte rows with the
+// 64-byte swizzle, 8-row groups 512 bytes apart (the base 512-byte aligned).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// Byte offset `off` of a tile of SPAN-byte rows (SPAN = 64 or 128) under
+// TMA's SPAN-byte swizzle: the 16-byte chunk index is XORed with the row
+// bits above it (the tile 1024-byte aligned).
+template <int SPAN>
+__device__ __forceinline__ int swz(int off) {
+  return off ^ (((off >> 7) & (SPAN == 128 ? 7 : 3)) << 4);
+}
+
+// wgmma.m64nNk32 s32 += s8 x s8, both operands from shared memory; d[4j + 2h
+// + e] holds row 16 * warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e of
+// the warpgroup's 64 x N tile.  scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64k32(d, a, b, scale_d);
+  } else {
+    wgmma_m64n128k32(d, a, b, scale_d);
+  }
+}
+
+// ---- the epilogue's arithmetic, without conversion instructions -------
+//
+// Conversions (I2F, F2I, FRND) are slow instructions (16 a clock on an SM
+// in the CUDA guide's table, against 128 float adds); ep_code spends three
+// per element (rintf, the int8 residual's I2F, F2I).  The same values come
+// from adds on the float's bits: 1.5 * 2^23 + v holds the integer v
+// (|v| < 2^22) in its low mantissa bits, and adding 1.5 * 2^23 to a float
+// rounds it to an integer half to even, as rintf does.
+
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+constexpr unsigned MAGIC_BITS = 0x4B400000u;
+
+// Two int8 residual codes (a 16-bit pair) as floats, exactly: each byte
+// offset by 128 (r ^ 0x80) under the upper bytes of 1.5 * 2^23, less
+// 1.5 * 2^23 + 128.
+__device__ __forceinline__ float2 residual_pair(unsigned pair) {
+  const unsigned u = pair ^ 0x8080u;
+  return make_float2(
+      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7650)),
+                MAGIC + 128.0f),
+      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7651)),
+                MAGIC + 128.0f));
+}
+
+// ep_code for the grids K1 serves: lo and hi integers below 2^21 in
+// magnitude, shift 0 or 128 (the host refuses other grids; ops/qmatmul.py
+// sends them to the igemm path).  Clipping to integer bounds commutes with
+// rounding to an integer, so clip(rint(t), lo, hi) - shift = round(clip(t,
+// lo, hi)) - shift; the low byte of clip(t) + 1.5 * 2^23 is round(clip(t))
+// mod 256, and subtracting 0 or 128 mod 256 is an XOR with 0 or 0x80.  The
+// int8 code is the low byte of code_bits(t) ^ (shift ? 0x80 : 0).
+__device__ __forceinline__ unsigned code_bits(const Epilogue& ep, float t) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(t, ep.lo), ep.hi), MAGIC));
+}
+
+#ifdef QTPU_WGMMA_PROBE
+// Probe build only (-DQTPU_WGMMA_PROBE, qtpu_torch/ops/probe_k1.py): per
+// block, clock64() cycles summed by phase — [0] the consumers' wait for a
+// full stage, [1] int4 unpack, wgmma issue and wait, [2] the epilogue's start
+// (output buffer free, A / B rows, barrier), [3] the wait for the residual,
+// [4] the epilogue's arithmetic and store issue, [5] the producer's wait for
+// a free stage, [6] for a free residual buffer, [7] the block's tiles — as
+// thread 0 and the producer thread see them.
+__device__ long long* qtpu_wgmma_probe;
+#define WG_PROBE_START(t) const long long t = clock64()
+#define WG_PROBE_ADD(i, t) probe[i] += clock64() - (t)
+#else
+#define WG_PROBE_START(t)
+#define WG_PROBE_ADD(i, t)
+#endif
+
+// ---- the kernel --------------------------------------------------------
+
+struct Params {
+  Epilogue ep;  // A, B, the scalars (res / out go through the tensor maps)
+  int M, N, K;
+  int stages, stage_bytes;       // ring of stages from offset 0
+  int c_off, c_bytes, nc;        // output slabs: nc per warpgroup
+  int res_off, res_bytes, nres;  // residual tiles
+  int ab_off, bar_off;           // A / B rows per warpgroup, mbarriers
+};
+
+// A block: WGS consumer warpgroups of 64 rows each (BM = 64 WGS rows of a
+// tile) and one producer warp.  Shared bytes of one stage: x (BM x BK), the
+// int8 w stage the wgmmas read (BN x BK) and, for int4, the packed stage TMA
+// fills (BN x BK/2).
+template <int BN, int WGS, bool W4>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int NCONS = 128 * WGS;
+  static constexpr int NTHREADS = NCONS + 32;
+  static constexpr int A = BM * BK;
+  static constexpr int B = BN * BK;
+  static constexpr int BP = W4 ? BN * BK / 2 : 0;
+  static constexpr int STAGE = A + B + BP;
+  static constexpr int TX = A + (W4 ? BP : B);  // bytes TMA brings a stage
+};
+
+// The epilogue of warpgroup wg's 64 x BN slab of a BM x BN tile: requantise
+// `acc` with the residual tile `rs` (shared, BM rows, swizzled like the
+// output), write the output slab `cs` (shared, swizzled) and copy it out with
+// TMA stores.  tw: the thread's index in its warpgroup.
+template <int BN, int BM, int OK, int RK>
+__device__ __forceinline__ void epilogue_slab(
+    const int (&acc)[BN / 2], const Params& p, const CUtensorMap* tm_out,
+    const float* sA, const float* sB, const uint8_t* rs, uint8_t* cs, int wg,
+    int m0, int n0, int tw) {
+  constexpr int OSIZE = OK == OUT_I8 ? 1 : 4;
+  constexpr int RSIZE = RK == RES_F32 ? 4 : 1;
+  constexpr int OSPAN = BN * OSIZE < 128 ? BN * OSIZE : 128;
+  constexpr int RSPAN = BN * RSIZE < 128 ? BN * RSIZE : 128;
+  const int lane = tw & 31;
+  const int r0 = (tw >> 5) * 16 + (lane >> 2);
+  const unsigned flip = p.ep.shift != 0.f ? 0x8080u : 0u;  // - shift, mod 256
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    float2 a = make_float2(0.f, 0.f), b = a;
+    if (OK != OUT_I32) {
+      a = *reinterpret_cast<const float2*>(sA + c);
+      b = *reinterpret_cast<const float2*>(sB + c);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      const int ob = c * OSIZE;
+      uint8_t* dst = cs + (ob / OSPAN) * 64 * OSPAN +
+                     swz<OSPAN>(r * OSPAN + ob % OSPAN);
+      if (OK == OUT_I32) {
+        *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+        continue;
+      }
+      float t0 = ep_affine(v0, a.x, b.x);
+      float t1 = ep_affine(v1, a.y, b.y);
+      if (RK != RES_NONE) {
+        const int rb = c * RSIZE;
+        const uint8_t* src = rs + (rb / RSPAN) * BM * RSPAN +
+                             swz<RSPAN>((64 * wg + r) * RSPAN + rb % RSPAN);
+        const float2 q =
+            RK == RES_I8
+                ? residual_pair(*reinterpret_cast<const unsigned short*>(src))
+                : *reinterpret_cast<const float2*>(src);
+        t0 = __fadd_rn(t0, __fmul_rn(q.x, p.ep.C));
+        t1 = __fadd_rn(t1, __fmul_rn(q.y, p.ep.C));
+      }
+      if (OK == OUT_I8) {
+        *reinterpret_cast<unsigned short*>(dst) = static_cast<unsigned short>(
+            __byte_perm(code_bits(p.ep, t0), code_bits(p.ep, t1), 0x0040) ^
+            flip);
+      } else {
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(ep_f32(p.ep, t0), ep_f32(p.ep, t1));
+      }
+    }
+  }
+  fence_async_smem();
+  named_bar(1 + wg, 128);
+  const int m = m0 + 64 * wg;
+  if (tw == 0 && m < p.M) {
+#pragma unroll
+    for (int s = 0; s < BN * OSIZE / OSPAN; ++s)
+      tma_store(tm_out, cs + s * 64 * OSPAN, n0 * OSIZE + s * OSPAN, m);
+    bulk_commit();
+  }
+}
+
+// Packed int4 w (BN rows x 32 bytes) -> the int8 K-major, 64-byte swizzled
+// tile the wgmmas read, by the block's consumer threads, then visible to
+// the async proxy.
+template <int BN, int NCONS>
+__device__ __forceinline__ void unpack_w4(const uint8_t* bp, uint8_t* bst,
+                                          int tid) {
+#pragma unroll
+  for (int i = tid; i < 2 * BN; i += NCONS) {
+    const int row = i >> 1, half = i & 1;
+    const uint4 q = *reinterpret_cast<const uint4*>(bp + row * 32 + half * 16);
+    uint4 lo, hi;
+    lo.x = unpack_s4x4(q.x & 0xFFFF);
+    lo.y = unpack_s4x4(q.x >> 16);
+    lo.z = unpack_s4x4(q.y & 0xFFFF);
+    lo.w = unpack_s4x4(q.y >> 16);
+    hi.x = unpack_s4x4(q.z & 0xFFFF);
+    hi.y = unpack_s4x4(q.z >> 16);
+    hi.z = unpack_s4x4(q.w & 0xFFFF);
+    hi.w = unpack_s4x4(q.w >> 16);
+    const int off = row * 64 + half * 32;
+    *reinterpret_cast<uint4*>(bst + swz<64>(off)) = lo;
+    *reinterpret_cast<uint4*>(bst + swz<64>(off + 16)) = hi;
+  }
+  fence_async_smem();
+  named_bar(3, NCONS);
+}
+
+template <int BN, int WGS, bool W4>
+__global__ void __launch_bounds__(Cfg<BN, WGS, W4>::NTHREADS, WGS == 1 ? 3 : 1)
+    wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w,
+                      const __grid_constant__ CUtensorMap tm_res,
+                      const __grid_constant__ CUtensorMap tm_out,
+                      const __grid_constant__ Params p) {
+  typedef Cfg<BN, WGS, W4> S;
+  constexpr int BM = S::BM, NCONS = S::NCONS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* empty = full + p.stages;
+  uint64_t* res_full = empty + p.stages;
+  uint64_t* res_empty = res_full + 2;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCONS / 32);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&res_full[b], 1);
+      mbar_init(&res_empty[b], WGS);  // one arrival per warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = ((p.M + BM - 1) / BM) * n_tiles;
+  const int ktiles = (p.K + BK - 1) / BK;
+  const int rk = p.ep.res_kind;
+#ifdef QTPU_WGMMA_PROBE
+  long long probe[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#endif
+
+  if (tid >= NCONS) {  // the producer warp: one thread issues every copy
+    if (tid != NCONS) return;
+    const int rsize = rk == RES_F32 ? 4 : 1;
+    const int span = BN * rsize < 128 ? BN * rsize : 128;
+    int it = 0;
+    for (int tile = blockIdx.x, rt = 0; tile < tiles;
+         tile += gridDim.x, ++rt) {
+      const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % p.stages;
+        WG_PROBE_START(t0);
+        mbar_wait(&empty[s], ((it / p.stages) & 1) ^ 1);
+        WG_PROBE_ADD(5, t0);
+        mbar_expect_tx(&full[s], S::TX);
+        uint8_t* st = smem + s * p.stage_bytes;
+        tma_load(st, &tm_x, &full[s], kt * BK, m0);
+        tma_load(W4 ? st + S::A + S::B : st + S::A, &tm_w, &full[s],
+                 W4 ? kt * BK / 2 : kt * BK, n0);
+      }
+      // the tile's residual, after its k-stages: waiting for a free
+      // residual buffer holds back no operand load
+      if (rk != RES_NONE) {
+        const int rb = rt % p.nres;
+        WG_PROBE_START(t0);
+        mbar_wait(&res_empty[rb], ((rt / p.nres) & 1) ^ 1);
+        WG_PROBE_ADD(6, t0);
+        mbar_expect_tx(&res_full[rb], p.res_bytes);
+        uint8_t* buf = smem + p.res_off + rb * p.res_bytes;
+        for (int s = 0; s < BN * rsize / span; ++s)
+          tma_load(buf + s * BM * span, &tm_res, &res_full[rb],
+                   n0 * rsize + s * span, m0);
+      }
+    }
+#ifdef QTPU_WGMMA_PROBE
+    qtpu_wgmma_probe[8 * blockIdx.x + 5] = probe[5];
+    qtpu_wgmma_probe[8 * blockIdx.x + 6] = probe[6];
+#endif
+    return;
+  }
+
+  // the consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of a tile
+  const int wg = tid >> 7, tw = tid & 127, lane = tid & 31;
+  float* sA = reinterpret_cast<float*>(smem + p.ab_off) + wg * 2 * BN;
+  float* sB = sA + BN;
+  const int ok = p.ep.out_kind;
+  int it = 0, ab_n0 = -1;
+  for (int tile = blockIdx.x, rt = 0; tile < tiles; tile += gridDim.x, ++rt) {
+    const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    int prev = -1;  // the stage whose wgmmas may still run
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % p.stages;
+      WG_PROBE_START(t0);
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      WG_PROBE_ADD(0, t0);
+      WG_PROBE_START(t1);
+      uint8_t* st = smem + s * p.stage_bytes;
+      uint8_t* bst = st + S::A;
+      if (W4) unpack_w4<BN, NCONS>(st + S::A + S::B, bst, tid);
+      const uint64_t da = desc_sw64(st + wg * 64 * BK);
+      const uint64_t db = desc_sw64(bst);
+      wgmma_fence();
+      wgmma_tile<BN>(acc, da, db, 1);
+      wgmma_tile<BN>(acc, da + 2, db + 2, 1);  // k + 32: 32 bytes on
+      wgmma_commit();
+      // the previous stage's wgmmas are done: free it while these run
+      wgmma_wait_1();
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      WG_PROBE_ADD(1, t1);
+    }
+    WG_PROBE_START(t2);
+    wgmma_wait_all();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    WG_PROBE_ADD(1, t2);
+    WG_PROBE_START(t3);
+
+    // epilogue: the output buffer's last store has read it; A, B rows in
+    // (kept while the tile column stays the same)
+    if (tw == 0) {
+      if (p.nc == 2)
+        bulk_wait_read<1>();
+      else
+        bulk_wait_read<0>();
+    }
+    if (ok != OUT_I32 && n0 != ab_n0) {
+      for (int i = tw; i < BN; i += 128) {
+        const int n = n0 + i;
+        sA[i] = n < p.N ? p.ep.A[n] : 0.f;
+        sB[i] = n < p.N ? p.ep.B[n] : 0.f;
+      }
+      ab_n0 = n0;
+    }
+    named_bar(1 + wg, 128);
+    WG_PROBE_ADD(2, t3);
+    const int rb = rk != RES_NONE ? rt % p.nres : 0;
+    const uint8_t* rs = smem + p.res_off + rb * p.res_bytes;
+    WG_PROBE_START(t4);
+    if (rk != RES_NONE) mbar_wait(&res_full[rb], (rt / p.nres) & 1);
+    WG_PROBE_ADD(3, t4);
+    WG_PROBE_START(t5);
+    uint8_t* cs = smem + p.c_off + (wg * p.nc + rt % p.nc) * p.c_bytes;
+    if (ok == OUT_I32) {
+      epilogue_slab<BN, BM, OUT_I32, RES_NONE>(acc, p, &tm_out, sA, sB, rs,
+                                               cs, wg, m0, n0, tw);
+    } else if (ok == OUT_I8) {
+      if (rk == RES_I8)
+        epilogue_slab<BN, BM, OUT_I8, RES_I8>(acc, p, &tm_out, sA, sB, rs, cs,
+                                              wg, m0, n0, tw);
+      else if (rk == RES_F32)
+        epilogue_slab<BN, BM, OUT_I8, RES_F32>(acc, p, &tm_out, sA, sB, rs,
+                                               cs, wg, m0, n0, tw);
+      else
+        epilogue_slab<BN, BM, OUT_I8, RES_NONE>(acc, p, &tm_out, sA, sB, rs,
+                                                cs, wg, m0, n0, tw);
+    } else {
+      if (rk == RES_I8)
+        epilogue_slab<BN, BM, OUT_F32, RES_I8>(acc, p, &tm_out, sA, sB, rs,
+                                               cs, wg, m0, n0, tw);
+      else if (rk == RES_F32)
+        epilogue_slab<BN, BM, OUT_F32, RES_F32>(acc, p, &tm_out, sA, sB, rs,
+                                                cs, wg, m0, n0, tw);
+      else
+        epilogue_slab<BN, BM, OUT_F32, RES_NONE>(acc, p, &tm_out, sA, sB, rs,
+                                                 cs, wg, m0, n0, tw);
+    }
+    WG_PROBE_ADD(4, t5);
+#ifdef QTPU_WGMMA_PROBE
+    ++probe[7];
+#endif
+    // the slab's residual rows have been read (epilogue_slab ends on its
+    // warpgroup's barrier)
+    if (rk != RES_NONE && tw == 0) mbar_arrive(&res_empty[rb]);
+  }
+  if (tw == 0) bulk_wait_all();
+#ifdef QTPU_WGMMA_PROBE
+  if (tid == 0)
+    for (int i = 0; i < 8; ++i)
+      if (i < 5 || i == 7) qtpu_wgmma_probe[8 * blockIdx.x + i] = probe[i];
+#endif
+}
+
+// ---- the host side -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (rows, row_bytes) byte matrix, boxes of box_rows x box_bytes.
+inline bool byte_map(CUtensorMap* m, const void* base, uint64_t rows,
+                     uint64_t row_bytes, uint32_t box_bytes, uint32_t box_rows,
+                     CUtensorMapSwizzle sw) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {row_bytes, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_bytes, box_rows};
+  const cuuint32_t es[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline CUtensorMapSwizzle swizzle_of(int span) {
+  return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
+inline int num_sms() {
+  static int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// Shared-memory plan of one call: as many blocks per SM as the tiles fill
+// and shared memory holds with a ring of at least MIN_STAGES stages each, so
+// that one block's epilogue runs beside the others' loads and main loops;
+// double-buffered output and residual tiles where they fit, the residual's
+// second first (with one, the producer cannot load a tile's residual before
+// the last tile's epilogue has read its own).
+template <int BN, int WGS, bool W4>
+bool plan(Params& p, int osize, int rsize, bool res, long tiles, int& smem,
+          int& per_sm) {
+  typedef Cfg<BN, WGS, W4> S;
+  const int ab = WGS * 2 * BN * 4;
+  const int bars = (2 * MAX_STAGES + 4) * 8;
+  p.c_bytes = 64 * BN * osize;
+  p.res_bytes = res ? S::BM * BN * rsize : 0;
+  const int bufs[4][2] = {{2, 2}, {1, 2}, {2, 1}, {1, 1}};
+  const long waves = (tiles + num_sms() - 1) / num_sms();
+  for (per_sm = waves < 6 ? static_cast<int>(waves) : 6; per_sm >= 1;
+       --per_sm) {
+    int budget = SMEM_SM / per_sm - 1024;
+    if (budget > SMEM_BLOCK_MAX) budget = SMEM_BLOCK_MAX;
+    for (const auto& nb : bufs) {
+      const int rbytes = res ? nb[1] * p.res_bytes : 0;
+      const int fixed = 1024 + WGS * nb[0] * p.c_bytes + rbytes + ab + bars;
+      int stages = (budget - fixed) / S::STAGE;
+      if (stages > MAX_STAGES) stages = MAX_STAGES;
+      if (stages < MIN_STAGES) continue;
+      p.stages = stages;
+      p.nc = nb[0];
+      p.nres = nb[1];
+      p.stage_bytes = S::STAGE;
+      p.c_off = stages * S::STAGE;
+      p.res_off = p.c_off + WGS * p.nc * p.c_bytes;
+      p.ab_off = p.res_off + rbytes;
+      p.bar_off = p.ab_off + ab;
+      smem = 1024 + p.bar_off + (2 * stages + 4) * 8;
+      return true;
+    }
+  }
+  return false;
+}
+
+// Blocks of this kernel one SM holds with `smem` bytes each (registers and
+// shared memory), cached per size.
+template <int BN, int WGS, bool W4>
+int resident_blocks(int smem) {
+  static int sizes[8] = {0}, blocks[8] = {0};
+  for (int i = 0; i < 8 && sizes[i]; ++i)
+    if (sizes[i] == smem) return blocks[i];
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, wgmma_gemm_kernel<BN, WGS, W4>, Cfg<BN, WGS, W4>::NTHREADS, smem);
+  for (int i = 0; i < 8; ++i)
+    if (!sizes[i]) {
+      sizes[i] = smem;
+      blocks[i] = n;
+      break;
+    }
+  return n;
+}
+
+template <int BN, int WGS, bool W4>
+cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
+                   const Epilogue& ep, cudaStream_t stream) {
+  typedef Cfg<BN, WGS, W4> S;
+  const int osize = ep.out_kind == OUT_I8 ? 1 : 4;
+  const int rsize = ep.res_kind == RES_F32 ? 4 : 1;
+  const bool res = ep.res_kind != RES_NONE;
+  auto small_int = [](float v) {
+    return v >= -2097152.f && v <= 2097152.f &&
+           v == static_cast<float>(static_cast<int>(v));
+  };
+  if (ep.out_kind == OUT_I8 && !(small_int(ep.lo) && small_int(ep.hi) &&
+                                 (ep.shift == 0.f || ep.shift == 128.f)))
+    return cudaErrorInvalidValue;
+  CUtensorMap tx{}, tw{}, tr{}, to{};
+  const int ospan = BN * osize < 128 ? BN * osize : 128;
+  const int rspan = BN * rsize < 128 ? BN * rsize : 128;
+  const bool ok =
+      byte_map(&tx, x, M, K, BK, S::BM, CU_TENSOR_MAP_SWIZZLE_64B) &&
+      (W4 ? byte_map(&tw, w, N, K / 2, BK / 2, BN, CU_TENSOR_MAP_SWIZZLE_NONE)
+          : byte_map(&tw, w, N, K, BK, BN, CU_TENSOR_MAP_SWIZZLE_64B)) &&
+      byte_map(&to, ep.out, M, static_cast<uint64_t>(N) * osize, ospan, 64,
+               swizzle_of(ospan)) &&
+      (!res || byte_map(&tr, ep.res, M, static_cast<uint64_t>(N) * rsize,
+                        rspan, S::BM, swizzle_of(rspan)));
+  if (!ok) return cudaErrorInvalidValue;
+
+  Params p;
+  p.ep = ep;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  const long tiles =
+      static_cast<long>((M + S::BM - 1) / S::BM) * ((N + BN - 1) / BN);
+  int smem = 0, per_sm = 0;
+  if (!plan<BN, WGS, W4>(p, osize, rsize, res, tiles, smem, per_sm))
+    return cudaErrorInvalidValue;
+  static bool attr = false;  // once per instantiation, before its first launch
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wgmma_gemm_kernel<BN, WGS, W4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK_MAX);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const int fit = resident_blocks<BN, WGS, W4>(smem);
+  if (fit < per_sm) per_sm = fit > 0 ? fit : 1;
+  const long slots = static_cast<long>(num_sms()) * per_sm;
+  const int grid = static_cast<int>(tiles < slots ? tiles : slots);
+  wgmma_gemm_kernel<BN, WGS, W4>
+      <<<grid, S::NTHREADS, smem, stream>>>(tx, tw, tr, to, p);
+  return cudaGetLastError();
+}
+
+// The tile shape of a call.  BN 64 for N <= 64, and where 128-wide tiles
+// would leave SMs idle (the fc, layer4 at a small batch); 128 otherwise.
+// At BN = 128, two warpgroups (128-row tiles sharing each w stage) where K
+// is long enough for w's re-reads from L2 to matter and the card still gets
+// two tiles per SM; one (64-row tiles, more blocks per SM) otherwise.
+template <bool W4>
+cudaError_t launch_gemm(const int8_t* x, const int8_t* w, int M, int N, int K,
+                        const Epilogue& ep, cudaStream_t stream) {
+  const long sms = num_sms();
+  const long n128 = (N + 127) / 128;
+  if (N <= 64 || (M + 63) / 64 * n128 < sms)
+    return launch<64, 1, W4>(x, w, M, N, K, ep, stream);
+  if (K >= 512 && (M + 127) / 128 * n128 >= 2 * sms)
+    return launch<128, 2, W4>(x, w, M, N, K, ep, stream);
+  return launch<128, 1, W4>(x, w, M, N, K, ep, stream);
+}
+
+}  // namespace wg
+}  // namespace qtpu

@@ -30,6 +30,7 @@ class ExperimentConfig:
     width: Optional[int] = None
     batch_size: int = 128         # calibration batch size
     calib_batches: int = 8
+    n_train: Optional[int] = 8192  # the training split calibration reads
 
     def policy(self) -> QuantPolicy:
         """This config's bits, granularity, observer and excludes."""
@@ -43,29 +44,29 @@ CONFIGS = {
     "resnet50_imagenet_int8_ptq": ExperimentConfig(
         name="resnet50_imagenet_int8_ptq", model="resnet50",
         dataset="imagenet", num_classes=1000, image_size=224,
-        per_channel=True, act_observer="minmax", batch_size=16),
+        per_channel=True, act_observer="minmax", batch_size=16, n_train=2048),
     "resnet50_imagenet_int8_ptq_fp32stem": ExperimentConfig(
         name="resnet50_imagenet_int8_ptq_fp32stem", model="resnet50",
         dataset="imagenet", num_classes=1000, image_size=224,
         per_channel=True, act_observer="minmax", batch_size=16,
-        exclude=("stem*",)),
+        n_train=2048, exclude=("stem*",)),
     "mobilenetv1_imagenet_int8_ptq": ExperimentConfig(
         name="mobilenetv1_imagenet_int8_ptq", model="mobilenet_v1",
         dataset="imagenet", num_classes=1000, image_size=224,
-        per_channel=True, act_observer="minmax", batch_size=16),
+        per_channel=True, act_observer="minmax", batch_size=16, n_train=2048),
     "mobilenetv1_imagenet_int8_ptq_fp32stem": ExperimentConfig(
         name="mobilenetv1_imagenet_int8_ptq_fp32stem", model="mobilenet_v1",
         dataset="imagenet", num_classes=1000, image_size=224,
         per_channel=True, act_observer="minmax", batch_size=16,
-        exclude=("stem*",)),
+        n_train=2048, exclude=("stem*",)),
     "mobilenetv2_imagenet_int8_ptq_fp32stem": ExperimentConfig(
         name="mobilenetv2_imagenet_int8_ptq_fp32stem", model="mobilenet_v2",
         dataset="imagenet", num_classes=1000, image_size=224,
         per_channel=True, act_observer="minmax", batch_size=16,
-        exclude=("stem*",)),
+        n_train=2048, exclude=("stem*",)),
     "resnet50_int4w_int8a_qat": ExperimentConfig(
         name="resnet50_int4w_int8a_qat", model="resnet50",
         dataset="imagenet", num_classes=1000, image_size=224, method="qat",
         w_bits=4, a_bits=8, act_observer="ema", batch_size=16,
-        exclude=("stem*", "fc")),
+        n_train=2048, exclude=("stem*", "fc")),
 }

@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ``ctypes``.  Nothing is built
 when a module is imported: a kernel is built at its first launch, or
 explicitly with :func:`build` (which starts one ``nvcc`` per source, all
 together).  The library name carries a digest of the sources and flags, so
-a stale build is never loaded; the build directory is git-ignored.
+a stale build is never loaded; the build directory is git-ignored.  A
+variant built with extra ``-D`` defines (the clock64 probe of
+``ops/probe_k1.py``) gets a library of its own.
 """
 from __future__ import annotations
 
@@ -25,13 +27,14 @@ SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qdepthwise": "qdepthwise.cu", "qproj": "qproj.cu",
            "qtail": "qtail.cu", "qblock": "qblock.cu",
            "qstage": "qstage.cu", "qivr": "qivr.cu"}
-HEADERS = ("epilogue.cuh", "igemm.cuh", "fused_tail.cuh", "grid_phase.cuh")
+HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "fused_tail.cuh",
+           "grid_phase.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-_fns: Dict[str, ctypes._CFuncPtr] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # name -> {"seconds": build time, "log": nvcc's ptxas report}
 build_info: Dict[str, dict] = {}
 
@@ -45,27 +48,30 @@ def _nvcc() -> str:
                        "kernels build only on a machine with the toolkit")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*FLAGS, *defines)).encode())
     for f in (SOURCES[name], *HEADERS):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+def build(names: Optional[Iterable[str]] = None,
+          defines: Sequence[str] = ()) -> Dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` process per source, started together.  Raises on any failure."""
+    ``nvcc`` process per source, started together, with the extra
+    ``defines`` (``-D`` flags) if any.  Raises on any failure."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.monotonic()
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -82,24 +88,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return {n: build_info[n] for n in names}
 
 
-def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry ``symbol`` of kernel library ``name``, built if needed.
+def load(name: str, symbol: str, argtypes: Sequence,
+         defines: Sequence[str] = ()) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of kernel library ``name`` (its variant built
+    with ``defines``), built if needed.
 
     Every pointer and the stream are ``c_void_p`` in ``argtypes``: without
     them ctypes would pass 32-bit ints and cut the pointers.
     """
-    fn = _fns.get(symbol)
+    key = (symbol, *defines)
+    fn = _fns.get(key)
     if fn is not None:
         return fn
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, *defines))
         if lib is None:
-            path = _target(name)
+            path = _target(name, defines)
             if not path.exists():
-                build([name])
-            lib = _libs[name] = ctypes.CDLL(str(path))
+                build([name], defines)
+            lib = _libs[(name, *defines)] = ctypes.CDLL(str(path))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns[symbol] = fn
+        _fns[key] = fn
     return fn

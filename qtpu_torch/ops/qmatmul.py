@@ -6,6 +6,19 @@ hand-written kernel of ``csrc/qmatmul.cu`` (or raises), on a CPU tensor it
 takes ``qmatmul_folded_plain``, the same function in plain PyTorch.  Its
 ``launches`` attribute counts kernel launches and nothing else.
 
+Two kernels compute K1, chosen per call by :func:`k1_path` from what the
+operands allow (a deliberate dispatch, never a fallback after a failure):
+``"wgmma"`` (``csrc/wgmma_gemm.cuh``: TMA loads, ``wgmma`` s8, a
+persistent grid, a coalesced epilogue) wherever TMA can address every
+operand — each base 16-byte aligned and each row (x, the weight, the
+output, the residual) a multiple of 16 bytes — and whose requant grid, if
+any, has integer bounds and a shift of 0 or 128 (every grid of a frozen
+tree), and ``"igemm"`` (``csrc/igemm.cuh``'s ``mma.sync`` loop) for the
+rest (MobileNet-v2's K = 24 and N = 24 GEMMs).  ``launches_wgmma`` and
+``launches_igemm`` count each; ``launches`` stays their sum.  ``path=``
+forces one (the old loop for a comparison; the new one raises on
+operands it cannot take).
+
 The weight is stored (N, K), K-contiguous — the kernel's layout, prepared
 once at engine build.  ``qmatmul_fused`` keeps qtpu's call form: a (K, N)
 weight and the unfolded grid arguments, folded here with
@@ -106,20 +119,72 @@ def qmatmul_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
                    mode: Optional[EpilogueMode],
                    residual: Optional[torch.Tensor] = None, *,
                    out_dtype: torch.dtype = torch.float32,
-                   raw_acc: bool = False) -> torch.Tensor:
+                   raw_acc: bool = False,
+                   path: Optional[str] = None) -> torch.Tensor:
     """int8 (M, K) × int8 (N, K)ᵀ → epilogue(acc) (M, N)."""
     if x_q.device.type == "cpu":
         return qmatmul_folded_plain(x_q, w_nk, co, mode, residual,
                                     out_dtype=out_dtype, raw_acc=raw_acc)
     res_kind = _check(x_q, w_nk, "w_nk", w_nk.shape[1], co, residual,
                       raw_acc)
-    out = _launch("qtpu_qmatmul_fused", x_q, w_nk, co, mode, residual,
+    path = _path(path, x_q, w_nk, co, mode, out_dtype, raw_acc, residual)
+    out = _launch(_SYMBOLS[False, path], x_q, w_nk, co, mode, residual,
                   res_kind, out_dtype, raw_acc)
-    qmatmul_folded.launches += 1
+    _count(qmatmul_folded, path)
     return out
 
 
 qmatmul_folded.launches = 0
+qmatmul_folded.launches_wgmma = 0
+qmatmul_folded.launches_igemm = 0
+PATHS = ("wgmma", "igemm")
+_SYMBOLS = {(False, "wgmma"): "qtpu_qmatmul_fused",
+            (False, "igemm"): "qtpu_qmatmul_fused_igemm",
+            (True, "wgmma"): "qtpu_qmatmul_fused_w4",
+            (True, "igemm"): "qtpu_qmatmul_fused_w4_igemm"}
+
+
+def k1_path(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+            residual: Optional[torch.Tensor],
+            co: Optional[EpilogueCoeffs] = None,
+            mode: Optional[EpilogueMode] = None) -> str:
+    """The kernel K1 takes for these operands (``w``: int8 (N, K) or
+    packed int4 (N, K/2); ``out_dtype`` the output's; ``co``/``mode`` the
+    folded epilogue): ``"wgmma"`` when TMA can address each of them — every
+    base 16-byte aligned, every row a multiple of 16 bytes — and a requant
+    grid has integer ``lo`` and ``hi`` and a ``shift`` of 0 or 128 (the
+    wgmma epilogue rounds after the clip), else ``"igemm"``."""
+    if (out_dtype == torch.int8 and co is not None and mode is not None
+            and not (mode.shift in (0.0, 128.0)
+                     and all(abs(v) <= 2 ** 21 and float(v).is_integer()
+                             for v in (co.lo, co.hi)))):
+        return "igemm"
+    N = w.shape[0]
+    rows = [(x_q, x_q.shape[1]), (w, w.shape[1]),
+            (None, N * torch.empty((), dtype=out_dtype).element_size())]
+    if residual is not None:
+        rows.append((residual, N * residual.element_size()))
+    ok = all(nbytes % 16 == 0 and (t is None or t.data_ptr() % 16 == 0)
+             for t, nbytes in rows)
+    return "wgmma" if ok else "igemm"
+
+
+def _path(path: Optional[str], x_q, w, co, mode, out_dtype, raw_acc,
+          residual) -> str:
+    auto = k1_path(x_q, w, out_dtype_of(mode, out_dtype, raw_acc), residual,
+                   co, mode)
+    if path is None:
+        return auto
+    if path not in PATHS or (path == "wgmma" and auto != "wgmma"):
+        raise ValueError(f"K1 path {path!r} cannot take these operands "
+                         f"(they take {auto!r})")
+    return path
+
+
+def _count(wrapper, path: str) -> None:
+    wrapper.launches += 1
+    name = f"launches_{path}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _check(x_q: torch.Tensor, w: torch.Tensor, wname: str, w_k: int,
@@ -230,7 +295,8 @@ def qmatmul_folded_w4(x_q: torch.Tensor, w_nk4: torch.Tensor,
                       mode: Optional[EpilogueMode],
                       residual: Optional[torch.Tensor] = None, *,
                       out_dtype: torch.dtype = torch.float32,
-                      raw_acc: bool = False) -> torch.Tensor:
+                      raw_acc: bool = False,
+                      path: Optional[str] = None) -> torch.Tensor:
     """int8 (M, K) × int4 (N, K)ᵀ → epilogue(acc) (M, N), the weight packed
     by :func:`pack_int4_nk` ((N, K/2) bytes) and unpacked in the kernel.
     Raises on odd K."""
@@ -242,13 +308,16 @@ def qmatmul_folded_w4(x_q: torch.Tensor, w_nk4: torch.Tensor,
                                        out_dtype=out_dtype, raw_acc=raw_acc)
     res_kind = _check(x_q, w_nk4, "w_nk4", 2 * w_nk4.shape[1], co, residual,
                       raw_acc)
-    out = _launch("qtpu_qmatmul_fused_w4", x_q, w_nk4, co, mode, residual,
+    path = _path(path, x_q, w_nk4, co, mode, out_dtype, raw_acc, residual)
+    out = _launch(_SYMBOLS[True, path], x_q, w_nk4, co, mode, residual,
                   res_kind, out_dtype, raw_acc)
-    qmatmul_folded_w4.launches += 1
+    _count(qmatmul_folded_w4, path)
     return out
 
 
 qmatmul_folded_w4.launches = 0
+qmatmul_folded_w4.launches_wgmma = 0
+qmatmul_folded_w4.launches_igemm = 0
 
 
 def qmatmul_folded_w4_plain(x_q: torch.Tensor, w_nk4: torch.Tensor,
@@ -295,15 +364,20 @@ def qmatmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, *, act_scale,
     epilogue (int8 codes when ``requant_scale`` is given).  ``w_packed``:
     ``w_q`` is qtpu's :func:`pack_int4_halves` (K, N/2) at tile width
     ``bn`` (qtpu's default 512, at most N), repacked by
-    :func:`pack_int4_nk` for the int4 entry."""
+    :func:`pack_int4_nk` for the int4 entry; an odd K gets a zero column of
+    ``x_q`` and a zero weight row first (the accumulator and ``colsum`` do
+    not change)."""
     co, mode = fold(act_scale=act_scale, act_zp=act_zp, w_scale=w_scale,
                     colsum=colsum, bias=bias, requant_scale=requant_scale,
                     requant_zp=requant_zp, residual=residual,
                     res_scale=res_scale, res_zp=res_zp, relu=relu,
                     act_max=act_max)
     if w_packed:
-        w = unpack_int4_halves(w_q, min(bn or 512, 2 * w_q.shape[1]))
-        return qmatmul_folded_w4(x_q, pack_int4_nk(w.t().contiguous()), co,
+        w_nk = unpack_int4_halves(w_q, min(bn or 512, 2 * w_q.shape[1])).t()
+        if x_q.shape[1] % 2:
+            x_q = torch.cat([x_q, x_q.new_zeros(x_q.shape[0], 1)], 1)
+            w_nk = torch.cat([w_nk, w_nk.new_zeros(w_nk.shape[0], 1)], 1)
+        return qmatmul_folded_w4(x_q, pack_int4_nk(w_nk.contiguous()), co,
                                  mode, residual, out_dtype=out_dtype,
                                  raw_acc=raw_acc)
     return qmatmul_folded(x_q, w_q.t().contiguous(), co, mode, residual,

@@ -1,7 +1,10 @@
 """Serving stack assembly (port of ``build_engine`` of qtpu/serve/cli.py).
 
-model (seeded random weights) → calibration on seeded normal batches (the
-config's observer: min-max, or EMA for ``resnet50_int4w_int8a_qat``) →
+model (seeded random weights) → calibration on qtpu's data (the config's
+observer: min-max, or EMA for ``resnet50_int4w_int8a_qat``): the first
+``calib_batches`` batches of ``load_dataset(cfg.dataset, "train",
+n=cfg.n_train, seed=0)``, real images under ``$QTPU_DATA_DIR`` or the
+synthetic set, at the dataset's own image size →
 ``freeze`` (int8, or nibble-packed int4 weights) → flat int8 engine →
 :class:`ServingEngine`, warmed on every bucket.  As qtpu's, the engine
 runs int4 trees on the unpacked weights; ``ResNetInt8Engine(...,
@@ -16,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from qtpu_torch.data import load_dataset
 from qtpu_torch.models import get_model, init_weights
 from qtpu_torch.serve.dispatch import make_flat_forward
 from qtpu_torch.serve.engine import ServingEngine
@@ -36,14 +40,17 @@ def build_model(cfg, *, torch_pad: bool = False, seed: int = 0,
 
 def freeze_from_config(cfg, *, torch_pad: bool = False, seed: int = 0,
                        device=None) -> dict:
-    """model → calibrate on ``calib_batches`` seeded normal batches →
-    freeze; returns the frozen tree."""
+    """model → calibrate → freeze, as qtpu's ``_freeze_from_config``: the
+    calibration batches are ``ds.images[i*bs:(i+1)*bs]``, ``i <
+    calib_batches``, of the config's training set (empty ones dropped);
+    only those images are built.  Returns the frozen tree."""
     model = build_model(cfg, torch_pad=torch_pad, seed=seed, device=device)
-    shape = (cfg.image_size, cfg.image_size,
-             1 if cfg.dataset == "mnist" else 3)
-    rng = np.random.default_rng(seed)
-    batches = [rng.standard_normal((cfg.batch_size, *shape), np.float32)
-               for _ in range(cfg.calib_batches)]
+    bs = cfg.batch_size
+    ds = load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=0,
+                      first=bs * cfg.calib_batches)
+    batches = [ds.images[i * bs:(i + 1) * bs]
+               for i in range(cfg.calib_batches)]
+    batches = [b for b in batches if len(b)]
     policy = cfg.policy()
     return freeze(model, policy, calibrate(model, policy, batches))
 

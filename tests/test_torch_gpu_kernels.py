@@ -11,7 +11,10 @@ ResNet-50's widths; for the chained kernels (K7-K9) runs of 1-5 blocks,
 H = W in {4, 5, 7} (and 5 x 6), B in {1, 3}, channel counts that are not
 multiples of 16 (the byte-gather loads: Cmid 24, MobileNet-v2's C = 24), C
 = 160 / E = 960, a projection with Cp != Co, and a CUDA-graph capture of
-each cooperative launch; for K1's int4 entry M in {1, 37, 392, 2000}, K with
+each cooperative launch; for K1 both kernels (the TMA + wgmma path and
+the old mma.sync loop, forced) at M, N and K off every tile, M < 64, K = 24,
+persistent grids of many tiles, every output and residual kind, a CUDA-graph
+capture, and the per-path launch counters; for K1's int4 entry M in {1, 37, 392, 2000}, K with
 K/2 on (64, 96, 1024) and off (48, 200) the 16-byte path, N in {64, 72,
 256, 2048}, every epilogue mode, also against the int8 entry on the
 unpacked weight and qtpu's ``w_packed`` call form, a CUDA-graph capture and
@@ -52,38 +55,139 @@ def _dev(a, dev):
     return torch.tensor(np.asarray(a), device=dev)
 
 
+K1_MODES = ["requant_res_i8", "f32_res_f32", "raw", "requant_sym",
+            "requant_res_f32", "f32_res_i8"]
+
+
+def _k1_epilogue(mode, M, N, w, dev):
+    """qmatmul_fused keywords for one K1 epilogue mode: every output kind
+    (int8 codes, f32, raw int32) and residual kind (none, int8, f32)."""
+    kw = dict(act_scale=0.02, act_zp=3,
+              w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
+                           dev),
+              colsum=_dev(w.astype(np.int32).sum(0), dev),
+              bias=_dev(RNG.standard_normal(N).astype(np.float32), dev))
+    res_i8 = dict(residual=_dev(RNG.integers(-128, 128, (M, N)).astype(
+        np.int8), dev), res_scale=0.03, res_zp=-6.0)
+    res_f32 = dict(residual=_dev(RNG.standard_normal((M, N)).astype(
+        np.float32), dev))
+    requant = dict(requant_scale=0.05, requant_zp=-3, relu=True)
+    kw.update({"requant_res_i8": {**requant, **res_i8},
+               "f32_res_f32": dict(relu=True, act_max=6.0, **res_f32),
+               "raw": {}, "requant_sym": dict(requant_scale=0.5),
+               "requant_res_f32": {**requant, **res_f32},
+               "f32_res_i8": dict(relu=True, **res_i8)}[mode])
+    return kw
+
+
+def _rows_ok(N, out_dtype, kw):
+    """The output's and the residual's rows are multiples of 16 bytes."""
+    res = kw.get("residual")
+    return (N * out_dtype.itemsize % 16 == 0
+            and (res is None or N * res.element_size() % 16 == 0))
+
+
+def _k1_counts(fn):
+    return fn.launches, fn.launches_wgmma, fn.launches_igemm
+
+
+# M, N and K off every tile (M < 64, N = 208, K = 80), K = 24 and rows that
+# are no multiple of 16 bytes (the igemm path), persistent grids of many
+# tiles per block (M = 40000, 3000; M = 17000, K = 512: two warpgroups a
+# block, 128-row tiles with a ragged last one), the fc (M = 8, N = 1000)
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(37, 200, 13), (130, 64, 72),
                                    (8, 2048, 1000), (300, 48, 256),
-                                   (2000, 256, 384)])
-@pytest.mark.parametrize("mode", ["requant_res_i8", "f32_res_f32", "raw",
-                                  "requant_sym"])
+                                   (2000, 256, 384), (37, 80, 208),
+                                   (200, 24, 144), (40000, 64, 256),
+                                   (3000, 1024, 64), (1, 16, 16),
+                                   (17000, 512, 256)])
+@pytest.mark.parametrize("mode", K1_MODES)
 def test_qmatmul_kernel_matches_plain(cuda, M, K, N, mode):
     x = RNG.integers(-128, 128, (M, K)).astype(np.int8)
     w = RNG.integers(-127, 128, (K, N)).astype(np.int8)
-    kw = dict(act_scale=0.02, act_zp=3,
-              w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
-                           cuda),
-              colsum=_dev(w.astype(np.int32).sum(0), cuda),
-              bias=_dev(RNG.standard_normal(N).astype(np.float32), cuda))
-    if mode == "requant_res_i8":
-        kw.update(requant_scale=0.05, requant_zp=-3, relu=True,
-                  residual=_dev(RNG.integers(-128, 128, (M, N)).astype(
-                      np.int8), cuda), res_scale=0.03, res_zp=-6.0)
-    elif mode == "f32_res_f32":
-        kw.update(relu=True, act_max=6.0, residual=_dev(
-            RNG.standard_normal((M, N)).astype(np.float32), cuda))
-    elif mode == "requant_sym":
-        kw.update(requant_scale=0.5)
+    kw = _k1_epilogue(mode, M, N, w, cuda)
     raw = mode == "raw"
     xt, wt = _dev(x, cuda), _dev(w, cuda)
-    n0 = tmm.qmatmul_folded.launches
+    co, emode = tmm.fold(**kw)
+    odt = tmm.out_dtype_of(emode, torch.float32, raw)
+    w_nk = wt.t().contiguous()
+    path = tmm.k1_path(xt, w_nk, odt, kw.get("residual"))
+    assert path == ("wgmma" if K % 16 == 0 and _rows_ok(N, odt, kw)
+                    else "igemm")
+    n0, nw, ni = _k1_counts(tmm.qmatmul_folded)
     got = tmm.qmatmul_fused(xt, wt, raw_acc=raw, **kw)
     torch.cuda.synchronize()
-    assert tmm.qmatmul_folded.launches == n0 + 1
+    assert _k1_counts(tmm.qmatmul_folded) == (
+        n0 + 1, nw + (path == "wgmma"), ni + (path == "igemm"))
     ref = tmm.qmatmul_fused_plain(xt, wt, raw_acc=raw, **kw)
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    # the old loop, forced, gives the same values
+    old = tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
+                             raw_acc=raw, path="igemm")
+    np.testing.assert_array_equal(old.cpu().numpy(), ref.cpu().numpy())
+    assert tmm.qmatmul_folded.launches == (tmm.qmatmul_folded.launches_wgmma
+                                           + tmm.qmatmul_folded.launches_igemm)
+    if path == "igemm":
+        with pytest.raises(ValueError, match="cannot take"):
+            tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
+                               raw_acc=raw, path="wgmma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [None, "i8"])
+@pytest.mark.parametrize("lo,hi,shift", [(0.0, 255.0, 128.0),
+                                         (-127.0, 127.0, 0.0),
+                                         (-3.0, 6.0, 0.0)])
+def test_qmatmul_requant_rounds_ties_to_even(cuda, res, lo, hi, shift):
+    """Requant codes at exact ties (A = 0.5: t = acc / 2 + B, B a multiple
+    of 0.5), affine, symmetric and narrow grids: the wgmma path rounds the
+    clipped value by adding 1.5 * 2^23, the old loop by rintf before the
+    clip; both must give the plain version's codes."""
+    M, K, N = 300, 64, 128
+    x = _dev(RNG.integers(-128, 128, (M, K)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-3, 4, (N, K)).astype(np.int8), cuda)
+    co = tq.EpilogueCoeffs(
+        A=torch.full((N,), 0.5, device=cuda),
+        B=_dev(RNG.integers(-4, 5, N).astype(np.float32) * 0.5, cuda),
+        C=0.5, lo=lo, hi=hi)
+    mode = tq.EpilogueMode(True, shift, False, None)
+    r = (_dev(RNG.integers(-128, 128, (M, N)).astype(np.int8), cuda)
+         if res else None)
+    got = tmm.qmatmul_folded(x, w, co, mode, r)
+    old = tmm.qmatmul_folded(x, w, co, mode, r, path="igemm")
+    ref = tmm.qmatmul_folded_plain(x, w, co, mode, r)
+    torch.cuda.synchronize()
+    acc = tq.qmatmul(x, w.t())
+    assert (acc % 2 != 0).float().mean().item() > 0.3     # ties abound
+    assert torch.equal(got, ref) and torch.equal(old, ref)
+
+
+@pytest.mark.gpu
+def test_qmatmul_wgmma_captures_in_a_cuda_graph(cuda):
+    """The new K1 path (TMA descriptors passed by value) replays from a CUDA
+    graph, at a multi-tile persistent grid with an int8 residual."""
+    M, K, N = 5000, 256, 512
+    w = RNG.integers(-127, 128, (K, N)).astype(np.int8)
+    kw = _k1_epilogue("requant_res_i8", M, N, w, cuda)
+    co, emode = tmm.fold(**kw)
+    x = _dev(RNG.integers(-128, 128, (M, K)).astype(np.int8), cuda)
+    w_nk = _dev(w, cuda).t().contiguous()
+    ref = tmm.qmatmul_folded(x, w_nk, co, emode, kw["residual"])
+    n0, nw, ni = _k1_counts(tmm.qmatmul_folded)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmm.qmatmul_folded(x, w_nk, co, emode, kw["residual"])
+    assert _k1_counts(tmm.qmatmul_folded) == (n0 + 1, nw + 1, ni)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    np.testing.assert_array_equal(
+        ref.cpu().numpy(), tmm.qmatmul_folded_plain(
+            x, w_nk, co, emode, kw["residual"]).cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -172,40 +276,38 @@ def test_qdepthwise_kernel_matches_plain(cuda, B, H, C, stride, padding,
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(1, 64, 64), (37, 96, 72), (392, 1024, 2048),
                                    (37, 48, 64), (392, 200, 72), (1, 1024, 72),
-                                   (2000, 64, 256), (37, 1024, 2048)])
-@pytest.mark.parametrize("mode", ["requant_res_i8", "f32_res_f32", "raw",
-                                  "requant_sym"])
+                                   (2000, 64, 256), (37, 1024, 2048),
+                                   (37, 160, 208), (40000, 64, 256),
+                                   (3000, 512, 64), (17000, 512, 256)])
+@pytest.mark.parametrize("mode", K1_MODES)
 def test_qmatmul_int4_kernel_matches_plain(cuda, M, K, N, mode):
-    """The int4 entry (K/2 on the 16-byte path when K % 32 == 0, else the
-    byte path; ragged M and N) against its plain version, against the int8
-    entry on the unpacked weight, and qtpu's ``w_packed`` call form."""
+    """The int4 entry (the wgmma path when K % 32 == 0 and the rows allow
+    TMA, else the old loop, its K/2 on the 16-byte path when K % 32 == 0 and
+    the byte path otherwise; ragged M and N, persistent grids) against its
+    plain version, against the int8 entry on the unpacked weight, and qtpu's
+    ``w_packed`` call form."""
     x = RNG.integers(-128, 128, (M, K)).astype(np.int8)
     w = RNG.integers(-7, 8, (K, N)).astype(np.int8)
     w[0, : min(N, 2)] = (-7, 7)[: min(N, 2)]
-    kw = dict(act_scale=0.02, act_zp=3,
-              w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
-                           cuda),
-              colsum=_dev(w.astype(np.int32).sum(0), cuda),
-              bias=_dev(RNG.standard_normal(N).astype(np.float32), cuda))
-    if mode == "requant_res_i8":
-        kw.update(requant_scale=0.05, requant_zp=-3, relu=True,
-                  residual=_dev(RNG.integers(-128, 128, (M, N)).astype(
-                      np.int8), cuda), res_scale=0.03, res_zp=-6.0)
-    elif mode == "f32_res_f32":
-        kw.update(relu=True, act_max=6.0, residual=_dev(
-            RNG.standard_normal((M, N)).astype(np.float32), cuda))
-    elif mode == "requant_sym":
-        kw.update(requant_scale=0.5)
+    kw = _k1_epilogue(mode, M, N, w, cuda)
     raw = mode == "raw"
     xt, wt = _dev(x, cuda), _dev(w, cuda)
     co, emode = tmm.fold(**kw)
     w4 = tmm.pack_int4_nk(wt.t().contiguous())
-    n0, n8 = tmm.qmatmul_folded_w4.launches, tmm.qmatmul_folded.launches
+    path = tmm.k1_path(xt, w4, tmm.out_dtype_of(emode, torch.float32, raw),
+                       kw.get("residual"))
+    n0, nw, ni = _k1_counts(tmm.qmatmul_folded_w4)
+    n8 = tmm.qmatmul_folded.launches
     got = tmm.qmatmul_folded_w4(xt, w4, co, emode, kw.get("residual"),
                                 raw_acc=raw)
     torch.cuda.synchronize()
-    assert tmm.qmatmul_folded_w4.launches == n0 + 1
+    assert _k1_counts(tmm.qmatmul_folded_w4) == (
+        n0 + 1, nw + (path == "wgmma"), ni + (path == "igemm"))
     assert tmm.qmatmul_folded.launches == n8
+    assert (path == "wgmma") == (K % 32 == 0 and _rows_ok(N, got.dtype, kw))
+    old = tmm.qmatmul_folded_w4(xt, w4, co, emode, kw.get("residual"),
+                                raw_acc=raw, path="igemm")
+    np.testing.assert_array_equal(old.cpu().numpy(), got.cpu().numpy())
     ref = tmm.qmatmul_folded_w4_plain(xt, w4, co, emode, kw.get("residual"),
                                       raw_acc=raw)
     i8 = tmm.qmatmul_folded(xt, wt.t().contiguous(), co, emode,
@@ -227,12 +329,16 @@ def test_qmatmul_int4_captures_in_a_cuda_graph(cuda):
     w4 = tmm.pack_int4_nk(_dev(RNG.integers(-7, 8, (128, 256)).astype(
         np.int8), cuda))
     ref = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
+    n0, nw, ni = _k1_counts(tmm.qmatmul_folded_w4)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
+    assert _k1_counts(tmm.qmatmul_folded_w4) == (n0 + 1, nw + 1, ni)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+    assert torch.equal(ref, tmm.qmatmul_folded_w4_plain(x, w4, None, None,
+                                                        raw_acc=True))
     with pytest.raises(ValueError):                      # odd K
         tmm.qmatmul_folded_w4(x[:, :255].contiguous(), w4, None, None,
                               raw_acc=True)

@@ -154,6 +154,40 @@ def test_w_packed_matches_qtpu_interpret(case):
     np.testing.assert_array_equal(got4.numpy(), ref)
 
 
+@pytest.mark.parametrize("case", ["relu_requant", "f32"])
+def test_w_packed_odd_k_matches_qtpu_interpret(case):
+    """qtpu's int4 call form takes an odd K (bk = K, (bn/2) % 128 == 0):
+    the port pads x_q with a zero column and the weight with a zero row
+    before its K-packed layout, and gives qtpu's values exactly."""
+    M, K, N, bn = 128, 147, 256, 256
+    rng = np.random.default_rng(147)
+    xq = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w4 = rng.integers(-7, 8, (K, N)).astype(np.int8)
+    kw = dict(act_scale=np.float32(0.02), act_zp=np.int32(-9),
+              w_scale=rng.uniform(0.001, 0.01, (N,)).astype(np.float32),
+              colsum=w4.astype(np.int32).sum(0),
+              bias=rng.standard_normal(N).astype(np.float32), relu=True)
+    out = jnp.float32
+    if case == "relu_requant":
+        kw.update(requant_scale=np.float32(0.05), requant_zp=np.int32(-3))
+        out = jnp.int8
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    ref = np.asarray(j_qmatmul_fused(
+        jnp.asarray(xq), j_pack_halves(jnp.asarray(w4), bn), w_packed=True,
+        out_dtype=out, bm=128, bn=bn, interpret=True, **jkw))
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) and v.ndim
+           else v for k, v in kw.items()}
+    n0 = qmatmul.qmatmul_folded_w4_plain.calls
+    got = qmatmul.qmatmul_fused(
+        torch.from_numpy(xq),
+        qmatmul.pack_int4_halves(torch.from_numpy(w4), bn), w_packed=True,
+        bn=bn, **tkw)
+    assert qmatmul.qmatmul_folded_w4_plain.calls == n0 + 1
+    assert got.shape == (M, N) and str(got.dtype)[6:] == np.dtype(out).name
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 # -- the EMA observer ---------------------------------------------------------------
 
 def test_ema_update_matches_qtpu():
@@ -351,7 +385,7 @@ def test_packed_engine_logits_match_qtpu(engines):
 def _narrow_cfg(**kw):
     return dataclasses.replace(CONFIGS[CFG5], image_size=SIZE,
                                num_classes=10, width=16, calib_batches=2,
-                               batch_size=4, **kw)
+                               batch_size=4, n_train=8, **kw)
 
 
 def test_build_engine_serves_config5():

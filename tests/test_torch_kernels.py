@@ -166,6 +166,58 @@ CONV_CASES = {
 }
 
 
+# (label, M, K, N, out dtype, residual dtype, requant zp, expected kernel)
+K1_PATH_CASES = [
+    ("resnet 1x1, int8 residual", 64, 256, 64, torch.int8, torch.int8, -20,
+     "wgmma"),
+    ("f32 out, f32 residual", 64, 64, 64, torch.float32, torch.float32, None,
+     "wgmma"),
+    ("raw int32, N = 1000", 8, 2048, 1000, torch.int32, None, None, "wgmma"),
+    ("K = 24 rows of 24 bytes", 64, 24, 64, torch.int8, None, -20, "igemm"),
+    ("N = 24 int8 out", 64, 144, 24, torch.int8, None, -20, "igemm"),
+    ("N = 24 f32 out (96-byte rows)", 64, 144, 24, torch.float32, None, None,
+     "wgmma"),
+    ("N = 24 int8 residual, f32 out", 64, 144, 24, torch.float32, torch.int8,
+     None, "igemm"),
+    ("requant grid off the integers", 64, 64, 64, torch.int8, None, -20.5,
+     "igemm"),
+]
+
+
+@pytest.mark.parametrize("case", K1_PATH_CASES, ids=lambda c: c[0])
+def test_k1_path_dispatch(case):
+    """K1's per-call choice between its two kernels: the TMA + wgmma one
+    where TMA can address every operand (16-byte aligned bases, rows that
+    are multiples of 16 bytes) and a requant grid is integer; the mma.sync
+    loop otherwise.  Decided from shapes, pointers and the folded grid."""
+    _, M, K, N, odt, rdt, zp, want = case
+    x = torch.zeros((M, K), dtype=torch.int8)
+    w = torch.zeros((N, K), dtype=torch.int8)
+    res = None if rdt is None else torch.zeros((M, N), dtype=rdt)
+    co = mode = None
+    if odt == torch.int8:
+        from qtpu_torch.ops import qops as tq
+        co, mode = tq.epilogue_coeffs(
+            act_scale=0.02, act_zp=3, w_scale=torch.full((N,), 0.01),
+            colsum=torch.zeros(N, dtype=torch.int32), requant_scale=0.05,
+            requant_zp=zp, relu=True)
+    assert tmm.k1_path(x, w, odt, res, co, mode) == want
+
+
+def test_k1_path_unaligned_views_and_int4_rows():
+    w = torch.zeros((64, 64), dtype=torch.int8)
+    x = torch.zeros((65, 64), dtype=torch.int8)
+    assert tmm.k1_path(x[1:], w, torch.float32, None) == "wgmma"  # 64 B on
+    xs = torch.zeros((65 * 64 + 8,), dtype=torch.int8)[8:].view(65, 64)
+    assert tmm.k1_path(xs, w, torch.float32, None) == "igemm"  # 8 B off
+    # the int4 weight's rows hold K/2 bytes: K % 32 == 0 for TMA
+    for K, want in ((48, "igemm"), (64, "wgmma"), (96, "wgmma"),
+                    (200, "igemm")):
+        w4 = torch.zeros((64, K // 2), dtype=torch.int8)
+        x = torch.zeros((8, K), dtype=torch.int8)
+        assert tmm.k1_path(x, w4, torch.float32, None) == want
+
+
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
 def test_qconv_plain_matches_pallas(case):
     spec, shape = CONV_CASES[case]

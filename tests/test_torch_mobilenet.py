@@ -368,7 +368,7 @@ def test_build_engine_serves_narrow_config(monkeypatch, name, engine,
     monkeypatch.setattr(cli, "get_model",
                         functools.partial(get_model, width_mult=WIDTH))
     cfg = dataclasses.replace(CONFIGS[name], image_size=SIZE, num_classes=10,
-                              calib_batches=1, batch_size=4)
+                              calib_batches=1, batch_size=4, n_train=8)
     eng, info = cli.build_engine(cfg, buckets=(2, 4), max_wait_ms=5.0,
                                  device="cpu")
     try:

@@ -127,7 +127,8 @@ def test_module_path_is_not_ported():
 def test_build_engine_fp32_stem_config_answers_predict():
     cfg = dataclasses.replace(
         CONFIGS["resnet50_imagenet_int8_ptq_fp32stem"], image_size=32,
-        num_classes=10, width=16, calib_batches=1, batch_size=4)
+        num_classes=10, width=16, calib_batches=1, batch_size=4,
+        n_train=8)
     eng, info = build_engine(cfg, buckets=(2, 4), max_wait_ms=5.0,
                              device="cpu")
     try:
@@ -177,7 +178,8 @@ def test_uint8_ingest_composes_with_excluded_stem():
     tests/test_serve_cli.py)."""
     cfg = dataclasses.replace(
         CONFIGS["resnet50_imagenet_int8_ptq_fp32stem"], image_size=32,
-        num_classes=10, width=16, calib_batches=1, batch_size=4)
+        num_classes=10, width=16, calib_batches=1, batch_size=4,
+        n_train=8)
     x8 = np.random.default_rng(5).integers(0, 256, (4, 32, 32, 3),
                                            dtype=np.uint8)
     eng_u8, info = build_engine(cfg, buckets=(4,), uint8_ingest=True,
