@@ -18,8 +18,13 @@ success):
    kernel its dispatch picks and the old mma.sync loop forced, which must
    agree), K1 at
    MobileNet-v2's (K = 24 expand with relu6, a narrow project with the int8
-   residual, the f32 relu6 head), K3 at three of its depthwise shapes, K2
-   at MobileNet-v1's quantized 3×3/2 stem (Ci = 3, the byte-gather path),
+   residual, the f32 relu6 head), K3 (its halo kernel) at three of its
+   depthwise shapes and at two of them at B = 128, K2 at ResNet-50's 3×3s
+   (B = 8 layer1 and layer2_0; B = 128 the stride-1 conv2 of every stage
+   and the stride-2 conv2 of layer2_0-layer4_0: the implicit GEMM on the
+   TMA + wgmma ring, pads read in the kernel) and at the quantized stems
+   (Ci = 3: MobileNet-v1's 3×3/2, ResNet-50's 7×7/2: the stem kernel),
+   every K2 row also on the old mma.sync loop forced, which must agree,
    and the fused bottleneck kernels at one ResNet-50 block per stage: K4
    (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
    (qtail) and K6 (qblock) at layer1-layer4, and the chained kernels at the
@@ -30,7 +35,7 @@ success):
    ``resnet50_int4w_int8a_qat``'s shapes (layer1_0 conv3 with the int8
    residual, layer3 conv1, layer4 conv3, layer4_0's f32 downsample), also
    against the int8 entry on the unpacked weights; the im2col conv at
-   ResNet-50's quantized 7×7/2 stem, also against K2;
+   ResNet-50's quantized 7×7/2 stem, also against K2 (its stem kernel);
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -52,7 +57,9 @@ success):
      7 K3, 5 K9);
    * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
      and ``mobilenetv1_imagenet_int8_ptq``: 14 K1 and 13 K3 launches, plus
-     one K2 for the quantized 3×3/2 stem;
+     one K2 for the quantized 3×3/2 stem; one direct forward of
+     ``resnet50_imagenet_int8_ptq`` (the quantized 7×7/2 stem): 37 K1 and
+     17 K2 (16 3×3s and the stem);
    * ``build_engine`` for ``resnet50_int4w_int8a_qat`` (int4 weights, EMA
      calibration, stem and fc in fp32) serves through ``ServingEngine``:
      36 K1 and 16 K2 per forward; the same tree on
@@ -60,12 +67,18 @@ success):
      K1's int4 entry and 16 K2, no int8 K1; one forward of its ``stage``
      configuration with ``packed_int4``: 7 K1 int4, 5 K2, 3 K4, 2 K7, 1 K8
      (layer4 stays unchained: its consumer is the fp32 fc);
-   * on every one of these runs K1's launches are also counted by kernel
-     (``launches_wgmma``, ``launches_igemm`` of both entries, which must add
-     up to the entries' launch counts); every K1 launch of the ResNet-50
-     and config-5 engines must take the wgmma kernel;
-5. the ResNet-50 (product, tail, block, stage), MobileNet-v2 (product,
-   ivr) and quantized-stem MobileNet-v1 engines against the same engines on
+   * on every one of these runs K1's, K2's and K3's launches are also
+     counted by kernel (``launches_wgmma``/``_igemm`` of K1's two entries,
+     ``launches_wgmma``/``_stem``/``_igemm`` of K2, ``launches_halo``/
+     ``_scalar`` of K3, which must add up to the launch counts), and so are
+     zero-point pad copies (``qops.resolve_and_pad.calls``, through which
+     K2's old loop pads too): every K1 and K2 launch of the ResNet-50 and
+     config-5 engines must take the wgmma kernels, the int8 stems of
+     MobileNet-v1 and ResNet-50 K2's stem kernel, every K3 launch the halo
+     kernel, and no run may copy an activation to pad it;
+5. the ResNet-50 (product, tail, block, stage, and the product engine
+   with the quantized stem), MobileNet-v2 (product, ivr) and
+   quantized-stem MobileNet-v1 engines against the same engines on
    the CPU (the plain path) on two images: codes after every step of the
    forward (a block, or a chained run) follow the tie rule (equal except
    one step on ≤ 0.1% of elements; v1's last block emits f32, equal to rtol
@@ -82,7 +95,8 @@ success):
    tail, block, stage at 128), config 5's product and packed engines at
    B = 8 and 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
    device time (repeated launches captured in a CUDA graph) beside its
-   bound, its plain version (K1 also beside its old mma.sync loop) and a
+   bound, its plain version (K1 and K2 also beside the old mma.sync loop;
+   K2's with and without the zero-point pad copy it needed) and a
    library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
    (for the int4 entry on the unpacked weight, beside the int8 entry's
@@ -135,12 +149,16 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
               "or a chained run (two or more convolutions with requants "
               "between)")
 # launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
-# plain-version calls, then K1's launches by kernel: int8 entry on wgmma,
-# on igemm, int4 entry on wgmma, on igemm); expected counts give the first
-# twelve
+# plain-version calls, then launches by kernel: K1's int8 entry on wgmma,
+# on igemm, its int4 entry on wgmma, on igemm, K2 on wgmma, stem, igemm, K3
+# on halo, scalar, and the zero-point pad copies made on the way to K2 or
+# K3); expected counts give the first twelve
 KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
 PLAIN = 11
-K1_SPLIT = {"K1": (12, 13), "K1w4": (14, 15)}
+SPLIT = {"K1": {"wgmma": 12, "igemm": 13}, "K1w4": {"wgmma": 14, "igemm": 15},
+         "K2": {"wgmma": 16, "stem": 17, "igemm": 18},
+         "K3": {"halo": 19, "scalar": 20}}
+PADS = 21
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
@@ -160,6 +178,10 @@ CFG5_PRODUCT = (36, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 CFG5_PACKED = (0, 16, 0, 0, 0, 0, 0, 0, 0, 36, 0, 0)
 CFG5_STAGE = (0, 5, 0, 3, 0, 0, 2, 1, 0, 7, 0, 0)
 RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
+# ResNet-50 with its int8 7×7/2 stem: the product engine's 37 K1 and 16 K2,
+# plus one K2 (the stem kernel) for the stem
+RN50_INT8STEM = "resnet50_imagenet_int8_ptq"
+RN50_INT8STEM_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 CFG5 = "resnet50_int4w_int8a_qat"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
@@ -436,41 +458,76 @@ def main() -> int:
             return timed(torch, lambda: F.conv2d(xf, wf, stride=s,
                                                  groups=groups), 50)
 
-    # (path, label, B, H, Ci, Co, stride, TPU kernel)
+    # (path, label, B, H, Ci, Co, kernel, stride, TPU kernel): ResNet-50's
+    # 3x3s at B = 8 and, at B = 128, the stride-1 conv2 of every stage and
+    # the stride-2 conv2 of layer2_0-layer4_0; the two quantized stems
+    # (Ci = 3); every row on the kernel k2_path gives it (the implicit GEMM
+    # or the stem kernel) with the pads read in the kernel, and on the old
+    # mma.sync loop forced, which must agree
     k2_cases = [
-        ("rn50", "layer1 conv2 3x3/1", 8, 56, 64, 64, 1, TPU_K2),
-        ("rn50", "layer2_0 conv2 3x3/2", 8, 56, 128, 128, 2, TPU_K2S),
-        ("mnv1", "MNv1 int8 stem 3x3/2", 8, 224, 3, 32, 2, TPU_K2S),
+        ("rn50", "layer1 conv2 3x3/1", 8, 56, 64, 64, 3, 1, TPU_K2),
+        ("rn50", "layer2_0 conv2 3x3/2", 8, 56, 128, 128, 3, 2, TPU_K2S),
+        ("mnv1", "MNv1 int8 stem 3x3/2", 8, 224, 3, 32, 3, 2, TPU_K2S),
+        ("rn50_int8stem", "RN50 int8 stem 7x7/2", 8, 224, 3, 64, 7, 2,
+         TPU_K2S),
+        ("rn50", "B=128 layer1 conv2 3x3/1", 128, 56, 64, 64, 3, 1, TPU_K2),
+        ("rn50", "B=128 layer2 conv2 3x3/1", 128, 28, 128, 128, 3, 1, TPU_K2),
+        ("rn50", "B=128 layer3 conv2 3x3/1", 128, 14, 256, 256, 3, 1, TPU_K2),
+        ("rn50", "B=128 layer4 conv2 3x3/1", 128, 7, 512, 512, 3, 1, TPU_K2),
+        ("rn50", "B=128 layer2_0 conv2 3x3/2", 128, 56, 128, 128, 3, 2,
+         TPU_K2S),
+        ("rn50", "B=128 layer3_0 conv2 3x3/2", 128, 28, 256, 256, 3, 2,
+         TPU_K2S),
+        ("rn50", "B=128 layer4_0 conv2 3x3/2", 128, 14, 512, 512, 3, 2,
+         TPU_K2S),
     ]
-    for path, label, B, H, Ci, Co, s, tpu in k2_cases:
+    for path, label, B, H, Ci, Co, k, s, tpu in k2_cases:
         x = i8(B, H, H, Ci)
-        pads = qops.same_pads((H, H), (3, 3), (s, s))
+        pads = qops.same_pads((H, H), (k, k), (s, s))
+        w = i8(Co, k * k * Ci, lo=-127)
+        co, mode = coeffs(Co, k * k * Ci, **requant)
+        ts = k2.tapsum_of(w, (k, k))
+        kargs = dict(kernel_hw=(k, k), stride=s, pads=pads, zp=-9)
         xp = qops.pad_nhwc(x, pads, -9).contiguous()
-        w = i8(Co, 9 * Ci, lo=-127)
-        co, mode = coeffs(Co, 9 * Ci, **requant)
 
-        def run_k(xp=xp, w=w, co=co, mode=mode, s=s):
-            return k2.qconv2d_folded(xp, w, co, mode, kernel_hw=(3, 3),
-                                     stride=s)
+        def run_k(x=x, w=w, co=co, mode=mode, ts=ts, kargs=kargs):
+            return k2.qconv2d_folded(x, w, co, mode, tapsum=ts, **kargs)
 
-        def run_p(xp=xp, w=w, co=co, mode=mode, s=s):
-            return k2.qconv2d_folded_plain(xp, w, co, mode, kernel_hw=(3, 3),
-                                           stride=s)
+        def run_p(x=x, w=w, co=co, mode=mode, kargs=kargs):
+            return k2.qconv2d_folded_plain(x, w, co, mode, **kargs)
 
-        y, err = compare(f"K2 {label}", run_k, run_p)
+        def run_old(xp=xp, w=w, co=co, mode=mode, k=k, s=s):
+            # the old loop alone, on the zero-point-padded copy
+            return k2.qconv2d_folded(xp, w, co, mode, kernel_hw=(k, k),
+                                     stride=s, path="igemm")
+
+        def run_old_pad(x=x, w=w, co=co, mode=mode, kargs=kargs):
+            # the old loop as the engines ran it: the pad copy, then K2
+            return k2.qconv2d_folded(x, w, co, mode, path="igemm", **kargs)
+
+        kpath = k2.k2_path(x, w, pads, s, co, mode, kernel_hw=(k, k))
+        check(kpath == ("stem" if Ci == 3 else "wgmma"),
+              f"K2 {label}: k2_path gives {kpath!r}")
+        y, err = compare(f"K2 {label} [{kpath}]", run_k, run_p)
+        check(torch.equal(y, run_old()) and torch.equal(y, run_old_pad()),
+              f"K2 {label}: the {kpath} and igemm kernels differ")
         M = B * y.shape[1] * y.shape[2]
-        nbytes = xp.numel() + w.numel() + 8 * Co + y.numel()
-        b_ms, b_by = bound(nbytes, 2 * M * Co * 9 * Ci)
+        nbytes = x.numel() + w.numel() + 8 * Co + y.numel()
+        b_ms, b_by = bound(nbytes, 2 * M * Co * k * k * Ci)
         # K2's weight rows are (kh, kw, ci)-major: back to OIHW for cuDNN
-        w_oihw = w.reshape(Co, 3, 3, Ci).permute(0, 3, 1, 2)
+        w_oihw = w.reshape(Co, k, k, Ci).permute(0, 3, 1, 2)
         kernels.append(dict(
             name=f"qconv2d_fused [{label}]", route="cuda", source=SRC_K2,
-            replaces=tpu, path=path,
-            shape=f"B={B} H={H} Ci={Ci} Co={Co} 3x3/{s}",
+            replaces=tpu, path=path, kernel="K2", k2_path=kpath,
+            shape=f"B={B} H={H} Ci={Ci} Co={Co} {k}x{k}/{s}",
             max_abs_err=err, ms=timed(torch, run_k, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
-            library_ms=conv_fp32_ms(xp, w_oihw, s)))
+            igemm_ms=timed(torch, run_old, 20),
+            igemm_pad_ms=timed(torch, run_old_pad, 20),
+            eager_ms=timed_eager(torch, run_k, 20),
+            plain_ms=timed(torch, run_p, 5 if B == 8 else 2), bound_ms=b_ms,
+            bound_by=b_by, library_ms=conv_fp32_ms(xp, w_oihw, s)))
+        del x, xp, w, y, run_k, run_p, run_old, run_old_pad
+        torch.cuda.empty_cache()
 
     # the im2col conv (patches in PyTorch + one K1 launch) at ResNet-50's
     # quantized 7×7/2 stem, against its plain version and K2
@@ -492,12 +549,13 @@ def main() -> int:
         return qim2col.qconv2d_im2col_plain(x, w_hwio, strides=(2, 2), **ikw)
 
     def run_k2():
-        return k2.qconv2d_folded(xp, w_nk, co, mode, kernel_hw=(7, 7),
-                                 stride=2)
+        return k2.qconv2d_folded(x, w_nk, co, mode, kernel_hw=(7, 7),
+                                 stride=2, pads=qops.same_pads(
+                                     (H, H), (7, 7), (2, 2)), zp=-9)
 
     y, err = compare("im2col RN50 int8 stem 7x7/2", run_k, run_p)
     check(torch.equal(y, run_k2()), "im2col: differs from K2 at the stem")
-    log("im2col equal to K2 at ResNet-50's stem")
+    log("im2col equal to K2 (its stem kernel) at ResNet-50's stem")
     M = B * 112 * 112
     b_ms, b_by = bound(x.numel() + w_hwio.numel() + 8 * Co + y.numel(),
                        2 * M * Co * 147)
@@ -514,6 +572,8 @@ def main() -> int:
         ("block1 dw 3x3/2", 8, 112, 96, 2),
         ("block2 dw 3x3/1", 8, 56, 144, 1),
         ("block14 dw 3x3/1", 8, 7, 960, 1),
+        ("B=128 block2 dw 3x3/1", 128, 56, 144, 1),
+        ("B=128 block14 dw 3x3/1", 128, 7, 960, 1),
     ]
     for label, B, H, C, s in k3_cases:
         x = i8(B, H, H, C)
@@ -530,6 +590,10 @@ def main() -> int:
                                               padding="SAME", zp=-9)
 
         y, err = compare(f"K3 {label}", run_k, run_p)
+        plan = k3.k3_plan(B, H, H, C, y.shape[1], y.shape[2], (3, 3), s,
+                          sms=torch.cuda.get_device_properties(
+                              dev).multi_processor_count)
+        check(plan.path == "halo", f"K3 {label}: plan {plan}")
         # memory-bound: input and output once, the (9, C) weight, A and B;
         # 9 multiply-adds per output element on CUDA cores
         nbytes = x.numel() + y.numel() + w.numel() + 8 * C
@@ -538,9 +602,12 @@ def main() -> int:
         kernels.append(dict(
             name=f"qdepthwise_fused [{label}]", route="cuda", source=SRC_K3,
             replaces=TPU_K3, path="mnv2", shape=f"B={B} H={H} C={C} 3x3/{s}",
+            k3_plan=f"{plan.path} rows {plan.th} channels {plan.cc} "
+            f"threads {plan.threads}",
             max_abs_err=err, ms=timed(torch, run_k, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            eager_ms=timed_eager(torch, run_k, 20),
+            plain_ms=timed(torch, run_p, 5 if B == 8 else 2), bound_ms=b_ms,
+            bound_by=b_by,
             library_ms=conv_fp32_ms(xp.contiguous(),
                                     w.t().reshape(C, 1, 3, 3), s, groups=C)))
 
@@ -789,31 +856,40 @@ def main() -> int:
               k78.qstage_folded_plain, k78.qstage_proj_folded_plain,
               k9.qivr_folded_plain, k1.qmatmul_folded_w4_plain)
 
+    split_of = {"K1": k1.qmatmul_folded, "K1w4": k1.qmatmul_folded_w4,
+                "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded}
+
     def zero_counts():
         for k in kmods:
             k.launches = 0
-        for k in (k1.qmatmul_folded, k1.qmatmul_folded_w4):
-            k.launches_wgmma = k.launches_igemm = 0
+        for name, fn in split_of.items():
+            for kp in SPLIT[name]:
+                setattr(fn, f"launches_{kp}", 0)
         for p in plains:
             p.calls = 0
+        qops.resolve_and_pad.calls = 0
 
     def counts():
-        """(K1 .. K9, K1 int4, im2col launches, plain-version calls, K1
-        int8 on wgmma, on igemm, K1 int4 on wgmma, on igemm); raises
-        unless each entry's kernels add up to its launches."""
-        c = (*(k.launches for k in kmods), sum(p.calls for p in plains),
-             *(getattr(k, f"launches_{kp}")
-               for k in (k1.qmatmul_folded, k1.qmatmul_folded_w4)
-               for kp in k1.PATHS))
-        for name, (iw, ii) in K1_SPLIT.items():
-            check(c[iw] + c[ii] == c[KIDX[name]], f"{name}: wgmma "
-                  f"{c[iw]} + igemm {c[ii]} launches != {c[KIDX[name]]}")
-        return c
+        """(K1 .. K9, K1 int4, im2col launches, plain-version calls, the
+        launches by kernel of K1 int8, K1 int4, K2 and K3, zero-point pad
+        copies); raises unless each entry's kernels add up to its
+        launches."""
+        c = [*(k.launches for k in kmods), sum(p.calls for p in plains)]
+        for name, fn in split_of.items():
+            c += [getattr(fn, f"launches_{kp}") for kp in SPLIT[name]]
+        c.append(qops.resolve_and_pad.calls)
+        for name, idx in SPLIT.items():
+            check(sum(c[i] for i in idx.values()) == c[KIDX[name]],
+                  f"{name}: launches by kernel " + ", ".join(
+                      f"{kp} {c[i]}" for kp, i in idx.items()) +
+                  f" do not add up to {c[KIDX[name]]}")
+        return tuple(c)
 
     def fmt_counts(c):
         return ", ".join(f"{k} {c[i]}" for k, i in KIDX.items()) + \
-            f", plain path {c[PLAIN]}; K1 on wgmma {c[12]}, on igemm " \
-            f"{c[13]}; K1 int4 on wgmma {c[14]}, on igemm {c[15]}"
+            f", plain path {c[PLAIN]}; by kernel " + "; ".join(
+                f"{name} " + ", ".join(f"{kp} {c[i]}" for kp, i in idx.items())
+                for name, idx in SPLIT.items()) + f"; pad copies {c[PADS]}"
 
     def one_forward(flat, x, expect, what):
         zero_counts()
@@ -927,6 +1003,15 @@ def main() -> int:
     # the last of MNV1 has the quantized stem: K2 at Ci = 3
     check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
     path_counts.update(mnv2=mnv2_counts, mnv1=mnv1_counts)
+    # ResNet-50 with the quantized 7×7/2 stem (K2 at Ci = 3): one direct
+    # forward of the product engine (the same architecture as RN50's)
+    t0 = time.monotonic()
+    rn50s_vars = freeze_from_config(CONFIGS[RN50_INT8STEM], device=dev)
+    log(f"freeze ({RN50_INT8STEM}): {time.monotonic() - t0:.1f} s")
+    rn50s = ResNetInt8Engine(rn50s_vars, arch, device=dev)
+    path_counts["rn50_int8stem"] = one_forward(
+        rn50s, torch.from_numpy(imgs[:8]).to(dev), RN50_INT8STEM_FWD,
+        RN50_INT8STEM)
 
     # config 5: int4 weights, EMA calibration, stem and fc in fp32
     cfg5 = CONFIGS[CFG5]
@@ -944,16 +1029,33 @@ def main() -> int:
         stage5, torch.from_numpy(imgs[:8]).to(dev), CFG5_STAGE,
         f"{CFG5} [stage, packed_int4]")
 
-    # K1 by kernel: every launch of the ResNet-50 and config-5 engines on
-    # the wgmma kernel, the others as their shapes allow
+    # by kernel: every K1 and K2 launch of the ResNet-50 and config-5
+    # engines on the wgmma kernels, MobileNet-v1's int8 stem on the stem
+    # kernel, every K3 launch on the halo kernel (every depthwise of the
+    # MobileNets has C % 16 == 0), and no zero-point pad copy on the way
+    # to K2 or K3 in any run
+    s2, s3 = SPLIT["K2"], SPLIT["K3"]
     for key, c in path_counts.items():
         if key in ("rn50", "tail", "block", "stage", "cfg5", "cfg5_packed",
                    "cfg5_stage"):
             check(c[13] == 0 and c[15] == 0, f"{key}: {c[13]} K1 and "
                   f"{c[15]} K1 int4 launches took the igemm kernel")
-    log("K1 launches by kernel (int8 entry + int4 entry) per serving run: "
-        + "; ".join(f"{k} wgmma {c[12]} + {c[14]}, igemm {c[13]} + {c[15]}"
-                    for k, c in path_counts.items()))
+            check(c[s2["wgmma"]] == c[KIDX["K2"]] > 0, f"{key}: K2 "
+                  f"launches {c[KIDX['K2']]}, on wgmma {c[s2['wgmma']]}")
+        check(c[s3["halo"]] == c[KIDX["K3"]], f"{key}: K3 launches "
+              f"{c[KIDX['K3']]}, on the halo kernel {c[s3['halo']]}")
+        check(c[PADS] == 0, f"{key}: {c[PADS]} zero-point pad copies")
+    check(path_counts["mnv1"][s2["stem"]] == 1, "the MobileNet-v1 int8 "
+          "stem did not take K2's stem kernel")
+    c = path_counts["rn50_int8stem"]
+    check(c[13] == 0 and c[s2["wgmma"]] == 16 and c[s2["stem"]] == 1,
+          f"{RN50_INT8STEM}: K1 igemm {c[13]}, K2 wgmma {c[s2['wgmma']]} "
+          f"and stem {c[s2['stem']]} (want 0, 16 and 1)")
+    log("launches by kernel per serving run (K1 int8 + int4; K2; K3): "
+        + "; ".join(f"{k} K1 wgmma {c[12]} + {c[14]}, igemm {c[13]} + "
+                    f"{c[15]}; K2 wgmma {c[16]}, stem {c[17]}, igemm "
+                    f"{c[18]}; K3 halo {c[19]}, scalar {c[20]}; pad copies "
+                    f"{c[PADS]}" for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
         if "kernel" not in kern:
@@ -964,10 +1066,10 @@ def main() -> int:
             sum(c[KIDX["im2col"]] for c in path_counts.values())
             if kern["path"] is None else
             path_counts[kern["path"]][KIDX[kern["kernel"]]])
-        if kern["kernel"] in K1_SPLIT:
-            iw, ii = K1_SPLIT[kern["kernel"]]
+        if kern["kernel"] in SPLIT:
             c = path_counts[kern["path"]]
-            kern["path_launches"] = {"wgmma": c[iw], "igemm": c[ii]}
+            kern["path_launches"] = {kp: c[i] for kp, i in
+                                     SPLIT[kern["kernel"]].items()}
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -1031,6 +1133,8 @@ def main() -> int:
                "at every step"))
 
     walk_vs_cpu(rn50, ResNetInt8Engine(rn50_vars, arch, device="cpu"), RN50)
+    walk_vs_cpu(rn50s, ResNetInt8Engine(rn50s_vars, arch, device="cpu"),
+                RN50_INT8STEM)
     for cname, (flags, _) in RN50_FUSED.items():
         walk_vs_cpu(fused[cname], ExperimentalResNetInt8Engine(
             rn50_vars, arch, device="cpu", **flags), f"{RN50} [{cname}]",
@@ -1120,6 +1224,15 @@ def main() -> int:
             extra = (f"; on {kern['k1_path']}, the old mma.sync loop "
                      f"{kern['igemm_ms']:.4f} ms; the serving run's "
                      f"launches by kernel {kern['path_launches']}")
+        elif "k2_path" in kern:
+            extra = (f"; on {kern['k2_path']}, the old mma.sync loop "
+                     f"{kern['igemm_ms']:.4f} ms on the padded copy, "
+                     f"{kern['igemm_pad_ms']:.4f} ms with its pad copy; the "
+                     f"serving run's launches by kernel "
+                     f"{kern['path_launches']}")
+        elif "k3_plan" in kern:
+            extra = (f"; {kern['k3_plan']}; the serving run's launches by "
+                     f"kernel {kern['path_launches']}")
         if "int8_ms" in kern:
             extra += (f"; K1's int8 entry on the unpacked weight "
                       f"{kern['int8_ms']:.4f} ms (its bound "
@@ -1179,15 +1292,18 @@ def profile_forward(what, flat, x, torch):
                "K4 qproj_fused" if "qproj_kernel" in e.key else
                "K5 qtail_fused" if "qtail_kernel" in e.key else
                "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
+               "K2 qconv2d_fused [wgmma]" if "ConvX" in e.key else
+               "K2 qconv2d_fused [stem]" if "stem_kernel" in e.key else
                "K1 int4 qmatmul_fused_w4 [wgmma]" if re.search(
-                   r"wgmma_gemm_kernel<\d+, \d+, true>", e.key) else
+                   r"wgmma_gemm_kernel<\d+, \d+, true", e.key) else
                "K1 qmatmul_fused [wgmma]" if "wgmma_gemm_kernel" in e.key else
                "K1 int4 qmatmul_fused_w4 [igemm]" if "GemmLoader, true>" in
                e.key else
                "K1 qmatmul_fused [igemm]" if "GemmLoader" in e.key else
-               "K2 qconv2d_fused" if "ConvLoader" in e.key else
-               "K3 qdepthwise_fused" if ("dw_vec_kernel" in e.key or
-                                         "dw_scalar_kernel" in e.key) else
+               "K2 qconv2d_fused [igemm]" if "ConvLoader" in e.key else
+               "K3 qdepthwise_fused [halo]" if "dw_halo_kernel" in e.key else
+               "K3 qdepthwise_fused [scalar]" if "dw_scalar_kernel" in e.key
+               else
                e.key[:70])
         n, us = fams.get(fam, (0, 0.0))
         fams[fam] = (n + e.count, us + e.self_device_time_total)

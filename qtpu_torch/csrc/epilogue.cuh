@@ -1,5 +1,6 @@
 // The folded requant epilogue shared by the int8 kernels (K1 qmatmul.cu,
-// K2 qconv.cu, K3 qdepthwise.cu, K4 qproj.cu, K5 qtail.cu, K6 qblock.cu).
+// K2 qconv.cu, K3 qdepthwise.cu, K4 qproj.cu, K5 qtail.cu, K6 qblock.cu,
+// K7/K8 qstage.cu, K9 qivr.cu).
 //
 // On an int32 accumulator it computes, per output channel n,
 //   t = acc * A[n] + B[n]  (+ r * C for a residual r)
@@ -47,6 +48,52 @@ __device__ __forceinline__ int8_t ep_code(float t, float lo, float hi,
 
 __device__ __forceinline__ int8_t ep_code(const Epilogue& ep, float t) {
   return ep_code(t, ep.lo, ep.hi, ep.shift);
+}
+
+// ---- the requant without conversion instructions --------------------------
+//
+// Conversions (I2F, F2I, FRND) are slow instructions (16 a clock on an SM
+// in the CUDA guide's table, against 128 float adds); ep_code spends three
+// per element (rintf, the int8 residual's I2F, F2I).  The same values come
+// from adds on the float's bits: 1.5 * 2^23 + v holds the integer v
+// (|v| < 2^22) in its low mantissa bits, and adding 1.5 * 2^23 to a float
+// rounds it to an integer half to even, as rintf does.  K1's and K2's wgmma
+// epilogue, K2's stem kernel and K3's halo kernel use them.
+
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+constexpr unsigned MAGIC_BITS = 0x4B400000u;
+
+// Two int8 residual codes (a 16-bit pair) as floats, exactly: each byte
+// offset by 128 (r ^ 0x80) under the upper bytes of 1.5 * 2^23, less
+// 1.5 * 2^23 + 128.
+__device__ __forceinline__ float2 residual_pair(unsigned pair) {
+  const unsigned u = pair ^ 0x8080u;
+  return make_float2(
+      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7650)),
+                MAGIC + 128.0f),
+      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7651)),
+                MAGIC + 128.0f));
+}
+
+// ep_code for integer grids: lo and hi integers below 2^21 in magnitude,
+// shift 0 or 128 (int_grid() below; the host sends other grids elsewhere).
+// Clipping to integer bounds commutes with rounding to an integer, so
+// clip(rint(t), lo, hi) - shift = round(clip(t, lo, hi)) - shift; the low
+// byte of clip(t) + 1.5 * 2^23 is round(clip(t)) mod 256, and subtracting 0
+// or 128 mod 256 is an XOR with 0 or 0x80.  The int8 code is the low byte
+// of code_bits(t) ^ (shift ? 0x80 : 0).
+__device__ __forceinline__ unsigned code_bits(const Epilogue& ep, float t) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(t, ep.lo), ep.hi), MAGIC));
+}
+
+// Whether code_bits serves this epilogue's grid (host side).
+inline bool int_grid(const Epilogue& ep) {
+  auto small_int = [](float v) {
+    return v >= -2097152.f && v <= 2097152.f &&
+           v == static_cast<float>(static_cast<int>(v));
+  };
+  return small_int(ep.lo) && small_int(ep.hi) &&
+         (ep.shift == 0.f || ep.shift == 128.f);
 }
 
 // f32 mode: relu and act_max on t.

@@ -287,9 +287,26 @@ struct StagedB4 {
 // acc = A[m0.., :] x W[n0.., :]^T over the whole depth K, into registers.
 // Every thread of the block calls it (it synchronises the block), and it ends
 // on a barrier, so the stage buffers are free for the next phase on return.
+// In a probe build (-DQTPU_IGEMM_PROBE) it sums the calling thread's
+// clock64() cycles into `phases`, when given: [0] issuing the copies (the
+// loaders' address arithmetic and the cp.async instructions), [1] waiting
+// for a stage to land (cp.async.wait_group and the barrier after it), [2]
+// the fragment loads and mma.sync up to the stage's closing barrier.
 template <class T, class ASrc, class BSrc>
 __device__ __forceinline__ void mainloop(ASrc& a, BSrc& b, int K,
-                                         int (&acc)[T::MT][T::NT][4]) {
+                                         int (&acc)[T::MT][T::NT][4],
+                                         long long* phases = nullptr) {
+#ifdef QTPU_IGEMM_PROBE
+  long long ph_issue = 0, ph_wait = 0, ph_mma = 0, ph_t = clock64();
+#define IG_PROBE_ADD(v)        \
+  {                              \
+    const long long t = clock64(); \
+    v += t - ph_t;               \
+    ph_t = t;                    \
+  }
+#else
+#define IG_PROBE_ADD(v)
+#endif
   const Frag<T> f;
 #pragma unroll
   for (int i = 0; i < T::MT; ++i)
@@ -313,8 +330,10 @@ __device__ __forceinline__ void mainloop(ASrc& a, BSrc& b, int K,
       b.load((kt + 1) & 1, (kt + 1) * BK);
     }
     cp_async_commit();
+    IG_PROBE_ADD(ph_issue);
     cp_async_wait_1();  // every group but the newest has landed
     __syncthreads();
+    IG_PROBE_ADD(ph_wait);
     const int8_t* as = a.base(kt & 1);
     const int8_t* bs = b.base(kt & 1);
     const int k0 = kt * BK;
@@ -343,7 +362,17 @@ __device__ __forceinline__ void mainloop(ASrc& a, BSrc& b, int K,
                  bf[j][1]);
     }
     __syncthreads();  // the next iteration refills the stage just read
+    IG_PROBE_ADD(ph_mma);
   }
+#ifdef QTPU_IGEMM_PROBE
+  if (phases) {
+    phases[0] = ph_issue;
+    phases[1] = ph_wait;
+    phases[2] = ph_mma;
+  }
+#endif
+#undef IG_PROBE_ADD
+  (void)phases;
 }
 
 __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
@@ -368,10 +397,13 @@ __device__ __forceinline__ void store_one(const Epilogue& ep, int m, int n,
 }
 
 #ifdef QTPU_IGEMM_PROBE
-// Probe build only (-DQTPU_IGEMM_PROBE, qtpu_torch/ops/probe_k1.py):
-// thread 0 of every block writes four int64s — its clock64() at the start,
-// after the main loop, after the epilogue's stores were issued, and its SM —
-// to this buffer, indexed by the block's linear id.
+// Probe build only (-DQTPU_IGEMM_PROBE, qtpu_torch/ops/probe_k1.py and
+// probe_k2.py): thread 0 of every block writes eight int64s — its clock64()
+// at the start, once the loaders have resolved their rows, after the main
+// loop and after the epilogue's stores were issued, its SM, then the main
+// loop's cycles by phase (issue, wait, mma: see mainloop) — to this buffer,
+// indexed by the block's linear id.
+constexpr int PROBE_STAMPS = 8;
 __device__ long long* qtpu_probe_stamps;
 #endif
 
@@ -396,9 +428,13 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
   StagedA<T, VEC, ALoader> a(al, As, M, K, m0);
   BSrc b(w, Bs, N, K, n0);
   int acc[T::MT][T::NT][4];
-  mainloop<T>(a, b, K, acc);
 #ifdef QTPU_IGEMM_PROBE
+  const long long t_setup = clock64();
+  long long phases[3] = {0, 0, 0};
+  mainloop<T>(a, b, K, acc, phases);
   const long long t_loop = clock64();  // mainloop ends on a block barrier
+#else
+  mainloop<T>(a, b, K, acc);
 #endif
 
   const Frag<T> f;
@@ -424,12 +460,16 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
     unsigned smid;
     asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
     long long* s = qtpu_probe_stamps +
-                   4 * (static_cast<size_t>(blockIdx.y) * gridDim.x +
-                        blockIdx.x);
+                   PROBE_STAMPS * (static_cast<size_t>(blockIdx.y) *
+                                       gridDim.x + blockIdx.x);
     s[0] = t_start;
-    s[1] = t_loop;
-    s[2] = clock64();
-    s[3] = smid;
+    s[1] = t_setup;
+    s[2] = t_loop;
+    s[3] = clock64();
+    s[4] = smid;
+    s[5] = phases[0];
+    s[6] = phases[1];
+    s[7] = phases[2];
   }
 #endif
 }

@@ -7,8 +7,8 @@
 // is igemm.cuh's store_one step for step (ep_affine, the residual term,
 // ep_f32, each operation rounded on its own); the int8 code and the int8
 // residual's float come from adds on float bits instead of conversion
-// instructions (code_bits, residual_pair below), the same values.  So every
-// output is the igemm path's bit for bit.
+// instructions (code_bits, residual_pair: epilogue.cuh), the same values.  So
+// every output is the igemm path's bit for bit.
 //
 // What bounds K1 on the H100 is bytes: every ResNet-50 1x1 GEMM moves more
 // bytes than its operations can hide at 1,979 TOP/s (K = 64: 2 operations
@@ -44,6 +44,12 @@
 // (x, w, the output, the residual); ops/qmatmul.py sends other calls to
 // igemm.cuh's loop and counts them apart.  Ragged M, N and K are TMA's
 // zero fill on load and clipping on store.
+//
+// Where x's stages come from is a policy of the kernel (its class X): GemmX
+// below loads K1's 2D (M, K) tiles; K2 (qconv.cu) loads, for k-stage (tap,
+// channel chunk), that tap's 64 channels for the tile's BM consecutive
+// output pixels through TMA's im2col mode, and corrects the accumulators of
+// the pixels whose window leaves the image (X::fix) before the epilogue.
 #pragma once
 
 #include <cstdint>
@@ -114,6 +120,24 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// An im2col load (4D NHWC input): the 64-channel pixels of one column
+// starting at channel c and at the window corner (w, h) of image n,
+// shifted by the tap (kw, kh).
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c, int w,
+                                                int h, int n, int kw, int kh) {
+  const unsigned short ow = static_cast<unsigned short>(kw);
+  const unsigned short oh = static_cast<unsigned short>(kh);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"(ow), "h"(oh)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           const void* src, int c0, int c1) {
   asm volatile(
@@ -177,7 +201,7 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p) {
 // bits above it (the tile 1024-byte aligned).
 template <int SPAN>
 __device__ __forceinline__ int swz(int off) {
-  return off ^ (((off >> 7) & (SPAN == 128 ? 7 : 3)) << 4);
+  return SPAN <= 16 ? off : off ^ (((off >> 7) & (SPAN / 16 - 1)) << 4);
 }
 
 // wgmma.m64nNk32 s32 += s8 x s8, both operands from shared memory; d[4j + 2h
@@ -245,41 +269,6 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t a,
   } else {
     wgmma_m64n128k32(d, a, b, scale_d);
   }
-}
-
-// ---- the epilogue's arithmetic, without conversion instructions -------
-//
-// Conversions (I2F, F2I, FRND) are slow instructions (16 a clock on an SM
-// in the CUDA guide's table, against 128 float adds); ep_code spends three
-// per element (rintf, the int8 residual's I2F, F2I).  The same values come
-// from adds on the float's bits: 1.5 * 2^23 + v holds the integer v
-// (|v| < 2^22) in its low mantissa bits, and adding 1.5 * 2^23 to a float
-// rounds it to an integer half to even, as rintf does.
-
-constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
-constexpr unsigned MAGIC_BITS = 0x4B400000u;
-
-// Two int8 residual codes (a 16-bit pair) as floats, exactly: each byte
-// offset by 128 (r ^ 0x80) under the upper bytes of 1.5 * 2^23, less
-// 1.5 * 2^23 + 128.
-__device__ __forceinline__ float2 residual_pair(unsigned pair) {
-  const unsigned u = pair ^ 0x8080u;
-  return make_float2(
-      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7650)),
-                MAGIC + 128.0f),
-      __fsub_rn(__uint_as_float(__byte_perm(u, MAGIC_BITS, 0x7651)),
-                MAGIC + 128.0f));
-}
-
-// ep_code for the grids K1 serves: lo and hi integers below 2^21 in
-// magnitude, shift 0 or 128 (the host refuses other grids; ops/qmatmul.py
-// sends them to the igemm path).  Clipping to integer bounds commutes with
-// rounding to an integer, so clip(rint(t), lo, hi) - shift = round(clip(t,
-// lo, hi)) - shift; the low byte of clip(t) + 1.5 * 2^23 is round(clip(t))
-// mod 256, and subtracting 0 or 128 mod 256 is an XOR with 0 or 0x80.  The
-// int8 code is the low byte of code_bits(t) ^ (shift ? 0x80 : 0).
-__device__ __forceinline__ unsigned code_bits(const Epilogue& ep, float t) {
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(t, ep.lo), ep.hi), MAGIC));
 }
 
 #ifdef QTPU_WGMMA_PROBE
@@ -421,13 +410,14 @@ __device__ __forceinline__ void unpack_w4(const uint8_t* bp, uint8_t* bst,
   named_bar(3, NCONS);
 }
 
-template <int BN, int WGS, bool W4>
+template <int BN, int WGS, bool W4, class X>
 __global__ void __launch_bounds__(Cfg<BN, WGS, W4>::NTHREADS, WGS == 1 ? 3 : 1)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
                       const __grid_constant__ CUtensorMap tm_w,
                       const __grid_constant__ CUtensorMap tm_res,
                       const __grid_constant__ CUtensorMap tm_out,
-                      const __grid_constant__ Params p) {
+                      const __grid_constant__ Params p,
+                      const __grid_constant__ X xl) {
   typedef Cfg<BN, WGS, W4> S;
   constexpr int BM = S::BM, NCONS = S::NCONS;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -467,6 +457,7 @@ __global__ void __launch_bounds__(Cfg<BN, WGS, W4>::NTHREADS, WGS == 1 ? 3 : 1)
     for (int tile = blockIdx.x, rt = 0; tile < tiles;
          tile += gridDim.x, ++rt) {
       const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+      const typename X::Tile xt = xl.tile(m0);
       for (int kt = 0; kt < ktiles; ++kt, ++it) {
         const int s = it % p.stages;
         WG_PROBE_START(t0);
@@ -474,7 +465,7 @@ __global__ void __launch_bounds__(Cfg<BN, WGS, W4>::NTHREADS, WGS == 1 ? 3 : 1)
         WG_PROBE_ADD(5, t0);
         mbar_expect_tx(&full[s], S::TX);
         uint8_t* st = smem + s * p.stage_bytes;
-        tma_load(st, &tm_x, &full[s], kt * BK, m0);
+        xl.load(st, &tm_x, &full[s], xt, kt);
         tma_load(W4 ? st + S::A + S::B : st + S::A, &tm_w, &full[s],
                  W4 ? kt * BK / 2 : kt * BK, n0);
       }
@@ -535,6 +526,7 @@ __global__ void __launch_bounds__(Cfg<BN, WGS, W4>::NTHREADS, WGS == 1 ? 3 : 1)
     WG_PROBE_START(t2);
     wgmma_wait_all();
     if (lane == 0) mbar_arrive(&empty[prev]);
+    xl.template fix<BN>(acc, p.M, p.N, m0 + 64 * wg, n0, tw);
     WG_PROBE_ADD(1, t2);
     WG_PROBE_START(t3);
 
@@ -648,8 +640,35 @@ inline bool byte_map(CUtensorMap* m, const void* base, uint64_t rows,
 }
 
 inline CUtensorMapSwizzle swizzle_of(int span) {
-  return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
+
+// ---- where x's stages come from --------------------------------------------
+
+// K1: x is a row-major (M, K) byte matrix; stage kt of the tile at row m0 is
+// the BM x 64 box at (kt * 64, m0).  No correction.
+struct GemmX {
+  const int8_t* x;
+  int M, K;
+  struct Tile {
+    int m0;
+  };
+  __device__ __forceinline__ Tile tile(int m0) const { return {m0}; }
+  __device__ __forceinline__ void load(void* dst, const CUtensorMap* tm,
+                                       uint64_t* bar, const Tile& t,
+                                       int kt) const {
+    tma_load(dst, tm, bar, kt * BK, t.m0);
+  }
+  template <int BN>
+  __device__ __forceinline__ void fix(int (&)[BN / 2], int, int, int, int,
+                                      int) const {}
+  bool encode(CUtensorMap* tm, int BM) const {
+    return byte_map(tm, x, M, K, BK, BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+};
 
 inline int num_sms() {
   static int n = [] {
@@ -704,14 +723,15 @@ bool plan(Params& p, int osize, int rsize, bool res, long tiles, int& smem,
 
 // Blocks of this kernel one SM holds with `smem` bytes each (registers and
 // shared memory), cached per size.
-template <int BN, int WGS, bool W4>
+template <int BN, int WGS, bool W4, class X>
 int resident_blocks(int smem) {
   static int sizes[8] = {0}, blocks[8] = {0};
   for (int i = 0; i < 8 && sizes[i]; ++i)
     if (sizes[i] == smem) return blocks[i];
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, wgmma_gemm_kernel<BN, WGS, W4>, Cfg<BN, WGS, W4>::NTHREADS, smem);
+      &n, wgmma_gemm_kernel<BN, WGS, W4, X>, Cfg<BN, WGS, W4>::NTHREADS,
+      smem);
   for (int i = 0; i < 8; ++i)
     if (!sizes[i]) {
       sizes[i] = smem;
@@ -721,25 +741,19 @@ int resident_blocks(int smem) {
   return n;
 }
 
-template <int BN, int WGS, bool W4>
-cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
+template <int BN, int WGS, bool W4, class X>
+cudaError_t launch(const X& xl, const int8_t* w, int M, int N, int K,
                    const Epilogue& ep, cudaStream_t stream) {
   typedef Cfg<BN, WGS, W4> S;
   const int osize = ep.out_kind == OUT_I8 ? 1 : 4;
   const int rsize = ep.res_kind == RES_F32 ? 4 : 1;
   const bool res = ep.res_kind != RES_NONE;
-  auto small_int = [](float v) {
-    return v >= -2097152.f && v <= 2097152.f &&
-           v == static_cast<float>(static_cast<int>(v));
-  };
-  if (ep.out_kind == OUT_I8 && !(small_int(ep.lo) && small_int(ep.hi) &&
-                                 (ep.shift == 0.f || ep.shift == 128.f)))
-    return cudaErrorInvalidValue;
+  if (ep.out_kind == OUT_I8 && !int_grid(ep)) return cudaErrorInvalidValue;
   CUtensorMap tx{}, tw{}, tr{}, to{};
   const int ospan = BN * osize < 128 ? BN * osize : 128;
   const int rspan = BN * rsize < 128 ? BN * rsize : 128;
   const bool ok =
-      byte_map(&tx, x, M, K, BK, S::BM, CU_TENSOR_MAP_SWIZZLE_64B) &&
+      xl.encode(&tx, S::BM) &&
       (W4 ? byte_map(&tw, w, N, K / 2, BK / 2, BN, CU_TENSOR_MAP_SWIZZLE_NONE)
           : byte_map(&tw, w, N, K, BK, BN, CU_TENSOR_MAP_SWIZZLE_64B)) &&
       byte_map(&to, ep.out, M, static_cast<uint64_t>(N) * osize, ospan, 64,
@@ -761,17 +775,17 @@ cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
   static bool attr = false;  // once per instantiation, before its first launch
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        wgmma_gemm_kernel<BN, WGS, W4>,
+        wgmma_gemm_kernel<BN, WGS, W4, X>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  const int fit = resident_blocks<BN, WGS, W4>(smem);
+  const int fit = resident_blocks<BN, WGS, W4, X>(smem);
   if (fit < per_sm) per_sm = fit > 0 ? fit : 1;
   const long slots = static_cast<long>(num_sms()) * per_sm;
   const int grid = static_cast<int>(tiles < slots ? tiles : slots);
-  wgmma_gemm_kernel<BN, WGS, W4>
-      <<<grid, S::NTHREADS, smem, stream>>>(tx, tw, tr, to, p);
+  wgmma_gemm_kernel<BN, WGS, W4, X>
+      <<<grid, S::NTHREADS, smem, stream>>>(tx, tw, tr, to, p, xl);
   return cudaGetLastError();
 }
 
@@ -780,16 +794,23 @@ cudaError_t launch(const int8_t* x, const int8_t* w, int M, int N, int K,
 // At BN = 128, two warpgroups (128-row tiles sharing each w stage) where K
 // is long enough for w's re-reads from L2 to matter and the card still gets
 // two tiles per SM; one (64-row tiles, more blocks per SM) otherwise.
-template <bool W4>
-cudaError_t launch_gemm(const int8_t* x, const int8_t* w, int M, int N, int K,
-                        const Epilogue& ep, cudaStream_t stream) {
+template <bool W4, class X>
+cudaError_t launch_tiles(const X& xl, const int8_t* w, int M, int N, int K,
+                         const Epilogue& ep, cudaStream_t stream) {
   const long sms = num_sms();
   const long n128 = (N + 127) / 128;
   if (N <= 64 || (M + 63) / 64 * n128 < sms)
-    return launch<64, 1, W4>(x, w, M, N, K, ep, stream);
+    return launch<64, 1, W4>(xl, w, M, N, K, ep, stream);
   if (K >= 512 && (M + 127) / 128 * n128 >= 2 * sms)
-    return launch<128, 2, W4>(x, w, M, N, K, ep, stream);
-  return launch<128, 1, W4>(x, w, M, N, K, ep, stream);
+    return launch<128, 2, W4>(xl, w, M, N, K, ep, stream);
+  return launch<128, 1, W4>(xl, w, M, N, K, ep, stream);
+}
+
+// K1: the GEMM of a row-major (M, K) x.
+template <bool W4>
+cudaError_t launch_gemm(const int8_t* x, const int8_t* w, int M, int N, int K,
+                        const Epilogue& ep, cudaStream_t stream) {
+  return launch_tiles<W4>(GemmX{x, M, K}, w, M, N, K, ep, stream);
 }
 
 }  // namespace wg

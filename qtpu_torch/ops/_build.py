@@ -6,8 +6,8 @@ when a module is imported: a kernel is built at its first launch, or
 explicitly with :func:`build` (which starts one ``nvcc`` per source, all
 together).  The library name carries a digest of the sources and flags, so
 a stale build is never loaded; the build directory is git-ignored.  A
-variant built with extra ``-D`` defines (the clock64 probe of
-``ops/probe_k1.py``) gets a library of its own.
+variant built with extra ``-D`` defines (the clock64 probes of
+``ops/probe_k1.py`` and ``ops/probe_k2.py``) gets a library of its own.
 """
 from __future__ import annotations
 

@@ -10,9 +10,11 @@ both kernels.
 
 * The old ``mma.sync`` loop (``igemm.cuh: igemm_kernel``, entry
   ``qtpu_qmatmul_fused_igemm``): thread 0 of every block stamps
-  ``clock64()`` at its start, after the main loop and after the epilogue
-  has issued its stores, with its SM id.  Reported over the blocks: main
-  loop cycles per block and per 64-byte k-tile, epilogue cycles, the
+  ``clock64()`` at its start, once its loaders have resolved their rows,
+  after the main loop and after the epilogue has issued its stores, with
+  its SM id and the main loop's cycles by phase (issuing copies, waiting
+  for them, mma).  Reported over the blocks: set-up, main loop cycles per
+  block and per 64-byte k-tile and by phase, epilogue cycles, the
   epilogue's share, and the most blocks of one SM whose spans overlap.
 * The TMA + ``wgmma`` kernel (``wgmma_gemm.cuh``, entry
   ``qtpu_qmatmul_fused``): each persistent block sums its cycles by phase
@@ -103,8 +105,7 @@ def probe_row(label, M, K, N, kind, res, g, dev):
             # at most six blocks per SM
             nblk = 6 * torch.cuda.get_device_properties(
                 dev).multi_processor_count
-        buf = torch.zeros((nblk, 8 if path == "wgmma" else 4),
-                          dtype=torch.int64, device=dev)
+        buf = torch.zeros((nblk, 8), dtype=torch.int64, device=dev)
         setp = _build.load("qmatmul", setter[path], (k1.ctypes.c_void_p,),
                            DEFINES)
         check(setp(buf.data_ptr()), setter[path])
@@ -146,19 +147,27 @@ def probe_row(label, M, K, N, kind, res, g, dev):
 
 
 def _igemm_stats(s, ktiles):
-    loop = (s[:, 1] - s[:, 0]).double()
-    epi = (s[:, 2] - s[:, 1]).double()
-    tot = (s[:, 2] - s[:, 0]).double()
+    """The old loop's stamps (igemm.cuh: start, loaders set up, main loop
+    end, epilogue end, SM, main-loop cycles issuing copies, waiting for
+    them, in mma) as medians over the blocks."""
+    setup = (s[:, 1] - s[:, 0]).double()
+    loop = (s[:, 2] - s[:, 1]).double()
+    epi = (s[:, 3] - s[:, 2]).double()
+    tot = (s[:, 3] - s[:, 0]).double()
     resident = 0       # blocks of one SM running side by side
-    for sm in s[:, 3].unique():
+    for sm in s[:, 4].unique():
         ev = []
-        for t0, t2 in s[s[:, 3] == sm][:, [0, 2]].tolist():
+        for t0, t2 in s[s[:, 4] == sm][:, [0, 3]].tolist():
             ev += [(t0, 1), (t2, -1)]
         depth = 0
         for _, d in sorted(ev):
             depth += d
             resident = max(resident, depth)
-    return dict(igemm_loop_cycles_median=float(loop.median()),
+    return dict(igemm_setup_cycles_median=float(setup.median()),
+                igemm_issue_cycles_median=float(s[:, 5].double().median()),
+                igemm_wait_cycles_median=float(s[:, 6].double().median()),
+                igemm_mma_cycles_median=float(s[:, 7].double().median()),
+                igemm_loop_cycles_median=float(loop.median()),
                 igemm_loop_cycles_per_ktile=float(loop.median()) / ktiles,
                 igemm_epilogue_cycles_median=float(epi.median()),
                 igemm_block_cycles_median=float(tot.median()),

@@ -70,9 +70,16 @@ def pad_nhwc(x: torch.Tensor, pads: Sequence[Tuple[int, int]],
 def resolve_and_pad(x_q: torch.Tensor, window: Sequence[int],
                     strides: Sequence[int], padding: Padding,
                     zp: Optional[Scalar]) -> torch.Tensor:
-    """Resolve the padding and zero-point-pad ``x_q`` (NHWC)."""
+    """Resolve the padding and zero-point-pad ``x_q`` (NHWC).  Its
+    ``calls`` attribute counts the copies it makes, those K2's old loop
+    needs included (K2's other kernels and K3's read the pads themselves:
+    a serving forward of the ResNet-50 or MobileNet engines makes none)."""
+    resolve_and_pad.calls += 1
     pads = resolve_pads(x_q.shape[1:3], window, strides, padding)
     return pad_nhwc(x_q, pads, 0 if zp is None else int(zp))
+
+
+resolve_and_pad.calls = 0
 
 
 def conv_acc_f64(xp: torch.Tensor, w: torch.Tensor,

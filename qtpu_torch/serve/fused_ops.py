@@ -33,7 +33,7 @@ import torch
 
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops import qops
-from qtpu_torch.ops.qconv import qconv2d_folded
+from qtpu_torch.ops.qconv import qconv2d_folded, tapsum_of
 from qtpu_torch.ops.qdepthwise import qdepthwise_folded
 from qtpu_torch.ops.qblock import qblock_folded
 from qtpu_torch.ops.qivr import qivr_folded
@@ -145,12 +145,13 @@ def u8_normalize_coeffs(mean, std, channels: int,
 def prepare_node(node: Node, device: torch.device,
                  depthwise: bool = False, packed_int4: bool = False) -> Node:
     """A serving copy of a frozen node on ``device``: the leaves, the weight
-    in its kernel's layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv;
-    ``w_taps``: (KH·KW, C) for a ``depthwise`` (KH, KW, 1, C) node), its
-    spatial size, the grid as Python numbers and an epilogue memo.  With
-    ``packed_int4`` a 1×1 int4 node (even K) also keeps ``w_nk4``, its
-    weight packed for K1's int4 entry; ``w_nk`` stays for the kernels that
-    take int8 weights."""
+    in its kernel's layout (``w_nk``: (N, K) with K = KH·KW·Ci for a conv,
+    and for a K×K conv ``tapsum`` (KH·KW, N), its taps' weights summed over
+    Ci, K2's pad correction; ``w_taps``: (KH·KW, C) for a ``depthwise``
+    (KH, KW, 1, C) node), its spatial size, the grid as Python numbers and
+    an epilogue memo.  With ``packed_int4`` a 1×1 int4 node (even K) also
+    keeps ``w_nk4``, its weight packed for K1's int4 entry; ``w_nk`` stays
+    for the kernels that take int8 weights."""
     out = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
            for k, v in node.items() if not k.startswith("_")}
     w = unpacked_kernel(out)
@@ -162,6 +163,8 @@ def prepare_node(node: Node, device: torch.device,
     else:
         out["w_nk"] = w.reshape(-1, w.shape[-1]).t().contiguous()
     out["kernel_hw"] = tuple(w.shape[:2]) if w.dim() == 4 else (1, 1)
+    if not depthwise and out["kernel_hw"] != (1, 1):
+        out["tapsum"] = tapsum_of(out["w_nk"], out["kernel_hw"])
     if (packed_int4 and not depthwise and is_int4(out)
             and out["kernel_hw"] == (1, 1) and out["w_nk"].shape[1] % 2 == 0):
         out["w_nk4"] = pack_int4_nk(out["w_nk"])
@@ -251,19 +254,20 @@ def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
 def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
          relu: bool = False, act_max: Optional[float] = None,
          requant=None, padding="SAME") -> torch.Tensor:
-    """K×K conv (stride 1 or 2) over a frozen node (K2): zero-point pad per
-    ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi))), then the fused
-    conv; int8 codes with ``requant``, f32 otherwise."""
+    """K×K conv (stride 1 or 2) over a frozen node (K2): the zero-point
+    pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi))) read in
+    the kernel, no padded copy; int8 codes with ``requant``, f32
+    otherwise."""
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     node = _prepared(node, x_q.device)
     kh_kw = node["kernel_hw"]
-    xp = qops.resolve_and_pad(x_q, kh_kw, strides, padding,
-                              node["grid"].zp)
+    pads = qops.resolve_pads(x_q.shape[1:3], kh_kw, strides, padding)
     co, mode = _epilogue(node, relu=relu, act_max=act_max, requant=requant,
                          res_kind=None, res_grid=None)
-    return qconv2d_folded(xp, node["w_nk"], co, mode, kernel_hw=kh_kw,
-                          stride=strides[0])
+    return qconv2d_folded(x_q, node["w_nk"], co, mode, kernel_hw=kh_kw,
+                          stride=strides[0], pads=pads, zp=node["grid"].zp,
+                          tapsum=node.get("tapsum"))
 
 
 def depthwise(x_q: torch.Tensor, node: Node, *, strides=(1, 1),

@@ -190,51 +190,189 @@ def test_qmatmul_wgmma_captures_in_a_cuda_graph(cuda):
             x, w_nk, co, emode, kw["residual"]).cpu().numpy())
 
 
+def _k2_counts():
+    f = tconv.qconv2d_folded
+    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_igemm,
+            tq.resolve_and_pad.calls)
+
+
+# (B, H, W, Ci, Co, k, stride, padding, the path k2_path gives a requant
+# call): the stems (Ci = 3: MobileNet's 3x3/2 at Co = 32, ResNet-50's 7x7/2
+# at Co = 64, SAME and the explicit ((3, 3), (3, 3))), the implicit GEMM at
+# Ci 64-512 with M off every tile, odd and even sizes at both strides, and
+# the old loop's shapes (Ci 16, 40; Co = 136: rows of 136 bytes)
+K2_CASES = [
+    (3, 16, 16, 3, 32, 3, 2, "SAME", "stem"),
+    (2, 23, 32, 3, 64, 7, 2, "SAME", "stem"),
+    (1, 17, 16, 3, 16, 7, 2, ((3, 3), (3, 3)), "stem"),
+    (3, 17, 17, 3, 24, 7, 2, "SAME", "igemm"),
+    (2, 9, 9, 64, 64, 3, 1, "SAME", "wgmma"),
+    (3, 14, 14, 64, 64, 3, 2, "SAME", "wgmma"),
+    (1, 15, 15, 128, 64, 3, 2, "SAME", "wgmma"),
+    (2, 7, 7, 512, 512, 3, 1, "SAME", "wgmma"),
+    (1, 9, 11, 128, 128, 3, 1, ((1, 1), (1, 1)), "wgmma"),
+    (3, 12, 12, 16, 16, 3, 1, "SAME", "igemm"),
+    (3, 9, 9, 40, 8, 3, 1, "SAME", "igemm"),
+    (3, 9, 9, 128, 136, 3, 1, "SAME", "igemm"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("Ci,Co,H,k,stride", [(16, 16, 12, 3, 1),
-                                              (3, 24, 17, 7, 2),
-                                              (64, 64, 14, 3, 2),
-                                              (40, 8, 9, 3, 1),
-                                              (128, 136, 9, 3, 1)])
+@pytest.mark.parametrize("B,H,W,Ci,Co,k,stride,padding,want", K2_CASES)
+@pytest.mark.parametrize("zp", [-128, 0, 37])
 @pytest.mark.parametrize("mode", ["requant", "f32", "requant_res_i8",
                                   "f32_res_f32"])
-def test_qconv_kernel_matches_plain(cuda, Ci, Co, H, k, stride, mode):
-    x = RNG.integers(-128, 128, (3, H, H, Ci)).astype(np.int8)
+def test_qconv_kernel_matches_plain(cuda, B, H, W, Ci, Co, k, stride,
+                                    padding, want, zp, mode):
+    """Every K2 kernel, as k2_path chooses it and with the old loop forced,
+    pads read in the kernel (the old loop: on the copy the wrapper pads and
+    counts), exact against the plain version; qconv2d_strided (qtpu's call
+    form) too, and the raw int32 accumulator."""
+    x = RNG.integers(-128, 128, (B, H, W, Ci)).astype(np.int8)
     w = RNG.integers(-127, 128, (k, k, Ci, Co)).astype(np.int8)
-    kw = dict(act_scale=0.02, act_zp=-4,
+    kw = dict(act_scale=0.02, act_zp=zp,
               w_scale=_dev(RNG.uniform(0.001, 0.01, (Co,)).astype(
                   np.float32), cuda),
               colsum=_dev(w.astype(np.int32).sum((0, 1, 2)), cuda),
               bias=_dev(RNG.standard_normal(Co).astype(np.float32), cuda),
               relu=True)
-    OH = -(-H // stride)
+    pads = tq.resolve_pads((H, W), (k, k), (stride, stride), padding)
+    OH, OW = tconv.out_hw((H, W), (k, k), stride, pads)
     if mode.startswith("requant"):
         kw.update(requant_scale=0.05, requant_zp=2)
     if mode.endswith("res_i8"):
-        kw.update(residual=_dev(RNG.integers(-128, 128, (3, OH, OH, Co)).astype(
-            np.int8), cuda), res_scale=0.03, res_zp=-6.0)
+        kw.update(residual=_dev(RNG.integers(-128, 128, (B, OH, OW, Co))
+                                .astype(np.int8), cuda),
+                  res_scale=0.03, res_zp=-6.0)
     elif mode.endswith("res_f32"):
-        kw.update(residual=_dev(RNG.standard_normal((3, OH, OH, Co)).astype(
+        kw.update(residual=_dev(RNG.standard_normal((B, OH, OW, Co)).astype(
             np.float32), cuda))
     xt, wt = _dev(x, cuda), _dev(w, cuda)
-    n0 = tconv.qconv2d_folded.launches
-    got = qconv2d_strided(xt, wt, strides=(stride, stride), **kw)
-    torch.cuda.synchronize()
-    assert tconv.qconv2d_folded.launches == n0 + 1
-    ref = qconv2d_strided_plain(xt, wt, strides=(stride, stride), **kw)
-    assert got.dtype == ref.dtype
-    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
-    xp = tq.resolve_and_pad(xt, (k, k), (stride, stride), "SAME", -4)
-    raw = tconv.qconv2d_fused(xp, wt, stride=stride, raw_acc=True, **kw)
-    raw_ref = tconv.qconv2d_fused_plain(xp, wt, stride=stride, raw_acc=True,
-                                        **kw)
+    w_nk = tconv.weight_ohwi(wt)
+    co, emode = tmm.fold(**kw)
+    res = kw.get("residual")
+    args = dict(kernel_hw=(k, k), stride=stride, pads=pads, zp=zp)
+    odt = tmm.out_dtype_of(emode, torch.float32, False)
+    path = tconv.k2_path(xt, w_nk, pads, stride, co, emode, kernel_hw=(k, k),
+                         out_dtype=odt, residual=res)
+    if mode == "requant":
+        assert path == want
+    ref = tconv.qconv2d_folded_plain(xt, w_nk, co, emode, res, **args)
+    for force in (None, "igemm"):
+        c0 = _k2_counts()
+        got = tconv.qconv2d_folded(xt, w_nk, co, emode, res, path=force,
+                                   **args)
+        torch.cuda.synchronize()
+        used = force or path
+        pad = int(used == "igemm" and pads != ((0, 0), (0, 0)))
+        assert _k2_counts() == tuple(
+            c + d for c, d in zip(c0, (1, used == "wgmma", used == "stem",
+                                       used == "igemm", pad)))
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(
+        qconv2d_strided(xt, wt, strides=(stride, stride), padding=padding,
+                        **kw).cpu().numpy(),
+        qconv2d_strided_plain(xt, wt, strides=(stride, stride),
+                              padding=padding, **kw).cpu().numpy())
+    raw = tconv.qconv2d_folded(xt, w_nk, None, None, raw_acc=True, **args)
+    raw_ref = tconv.qconv2d_folded_plain(xt, w_nk, None, None, raw_acc=True,
+                                         **args)
     np.testing.assert_array_equal(raw.cpu().numpy(), raw_ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Ci,Co,k", [(64, 64, 3), (3, 32, 3), (3, 64, 7)])
+@pytest.mark.parametrize("lo,hi,shift", [(0.0, 255.0, 128.0),
+                                         (-127.0, 127.0, 0.0),
+                                         (-3.0, 6.0, 0.0)])
+def test_qconv_requant_rounds_ties_to_even(cuda, Ci, Co, k, lo, hi, shift):
+    """K2's codes at exact ties (A = 0.5, B a multiple of 0.5) through the
+    implicit GEMM (Ci = 64) and the stem kernel (Ci = 3), which round the
+    clipped value by adding 1.5 * 2^23, and the old loop (rintf before the
+    clip): all three give the plain version's codes."""
+    B, H, zp = 2, 16, 5
+    x = _dev(RNG.integers(-128, 128, (B, H, H, Ci)).astype(np.int8), cuda)
+    w_nk = _dev(RNG.integers(-3, 4, (Co, k * k * Ci)).astype(np.int8), cuda)
+    co = tq.EpilogueCoeffs(
+        A=torch.full((Co,), 0.5, device=cuda),
+        B=_dev(RNG.integers(-4, 5, Co).astype(np.float32) * 0.5, cuda),
+        C=0.0, lo=lo, hi=hi)
+    mode = tq.EpilogueMode(True, shift, False, None)
+    pads = tq.same_pads((H, H), (k, k), (2, 2))
+    args = dict(kernel_hw=(k, k), stride=2, pads=pads, zp=zp)
+    assert tconv.k2_path(x, w_nk, pads, 2, co, mode, kernel_hw=(k, k)) == (
+        "stem" if Ci == 3 else "wgmma")
+    got = tconv.qconv2d_folded(x, w_nk, co, mode, **args)
+    old = tconv.qconv2d_folded(x, w_nk, co, mode, path="igemm", **args)
+    ref = tconv.qconv2d_folded_plain(x, w_nk, co, mode, **args)
+    torch.cuda.synchronize()
+    acc = tconv.qconv2d_folded_plain(x, w_nk, None, None, raw_acc=True,
+                                     **args)
+    assert (acc % 2 != 0).float().mean().item() > 0.3     # ties abound
+    assert torch.equal(got, ref) and torch.equal(old, ref)
+
+
+@pytest.mark.gpu
+def test_k2_k3_capture_in_a_cuda_graph(cuda):
+    """K2's implicit GEMM (pads and the tapsum correction in the kernel),
+    its stem kernel and K3's halo kernel replay from one CUDA graph."""
+    x64 = _dev(RNG.integers(-128, 128, (4, 14, 14, 64)).astype(np.int8), cuda)
+    w64 = _dev(RNG.integers(-127, 128, (128, 576)).astype(np.int8), cuda)
+    x3 = _dev(RNG.integers(-128, 128, (2, 32, 32, 3)).astype(np.int8), cuda)
+    w3 = _dev(RNG.integers(-127, 128, (32, 27)).astype(np.int8), cuda)
+    xd = _dev(RNG.integers(-128, 128, (2, 7, 7, 960)).astype(np.int8), cuda)
+    wd = _dev(RNG.integers(-127, 128, (9, 960)).astype(np.int8), cuda)
+
+    def fold(n):
+        return tq.epilogue_coeffs(
+            act_scale=0.02, act_zp=-9,
+            w_scale=_dev(RNG.uniform(0.001, 0.01, (n,)).astype(np.float32),
+                         cuda),
+            colsum=_dev(RNG.integers(-500, 500, n).astype(np.int32), cuda),
+            requant_scale=0.05, requant_zp=-20, relu=True)
+
+    (c64, m64), (c3, m3), (cd, md) = fold(128), fold(32), fold(960)
+    ts = tconv.tapsum_of(w64, (3, 3))
+
+    def run():
+        return (tconv.qconv2d_folded(x64, w64, c64, m64, kernel_hw=(3, 3),
+                                     pads=((1, 1), (1, 1)), zp=-9, tapsum=ts),
+                tconv.qconv2d_folded(x3, w3, c3, m3, kernel_hw=(3, 3),
+                                     stride=2, pads=((0, 1), (0, 1)), zp=-9),
+                tdw.qdepthwise_folded(xd, wd, cd, md, kernel_hw=(3, 3),
+                                      zp=-9))
+
+    refs = run()
+    c0 = (tconv.qconv2d_folded.launches_wgmma,
+          tconv.qconv2d_folded.launches_stem,
+          tdw.qdepthwise_folded.launches_halo)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert (tconv.qconv2d_folded.launches_wgmma,
+            tconv.qconv2d_folded.launches_stem,
+            tdw.qdepthwise_folded.launches_halo) == tuple(c + 1 for c in c0)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, r in zip(outs, refs):
+            assert torch.equal(o, r)
+    np.testing.assert_array_equal(
+        refs[0].cpu().numpy(),
+        tconv.qconv2d_folded_plain(x64, w64, c64, m64, kernel_hw=(3, 3),
+                                   pads=((1, 1), (1, 1)),
+                                   zp=-9).cpu().numpy())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,C,stride", [(1, 9, 24, 1), (2, 17, 40, 2),
                                          (3, 7, 8, 2), (2, 12, 96, 1),
-                                         (1, 15, 32, 2), (2, 6, 144, 2)])
+                                         (1, 15, 32, 2), (2, 6, 144, 2),
+                                         (2, 7, 960, 1), (1, 19, 48, 1),
+                                         (2, 13, 64, 2), (1, 28, 16, 1)])
 @pytest.mark.parametrize("padding", ["SAME", ((1, 1), (1, 1))])
 @pytest.mark.parametrize("mode", ["requant_relu6", "f32_relu6", "raw"])
 def test_qdepthwise_kernel_matches_plain(cuda, B, H, C, stride, padding,
@@ -255,13 +393,26 @@ def test_qdepthwise_kernel_matches_plain(cuda, B, H, C, stride, padding,
     wt = tdw.weight_taps(_dev(w, cuda))
     args = dict(kernel_hw=(3, 3), stride=stride, padding=padding, zp=zp,
                 raw_acc=mode == "raw")
-    n0 = tdw.qdepthwise_folded.launches
+    f = tdw.qdepthwise_folded
+    n0, h0, s0 = f.launches, f.launches_halo, f.launches_scalar
     got = tdw.qdepthwise_folded(xt, wt, co, emode, **args)
     torch.cuda.synchronize()
-    assert tdw.qdepthwise_folded.launches == n0 + 1
+    halo = C % 16 == 0
+    assert (f.launches, f.launches_halo, f.launches_scalar) == (
+        n0 + 1, h0 + halo, s0 + (not halo))
     ref = tdw.qdepthwise_folded_plain(xt, wt, co, emode, **args)
     assert got.dtype == ref.dtype and got.shape == ref.shape
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    # the scalar kernel forced, and a halo plan of one row and 16 channels
+    # (every band edge a halo edge)
+    np.testing.assert_array_equal(
+        tdw.qdepthwise_folded(xt, wt, co, emode, plan=tdw.DwPlan("scalar"),
+                              **args).cpu().numpy(), ref.cpu().numpy())
+    if halo:
+        np.testing.assert_array_equal(
+            tdw.qdepthwise_folded(xt, wt, co, emode,
+                                  plan=tdw.DwPlan("halo", 1, 16, 64),
+                                  **args).cpu().numpy(), ref.cpu().numpy())
     if stride == 1 and padding == "SAME" and mode != "raw":
         # qtpu's call form on the zero-point-prepadded input
         xp = tq.resolve_and_pad(xt, (3, 3), (1, 1), "SAME", zp)
