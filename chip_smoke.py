@@ -27,7 +27,9 @@ success):
    every K2 row also on the old mma.sync loop forced, which must agree,
    and the fused bottleneck kernels at one ResNet-50 block per stage: K4
    (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
-   (qtail) and K6 (qblock) at layer1-layer4, and the chained kernels at the
+   (qtail) and K6 (qblock) at layer1-layer4, at B = 8 and B = 128, on the
+   wgmma kernel ``ops/qtail.tail_path`` gives them and on the older
+   mma.sync kernel forced, which must agree, and the chained kernels at the
    runs the chained engines give them — K7 (qstage) at ResNet-50's four
    identity runs, K8 (qstage_proj) at its whole layer1, K9 (qivr) at
    MobileNet-v2's five inverted-residual runs; K4-K9 also against the
@@ -67,15 +69,18 @@ success):
      K1's int4 entry and 16 K2, no int8 K1; one forward of its ``stage``
      configuration with ``packed_int4``: 7 K1 int4, 5 K2, 3 K4, 2 K7, 1 K8
      (layer4 stays unchained: its consumer is the fp32 fc);
-   * on every one of these runs K1's, K2's and K3's launches are also
-     counted by kernel (``launches_wgmma``/``_igemm`` of K1's two entries,
-     ``launches_wgmma``/``_stem``/``_igemm`` of K2, ``launches_halo``/
-     ``_scalar`` of K3, which must add up to the launch counts), and so are
+   * on every one of these runs K1's, K2's, K3's, K5's and K6's launches
+     are also counted by kernel (``launches_wgmma``/``_igemm`` of K1's two
+     entries, ``launches_wgmma``/``_stem``/``_igemm`` of K2,
+     ``launches_halo``/``_scalar`` of K3, ``launches_wgmma``/``_igemm`` of
+     K5 and K6, which must add up to the launch counts), and so are
      zero-point pad copies (``qops.resolve_and_pad.calls``, through which
      K2's old loop pads too): every K1 and K2 launch of the ResNet-50 and
      config-5 engines must take the wgmma kernels, the int8 stems of
      MobileNet-v1 and ResNet-50 K2's stem kernel, every K3 launch the halo
-     kernel, and no run may copy an activation to pad it;
+     kernel, every K5 and K6 launch (the tail and block runs' 12 a
+     forward) the wgmma kernel, and no run may copy an activation to pad
+     it;
 5. the ResNet-50 (product, tail, block, stage, and the product engine
    with the quantized stem), MobileNet-v2 (product, ivr) and
    quantized-stem MobileNet-v1 engines against the same engines on
@@ -96,7 +101,9 @@ success):
    B = 8 and 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
    device time (repeated launches captured in a CUDA graph) beside its
    bound, its plain version (K1 and K2 also beside the old mma.sync loop;
-   K2's with and without the zero-point pad copy it needed) and a
+   K2's with and without the zero-point pad copy it needed; K5 and K6
+   beside their older mma.sync kernel, with the plan ``tail_plan`` gives)
+   and a
    library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
    (for the int4 entry on the unpacked weight, beside the int8 entry's
@@ -106,7 +113,8 @@ success):
    a fused bottleneck piece or a chained run, so K4-K9 have none); for
    K4-K9 also the device
    time of the unfused K1/K2/K3 sequence each replaces, at B = 8 and
-   B = 128; a profiler breakdown of one B = 128 forward of each engine.
+   B = 128 (K5 and K6 as rows of their own at B = 128); a profiler
+   breakdown of one B = 128 forward of each engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -151,14 +159,15 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
 # launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
 # plain-version calls, then launches by kernel: K1's int8 entry on wgmma,
 # on igemm, its int4 entry on wgmma, on igemm, K2 on wgmma, stem, igemm, K3
-# on halo, scalar, and the zero-point pad copies made on the way to K2 or
-# K3); expected counts give the first twelve
+# on halo, scalar, K5 and K6 each on wgmma, igemm, and the zero-point pad
+# copies made on the way to K2 or K3); expected counts give the first twelve
 KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
 PLAIN = 11
 SPLIT = {"K1": {"wgmma": 12, "igemm": 13}, "K1w4": {"wgmma": 14, "igemm": 15},
          "K2": {"wgmma": 16, "stem": 17, "igemm": 18},
-         "K3": {"halo": 19, "scalar": 20}}
-PADS = 21
+         "K3": {"halo": 19, "scalar": 20},
+         "K5": {"wgmma": 21, "igemm": 22}, "K6": {"wgmma": 23, "igemm": 24}}
+PADS = 25
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
@@ -651,7 +660,8 @@ def main() -> int:
         if kind == "K5":
             a, r = i8(B, H, H, cmid), i8(B, H, H, cout)
             args = (a, r, w2, w3, co2, mode2, co3, mode3)
-            return (lambda: k5.qtail_folded(*args, pad=1, zp=-9),
+            return (lambda path=None: k5.qtail_folded(*args, pad=1, zp=-9,
+                                                      path=path),
                     lambda: k5.qtail_folded_plain(*args, pad=1, zp=-9),
                     lambda: tail_unfused(a, r),
                     a.numel() + 2 * M * cout + w2.numel() + w3.numel()
@@ -664,7 +674,7 @@ def main() -> int:
         def block_unfused():
             a = k1.qmatmul_folded(x.reshape(-1, cout), w1, co1, mode1)
             return tail_unfused(a.reshape(B, H, H, cmid), x)
-        return (lambda: k6.qblock_folded(*args, zp2=-9),
+        return (lambda path=None: k6.qblock_folded(*args, zp2=-9, path=path),
                 lambda: k6.qblock_folded_plain(*args, zp2=-9),
                 block_unfused,
                 2 * x.numel() + w1.numel() + w2.numel() + w3.numel()
@@ -672,7 +682,8 @@ def main() -> int:
                 tail_ops + 2 * M * cout * cmid)
 
     # (kind, label, H, Cmid, Cout, Cin, stride): ResNet-50's blocks at B = 8,
-    # one case of each kernel per stage (H is the block input's)
+    # one case of each kernel per stage (H is the block input's); K5 and K6
+    # also at B = 128
     fused_cases = [
         ("K4", "layer1_0 proj, stride 1", 56, 64, 256, 64, 1),
         ("K4", "layer2_0 proj, stride 2", 56, 128, 512, 256, 2),
@@ -687,27 +698,57 @@ def main() -> int:
         ("K6", "layer3 block", 14, 256, 1024, 1024, 1),
         ("K6", "layer4 block", 7, 512, 2048, 2048, 1),
     ]
+    fused_cases += [(kind, f"B=128 {label}", *rest) for kind, label, *rest
+                    in fused_cases if kind in ("K5", "K6")]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fused_meta = {"K4": ("qproj2d_fused", SRC_K4, TPU_K4_2D, "tail"),
                   "K5": ("qtail_fused", SRC_K5, TPU_K5, "tail"),
                   "K6": ("qbottleneck_fused", SRC_K6, TPU_K6, "block")}
     for kind, label, H, cmid, cout, cin, s in fused_cases:
-        run_k, run_p, run_u, nbytes, ops = fused_case(kind, 8, H, cmid,
+        B = 128 if label.startswith("B=128") else 8
+        run_k, run_p, run_u, nbytes, ops = fused_case(kind, B, H, cmid,
                                                       cout, cin, s)
         y, err = compare(f"{kind} {label}", run_k, run_p)
         check(torch.equal(run_u(), y), f"{kind} {label}: kernel differs "
               "from the unfused K1/K2 sequence")
         b_ms, b_by = bound(nbytes, ops)
         name, src, tpu, path = fused_meta[kind]
-        kernels.append(dict(
+        row = dict(
             name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
-            path=path, kernel=kind, kind=kind, case=(H, cmid, cout, cin, s),
-            shape=f"B=8 H={H} Cmid={cmid} Cout={cout} Cin={cin} /{s}",
-            max_abs_err=err, ms=timed(torch, run_k, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 5),
-            unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, library_note=NO_LIBRARY))
-    log("K4-K6 equal to the unfused K1/K2 sequences they replace")
+            path=path, kernel=kind, case=(H, cmid, cout, cin, s),
+            shape=f"B={B} H={H} Cmid={cmid} Cout={cout} Cin={cin} /{s}",
+            max_abs_err=err, ms=timed(torch, run_k, 50 if B == 8 else 20),
+            eager_ms=timed_eager(torch, run_k, 50 if B == 8 else 20),
+            plain_ms=timed(torch, run_p, 5 if B == 8 else 2),
+            unfused_ms=timed(torch, run_u, 50 if B == 8 else 20),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library_note=NO_LIBRARY)
+        if kind == "K4":
+            row["kind"] = kind      # also timed at B = 128 below
+        else:
+            del row["case"]
+            # K5 / K6: the wgmma kernel tail_path gives them, against the
+            # older mma.sync kernel forced at the same shape
+            fn = k5.qtail_folded if kind == "K5" else k6.qblock_folded
+            n0 = fn.launches_wgmma
+            y = run_k()
+            check(fn.launches_wgmma == n0 + 1, f"{kind} {label}: not on the "
+                  "wgmma kernel")
+            check(torch.equal(run_k("igemm"), y), f"{kind} {label}: the "
+                  "wgmma and igemm kernels differ")
+            plan = k5.tail_plan(B, H, H, cmid, cout, sms=sms,
+                                block=kind == "K6")
+            row.update(igemm_ms=timed(torch, lambda: run_k("igemm"),
+                                      20 if B == 8 else 5),
+                       plan=f"cluster {plan.cs}, 8x8 tiles {plan.tiles} "
+                       f"({plan.rows:.1%} of rows in the image), grid "
+                       f"{plan.grid}, {plan.stages} stages, {plan.smem} B "
+                       f"shared, {plan.per_sm} a SM")
+        kernels.append(row)
+        del run_k, run_p, run_u, y
+        torch.cuda.empty_cache()
+    log("K4-K6 equal to the unfused K1/K2 sequences they replace; K5 and "
+        "K6 on the wgmma kernel, equal to the older kernel")
 
     pad1 = ((1, 1), (1, 1))
 
@@ -857,7 +898,8 @@ def main() -> int:
               k9.qivr_folded_plain, k1.qmatmul_folded_w4_plain)
 
     split_of = {"K1": k1.qmatmul_folded, "K1w4": k1.qmatmul_folded_w4,
-                "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded}
+                "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded,
+                "K5": k5.qtail_folded, "K6": k6.qblock_folded}
 
     def zero_counts():
         for k in kmods:
@@ -1045,17 +1087,31 @@ def main() -> int:
         check(c[s3["halo"]] == c[KIDX["K3"]], f"{key}: K3 launches "
               f"{c[KIDX['K3']]}, on the halo kernel {c[s3['halo']]}")
         check(c[PADS] == 0, f"{key}: {c[PADS]} zero-point pad copies")
+    # K5 and K6: every launch of every run on the wgmma kernel (the tail
+    # and block runs' 12 a forward)
+    for key, c in path_counts.items():
+        for kern in ("K5", "K6"):
+            sp = SPLIT[kern]
+            check(c[sp["igemm"]] == 0 and c[sp["wgmma"]] == c[KIDX[kern]],
+                  f"{key}: {kern} launches {c[KIDX[kern]]}, on wgmma "
+                  f"{c[sp['wgmma']]}, on the older kernel {c[sp['igemm']]}")
+    check(path_counts["tail"][SPLIT["K5"]["wgmma"]] > 0
+          and path_counts["block"][SPLIT["K6"]["wgmma"]] > 0,
+          "the tail / block runs launched no K5 / K6 on wgmma")
     check(path_counts["mnv1"][s2["stem"]] == 1, "the MobileNet-v1 int8 "
           "stem did not take K2's stem kernel")
     c = path_counts["rn50_int8stem"]
     check(c[13] == 0 and c[s2["wgmma"]] == 16 and c[s2["stem"]] == 1,
           f"{RN50_INT8STEM}: K1 igemm {c[13]}, K2 wgmma {c[s2['wgmma']]} "
           f"and stem {c[s2['stem']]} (want 0, 16 and 1)")
-    log("launches by kernel per serving run (K1 int8 + int4; K2; K3): "
+    log("launches by kernel per serving run (K1 int8 + int4; K2; K3; K5; "
+        "K6): "
         + "; ".join(f"{k} K1 wgmma {c[12]} + {c[14]}, igemm {c[13]} + "
                     f"{c[15]}; K2 wgmma {c[16]}, stem {c[17]}, igemm "
-                    f"{c[18]}; K3 halo {c[19]}, scalar {c[20]}; pad copies "
-                    f"{c[PADS]}" for k, c in path_counts.items()))
+                    f"{c[18]}; K3 halo {c[19]}, scalar {c[20]}; K5 wgmma "
+                    f"{c[21]}, igemm {c[22]}; K6 wgmma {c[23]}, igemm "
+                    f"{c[24]}; pad copies {c[PADS]}"
+                    for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
         if "kernel" not in kern:
@@ -1239,10 +1295,14 @@ def main() -> int:
                       f"{kern['int8_bound_ms']:.4f} ms)")
         elif "k2_ms" in kern:
             extra = f"; K2 on the same conv {kern['k2_ms']:.4f} ms"
+        if "plan" in kern:
+            extra += (f"; the older mma.sync kernel {kern['igemm_ms']:.4f} "
+                      f"ms; plan: {kern['plan']}")
         if "unfused_ms" in kern:
             extra += (f"; the unfused K1/K2/K3 sequence "
-                      f"{kern['unfused_ms']:.4f} ms; at B = 128 "
-                      f"{kern['ms_b128']:.4f} ms against "
+                      f"{kern['unfused_ms']:.4f} ms")
+        if "ms_b128" in kern:
+            extra += (f"; at B = 128 {kern['ms_b128']:.4f} ms against "
                       f"{kern['unfused_ms_b128']:.4f} ms unfused" + (
                           "" if "bound_ms_b128" not in kern else
                           f" (bound {kern['bound_ms_b128']:.4f} ms)"))
@@ -1290,8 +1350,12 @@ def profile_forward(what, flat, x, torch):
                "K7 qstage_fused" if "qstage_kernel" in e.key else
                "K9 qivr_fused" if "qivr_kernel" in e.key else
                "K4 qproj_fused" if "qproj_kernel" in e.key else
-               "K5 qtail_fused" if "qtail_kernel" in e.key else
-               "K6 qbottleneck_fused" if "qblock_kernel" in e.key else
+               "K5 qtail_fused [wgmma]" if "tail_wg_kernel<false" in e.key
+               else
+               "K6 qbottleneck_fused [wgmma]" if "tail_wg_kernel<true" in
+               e.key else
+               "K5 qtail_fused [igemm]" if "qtail_kernel" in e.key else
+               "K6 qbottleneck_fused [igemm]" if "qblock_kernel" in e.key else
                "K2 qconv2d_fused [wgmma]" if "ConvX" in e.key else
                "K2 qconv2d_fused [stem]" if "stem_kernel" in e.key else
                "K1 int4 qmatmul_fused_w4 [wgmma]" if re.search(

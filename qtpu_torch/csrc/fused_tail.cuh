@@ -56,6 +56,46 @@ struct TailArgs {
   int H, W, Cmid, Cout;
 };
 
+// Probe build only (-DQTPU_TAIL_PROBE, qtpu_torch/ops/probe_tail.py): thread
+// 0 of each block sums clock64() cycles by phase — [0] the halo (its copy or
+// fill and the barrier after it), [1] conv1 (K6), [2] conv2's main loop, [3]
+// conv2's requant into mid, [4] conv3's main loop, [5] conv3's epilogue, [6]
+// the cluster exchange (wgmma_tail.cuh only); within the main loops, [7] the
+// waits for a full stage and [8] for the wgmmas (wgmma_tail.cuh only); [9]
+// the block's total — and writes them to qtpu_tail_probe[10 * blockIdx.x +
+// i].  lap(i) gives phase i the cycles since the previous lap, add(i, c)
+// adds c; without the flag both compile to nothing.
+#ifdef QTPU_TAIL_PROBE
+__device__ long long* qtpu_tail_probe;
+struct TailProbe {
+  long long v[10], t0, t;
+  __device__ TailProbe() {
+    t0 = t = clock64();
+    for (int i = 0; i < 10; ++i) v[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int i) {
+    const long long n = clock64();
+    v[i] += n - t;
+    t = n;
+  }
+  __device__ __forceinline__ void add(int i, long long c) { v[i] += c; }
+  __device__ void store() {
+    v[9] = clock64() - t0;
+    if (threadIdx.x == 0)
+      for (int i = 0; i < 10; ++i)
+        qtpu_tail_probe[10 * blockIdx.x + i] = v[i];
+  }
+};
+#define TAIL_CLOCK() clock64()
+#else
+struct TailProbe {
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ void store() {}
+};
+#define TAIL_CLOCK() 0ll
+#endif
+
 // Which tile a block owns: image b, tile origin (ty0, tx0).
 struct TileAt {
   int b, ty0, tx0;
@@ -92,7 +132,8 @@ struct HaloA {
 // complete and visible (a __syncthreads since it was written).
 __device__ __forceinline__ void tail_phases(const TailArgs& p,
                                             const int8_t* halo, int8_t* mid,
-                                            int8_t* Bs, const TileAt& at) {
+                                            int8_t* Bs, const TileAt& at,
+                                            TailProbe& pr) {
   typedef TailTile T;
   const Frag<T> f;
   const int ms = mid_stride(p.Cmid);
@@ -103,6 +144,7 @@ __device__ __forceinline__ void tail_phases(const TailArgs& p,
   for (int n0 = 0; n0 < p.Cmid; n0 += T::BN) {
     StagedB<T, true> b(p.w2, Bs, p.Cmid, 9 * p.Cmid, n0);
     mainloop<T>(ha, b, 9 * p.Cmid, acc);
+    pr.lap(2);
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -117,14 +159,17 @@ __device__ __forceinline__ void tail_phases(const TailArgs& p,
                   ep_affine(acc[i][j][2 * h + e], p.A2[n], p.B2[n]), p.lo2,
                   p.hi2, p.shift2);
           }
+    pr.lap(3);
   }
   __syncthreads();  // mid complete before conv3 reads it
+  pr.lap(3);
 
   // 2. conv3 + residual -> requant to the output
   TileA ma{mid, ms};
   for (int n0 = 0; n0 < p.Cout; n0 += T::BN) {
     StagedB<T, true> b(p.w3, Bs, p.Cout, p.Cmid, n0);
     mainloop<T>(ma, b, p.Cmid, acc);
+    pr.lap(4);
 #pragma unroll
     for (int i = 0; i < T::MT; ++i) {
 #pragma unroll
@@ -149,7 +194,9 @@ __device__ __forceinline__ void tail_phases(const TailArgs& p,
         }
       }
     }
+    pr.lap(5);
   }
+  pr.store();
 }
 
 // One int8 code replicated into 16 bytes (a zero-point fill).

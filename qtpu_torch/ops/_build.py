@@ -7,7 +7,8 @@ explicitly with :func:`build` (which starts one ``nvcc`` per source, all
 together).  The library name carries a digest of the sources and flags, so
 a stale build is never loaded; the build directory is git-ignored.  A
 variant built with extra ``-D`` defines (the clock64 probes of
-``ops/probe_k1.py`` and ``ops/probe_k2.py``) gets a library of its own.
+``ops/probe_k1.py``, ``ops/probe_k2.py`` and ``ops/probe_tail.py``) gets a
+library of its own.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qtail": "qtail.cu", "qblock": "qblock.cu",
            "qstage": "qstage.cu", "qivr": "qivr.cu"}
 HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "fused_tail.cuh",
-           "grid_phase.cuh")
+           "wgmma_tail.cuh", "grid_phase.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,7 +97,7 @@ def load(name: str, symbol: str, argtypes: Sequence,
     Every pointer and the stream are ``c_void_p`` in ``argtypes``: without
     them ctypes would pass 32-bit ints and cut the pointers.
     """
-    key = (symbol, *defines)
+    key = (name, symbol, *defines)
     fn = _fns.get(key)
     if fn is not None:
         return fn

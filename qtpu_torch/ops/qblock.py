@@ -10,6 +10,14 @@ image hold conv2's zero point, never a conv1 result.  The epilogues are
 K1's, K2's and K1's in their order, so the codes are bit-identical to that
 unfused sequence.
 
+Two kernels, chosen per call by ``qtail.tail_path`` and counted apart
+(``launches_wgmma``, ``launches_igemm``), as K5's: the wgmma kernel
+(``csrc/wgmma_tail.cuh``; a cluster of blocks per 8×8 tile, each computing
+its share of conv1's and conv2's channels, the halo exchanged through
+distributed shared memory) for Cmid a multiple of 64 and Cin of 128, the
+older
+``mma.sync`` kernel for the rest.
+
 ``qblock_folded`` is the kernel wrapper: on a CUDA tensor it launches K6 (or
 raises), on a CPU tensor it takes ``qblock_folded_plain``, the unfused K1 →
 K2 → K1 sequence in plain PyTorch.  Its ``launches`` attribute counts
@@ -23,7 +31,7 @@ Cmid) and the operands of :func:`block_coeffs`; qtpu's TPU-only ``pair``,
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -31,24 +39,28 @@ from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 from qtpu_torch.ops.qproj import AFFINE_RELU, check_requant, flat_f32
-from qtpu_torch.ops.qtail import check_tail, tail_plain, w2_nk
+from qtpu_torch.ops.qtail import (check_tail, choose, count, plan_args,
+                                  tail_path, tail_plain, w2_nk)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 11 + (_I,) * 6 + (_F,) * 10 + (_P,)
-# conv1's staging ring: two 64-row stages of 80-byte rows
-CONV1_SMEM = 2 * 64 * 80
+# the plan's six ints (cs, tm, stages, nc, nres, smem) follow the floats
+_ARGTYPES = (_P,) * 11 + (_I,) * 6 + (_F,) * 10 + (_I,) * 6 + (_P,)
+_SYMBOLS = {"wgmma": "qtpu_qblock_fused", "igemm": "qtpu_qblock_fused_igemm"}
 
 
 def qblock_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                   w3: torch.Tensor, co1: EpilogueCoeffs, mode1: EpilogueMode,
                   co2: EpilogueCoeffs, mode2: EpilogueMode,
-                  co3: EpilogueCoeffs, mode3: EpilogueMode, *, zp2: int
+                  co3: EpilogueCoeffs, mode3: EpilogueMode, *, zp2: int,
+                  path: Optional[str] = None, cs: Optional[int] = None,
+                  tm: Optional[int] = None, defines: tuple = ()
                   ) -> torch.Tensor:
     """The identity bottleneck on the int8 (B, H, W, Cin) ``x_q``: conv1
     with the (Cmid, Cin) weight and requant ``co1``/``mode1``; conv2 with
     the (Cmid, 9·Cmid) weight, pads of ``zp2``, requant ``co2``/``mode2``;
     conv3 with the (Cin, Cmid) weight + ``x_q`` as residual, requant
-    ``co3``/``mode3`` → int8 (B, H, W, Cin)."""
+    ``co3``/``mode3`` → int8 (B, H, W, Cin).  ``path``, ``cs``, ``tm`` and
+    ``defines`` as for :func:`qtpu_torch.ops.qtail.qtail_folded`."""
     if x_q.device.type == "cpu":
         return qblock_folded_plain(x_q, w1, w2, w3, co1, mode1, co2, mode2,
                                    co3, mode3, zp2=zp2)
@@ -67,26 +79,31 @@ def qblock_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     check_int8(dev, x_q=x_q, w1=w1)
     check_vectors(co1, Cmid, dev)
     check_requant(mode1, "block conv1")
-    check_tail(dev, Cmid, Cin, w2, w3, co2, mode2, co3, mode3,
-               extra_smem=CONV1_SMEM)
+    check_tail(dev, Cmid, Cin, w2, w3, co2, mode2, co3, mode3, block=True)
     out = torch.empty_like(x_q)
-    fn = _build.load("qblock", "qtpu_qblock_fused", _ARGTYPES)
+    path = choose(path, tail_path(Cmid, Cin, co3, mode3, x_q, w1, w2, w3,
+                                  out, block=True), "K6")
+    plan = plan_args(path, B, H, W, Cmid, Cin, dev, block=True, cs=cs,
+                     tm=tm)
+    fn = _build.load("qblock", _SYMBOLS[path], _ARGTYPES, defines)
     err = fn(x_q.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
              co1.A.data_ptr(), co1.B.data_ptr(), co2.A.data_ptr(),
              co2.B.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(),
              out.data_ptr(), B, H, W, Cin, Cmid, int(zp2),
              co1.lo, co1.hi, mode1.shift, co2.lo, co2.hi, mode2.shift,
-             co3.C, co3.lo, co3.hi, mode3.shift,
+             co3.C, co3.lo, co3.hi, mode3.shift, *plan,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qbottleneck_fused kernel launch failed: CUDA "
-                           f"error {err} (x {tuple(x_q.shape)}, "
-                           f"Cmid={Cmid})")
-    qblock_folded.launches += 1
+        raise RuntimeError(f"qbottleneck_fused kernel ({path}) launch "
+                           f"failed: CUDA error {err} (x {tuple(x_q.shape)}, "
+                           f"Cmid={Cmid}, plan {plan})")
+    count(qblock_folded, path)
     return out
 
 
 qblock_folded.launches = 0
+qblock_folded.launches_wgmma = 0
+qblock_folded.launches_igemm = 0
 
 
 def qblock_folded_plain(x_q: torch.Tensor, w1: torch.Tensor,

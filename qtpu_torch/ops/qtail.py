@@ -7,6 +7,20 @@ stay in shared memory instead of a round trip through device memory between
 K2 and K1.  The epilogues are K2's and K1's, in their order, so the codes
 are bit-identical to that unfused pair.
 
+Two kernels, chosen per call by :func:`tail_path` and counted apart
+(``launches_wgmma``, ``launches_igemm``):
+
+* ``"wgmma"`` (``csrc/wgmma_tail.cuh``) for Cmid a multiple of 64 and Cout
+  of 128:
+  a cluster of ``cs`` blocks owns one 8×8 output tile; each block computes
+  its share of conv2's and conv3's channels with TMA loads and wgmma
+  straight from the halo, and the blocks exchange conv2's codes through
+  distributed shared memory.  :func:`tail_plan` chooses ``cs`` and the
+  ring from the shape and the card's SM count;
+* ``"igemm"``, the older ``mma.sync`` kernel (``csrc/fused_tail.cuh``), for
+  the rest (other channel counts, requant grids ``code_bits`` cannot
+  take, unaligned views).
+
 ``qtail_folded`` is the kernel wrapper: on a CUDA tensor it launches K5 (or
 raises), on a CPU tensor it takes ``qtail_folded_plain``, the unfused K2 →
 K1 pair in plain PyTorch.  Its ``launches`` attribute counts kernel launches
@@ -23,7 +37,8 @@ rows of :func:`tail_coeffs`; qtpu's TPU-only ``pair``, ``bb`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -33,15 +48,225 @@ from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 from qtpu_torch.ops.qproj import AFFINE_RELU, check_requant, flat_f32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 9 + (_I,) * 7 + (_F,) * 7 + (_P,)
-# the largest dynamic shared memory a block may have on the H100
+# the plan's six ints (cs, tm, stages, nc, nres, smem) follow the floats
+_ARGTYPES = (_P,) * 9 + (_I,) * 7 + (_F,) * 7 + (_I,) * 6 + (_P,)
+PATHS = ("wgmma", "igemm")
+_SYMBOLS = {"wgmma": "qtpu_qtail_fused", "igemm": "qtpu_qtail_fused_igemm"}
+# the largest dynamic shared memory a block may have on the H100, and what
+# one SM holds (1 KB of it reserved per block)
 SMEM_LIMIT = 232448
+SMEM_SM = 233472
+
+# -- the wgmma kernel's plan (csrc/wgmma_tail.cuh: Layout) -------------------
+TILE = 8                 # an 8 x 8 output tile: one 64-row wgmma
+HALO_PIX = 100           # its 10 x 10 halo
+CHUNK_PITCH = 1664       # a 16-channel halo chunk: 104 x 16 B, 128-aligned
+STAGE_W = 128 * 64       # a weight stage: up to 128 rows x 64 bytes
+STAGE_X = 128 * 64       # K6's x stage: 128 halo rows x 64 bytes
+SLAB = 64 * 128          # a residual or output tile: 64 pixels x 128 channels
+MIN_STAGES, MAX_STAGES = 4, 8
+MAX_RES = 4
+BAR_BYTES = 256          # the kernel's mbarriers
+MAX_CS = 8               # the portable cluster size
 
 
-def tail_smem_bytes(cmid: int) -> int:
-    """K5's shared memory: the 10×10 halo, the 64-pixel conv2 tile and two
-    weight stages (csrc/fused_tail.cuh)."""
-    return 100 * (cmid + 16) + 64 * (-(-cmid // 64) * 64 + 16) + 2 * 64 * 80
+class TailPlan(NamedTuple):
+    """The wgmma kernel's launch: a cluster of ``cs`` blocks splitting the
+    channels of the same tiles, each block owning ``tm`` 8×8 tiles (1 or
+    2); ``stages`` in the weight ring, ``nc`` output and ``nres`` residual
+    tiles a tile, ``smem`` bytes a block, ``per_sm`` blocks an SM aimed at;
+    ``tiles`` and ``grid`` (= ⌈tiles/tm⌉·cs) blocks; ``rows`` the share of
+    the tiles' 64 rows that lie in the image."""
+    cs: int
+    tm: int
+    stages: int
+    nc: int
+    nres: int
+    smem: int
+    per_sm: int
+    tiles: int
+    grid: int
+    rows: float
+
+
+def wg_smem_bytes(cmid: int, cout: int, *, block: bool, stages: int,
+                  cs: int = 1, tm: int = 1, nc: int = 2,
+                  nres: int = 2) -> int:
+    """Shared memory of a block of the wgmma kernel (Layout in
+    csrc/wgmma_tail.cuh, which checks it): alignment slack, the ring (K6's
+    stages also hold each tile's x halo), per tile the residual and output
+    tiles, the halo (Cmid/16 chunks) and ``mid`` (64 × Cmid), the block's A,
+    B rows (conv2's and K6's conv1's Cmid/cs, conv3's Cout/cs) and the
+    barriers."""
+    stage = STAGE_W + (tm * STAGE_X if block else 0)
+    coef = 8 * (cmid // cs * (2 if block else 1) + cout // cs)
+    return (1024 + stages * stage
+            + tm * ((nres + nc) * SLAB + cmid // 16 * CHUNK_PITCH + 64 * cmid)
+            + coef + BAR_BYTES)
+
+
+def igemm_smem_bytes(cmid: int, *, block: bool) -> int:
+    """The older kernel's shared memory: the 10×10 halo, the 64-pixel
+    conv2 tile, two weight stages (csrc/fused_tail.cuh), and for K6 two
+    conv1 stages."""
+    return (100 * (cmid + 16) + 64 * (-(-cmid // 64) * 64 + 16) + 2 * 64 * 80
+            + (2 * 64 * 80 if block else 0))
+
+
+def cluster_max(cmid: int, cout: int) -> int:
+    """The largest cluster whose blocks each get a multiple of 64 of
+    conv2's channels and of 128 of conv3's."""
+    cs = MAX_CS
+    while cs > 1 and (cmid % (64 * cs) or cout % (128 * cs)):
+        cs //= 2
+    return cs
+
+
+def _fit(cmid, cout, block, cs, tm, grid, sms):
+    """(per_sm, nc, nres, stages, smem) of the first layout that fits, as
+    K1's plan: as many blocks an SM as the grid fills, at most 2 (the
+    kernel's register bound), each with a ring of at least four stages; up
+    to four residual tiles (loaded before the weights) and two output
+    tiles where they fit."""
+    stage = STAGE_W + (tm * STAGE_X if block else 0)
+    res = min(MAX_RES, cout // cs // 128)
+    bufs = sorted({(2, res), (1, res), (2, min(res, 2)), (1, min(res, 2)),
+                   (2, 1), (1, 1)}, key=lambda b: (-b[1], -b[0]))
+    for per_sm in range(min(-(-grid // sms), 2), 0, -1):
+        budget = min(SMEM_LIMIT, SMEM_SM // per_sm - 1024)
+        for nc, nres in bufs:
+            fixed = wg_smem_bytes(cmid, cout, block=block, stages=0, cs=cs,
+                                  tm=tm, nc=nc, nres=nres)
+            stages = min(MAX_STAGES, (budget - fixed) // stage)
+            if stages >= MIN_STAGES:
+                return per_sm, nc, nres, stages, fixed + stages * stage
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(B: int, H: int, W: int, cmid: int, cout: int, *, sms: int,
+              block: bool = False, cs: Optional[int] = None,
+              tm: Optional[int] = None) -> Optional[TailPlan]:
+    """The wgmma kernel's plan for a (B, H, W) output with ``cmid``/``cout``
+    channels on a card of ``sms`` SMs, or None where it cannot run (Cmid
+    off 64 or Cout off 128, or no ring of MIN_STAGES fits).  ``cs`` and
+    ``tm`` force the cluster size and the tiles a block.  The rule, from
+    ``ops/time_tail.py --sweep`` on an H100 (PERF.md §6, PR 8):
+
+    * two tiles a block (both share every weight stage: half the weight
+      bytes from L2 a pixel) where the pairs alone fill the card (⌈tiles/2⌉
+      ≥ sms) and either their layout keeps as many blocks an SM as one
+      tile's or Cmid ≥ 256 (the weights, 9·Cmid² + Cmid·Cout bytes, then
+      outweigh the blocks lost); one otherwise;
+    * no cluster while the blocks fill half the card (⌈tiles/tm⌉ ≥ sms/2):
+      a cluster's exchange and its copies of the halo cost more than the
+      shorter serial path gains; else the smallest power of two that fills
+      it, at most :func:`cluster_max`, and for one tile a block at most
+      Cmid/128 (each warpgroup then keeps 64 of conv2's columns: 32-wide
+      wgmmas run at about the same time a stage as 64-wide ones) unless
+      that leaves fewer than sms/4 blocks;
+    * the layout (:func:`_fit`)."""
+    if cmid % 64 or cout % 128 or min(B, H, W) <= 0:
+        return None
+    ty, tx = -(-H // TILE), -(-W // TILE)
+    tiles = B * ty * tx
+    top = cluster_max(cmid, cout)
+    if cs is not None and (cs not in (1, 2, 4, 8) or cs > top):
+        raise ValueError(f"cluster size {cs} cannot split Cmid {cmid} and "
+                         f"Cout {cout} (at most {top})")
+    if tm is not None and tm not in (1, 2):
+        raise ValueError(f"{tm} tiles a block: 1 or 2")
+    if tm is None:
+        tm = 1
+        if -(-tiles // 2) >= sms:
+            two = _fit(cmid, cout, block, cs or 1, 2, -(-tiles // 2), sms)
+            one = _fit(cmid, cout, block, cs or 1, 1, tiles, sms)
+            if two is not None and (one is None or two[0] >= one[0]
+                                    or cmid >= 256):
+                tm = 2
+    units = -(-tiles // tm)
+    if cs is None:
+        cs = 1
+        if units < sms / 2:
+            while cs < top and units * cs < sms:
+                cs *= 2
+            if tm == 1:
+                n64 = max(1, min(cs, cmid // 128))
+                if units * n64 >= sms / 4:
+                    cs = n64
+    fit = _fit(cmid, cout, block, cs, tm, units * cs, sms)
+    if fit is None:
+        return None
+    per_sm, nc, nres, stages, smem = fit
+    return TailPlan(cs, tm, stages, nc, nres, smem, per_sm, tiles,
+                    units * cs, H * W / (ty * tx * TILE * TILE))
+
+
+def tail_smem_bytes(cmid: int, cout: int, *, block: bool = False) -> int:
+    """The shared memory a block needs at the least on the kernel this shape
+    takes: the wgmma kernel's (ring of MIN_STAGES, single tiles, one block a
+    cluster) for Cmid a multiple of 64 and Cout of 128 where that fits,
+    else the older kernel's.  The engines' eligibility test
+    (``serve/experimental.py``) reads it."""
+    if cmid % 64 == 0 and cout % 128 == 0:
+        wg = wg_smem_bytes(cmid, cout, block=block, stages=MIN_STAGES, nc=1,
+                           nres=1)     # one tile, one block a cluster
+        if wg <= SMEM_LIMIT:
+            return wg
+    return igemm_smem_bytes(cmid, block=block)
+
+
+def int_grid(co: EpilogueCoeffs, mode: EpilogueMode) -> bool:
+    """Whether the conversion-free requant (epilogue.cuh: code_bits) takes
+    this grid: integer lo, hi below 2^21, shift 0 or 128."""
+    return mode.shift in (0.0, 128.0) and all(
+        abs(v) <= 2 ** 21 and float(v).is_integer() for v in (co.lo, co.hi))
+
+
+def tail_path(cmid: int, cout: int, co3: EpilogueCoeffs,
+              mode3: EpilogueMode, *tensors: torch.Tensor,
+              block: bool = False) -> str:
+    """The kernel K5 (or K6, ``block``) takes: ``"wgmma"`` for Cmid a
+    multiple of 64 and Cout of 128, conv3's grid one ``code_bits`` takes and
+    16-byte aligned ``tensors`` (TMA), where the smallest plan fits;
+    ``"igemm"`` otherwise."""
+    ok = (cmid % 64 == 0 and cout % 128 == 0 and int_grid(co3, mode3)
+          and all(t.data_ptr() % 16 == 0 for t in tensors)
+          and wg_smem_bytes(cmid, cout, block=block, stages=MIN_STAGES,
+                            nc=1, nres=1) <= SMEM_LIMIT)
+    return "wgmma" if ok else "igemm"
+
+
+def choose(path: Optional[str], auto: str, what: str) -> str:
+    """``path`` if given (the older kernel takes any shape), else
+    ``auto``."""
+    if path is None:
+        return auto
+    if path not in PATHS or (path == "wgmma" and auto != "wgmma"):
+        raise ValueError(f"{what} path {path!r} cannot take these operands "
+                         f"(they take {auto!r})")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index
+    ).multi_processor_count
+
+
+def plan_args(path: str, B: int, H: int, W: int, cmid: int, cout: int,
+              dev: torch.device, *, block: bool, cs: Optional[int],
+              tm: Optional[int]):
+    """(cs, tm, stages, nc, nres, smem) for the C entry (zeros for the
+    older kernel, which plans itself)."""
+    if path != "wgmma":
+        return 0, 0, 0, 0, 0, 0
+    plan = tail_plan(B, H, W, cmid, cout, block=block, cs=cs, tm=tm,
+                     sms=_sm_count(dev.index))
+    if plan is None:
+        raise ValueError(f"no wgmma plan for Cmid {cmid}, Cout {cout}")
+    return plan.cs, plan.tm, plan.stages, plan.nc, plan.nres, plan.smem
 
 
 def w2_nk(w2: torch.Tensor) -> torch.Tensor:
@@ -51,15 +276,15 @@ def w2_nk(w2: torch.Tensor) -> torch.Tensor:
 
 def check_tail(dev: torch.device, cmid: int, cout: int, w2: torch.Tensor,
                w3: torch.Tensor, co2: EpilogueCoeffs, mode2: EpilogueMode,
-               co3: EpilogueCoeffs, mode3: EpilogueMode, extra_smem: int = 0
-               ) -> None:
+               co3: EpilogueCoeffs, mode3: EpilogueMode, *,
+               block: bool = False) -> None:
     """The checks K5 and K6 share on the tail's operands."""
     if cmid % 16:
         raise ValueError(f"Cmid {cmid} must be a multiple of 16")
     if tuple(w2.shape) != (cmid, 9 * cmid) or tuple(w3.shape) != (cout, cmid):
         raise ValueError(f"weights {tuple(w2.shape)}, {tuple(w3.shape)} do "
                          f"not match ({cmid}, 9*{cmid}) and ({cout}, {cmid})")
-    if tail_smem_bytes(cmid) + extra_smem > SMEM_LIMIT:
+    if tail_smem_bytes(cmid, cout, block=block) > SMEM_LIMIT:
         raise ValueError(f"Cmid {cmid} needs more shared memory than a block "
                          "has")
     check_int8(dev, w2=w2, w3=w3)
@@ -69,15 +294,27 @@ def check_tail(dev: torch.device, cmid: int, cout: int, w2: torch.Tensor,
     check_requant(mode3, "tail conv3")
 
 
+def count(fn, path: str) -> None:
+    """One launch of ``fn``'s kernel ``path``."""
+    fn.launches += 1
+    name = f"launches_{path}"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
 def qtail_folded(a_q: torch.Tensor, r_q: torch.Tensor, w2: torch.Tensor,
                  w3: torch.Tensor, co2: EpilogueCoeffs, mode2: EpilogueMode,
                  co3: EpilogueCoeffs, mode3: EpilogueMode, *, pad: int = 1,
-                 zp: int = 0) -> torch.Tensor:
+                 zp: int = 0, path: Optional[str] = None,
+                 cs: Optional[int] = None, tm: Optional[int] = None,
+                 defines: tuple = ()) -> torch.Tensor:
     """conv2 of the int8 (B, Hin, Win, Cmid) ``a_q`` (``pad`` pixels of
     ``zp`` on every side) with the (Cmid, 9·Cmid) weight → requant
     ``co2``/``mode2`` → conv3 with the (Cout, Cmid) weight + the int8
     residual ``r_q`` (B, H, W, Cout) → requant ``co3``/``mode3`` → int8
-    (B, H, W, Cout), H = Hin + 2·pad − 2."""
+    (B, H, W, Cout), H = Hin + 2·pad − 2.  ``path`` forces a kernel
+    (``"igemm"`` takes any shape), ``cs`` and ``tm`` the wgmma kernel's
+    cluster size and tiles a block (:func:`tail_plan`); ``defines`` selects
+    a probe build (``ops/probe_tail.py``)."""
     if a_q.device.type == "cpu":
         return qtail_folded_plain(a_q, r_q, w2, w3, co2, mode2, co3, mode3,
                                   pad=pad, zp=zp)
@@ -99,20 +336,27 @@ def qtail_folded(a_q: torch.Tensor, r_q: torch.Tensor, w2: torch.Tensor,
     check_int8(dev, a_q=a_q, r_q=r_q)
     check_tail(dev, Cmid, Cout, w2, w3, co2, mode2, co3, mode3)
     out = torch.empty((B, H, W, Cout), dtype=torch.int8, device=dev)
-    fn = _build.load("qtail", "qtpu_qtail_fused", _ARGTYPES)
+    path = choose(path, tail_path(Cmid, Cout, co3, mode3, a_q, r_q, w2, w3,
+                                  out), "K5")
+    plan = plan_args(path, B, H, W, Cmid, Cout, dev, block=False, cs=cs,
+                     tm=tm)
+    fn = _build.load("qtail", _SYMBOLS[path], _ARGTYPES, defines)
     err = fn(a_q.data_ptr(), r_q.data_ptr(), w2.data_ptr(), w3.data_ptr(),
              co2.A.data_ptr(), co2.B.data_ptr(), co3.A.data_ptr(),
              co3.B.data_ptr(), out.data_ptr(), B, Hin, Win, pad, int(zp),
              Cmid, Cout, co2.lo, co2.hi, mode2.shift, co3.C, co3.lo, co3.hi,
-             mode3.shift, torch.cuda.current_stream(dev).cuda_stream)
+             mode3.shift, *plan, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qtail_fused kernel launch failed: CUDA error "
-                           f"{err} (a {tuple(a_q.shape)}, Cout={Cout})")
-    qtail_folded.launches += 1
+        raise RuntimeError(f"qtail_fused kernel ({path}) launch failed: CUDA "
+                           f"error {err} (a {tuple(a_q.shape)}, Cout={Cout}, "
+                           f"plan {plan})")
+    count(qtail_folded, path)
     return out
 
 
 qtail_folded.launches = 0
+qtail_folded.launches_wgmma = 0
+qtail_folded.launches_igemm = 0
 
 
 def tail_plain(a_q, r_q, w2, w3, co2, mode2, co3, mode3, *, pad, zp):

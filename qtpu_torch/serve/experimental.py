@@ -57,7 +57,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from qtpu_torch.ops.qblock import CONV1_SMEM
 from qtpu_torch.ops.qtail import SMEM_LIMIT, tail_smem_bytes
 from qtpu_torch.serve import fused_ops as fo
 from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
@@ -139,8 +138,8 @@ class ExperimentalResNetInt8Engine(ResNetInt8Engine):
         if (c2["kernel_hw"] != (3, 3) or c2["w_nk"].shape[1] != 9 * cmid
                 or c3["w_nk"].shape[1] != cmid or cmid % 16):
             return None
-        extra = CONV1_SMEM if need_conv1 else 0
-        if tail_smem_bytes(cmid) + extra > SMEM_LIMIT:
+        cout = c3["w_nk"].shape[0]
+        if tail_smem_bytes(cmid, cout, block=need_conv1) > SMEM_LIMIT:
             return None
         if need_conv1:
             cin = c1["w_nk"].shape[1]
