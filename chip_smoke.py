@@ -32,8 +32,13 @@ success):
    mma.sync kernel forced, which must agree, and the chained kernels at the
    runs the chained engines give them — K7 (qstage) at ResNet-50's four
    identity runs, K8 (qstage_proj) at its whole layer1, K9 (qivr) at
-   MobileNet-v2's five inverted-residual runs; K4-K9 also against the
-   unfused K1/K2/K3 sequence each replaces; K1's int4 entry at
+   MobileNet-v2's five inverted-residual runs, K7 and K9 on the kernel
+   their dispatch gives (``ops/qstage.stage_path``, ``ops/qivr.ivr_path``:
+   the wgmma runner ``csrc/wgmma_phase.cuh``, planned by
+   ``ops/chain_plan.chain_plan``; K9's block2 run, C = 24, on its
+   narrow-row path) and on the older kernel forced with ``path="igemm"``,
+   which must agree; K4-K9 also against the unfused K1/K2/K3 sequence each
+   replaces; K1's int4 entry at
    ``resnet50_int4w_int8a_qat``'s shapes (layer1_0 conv3 with the int8
    residual, layer3 conv1, layer4 conv3, layer4_0's f32 downsample), also
    against the int8 entry on the unpacked weights; the im2col conv at
@@ -79,8 +84,9 @@ success):
      config-5 engines must take the wgmma kernels, the int8 stems of
      MobileNet-v1 and ResNet-50 K2's stem kernel, every K3 launch the halo
      kernel, every K5 and K6 launch (the tail and block runs' 12 a
-     forward) the wgmma kernel, and no run may copy an activation to pad
-     it;
+     forward) the wgmma kernel, every K7 launch (3 a stage forward, 2 a
+     packed one) and every K9 launch (5 an ivr forward) the runner, and no
+     run may copy an activation to pad it;
 5. the ResNet-50 (product, tail, block, stage, and the product engine
    with the quantized stem), MobileNet-v2 (product, ivr) and
    quantized-stem MobileNet-v1 engines against the same engines on
@@ -102,7 +108,9 @@ success):
    device time (repeated launches captured in a CUDA graph) beside its
    bound, its plain version (K1 and K2 also beside the old mma.sync loop;
    K2's with and without the zero-point pad copy it needed; K5 and K6
-   beside their older mma.sync kernel, with the plan ``tail_plan`` gives)
+   beside their older mma.sync kernel, with the plan ``tail_plan`` gives;
+   K7 and K9 beside their older kernel at B = 8 and B = 128, with the
+   plan ``chain_plan`` gives)
    and a
    library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
@@ -113,11 +121,15 @@ success):
    a fused bottleneck piece or a chained run, so K4-K9 have none); for
    K4-K9 also the device
    time of the unfused K1/K2/K3 sequence each replaces, at B = 8 and
-   B = 128 (K5 and K6 as rows of their own at B = 128); a profiler
+   B = 128 (K5 and K6 as rows of their own at B = 128; K4 and K7-K9 at
+   B = 128 first held against their plain version and the unfused sequence,
+   as the B = 128 plans — K7's two tiles a unit, the fused modes of the runs
+   that split at B = 8 — run only there); a profiler
    breakdown of one B = 128 forward of each engine.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed as it ends.  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -138,8 +150,9 @@ SRC_K3 = "qtpu_torch/csrc/qdepthwise.cu"
 SRC_K4 = "qtpu_torch/csrc/qproj.cu"
 SRC_K5 = "qtpu_torch/csrc/qtail.cu"
 SRC_K6 = "qtpu_torch/csrc/qblock.cu"
-SRC_K78 = "qtpu_torch/csrc/qstage.cu"
-SRC_K9 = "qtpu_torch/csrc/qivr.cu"
+SRC_K7 = "qtpu_torch/csrc/qstage_wg.cu"
+SRC_K8 = "qtpu_torch/csrc/qstage.cu"
+SRC_K9 = "qtpu_torch/csrc/qivr_wg.cu"
 SRC_IM2COL = "qtpu_torch/ops/qim2col.py"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
@@ -159,15 +172,17 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
 # launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
 # plain-version calls, then launches by kernel: K1's int8 entry on wgmma,
 # on igemm, its int4 entry on wgmma, on igemm, K2 on wgmma, stem, igemm, K3
-# on halo, scalar, K5 and K6 each on wgmma, igemm, and the zero-point pad
-# copies made on the way to K2 or K3); expected counts give the first twelve
+# on halo, scalar, K5, K6, K7 and K9 each on wgmma, igemm, and the
+# zero-point pad copies made on the way to K2 or K3); expected counts give
+# the first twelve
 KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
 PLAIN = 11
 SPLIT = {"K1": {"wgmma": 12, "igemm": 13}, "K1w4": {"wgmma": 14, "igemm": 15},
          "K2": {"wgmma": 16, "stem": 17, "igemm": 18},
          "K3": {"halo": 19, "scalar": 20},
-         "K5": {"wgmma": 21, "igemm": 22}, "K6": {"wgmma": 23, "igemm": 24}}
-PADS = 25
+         "K5": {"wgmma": 21, "igemm": 22}, "K6": {"wgmma": 23, "igemm": 24},
+         "K7": {"wgmma": 25, "igemm": 26}, "K9": {"wgmma": 27, "igemm": 28}}
+PADS = 29
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
@@ -280,6 +295,7 @@ def main() -> int:
     from qtpu_torch.ops import qproj as k4
     from qtpu_torch.ops import qstage as k78
     from qtpu_torch.ops import qtail as k5
+    from qtpu_torch.ops.chain_plan import chain_plan
     from qtpu_torch.serve.cli import build_engine, freeze_from_config
     from qtpu_torch.serve.dispatch import resnet_arch
     from qtpu_torch.serve.engine import ServingEngine
@@ -293,6 +309,13 @@ def main() -> int:
     from qtpu_torch.utils.device import fp32_exact
 
     dev = torch.device("cuda")
+    t_phase = [time.monotonic()]
+
+    def phase_done(what):
+        """Each phase's seconds, for the script's time budget."""
+        now = time.monotonic()
+        log(f"phase {what}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # -- 1. the card ------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -317,6 +340,8 @@ def main() -> int:
                 spill = line.strip()
             elif "registers" in line:     # entry, spills, then registers
                 log(f"  {k} {entry[:60]}: {line.strip()}; {spill}")
+
+    phase_done("1-2 (card, build)")
 
     # -- 3. kernels against their plain versions, main-path shapes at B=8 ----------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -768,8 +793,10 @@ def main() -> int:
     def chain_case(kind, B, H, dims):
         """K7/K8/K9 at one run of the chained engines: (run kernel, run
         plain, run the unfused K1/K2/K3 sequence it replaces, bytes, int8
-        GEMM operations, CUDA-core operations).  Bytes count x once in and
-        once out, the weights and the coefficient rows."""
+        GEMM operations, CUDA-core operations, run the older kernel forced
+        (K7, K9; None for K8), the kernel the dispatch takes and its plan).
+        Bytes count x once in and once out, the weights and the coefficient
+        rows."""
         M = B * H * H
         res_i8 = dict(res_scale=0.04, res_zp=-7, **requant)
         if kind == "K9":
@@ -795,11 +822,14 @@ def main() -> int:
                                           y.reshape(-1, c)).reshape(
                                               B, H, H, c)
                 return y
+            kpath = k9.ivr_path(B, H, H, c, e, co, *args[:4], sms=sms)
             return (lambda: k9.qivr_folded(*args),
                     lambda: k9.qivr_folded_plain(*args), unfused,
                     2 * x.numel() + w1.numel() + wd.numel() + w3.numel()
                     + n * (16 * e + 8 * c + 48),
-                    2 * M * n * e * 2 * c, 2 * M * n * e * 9)
+                    2 * M * n * e * 2 * c, 2 * M * n * e * 9,
+                    lambda: k9.qivr_folded(*args, path="igemm"), kpath,
+                    chain_plan("ivr", B, H, H, c, e, sms=sms))
         if kind == "K7":
             cin, cmid, n = dims
         else:
@@ -820,7 +850,11 @@ def main() -> int:
                     lambda: k78.qstage_folded_plain(*args),
                     lambda: chain_unfused(x, w1, w2, w3, co, B, H, cin,
                                           cmid),
-                    nbytes, ops, 0)
+                    nbytes, ops, 0,
+                    lambda: k78.qstage_folded(*args, path="igemm"),
+                    k78.stage_path(B, H, H, cin, cmid, co, *args[:4],
+                                   sms=sms),
+                    chain_plan("stage", B, H, H, cin, cmid, sms=sms))
         wp = (i8(cm, cp, lo=-127), i8(cm, 9 * cm, lo=-127),
               i8(cin, cm, lo=-127), i8(cin, cp, lo=-127))
         pco = k78.stack_chain([(coeffs(cm, cp, **requant),
@@ -843,7 +877,8 @@ def main() -> int:
         return (lambda: k78.qstage_proj_folded(*args),
                 lambda: k78.qstage_proj_folded_plain(*args), unfused,
                 nbytes + sum(w.numel() for w in wp) + 16 * cm + 16 * cin
-                + 48, ops + 2 * M * (cm * (cp + 9 * cm + cin) + cp * cin), 0)
+                + 48, ops + 2 * M * (cm * (cp + 9 * cm + cin) + cp * cin), 0,
+                None, None, None)
 
     # (kind, label, H, dims): the chained engines' runs at B = 8 — K7
     # (Cin, Cmid, blocks), K8 (Cp, Cm, Co, Cmid, chained blocks), K9 (C, E,
@@ -860,17 +895,28 @@ def main() -> int:
         ("K9", "block11-12 run", 14, (96, 576, 2)),
         ("K9", "block14-15 run", 7, (160, 960, 2)),
     ]
-    chain_meta = {"K7": ("qstage_fused", SRC_K78, TPU_K7, "stage"),
-                  "K8": ("qstage_proj_fused", SRC_K78, TPU_K8, "stage"),
+    chain_meta = {"K7": ("qstage_fused", SRC_K7, TPU_K7, "stage"),
+                  "K8": ("qstage_proj_fused", SRC_K8, TPU_K8, "stage"),
                   "K9": ("qivr_fused", SRC_K9, TPU_K9, "ivr")}
     for kind, label, H, dims in chain_cases:
-        run_k, run_p, run_u, nbytes, ops, dw_ops = chain_case(kind, 8, H,
-                                                              dims)
+        (run_k, run_p, run_u, nbytes, ops, dw_ops, run_o, kpath,
+         plan) = chain_case(kind, 8, H, dims)
         y, err = compare(f"{kind} {label}", run_k, run_p)
         check(torch.equal(run_u(), y), f"{kind} {label}: kernel differs "
               "from the unfused K1/K2/K3 sequence")
         b_ms, b_by = bound(nbytes, ops, cuda_core_ops=dw_ops)
         name, src, tpu, path = chain_meta[kind]
+        extra = {}
+        if run_o is not None:   # K7, K9: the runner and the older kernel
+            check(torch.equal(run_o(), y), f"{kind} {label}: the older "
+                  "kernel forced differs from the dispatched one")
+            check(kpath == "wgmma", f"{kind} {label}: dispatched to "
+                  f"{kpath}")
+            extra = dict(chain_path=kpath, igemm_ms=timed(torch, run_o, 50),
+                         plan=None if kpath != "wgmma" else
+                         f"{plan.mode}, w {plan.w}, {plan.tm} tile(s) a "
+                         f"unit, {plan.stages} stages, {plan.smem} B shared, "
+                         f"grid {plan.grid}")
         kernels.append(dict(
             name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
             path=path, kernel=kind, kind=kind, case=(H, dims),
@@ -883,9 +929,10 @@ def main() -> int:
             eager_ms=timed_eager(torch, run_k, 50),
             plain_ms=timed(torch, run_p, 3),
             unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, library_note=NO_LIBRARY))
-        del run_k, run_p, run_u
-    log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace")
+            library_ms=None, library_note=NO_LIBRARY, **extra))
+        del run_k, run_p, run_u, run_o
+    log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace; K7 "
+        "and K9 on the runner, equal to the older kernel forced")
 
     kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
              k4.qproj_folded, k5.qtail_folded, k6.qblock_folded,
@@ -899,7 +946,8 @@ def main() -> int:
 
     split_of = {"K1": k1.qmatmul_folded, "K1w4": k1.qmatmul_folded_w4,
                 "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded,
-                "K5": k5.qtail_folded, "K6": k6.qblock_folded}
+                "K5": k5.qtail_folded, "K6": k6.qblock_folded,
+                "K7": k78.qstage_folded, "K9": k9.qivr_folded}
 
     def zero_counts():
         for k in kmods:
@@ -945,6 +993,8 @@ def main() -> int:
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
         log(f"{what}, one forward: {fmt_counts(got)}")
         return got
+
+    phase_done("3 (kernels against plain)")
 
     # -- 4. the slices through ServingEngine ----------------------------------------
     rng = np.random.default_rng(1)
@@ -1098,6 +1148,19 @@ def main() -> int:
     check(path_counts["tail"][SPLIT["K5"]["wgmma"]] > 0
           and path_counts["block"][SPLIT["K6"]["wgmma"]] > 0,
           "the tail / block runs launched no K5 / K6 on wgmma")
+    # K7 and K9: every launch of the stage, packed stage and ivr runs on
+    # the runner
+    sp7, sp9 = SPLIT["K7"], SPLIT["K9"]
+    for key, c in path_counts.items():
+        for kern, sp in (("K7", sp7), ("K9", sp9)):
+            check(c[sp["igemm"]] == 0 and c[sp["wgmma"]] == c[KIDX[kern]],
+                  f"{key}: {kern} launches {c[KIDX[kern]]}, on the runner "
+                  f"{c[sp['wgmma']]}, on the older kernel {c[sp['igemm']]}")
+    check(path_counts["stage"][sp7["wgmma"]] > 0
+          and path_counts["cfg5_stage"][sp7["wgmma"]] > 0
+          and path_counts["ivr"][sp9["wgmma"]] > 0,
+          "the stage / packed stage / ivr runs launched no K7 / K9 on the "
+          "runner")
     check(path_counts["mnv1"][s2["stem"]] == 1, "the MobileNet-v1 int8 "
           "stem did not take K2's stem kernel")
     c = path_counts["rn50_int8stem"]
@@ -1105,12 +1168,13 @@ def main() -> int:
           f"{RN50_INT8STEM}: K1 igemm {c[13]}, K2 wgmma {c[s2['wgmma']]} "
           f"and stem {c[s2['stem']]} (want 0, 16 and 1)")
     log("launches by kernel per serving run (K1 int8 + int4; K2; K3; K5; "
-        "K6): "
+        "K6; K7; K9): "
         + "; ".join(f"{k} K1 wgmma {c[12]} + {c[14]}, igemm {c[13]} + "
                     f"{c[15]}; K2 wgmma {c[16]}, stem {c[17]}, igemm "
                     f"{c[18]}; K3 halo {c[19]}, scalar {c[20]}; K5 wgmma "
                     f"{c[21]}, igemm {c[22]}; K6 wgmma {c[23]}, igemm "
-                    f"{c[24]}; pad copies {c[PADS]}"
+                    f"{c[24]}; K7 wgmma {c[25]}, igemm {c[26]}; K9 wgmma "
+                    f"{c[27]}, igemm {c[28]}; pad copies {c[PADS]}"
                     for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
@@ -1126,6 +1190,8 @@ def main() -> int:
             c = path_counts[kern["path"]]
             kern["path_launches"] = {kp: c[i] for kp, i in
                                      SPLIT[kern["kernel"]].items()}
+
+    phase_done("4 (serving runs)")
 
     # -- 5. the same trees on the CPU plain path -------------------------------------
     x2 = torch.from_numpy(imgs[:2])
@@ -1235,6 +1301,8 @@ def main() -> int:
         f"codes differ, last block f32 equal to rtol 1e-6, logits rel-L2 "
         f"{rel_cpu:.2e}")
 
+    phase_done("5 (card against CPU)")
+
     # -- 6. engine throughput and a profile ------------------------------------------
     for what, flat, batches in ((RN50, rn50, (8, 128)),
                                 (CFG5, prod5, (8, 128)),
@@ -1258,21 +1326,33 @@ def main() -> int:
         if "kind" not in kern:
             continue
         kind = kern.pop("kind")
+        run_o = None
         if kind in chain_meta:
             H, dims = kern.pop("case")
-            run_k, _, run_u, nbytes, ops, dw_ops = chain_case(kind, 128, H,
-                                                              dims)
+            (run_k, run_p, run_u, nbytes, ops, dw_ops, run_o, kpath,
+             plan) = chain_case(kind, 128, H, dims)
             kern["bound_ms_b128"] = bound(nbytes, ops,
                                           cuda_core_ops=dw_ops)[0]
         else:
             H, cmid, cout, cin, s = kern.pop("case")
-            run_k, _, run_u, _, _ = fused_case(kind, 128, H, cmid, cout,
-                                               cin, s)
-        check(torch.equal(run_k(), run_u()), f"{kern['name']}: kernel "
+            run_k, run_p, run_u, _, _ = fused_case(kind, 128, H, cmid, cout,
+                                                   cin, s)
+        # the B = 128 plans (K7's two tiles a unit, the fused modes of the
+        # runs that split at B = 8) against the plain version too
+        y, _ = compare(f"{kern['name']} B=128", run_k, run_p)
+        check(torch.equal(y, run_u()), f"{kern['name']}: kernel "
               "differs from the unfused sequence at B = 128")
         kern["ms_b128"] = timed(torch, run_k, 10)
         kern["unfused_ms_b128"] = timed(torch, run_u, 10)
-        del run_k, run_u
+        if run_o is not None:   # K7, K9: the older kernel forced
+            check(torch.equal(run_o(), y) and kpath == kern["chain_path"],
+                  f"{kern['name']}: the older kernel differs at B = 128, or "
+                  f"the dispatch took {kpath}")
+            kern["igemm_ms_b128"] = timed(torch, run_o, 10)
+            if kpath == "wgmma":
+                kern["plan_b128"] = (f"{plan.mode}, w {plan.w}, {plan.tm} "
+                                     f"tile(s) a unit, {plan.stages} stages")
+        del run_k, run_p, run_u, run_o, y
         torch.cuda.empty_cache()
     for kern in kernels:
         extra = ""
@@ -1295,7 +1375,12 @@ def main() -> int:
                       f"{kern['int8_bound_ms']:.4f} ms)")
         elif "k2_ms" in kern:
             extra = f"; K2 on the same conv {kern['k2_ms']:.4f} ms"
-        if "plan" in kern:
+        if "chain_path" in kern:
+            extra += (f"; on {kern['chain_path']}"
+                      + (f" (plan: {kern['plan']})" if kern["plan"] else "")
+                      + f", the older kernel forced {kern['igemm_ms']:.4f} "
+                      "ms")
+        elif "plan" in kern:
             extra += (f"; the older mma.sync kernel {kern['igemm_ms']:.4f} "
                       f"ms; plan: {kern['plan']}")
         if "unfused_ms" in kern:
@@ -1305,7 +1390,11 @@ def main() -> int:
             extra += (f"; at B = 128 {kern['ms_b128']:.4f} ms against "
                       f"{kern['unfused_ms_b128']:.4f} ms unfused" + (
                           "" if "bound_ms_b128" not in kern else
-                          f" (bound {kern['bound_ms_b128']:.4f} ms)"))
+                          f" (bound {kern['bound_ms_b128']:.4f} ms)") + (
+                          "" if "igemm_ms_b128" not in kern else
+                          f", the older kernel {kern['igemm_ms_b128']:.4f} "
+                          f"ms" + (f" (plan: {kern['plan_b128']})"
+                                   if "plan_b128" in kern else "")))
         log(f"{kern['name']} {kern['shape']}: {kern['ms']:.4f} ms on the "
             f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
@@ -1319,6 +1408,7 @@ def main() -> int:
         "F.conv2d (TF32 off) on the zero-point-padded codes — the int32 "
         f"accumulator only; K4-K9 none: {NO_LIBRARY}")
 
+    phase_done("6 (timings)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1347,8 +1437,11 @@ def profile_forward(what, flat, x, torch):
             continue
         fam = ("K8 qstage_proj_fused" if re.search(
             r"qstage_kernel<\w+, true>", e.key) else
-               "K7 qstage_fused" if "qstage_kernel" in e.key else
-               "K9 qivr_fused" if "qivr_kernel" in e.key else
+               "K7 qstage_fused [igemm]" if "qstage_kernel" in e.key else
+               "K9 qivr_fused [igemm]" if "qivr_kernel" in e.key else
+               "K7 qstage_fused [wgmma]" if "chain_kernel<false" in e.key
+               else
+               "K9 qivr_fused [wgmma]" if "chain_kernel<true" in e.key else
                "K4 qproj_fused" if "qproj_kernel" in e.key else
                "K5 qtail_fused [wgmma]" if "tail_wg_kernel<false" in e.key
                else

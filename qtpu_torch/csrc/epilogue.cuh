@@ -33,6 +33,16 @@ struct Epilogue {
   float act_max;
 };
 
+// Byte r (0..3) of w, sign-extended (one permute: the selector's high bit
+// replicates the byte's sign).  K3's and K9's depthwise taps.
+__device__ __forceinline__ int sbyte(unsigned w, int r) {
+  int v;
+  asm("prmt.b32 %0, %1, 0, %2;"
+      : "=r"(v)
+      : "r"(w), "r"(r | (0x888 | r * 0x111) << 4));
+  return v;
+}
+
 // acc * a + b, two roundings.
 __device__ __forceinline__ float ep_affine(int acc, float a, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), a), b);
@@ -84,6 +94,31 @@ __device__ __forceinline__ float2 residual_pair(unsigned pair) {
 // of code_bits(t) ^ (shift ? 0x80 : 0).
 __device__ __forceinline__ unsigned code_bits(const Epilogue& ep, float t) {
   return __float_as_uint(__fadd_rn(fminf(fmaxf(t, ep.lo), ep.hi), MAGIC));
+}
+
+// The epilogue of two accumulators of a row, columns c and c + 1 (their A,
+// B coefficients a, b): ep_affine, then with RES the residual pair q
+// weighted by ep.C.  Every wgmma epilogue (K1's epilogue_slab, K5's and the
+// chained runner's fill_slab, the runner's narrow rows) takes t from here.
+template <bool RES>
+__device__ __forceinline__ float2 ep_pair(const Epilogue& ep, int v0, int v1,
+                                          float2 a, float2 b, float2 q) {
+  float t0 = ep_affine(v0, a.x, b.x);
+  float t1 = ep_affine(v1, a.y, b.y);
+  if (RES) {
+    t0 = __fadd_rn(t0, __fmul_rn(q.x, ep.C));
+    t1 = __fadd_rn(t1, __fmul_rn(q.y, ep.C));
+  }
+  return make_float2(t0, t1);
+}
+
+// The int8 codes of an ep_pair on an integer grid, the low 16 bits in
+// column order; flip is 0x8080 where the shift is 128, else 0.
+__device__ __forceinline__ unsigned short code_pair(const Epilogue& ep,
+                                                    float2 t,
+                                                    unsigned flip) {
+  return static_cast<unsigned short>(
+      __byte_perm(code_bits(ep, t.x), code_bits(ep, t.y), 0x0040) ^ flip);
 }
 
 // Whether code_bits serves this epilogue's grid (host side).

@@ -41,6 +41,44 @@
 
 namespace qtpu {
 
+// Probe build only (-DQTPU_PHASE_PROBE, qtpu_torch/ops/probe_chain.py):
+// thread 0 of each block of a chained kernel sums clock64() cycles by slot
+// and writes them to qtpu_phase_probe[PROBE_SLOTS * blockIdx.x + i] when
+// the block ends.  The old kernels (this file, built with -DQTPU_IGEMM_PROBE
+// too, so that igemm.cuh's mainloop splits its cycles): for the block's
+// three phases p (conv1 / expand, conv2 / depthwise, conv3 / project)
+// [3p] the operand copies (issue and wait), [3p + 1] the mma.sync loop (the
+// whole depthwise loop for K9's phase 1), [3p + 2] the epilogue; [9] the
+// waits at the grid barrier, [10] the tiles the block ran; the new kernels
+// (wgmma_phase.cuh) their own slots; [15] the block's total.  add(i, c)
+// adds c cycles to slot i; without the flag it compiles to nothing.
+#ifdef QTPU_PHASE_PROBE
+constexpr int PROBE_SLOTS = 16, PRODUCER_SLOT = 12;
+__device__ long long* qtpu_phase_probe;
+struct PhaseProbe {
+  long long v[PROBE_SLOTS], t0;
+  __device__ PhaseProbe() {
+    t0 = clock64();
+    for (int i = 0; i < PROBE_SLOTS; ++i) v[i] = 0;
+  }
+  __device__ __forceinline__ void add(int i, long long c) { v[i] += c; }
+  // (slot PRODUCER_SLOT is the runner's producer thread's, written by it)
+  __device__ void store() {
+    v[PROBE_SLOTS - 1] = clock64() - t0;
+    for (int i = 0; i < PROBE_SLOTS; ++i)
+      if (i != PRODUCER_SLOT)
+        qtpu_phase_probe[PROBE_SLOTS * blockIdx.x + i] = v[i];
+  }
+};
+#define PHASE_CLOCK() clock64()
+#else
+struct PhaseProbe {
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ void store() {}
+};
+#define PHASE_CLOCK() 0ll
+#endif
+
 typedef TileCfg<64, 64, 2, 2> PhaseTile;
 constexpr int PHASE_THREADS = PhaseTile::NTHREADS;
 // about 2^26 waits of >= 64 ns: seconds, far beyond any phase of a chain
@@ -194,11 +232,14 @@ struct PhaseSmem {
 // One block's part of a GEMM phase: C = A x W^T over the (M, N) output
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ...; epi(m, n, acc) for every
 // element inside (M, N).  W is (N, K), K-contiguous.
+// pr, ph: the probe and the phase's index (probe builds only).
 template <bool VEC, class Src, class Epi>
 __device__ __forceinline__ void gemm_phase(const Src& src,
                                            const int8_t* __restrict__ w,
                                            int M, int N, int K,
-                                           const Epi& epi, PhaseSmem sm) {
+                                           const Epi& epi, PhaseSmem sm,
+                                           PhaseProbe* pr = nullptr,
+                                           int ph = 0) {
   typedef PhaseTile T;
   const int tn = (N + T::BN - 1) / T::BN;
   const int tiles = (M + T::BM - 1) / T::BM * tn;
@@ -208,7 +249,13 @@ __device__ __forceinline__ void gemm_phase(const Src& src,
     PhaseA<T, VEC, Src> a(src, sm.As, M, m0);
     StagedB<T, VEC> b(w, sm.Bs, N, K, n0);
     int acc[T::MT][T::NT][4];
+#ifdef QTPU_PHASE_PROBE
+    long long lp[3] = {0, 0, 0};
+    mainloop<T>(a, b, K, acc, lp);
+    const long long te = clock64();
+#else
     mainloop<T>(a, b, K, acc);
+#endif
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -223,7 +270,17 @@ __device__ __forceinline__ void gemm_phase(const Src& src,
             if (n < N) epi(m, n, acc[i][j][2 * h + e]);
           }
       }
+#ifdef QTPU_PHASE_PROBE
+    if (pr) {
+      pr->add(3 * ph, lp[0] + lp[1]);
+      pr->add(3 * ph + 1, lp[2]);
+      pr->add(3 * ph + 2, clock64() - te);
+      pr->add(10, 1);
+    }
+#endif
   }
+  (void)pr;
+  (void)ph;
 }
 
 // The 12 per-phase-set scalars the wrappers pass for each chained block:
@@ -303,3 +360,12 @@ inline int phase_tiles(int M, int N) {
 }
 
 }  // namespace qtpu
+
+#ifdef QTPU_PHASE_PROBE
+// Probe build only: where the chained kernels (the older ones and the
+// runner) write their cycles by slot (PhaseProbe).
+extern "C" int qtpu_phase_probe_set(void* buf) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(qtpu::qtpu_phase_probe, &buf, sizeof(buf)));
+}
+#endif

@@ -47,15 +47,7 @@ struct DwShape {
   int B, H, W, C, OH, OW, KH, KW, stride, pad_t, pad_l;
 };
 
-// Byte r (0..3) of w, sign-extended (one permute: the selector's high bit
-// replicates the byte's sign).
-__device__ __forceinline__ int sbyte(unsigned w, int r) {
-  int v;
-  asm("prmt.b32 %0, %1, 0, %2;"
-      : "=r"(v)
-      : "r"(w), "r"(r | (0x888 | r * 0x111) << 4));
-  return v;
-}
+using qtpu::sbyte;
 
 // The halo kernel (see above).  S: the stride; the kernel is 3x3.
 template <int S>

@@ -116,6 +116,12 @@ __global__ void __launch_bounds__(qtpu::PHASE_THREADS)
   __shared__ __align__(16) int8_t Bs[2 * qtpu::PhaseTile::STAGE_B];
   const PhaseSmem sm{As, Bs};
   const int8_t* x = p.x;
+  qtpu::PhaseProbe pr;
+  auto barrier = [&] {
+    const long long t = PHASE_CLOCK();
+    qtpu::grid_barrier(p.bar);
+    pr.add(9, PHASE_CLOCK() - t);
+  };
   for (int i = 0; i < p.nblk; ++i) {
     float s[NSCAL];
 #pragma unroll
@@ -125,21 +131,25 @@ __global__ void __launch_bounds__(qtpu::PHASE_THREADS)
     // expand, relu6 folded into hi1
     qtpu::gemm_phase<VEC_C>(
         Rows1x1{x, p.C}, p.w1 + ei * p.C, p.M, p.E, p.C,
-        Requant{p.e, p.a1 + ei, p.b1 + ei, s[0], s[1], s[2], p.E}, sm);
-    qtpu::grid_barrier(p.bar);
+        Requant{p.e, p.a1 + ei, p.b1 + ei, s[0], s[1], s[2], p.E}, sm, &pr,
+        0);
+    barrier();
     // depthwise 3x3, the zero point outside the image
+    const long long td = PHASE_CLOCK();
     dw_phase(p, i, s);
-    qtpu::grid_barrier(p.bar);
+    pr.add(4, PHASE_CLOCK() - td);
+    barrier();
     // project + the block input as int8 residual
     int8_t* dst = (p.nblk - 1 - i) & 1 ? p.tmp : p.out;
     qtpu::gemm_phase<true>(
         Rows1x1{p.d, p.E}, p.w3 + ci * p.E, p.M, p.C, p.E,
         RequantRes{dst, p.a3 + ci, p.b3 + ci, x, s[9], s[6], s[7], s[8],
                    p.C},
-        sm);
+        sm, &pr, 2);
     x = dst;
-    if (i + 1 < p.nblk) qtpu::grid_barrier(p.bar);
+    if (i + 1 < p.nblk) barrier();
   }
+  if (threadIdx.x == 0) pr.store();
 }
 
 }  // namespace
@@ -189,3 +199,4 @@ extern "C" int qtpu_qivr_fused(const void* x, const void* w1, const void* wd,
   return static_cast<int>(qtpu::launch_cooperative(
       kernel, grid, p, static_cast<cudaStream_t>(stream)));
 }
+

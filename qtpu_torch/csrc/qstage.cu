@@ -142,6 +142,12 @@ __global__ void __launch_bounds__(qtpu::PHASE_THREADS)
   __shared__ __align__(16) int8_t Bs[2 * qtpu::PhaseTile::STAGE_B];
   const PhaseSmem sm{As, Bs};
   const Chain& c = p.chain;
+  qtpu::PhaseProbe pr;
+  auto barrier = [&] {
+    const long long t = PHASE_CLOCK();
+    qtpu::grid_barrier(p.bar);
+    pr.add(9, PHASE_CLOCK() - t);
+  };
   // block outputs, the projection block's first: the last one is `out`
   const int writes = c.nblk + (PROJ ? 1 : 0);
   int w = 0;
@@ -175,24 +181,27 @@ __global__ void __launch_bounds__(qtpu::PHASE_THREADS)
     // conv1
     qtpu::gemm_phase<VEC>(
         Rows1x1{x, c.Cin}, c.w1 + mid * c.Cin, p.M, c.Cmid, c.Cin,
-        Requant{p.a, c.a1 + mid, c.b1 + mid, s[0], s[1], s[2], c.Cmid}, sm);
-    qtpu::grid_barrier(p.bar);
+        Requant{p.a, c.a1 + mid, c.b1 + mid, s[0], s[1], s[2], c.Cmid}, sm,
+        &pr, 0);
+    barrier();
     // conv2, 3x3 SAME with conv2's zero point outside the image
     qtpu::gemm_phase<VEC>(
         Taps3x3{p.a, c.Cmid, p.H, p.W, static_cast<int>(s[10])},
         c.w2 + mid * 9 * c.Cmid, p.M, c.Cmid, 9 * c.Cmid,
-        Requant{p.b, c.a2 + mid, c.b2 + mid, s[3], s[4], s[5], c.Cmid}, sm);
-    qtpu::grid_barrier(p.bar);
+        Requant{p.b, c.a2 + mid, c.b2 + mid, s[3], s[4], s[5], c.Cmid}, sm,
+        &pr, 1);
+    barrier();
     // conv3 + the block input as int8 residual
     int8_t* dst = (writes - 1 - w) & 1 ? p.tmp : p.out;
     qtpu::gemm_phase<VEC>(
         Rows1x1{p.b, c.Cmid}, c.w3 + in * c.Cmid, p.M, c.Cin, c.Cmid,
         RequantRes{dst, c.a3 + in, c.b3 + in, x, s[9], s[6], s[7], s[8],
                    c.Cin},
-        sm);
+        sm, &pr, 2);
     x = dst;
-    if (i + 1 < c.nblk) qtpu::grid_barrier(p.bar);
+    if (i + 1 < c.nblk) barrier();
   }
+  if (threadIdx.x == 0) pr.store();
 }
 
 template <bool PROJ>
@@ -289,3 +298,33 @@ extern "C" int qtpu_qstage_proj_fused(
   p.bar = static_cast<unsigned*>(bar);
   return launch<true>(p, vec != 0, stream);
 }
+
+#ifdef QTPU_PHASE_PROBE
+namespace {
+__global__ void coop_cluster_kernel(int* out) {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<int>(r);
+}
+}  // namespace
+
+// Probe build only: whether a cooperative launch takes a cluster dimension
+// (0, or the launch's CUDA error); out[block] = the block's cluster rank.
+extern "C" int qtpu_probe_coop_cluster(void* out, int grid, int cs) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(32);
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  at[1].id = cudaLaunchAttributeClusterDimension;
+  at[1].val.clusterDim.x = cs;
+  at[1].val.clusterDim.y = 1;
+  at[1].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, coop_cluster_kernel, static_cast<int*>(out));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+#endif

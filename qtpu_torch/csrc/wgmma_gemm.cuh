@@ -349,26 +349,21 @@ __device__ __forceinline__ void epilogue_slab(
         *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
         continue;
       }
-      float t0 = ep_affine(v0, a.x, b.x);
-      float t1 = ep_affine(v1, a.y, b.y);
+      float2 q = make_float2(0.f, 0.f);
       if (RK != RES_NONE) {
         const int rb = c * RSIZE;
         const uint8_t* src = rs + (rb / RSPAN) * BM * RSPAN +
                              swz<RSPAN>((64 * wg + r) * RSPAN + rb % RSPAN);
-        const float2 q =
-            RK == RES_I8
+        q = RK == RES_I8
                 ? residual_pair(*reinterpret_cast<const unsigned short*>(src))
                 : *reinterpret_cast<const float2*>(src);
-        t0 = __fadd_rn(t0, __fmul_rn(q.x, p.ep.C));
-        t1 = __fadd_rn(t1, __fmul_rn(q.y, p.ep.C));
       }
+      const float2 t = ep_pair<RK != RES_NONE>(p.ep, v0, v1, a, b, q);
       if (OK == OUT_I8) {
-        *reinterpret_cast<unsigned short*>(dst) = static_cast<unsigned short>(
-            __byte_perm(code_bits(p.ep, t0), code_bits(p.ep, t1), 0x0040) ^
-            flip);
+        *reinterpret_cast<unsigned short*>(dst) = code_pair(p.ep, t, flip);
       } else {
         *reinterpret_cast<float2*>(dst) =
-            make_float2(ep_f32(p.ep, t0), ep_f32(p.ep, t1));
+            make_float2(ep_f32(p.ep, t.x), ep_f32(p.ep, t.y));
       }
     }
   }

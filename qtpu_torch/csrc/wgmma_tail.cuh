@@ -303,21 +303,21 @@ __device__ __forceinline__ void requant_rows(const int (&acc)[N / 2],
   }
 }
 
-// conv3's epilogue on a warpgroup's 64 x N part (columns col0 ..
-// col0 + N - 1) of the pass's 64 x 128 tile: + the residual tile `rs`,
-// requant, into the output tile `cs` (both 64 rows of 128 bytes, TMA's
-// 128-byte swizzle), as wgmma_gemm.cuh's epilogue_slab; sA, sB the half's
-// A, B rows.
-template <int N>
-__device__ __forceinline__ void conv3_epilogue(const int (&acc)[N / 2],
-                                               const Epilogue& ep,
-                                               const float* sA,
-                                               const float* sB,
-                                               const uint8_t* rs, uint8_t* cs,
-                                               int col0, int tw) {
+// Requant a warpgroup's 64 x N accumulator (wgmma's fragment: acc[4j + 2h +
+// e] is row 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e) into
+// int8 codes in `cs`, 64 rows of SPAN bytes under TMA's SPAN-byte swizzle,
+// at columns col0 + c; with RES + the int8 residual from `rs` (the same
+// layout) weighted by ep.C.  sA, sB are indexed by c.  Each step is
+// epilogue.cuh's ep_pair and code_pair, as wgmma_gemm.cuh's epilogue_slab.
+// K5's conv3 (SPAN 128, RES) and the chained runner (wgmma_phase.cuh).
+template <int N, int SPAN, bool RES>
+__device__ __forceinline__ void fill_slab(const int (&acc)[N / 2],
+                                          const Epilogue& ep, const float* sA,
+                                          const float* sB, const uint8_t* rs,
+                                          uint8_t* cs, int col0, int tw) {
   const int lane = tw & 31;
   const int r0 = (tw >> 5) * 16 + (lane >> 2);
-  const unsigned flip = ep.shift != 0.f ? 0x8080u : 0u;
+  const unsigned flip = ep.shift != 0.f ? 0x8080u : 0u;  // - shift, mod 256
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
@@ -325,17 +325,15 @@ __device__ __forceinline__ void conv3_epilogue(const int (&acc)[N / 2],
     const float2 b = *reinterpret_cast<const float2*>(sB + c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int off = swz<128>((r0 + 8 * h) * 128 + col0 + c);
-      float t0 = ep_affine(acc[4 * j + 2 * h], a.x, b.x);
-      float t1 = ep_affine(acc[4 * j + 2 * h + 1], a.y, b.y);
-      const float2 q =
-          residual_pair(*reinterpret_cast<const unsigned short*>(rs + off));
-      t0 = __fadd_rn(t0, __fmul_rn(q.x, ep.C));
-      t1 = __fadd_rn(t1, __fmul_rn(q.y, ep.C));
-      *reinterpret_cast<unsigned short*>(cs + off) =
-          static_cast<unsigned short>(
-              __byte_perm(code_bits(ep, t0), code_bits(ep, t1), 0x0040) ^
-              flip);
+      const int off = swz<SPAN>((r0 + 8 * h) * SPAN + col0 + c);
+      const float2 q = RES ? residual_pair(*reinterpret_cast<
+                                 const unsigned short*>(rs + off))
+                           : make_float2(0.f, 0.f);
+      *reinterpret_cast<unsigned short*>(cs + off) = code_pair(
+          ep,
+          ep_pair<RES>(ep, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], a, b,
+                       q),
+          flip);
     }
   }
 }
@@ -797,8 +795,10 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     const int rb = q % p.nres;
     mbar_wait(&res_full[rb], (q / p.nres) & 1);
     uint8_t* cs = smem + L.out + ((q % p.nc) * TM + tb) * SLAB;
-    conv3_epilogue<N3>(acc, p.ep3, sA3 + 128 * q + c3, sB3 + 128 * q + c3,
-                       smem + L.res + (rb * TM + tb) * SLAB, cs, c3, tw);
+    fill_slab<N3, 128, true>(acc, p.ep3, sA3 + 128 * q + c3,
+                             sB3 + 128 * q + c3,
+                             smem + L.res + (rb * TM + tb) * SLAB, cs, c3,
+                             tw);
     fence_async_smem();
     named_bar(bar_id, bar_n);
     if (storer) {

@@ -36,7 +36,8 @@ import torch
 
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import (OUT_KIND, check_residual, check_vectors,
-                                    fold, launch_args, out_dtype_of)
+                                    fold, int_grid, launch_args,
+                                    out_dtype_of)
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -87,9 +88,7 @@ def k2_path(x: torch.Tensor, w: torch.Tensor, pads: Pads, stride: int,
     TMA can address every operand (16-byte aligned bases, output and
     residual rows of multiples of 16 bytes); ``"igemm"`` for the rest."""
     if (out_dtype == torch.int8 and co is not None and mode is not None
-            and not (mode.shift in (0.0, 128.0)
-                     and all(abs(v) <= 2 ** 21 and float(v).is_integer()
-                             for v in (co.lo, co.hi)))):
+            and not int_grid(co.lo, co.hi, mode.shift)):
         return "igemm"
     B, H, W, Ci = x.shape
     Co = w.shape[0]

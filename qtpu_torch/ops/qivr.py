@@ -8,15 +8,31 @@ run is one cooperative launch of ``csrc/qivr.cu``, phases and grid barriers
 as K7's (``ops/qstage.py``); the epilogues are the unfused K1 → K3 → K1
 sequence's in its order, so the codes are bit-identical to it.
 
+Two kernels, chosen per call by :func:`ivr_path` and counted apart
+(``qivr_folded.launches_wgmma``, ``.launches_igemm``):
+
+* ``"wgmma"`` (``csrc/qivr_wg.cu`` on ``csrc/wgmma_phase.cuh``) for
+  requant grids ``code_bits`` takes and 16-byte aligned tensors: two
+  phases a block — the expand on K1's TMA + wgmma tile, then on 8×8 output
+  tiles the depthwise on CUDA cores from TMA-loaded 64-channel halo stages
+  straight into shared memory and the project with the int8 residual on
+  wgmma, no depthwise workspace — or, where the 8×8 tiles are few, three
+  (the depthwise alone on (tile, 64-channel) units into a workspace, the
+  project on K1's tile).  Rows of C bytes that TMA cannot address (C not
+  a multiple of 16: MobileNet-v2's block2, C = 24) come as bulk copies and
+  3D maps (:func:`narrow_rows`), in the fused mode;
+* ``"igemm"``, the older kernel (three phases, ``csrc/qivr.cu``), for the
+  rest.
+
 ``qivr_folded`` is the kernel wrapper: on a CUDA tensor it launches K9 (or
 raises), on a CPU tensor it takes ``qivr_folded_plain``, that unfused
 sequence per block in plain PyTorch.  Its ``launches`` attribute counts
 kernel launches and nothing else.  Weights are stacked per block: expand
 (N, E, C) and project (N, C, E) in the (N, K) layout, the depthwise taps
 (N, 9, E); the coefficients in a :class:`~qtpu_torch.ops.qstage.
-ChainCoeffs` whose ``zp`` is the depthwise pad.  The kernel takes any C
-(block2's 24 is gathered bytewise) and E a multiple of 16 (6·C for every
-MobileNet-v2 width, C being a multiple of 8).
+ChainCoeffs` whose ``zp`` is the depthwise pad.  Both kernels take E a
+multiple of 16 (6·C for every MobileNet-v2 width, C being a multiple of
+8); the older one any C (gathered bytewise where C % 16 ≠ 0).
 
 ``qivr_fused`` keeps qtpu's call form with its (K, N) weights and the
 operands of :func:`ivr_coeffs` / :func:`stack_ivr_weights`; qtpu's TPU-only
@@ -25,24 +41,59 @@ operands of :func:`ivr_coeffs` / :func:`stack_ivr_weights`; qtpu's TPU-only
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from qtpu_torch.ops import _build, qops
+from qtpu_torch.ops import _build, chain_plan as cp, qops
 from qtpu_torch.ops.qmatmul import check_int8
 from qtpu_torch.ops.qstage import (ChainCoeffs, barrier_words, check_chain,
-                                   chain_from_rows)
+                                   chain_from_rows, int_grids, plan_args,
+                                   resolve_plan)
+from qtpu_torch.ops.qtail import _sm_count, choose, count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 14 + (_I,) * 7 + (_P,)
+# the wgmma entry: the old one's arguments but vec_c, then the plan
+_WG_ARGTYPES = (_P,) * 14 + (_I,) * 6 + (_I,) * 7 + (_P,)
+_SYMBOLS = {"wgmma": ("qivr_wg", "qtpu_qivr_fused_wg"),
+            "igemm": ("qivr", "qtpu_qivr_fused")}
+
+
+def narrow_rows(B: int, H: int, W: int, c: int) -> bool:
+    """Whether the runner takes C-byte rows that are no TMA tensor (C not a
+    multiple of 16): as bulk copies of whole rows and 3D maps of (b, y,
+    x·C), so C a multiple of 8 up to 32 (an 8×8 tile's 8·C-byte row is one
+    TMA box dimension, at most 256) and every run of rows a multiple of 16
+    bytes."""
+    return (c % 16 != 0 and c % 8 == 0 and c <= 32 and (W * c) % 16 == 0
+            and (B * H * W * c) % 16 == 0)
+
+
+def ivr_path(B: int, H: int, W: int, c: int, e: int, co: ChainCoeffs,
+             *tensors: torch.Tensor, sms: int) -> str:
+    """The kernel K9 takes: ``"wgmma"`` for C a multiple of 16 or narrow
+    rows (:func:`narrow_rows`: MobileNet-v2's block2, C = 24), E a multiple
+    of 16, grids ``code_bits`` takes, 16-byte aligned ``tensors`` (TMA)
+    and a plan that fits; ``"igemm"`` otherwise."""
+    ok = ((c % 16 == 0 or narrow_rows(B, H, W, c)) and e % 16 == 0
+          and int_grids(co)
+          and all(t.data_ptr() % 16 == 0 for t in tensors)
+          and cp.chain_plan("ivr", B, H, W, c, e, sms=sms) is not None)
+    return "wgmma" if ok else "igemm"
 
 
 def qivr_folded(x_q: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
-                w3: torch.Tensor, co: ChainCoeffs) -> torch.Tensor:
+                w3: torch.Tensor, co: ChainCoeffs, *,
+                path: Optional[str] = None,
+                plan: Optional[cp.ChainPlan] = None,
+                defines: tuple = ()) -> torch.Tensor:
     """N chained inverted residuals on the int8 (B, H, W, C) ``x_q`` with
     the stacked weights (N, E, C), (N, 9, E), (N, C, E) and coefficients
-    ``co`` → int8 (B, H, W, C)."""
+    ``co`` → int8 (B, H, W, C).  ``path`` forces a kernel (``"igemm"``
+    takes any shape), ``plan`` the wgmma kernel's plan
+    (:func:`~qtpu_torch.ops.qstage.resolve_plan`); ``defines`` selects a
+    probe build (``ops/probe_chain.py``)."""
     if x_q.device.type == "cpu":
         return qivr_folded_plain(x_q, w1, wd, w3, co)
     if not x_q.is_cuda:
@@ -65,23 +116,40 @@ def qivr_folded(x_q: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
     check_chain(co, n, E, C, dev)
     M = B * H * W
     out = torch.empty_like(x_q)
-    ws = torch.empty(2 * M * E + (M * C if n > 1 else 0), dtype=torch.int8,
-                     device=dev)
-    fn = _build.load("qivr", "qtpu_qivr_fused", _ARGTYPES)
-    err = fn(x_q.data_ptr(), w1.data_ptr(), wd.data_ptr(), w3.data_ptr(),
-             co.a1.data_ptr(), co.b1.data_ptr(), co.a2.data_ptr(),
-             co.b2.data_ptr(), co.a3.data_ptr(), co.b3.data_ptr(),
-             co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             barrier_words(dev).data_ptr(), B, H, W, n, C, E,
-             int(C % 16 == 0), torch.cuda.current_stream(dev).cuda_stream)
+    sms = _sm_count(dev.index)
+    path = choose(path, ivr_path(B, H, W, C, E, co, x_q, w1, wd, w3, out,
+                                 sms=sms), "K9")
+    pl = resolve_plan(plan, path, "ivr", B, H, W, C, E, sms)
+    plan = () if pl is None else plan_args(pl)
+    # the expand's codes (e), the depthwise's (d; not in the runner's fused
+    # mode), block outputs
+    nws = 1 if pl is not None and pl.mode == "fused" else 2
+    ws = torch.empty(M * E * nws + (M * C if n > 1 else 0),
+                     dtype=torch.int8, device=dev)
+    lib, sym = _SYMBOLS[path]
+    fn = _build.load(lib, sym, _WG_ARGTYPES if path == "wgmma" else
+                     _ARGTYPES, defines)
+    args = (x_q.data_ptr(), w1.data_ptr(), wd.data_ptr(), w3.data_ptr(),
+            co.a1.data_ptr(), co.b1.data_ptr(), co.a2.data_ptr(),
+            co.b2.data_ptr(), co.a3.data_ptr(), co.b3.data_ptr(),
+            co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            barrier_words(dev).data_ptr(), B, H, W, n, C, E)
+    if path == "wgmma":
+        err = fn(*args, *plan, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = fn(*args, int(C % 16 == 0),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qivr_fused kernel launch failed: CUDA error "
-                           f"{err} (x {tuple(x_q.shape)}, {n} blocks, E={E})")
-    qivr_folded.launches += 1
+        raise RuntimeError(f"qivr_fused kernel ({path}) launch failed: CUDA "
+                           f"error {err} (x {tuple(x_q.shape)}, {n} blocks, "
+                           f"E={E}, plan {plan})")
+    count(qivr_folded, path)
     return out
 
 
 qivr_folded.launches = 0
+qivr_folded.launches_wgmma = 0
+qivr_folded.launches_igemm = 0
 
 
 def qivr_folded_plain(x_q: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,

@@ -144,6 +144,14 @@ _SYMBOLS = {(False, "wgmma"): "qtpu_qmatmul_fused",
             (True, "igemm"): "qtpu_qmatmul_fused_w4_igemm"}
 
 
+def int_grid(lo: float, hi: float, shift: float) -> bool:
+    """Whether the wgmma kernels' conversion-free requant (epilogue.cuh:
+    code_bits) takes a requant grid: integer ``lo``, ``hi`` below 2^21 in
+    magnitude, ``shift`` 0 or 128."""
+    return shift in (0.0, 128.0) and all(
+        abs(v) <= 2 ** 21 and float(v).is_integer() for v in (lo, hi))
+
+
 def k1_path(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
             residual: Optional[torch.Tensor],
             co: Optional[EpilogueCoeffs] = None,
@@ -155,9 +163,7 @@ def k1_path(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
     grid has integer ``lo`` and ``hi`` and a ``shift`` of 0 or 128 (the
     wgmma epilogue rounds after the clip), else ``"igemm"``."""
     if (out_dtype == torch.int8 and co is not None and mode is not None
-            and not (mode.shift in (0.0, 128.0)
-                     and all(abs(v) <= 2 ** 21 and float(v).is_integer()
-                             for v in (co.lo, co.hi)))):
+            and not int_grid(co.lo, co.hi, mode.shift)):
         return "igemm"
     N = w.shape[0]
     rows = [(x_q, x_q.shape[1]), (w, w.shape[1]),

@@ -12,6 +12,21 @@ runs a stride-1 projection block (conv1, conv2, then conv3 + downsample in
 K4's order) and then the run.  The epilogues are the unfused sequence's in
 its order, so the codes are bit-identical to it.
 
+K7 has two kernels, chosen per call by :func:`stage_path` and counted
+apart (``qstage_folded.launches_wgmma``, ``.launches_igemm``):
+
+* ``"wgmma"`` (``csrc/qstage_wg.cu`` on ``csrc/wgmma_phase.cuh``) for Cin a
+  multiple of 128, Cmid of 64, requant grids ``code_bits`` takes and
+  16-byte aligned tensors: two phases a block on Hopper's TMA + wgmma tiles
+  — conv1 on K1's tile, then K5's tile (conv2 straight from a TMA-loaded
+  halo, conv3 with the residual) — or, where the 8×8 tiles are few, three
+  (conv2 alone on (tile, channel pass) units, conv3 on K1's tile);
+  :func:`qtpu_torch.ops.chain_plan.chain_plan` chooses;
+* ``"igemm"``, the older kernel (three phases of ``igemm.cuh``'s
+  ``mma.sync`` loop, ``csrc/qstage.cu``), for the rest.
+
+K8 runs only on the older kernel's phases.
+
 ``qstage_folded`` / ``qstage_proj_folded`` are the kernel wrappers: on a
 CUDA tensor they launch K7 / K8 (or raise), on a CPU tensor they take
 ``qstage_folded_plain`` / ``qstage_proj_folded_plain``, the unfused K1 → K2
@@ -29,18 +44,24 @@ C) rows, (K, N) weights and the operands of :func:`stage_coeffs` /
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from qtpu_torch.ops import _build, qops
+from qtpu_torch.ops import _build, chain_plan as cp, qops
 from qtpu_torch.ops.qblock import block_coeffs, block_plain
-from qtpu_torch.ops.qmatmul import check_int8, check_vectors
+from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 from qtpu_torch.ops.qproj import check_requant, proj_coeffs, proj_plain
+from qtpu_torch.ops.qtail import _sm_count, choose, count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 14 + (_I,) * 7 + (_P,)
+# the wgmma entry: the old one's arguments, then the plan (mode, w, tm,
+# stages, nres, smem, grid)
+_WG_ARGTYPES = (_P,) * 14 + (_I,) * 6 + (_I,) * 7 + (_P,)
+_SYMBOLS = {"wgmma": ("qstage_wg", "qtpu_qstage_fused_wg"),
+            "igemm": ("qstage", "qtpu_qstage_fused")}
 _PROJ_ARGTYPES = (_P,) * 27 + (_I,) * 9 + (_P,)
 # scalars per block: lo/hi/shift of the three convs, C3, the pad zero point
 NSCAL = 12
@@ -147,11 +168,64 @@ def check_stack(dev, n, c_in, c_mid, w1, w2, w3, co) -> bool:
     return c_in % 16 == 0 and c_mid % 16 == 0
 
 
+def int_grids(co: ChainCoeffs) -> bool:
+    """Whether every requant of the chain (each row's lo, hi, shift of the
+    three convs) has a grid :func:`~qtpu_torch.ops.qmatmul.int_grid`
+    takes."""
+    return all(int_grid(*r[3 * k:3 * k + 3]) for r in co.rows
+               for k in range(3))
+
+
+def stage_path(B: int, H: int, W: int, cin: int, cmid: int,
+               co: ChainCoeffs, *tensors: torch.Tensor, sms: int) -> str:
+    """The kernel K7 takes: ``"wgmma"`` for Cin a multiple of 128 and Cmid
+    of 64, grids ``code_bits`` takes, 16-byte aligned ``tensors`` (TMA) and
+    a plan that fits; ``"igemm"`` otherwise."""
+    ok = (cin % 128 == 0 and cmid % 64 == 0 and int_grids(co)
+          and all(t.data_ptr() % 16 == 0 for t in tensors)
+          and cp.chain_plan("stage", B, H, W, cin, cmid, sms=sms)
+          is not None)
+    return "wgmma" if ok else "igemm"
+
+
+def resolve_plan(plan: Optional[cp.ChainPlan], path: str, kind: str,
+                 B: int, H: int, W: int, c: int, cm: int,
+                 sms: int) -> Optional[cp.ChainPlan]:
+    """The runner's plan of a call on ``path``: ``chain_plan``'s for the
+    shape, or the caller's ``plan`` (``time_chain.py --sweep``, the tests),
+    which must be the one ``chain_plan`` gives this shape with its mode and
+    tiles a unit; None on the older kernel, which takes no plan."""
+    if path != "wgmma":
+        if plan is not None:
+            raise ValueError(f"a plan is the wgmma kernel's, not {path!r}'s")
+        return None
+    pl = cp.chain_plan(kind, B, H, W, c, cm, sms=sms,
+                       mode=None if plan is None else plan.mode,
+                       tm=None if plan is None else plan.tm)
+    if pl is None or (plan is not None and plan != pl):
+        raise ValueError(f"no wgmma plan {plan} for {kind} (B, H, W) "
+                         f"({B}, {H}, {W}), widths {c}, {cm}")
+    return pl
+
+
+def plan_args(plan: cp.ChainPlan) -> Tuple[int, ...]:
+    """The plan as the C entries take it: (mode, w, tm, stages, nres, smem,
+    grid), mode 0 fused, 1 split."""
+    return (cp.MODES.index(plan.mode), plan.w, plan.tm, plan.stages,
+            plan.nres, plan.smem, plan.grid)
+
+
 def qstage_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                  w3: torch.Tensor, co: ChainCoeffs) -> torch.Tensor:
+                  w3: torch.Tensor, co: ChainCoeffs, *,
+                  path: Optional[str] = None,
+                  plan: Optional[cp.ChainPlan] = None,
+                  defines: tuple = ()) -> torch.Tensor:
     """N chained identity bottlenecks on the int8 (B, H, W, Cin) ``x_q``
     with the stacked weights (N, Cmid, Cin), (N, Cmid, 9·Cmid), (N, Cin,
-    Cmid) and coefficients ``co`` → int8 (B, H, W, Cin)."""
+    Cmid) and coefficients ``co`` → int8 (B, H, W, Cin).  ``path`` forces a
+    kernel (``"igemm"`` takes any shape), ``plan`` the wgmma kernel's plan
+    (:func:`resolve_plan`); ``defines`` selects a probe build
+    (``ops/probe_chain.py``)."""
     if x_q.device.type == "cpu":
         return qstage_folded_plain(x_q, w1, w2, w3, co)
     if not x_q.is_cuda:
@@ -167,24 +241,43 @@ def qstage_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     vec = check_stack(dev, n, Cin, Cmid, w1, w2, w3, co)
     M = B * H * W
     out = torch.empty_like(x_q)
-    ws = torch.empty(2 * M * Cmid + (M * Cin if n > 1 else 0),
-                     dtype=torch.int8, device=dev)
-    fn = _build.load("qstage", "qtpu_qstage_fused", _ARGTYPES)
-    err = fn(x_q.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-             co.a1.data_ptr(), co.b1.data_ptr(), co.a2.data_ptr(),
-             co.b2.data_ptr(), co.a3.data_ptr(), co.b3.data_ptr(),
-             co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             barrier_words(dev).data_ptr(), B, H, W, n, Cin, Cmid, int(vec),
-             torch.cuda.current_stream(dev).cuda_stream)
+    sms = _sm_count(dev.index)
+    path = choose(path, stage_path(B, H, W, Cin, Cmid, co, x_q, w1, w2, w3,
+                                   out, sms=sms), "K7")
+    pl = resolve_plan(plan, path, "stage", B, H, W, Cin, Cmid, sms)
+    plan = ()
+    if path == "wgmma":
+        plan = plan_args(pl)
+        # conv1's codes (a), conv2's in split mode (b), block outputs
+        ws_bytes = M * Cmid * (2 if pl.mode == "split" else 1)
+    else:
+        ws_bytes = 2 * M * Cmid
+    # workspace regions start 16-byte aligned (TMA)
+    ws_bytes = -(-ws_bytes // 16) * 16 + (M * Cin if n > 1 else 0)
+    ws = torch.empty(ws_bytes, dtype=torch.int8, device=dev)
+    lib, sym = _SYMBOLS[path]
+    fn = _build.load(lib, sym, _WG_ARGTYPES if path == "wgmma" else
+                     _ARGTYPES, defines)
+    args = (x_q.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+            co.a1.data_ptr(), co.b1.data_ptr(), co.a2.data_ptr(),
+            co.b2.data_ptr(), co.a3.data_ptr(), co.b3.data_ptr(),
+            co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            barrier_words(dev).data_ptr(), B, H, W, n, Cin, Cmid)
+    if path == "wgmma":
+        err = fn(*args, *plan, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = fn(*args, int(vec), torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qstage_fused kernel launch failed: CUDA error "
-                           f"{err} (x {tuple(x_q.shape)}, {n} blocks, "
-                           f"Cmid={Cmid})")
-    qstage_folded.launches += 1
+        raise RuntimeError(f"qstage_fused kernel ({path}) launch failed: "
+                           f"CUDA error {err} (x {tuple(x_q.shape)}, {n} "
+                           f"blocks, Cmid={Cmid}, plan {plan})")
+    count(qstage_folded, path)
     return out
 
 
 qstage_folded.launches = 0
+qstage_folded.launches_wgmma = 0
+qstage_folded.launches_igemm = 0
 
 
 def chain_plain(x_q, w1, w2, w3, co: ChainCoeffs):

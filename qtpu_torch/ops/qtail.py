@@ -43,7 +43,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from qtpu_torch.ops import _build, qops
-from qtpu_torch.ops.qmatmul import check_int8, check_vectors
+from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 from qtpu_torch.ops.qproj import AFFINE_RELU, check_requant, flat_f32
 
@@ -216,13 +216,6 @@ def tail_smem_bytes(cmid: int, cout: int, *, block: bool = False) -> int:
     return igemm_smem_bytes(cmid, block=block)
 
 
-def int_grid(co: EpilogueCoeffs, mode: EpilogueMode) -> bool:
-    """Whether the conversion-free requant (epilogue.cuh: code_bits) takes
-    this grid: integer lo, hi below 2^21, shift 0 or 128."""
-    return mode.shift in (0.0, 128.0) and all(
-        abs(v) <= 2 ** 21 and float(v).is_integer() for v in (co.lo, co.hi))
-
-
 def tail_path(cmid: int, cout: int, co3: EpilogueCoeffs,
               mode3: EpilogueMode, *tensors: torch.Tensor,
               block: bool = False) -> str:
@@ -230,7 +223,7 @@ def tail_path(cmid: int, cout: int, co3: EpilogueCoeffs,
     multiple of 64 and Cout of 128, conv3's grid one ``code_bits`` takes and
     16-byte aligned ``tensors`` (TMA), where the smallest plan fits;
     ``"igemm"`` otherwise."""
-    ok = (cmid % 64 == 0 and cout % 128 == 0 and int_grid(co3, mode3)
+    ok = (cmid % 64 == 0 and cout % 128 == 0 and int_grid(co3.lo, co3.hi, mode3.shift)
           and all(t.data_ptr() % 16 == 0 for t in tensors)
           and wg_smem_bytes(cmid, cout, block=block, stages=MIN_STAGES,
                             nc=1, nres=1) <= SMEM_LIMIT)
