@@ -28,17 +28,18 @@ success):
    and the fused bottleneck kernels at one ResNet-50 block per stage: K4
    (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
    (qtail) and K6 (qblock) at layer1-layer4, at B = 8 and B = 128, on the
-   wgmma kernel ``ops/qtail.tail_path`` gives them and on the older
+   wgmma kernel their dispatch gives them (``ops/qproj.k4_path``: K1's
+   ring as a two-GEMM tile; ``ops/qtail.tail_path``) and on the older
    mma.sync kernel forced, which must agree, and the chained kernels at the
    runs the chained engines give them — K7 (qstage) at ResNet-50's four
    identity runs, K8 (qstage_proj) at its whole layer1, K9 (qivr) at
-   MobileNet-v2's five inverted-residual runs, K7 and K9 on the kernel
-   their dispatch gives (``ops/qstage.stage_path``, ``ops/qivr.ivr_path``:
-   the wgmma runner ``csrc/wgmma_phase.cuh``, planned by
-   ``ops/chain_plan.chain_plan``; K9's block2 run, C = 24, on its
-   narrow-row path) and on the older kernel forced with ``path="igemm"``,
-   which must agree; K4-K9 also against the unfused K1/K2/K3 sequence each
-   replaces; K1's int4 entry at
+   MobileNet-v2's five inverted-residual runs, on the kernel their dispatch
+   gives (``ops/qstage.stage_path``, ``stage_proj_path``,
+   ``ops/qivr.ivr_path``: the wgmma runner ``csrc/wgmma_phase.cuh``,
+   planned by ``ops/chain_plan.chain_plan``; K8 its own instantiation;
+   K9's block2 run, C = 24, on its narrow-row path) and on the older kernel
+   forced with ``path="igemm"``, which must agree; K4-K9 also against the
+   unfused K1/K2/K3 sequence each replaces; K1's int4 entry at
    ``resnet50_int4w_int8a_qat``'s shapes (layer1_0 conv3 with the int8
    residual, layer3 conv1, layer4 conv3, layer4_0's f32 downsample), also
    against the int8 entry on the unpacked weights; the im2col conv at
@@ -84,9 +85,11 @@ success):
      config-5 engines must take the wgmma kernels, the int8 stems of
      MobileNet-v1 and ResNet-50 K2's stem kernel, every K3 launch the halo
      kernel, every K5 and K6 launch (the tail and block runs' 12 a
-     forward) the wgmma kernel, every K7 launch (3 a stage forward, 2 a
-     packed one) and every K9 launch (5 an ivr forward) the runner, and no
-     run may copy an activation to pad it;
+     forward) the wgmma kernel, every K4 launch (4 a tail or block
+     forward, 3 a stage one) the two-GEMM tile, every K7 launch (3 a stage
+     forward, 2 a packed one), K8 launch (1 a stage forward) and K9 launch
+     (5 an ivr forward) the runner, and no run may copy an activation to
+     pad it;
 5. the ResNet-50 (product, tail, block, stage, and the product engine
    with the quantized stem), MobileNet-v2 (product, ivr) and
    quantized-stem MobileNet-v1 engines against the same engines on
@@ -109,8 +112,8 @@ success):
    bound, its plain version (K1 and K2 also beside the old mma.sync loop;
    K2's with and without the zero-point pad copy it needed; K5 and K6
    beside their older mma.sync kernel, with the plan ``tail_plan`` gives;
-   K7 and K9 beside their older kernel at B = 8 and B = 128, with the
-   plan ``chain_plan`` gives)
+   K4, K7, K8 and K9 beside their older kernel at B = 8 and B = 128, with
+   the plan ``chain_plan`` gives)
    and a
    library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
@@ -151,7 +154,7 @@ SRC_K4 = "qtpu_torch/csrc/qproj.cu"
 SRC_K5 = "qtpu_torch/csrc/qtail.cu"
 SRC_K6 = "qtpu_torch/csrc/qblock.cu"
 SRC_K7 = "qtpu_torch/csrc/qstage_wg.cu"
-SRC_K8 = "qtpu_torch/csrc/qstage.cu"
+SRC_K8 = "qtpu_torch/csrc/qstage_proj_wg.cu"
 SRC_K9 = "qtpu_torch/csrc/qivr_wg.cu"
 SRC_IM2COL = "qtpu_torch/ops/qim2col.py"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
@@ -172,7 +175,7 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
 # launch counts are tuples (K1 .. K9, K1's int4 entry, the im2col conv,
 # plain-version calls, then launches by kernel: K1's int8 entry on wgmma,
 # on igemm, its int4 entry on wgmma, on igemm, K2 on wgmma, stem, igemm, K3
-# on halo, scalar, K5, K6, K7 and K9 each on wgmma, igemm, and the
+# on halo, scalar, K5, K6, K7, K9, K4 and K8 each on wgmma, igemm, and the
 # zero-point pad copies made on the way to K2 or K3); expected counts give
 # the first twelve
 KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
@@ -181,8 +184,9 @@ SPLIT = {"K1": {"wgmma": 12, "igemm": 13}, "K1w4": {"wgmma": 14, "igemm": 15},
          "K2": {"wgmma": 16, "stem": 17, "igemm": 18},
          "K3": {"halo": 19, "scalar": 20},
          "K5": {"wgmma": 21, "igemm": 22}, "K6": {"wgmma": 23, "igemm": 24},
-         "K7": {"wgmma": 25, "igemm": 26}, "K9": {"wgmma": 27, "igemm": 28}}
-PADS = 29
+         "K7": {"wgmma": 25, "igemm": 26}, "K9": {"wgmma": 27, "igemm": 28},
+         "K4": {"wgmma": 29, "igemm": 30}, "K8": {"wgmma": 31, "igemm": 32}}
+PADS = 33
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
@@ -339,7 +343,7 @@ def main() -> int:
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line:     # entry, spills, then registers
-                log(f"  {k} {entry[:60]}: {line.strip()}; {spill}")
+                log(f"  {k} {entry[:100]}: {line.strip()}; {spill}")
 
     phase_done("1-2 (card, build)")
 
@@ -665,7 +669,8 @@ def main() -> int:
                 td = k1.qmatmul_folded(xd, wd, cod, dmode)
                 return k1.qmatmul_folded(b.reshape(-1, cmid), w3, co3, mode3,
                                          td).reshape(B, Ho, Ho, cout)
-            return (lambda: k4.qproj_folded(*args, stride=stride),
+            return (lambda path=None: k4.qproj_folded(*args, stride=stride,
+                                                      path=path),
                     lambda: k4.qproj_folded_plain(*args, stride=stride),
                     unfused,
                     b.numel() + M * cin + w3.numel() + wd.numel() + M * cout
@@ -750,6 +755,16 @@ def main() -> int:
             library_note=NO_LIBRARY)
         if kind == "K4":
             row["kind"] = kind      # also timed at B = 128 below
+            # the two-GEMM tile k4_path gives it, against the older
+            # mma.sync kernel forced at the same shape
+            n0 = k4.qproj_folded.launches_wgmma
+            y = run_k()
+            check(k4.qproj_folded.launches_wgmma == n0 + 1, f"K4 {label}: "
+                  "not on the wgmma kernel")
+            check(torch.equal(run_k("igemm"), y), f"K4 {label}: the wgmma "
+                  "and igemm kernels differ")
+            row.update(k4_path="wgmma",
+                       igemm_ms=timed(torch, lambda: run_k("igemm"), 50))
         else:
             del row["case"]
             # K5 / K6: the wgmma kernel tail_path gives them, against the
@@ -772,8 +787,8 @@ def main() -> int:
         kernels.append(row)
         del run_k, run_p, run_u, y
         torch.cuda.empty_cache()
-    log("K4-K6 equal to the unfused K1/K2 sequences they replace; K5 and "
-        "K6 on the wgmma kernel, equal to the older kernel")
+    log("K4-K6 equal to the unfused K1/K2 sequences they replace; K4, K5 "
+        "and K6 on the wgmma kernel, equal to the older kernel")
 
     pad1 = ((1, 1), (1, 1))
 
@@ -794,7 +809,7 @@ def main() -> int:
         """K7/K8/K9 at one run of the chained engines: (run kernel, run
         plain, run the unfused K1/K2/K3 sequence it replaces, bytes, int8
         GEMM operations, CUDA-core operations, run the older kernel forced
-        (K7, K9; None for K8), the kernel the dispatch takes and its plan).
+        (``path="igemm"``), the kernel the dispatch takes and its plan).
         Bytes count x once in and once out, the weights and the coefficient
         rows."""
         M = B * H * H
@@ -878,7 +893,10 @@ def main() -> int:
                 lambda: k78.qstage_proj_folded_plain(*args), unfused,
                 nbytes + sum(w.numel() for w in wp) + 16 * cm + 16 * cin
                 + 48, ops + 2 * M * (cm * (cp + 9 * cm + cin) + cp * cin), 0,
-                None, None, None)
+                lambda: k78.qstage_proj_folded(*args, path="igemm"),
+                k78.stage_proj_path(B, H, H, cp, cm, cin, cmid, pco, co, n,
+                                    *args[:5], w1, w2, w3, sms=sms),
+                chain_plan("stage_proj", B, H, H, cin, cm, sms=sms))
 
     # (kind, label, H, dims): the chained engines' runs at B = 8 — K7
     # (Cin, Cmid, blocks), K8 (Cp, Cm, Co, Cmid, chained blocks), K9 (C, E,
@@ -907,7 +925,7 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, ops, cuda_core_ops=dw_ops)
         name, src, tpu, path = chain_meta[kind]
         extra = {}
-        if run_o is not None:   # K7, K9: the runner and the older kernel
+        if run_o is not None:   # the runner and the older kernel
             check(torch.equal(run_o(), y), f"{kind} {label}: the older "
                   "kernel forced differs from the dispatched one")
             check(kpath == "wgmma", f"{kind} {label}: dispatched to "
@@ -931,8 +949,8 @@ def main() -> int:
             unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
             library_ms=None, library_note=NO_LIBRARY, **extra))
         del run_k, run_p, run_u, run_o
-    log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace; K7 "
-        "and K9 on the runner, equal to the older kernel forced")
+    log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace; K7, "
+        "K8 and K9 on the runner, equal to the older kernel forced")
 
     kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
              k4.qproj_folded, k5.qtail_folded, k6.qblock_folded,
@@ -947,7 +965,8 @@ def main() -> int:
     split_of = {"K1": k1.qmatmul_folded, "K1w4": k1.qmatmul_folded_w4,
                 "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded,
                 "K5": k5.qtail_folded, "K6": k6.qblock_folded,
-                "K7": k78.qstage_folded, "K9": k9.qivr_folded}
+                "K7": k78.qstage_folded, "K9": k9.qivr_folded,
+                "K4": k4.qproj_folded, "K8": k78.qstage_proj_folded}
 
     def zero_counts():
         for k in kmods:
@@ -961,9 +980,9 @@ def main() -> int:
 
     def counts():
         """(K1 .. K9, K1 int4, im2col launches, plain-version calls, the
-        launches by kernel of K1 int8, K1 int4, K2 and K3, zero-point pad
-        copies); raises unless each entry's kernels add up to its
-        launches."""
+        launches by kernel of K1 int8, K1 int4, K2, K3, K5, K6, K7, K9, K4
+        and K8, zero-point pad copies); raises unless each entry's kernels
+        add up to its launches."""
         c = [*(k.launches for k in kmods), sum(p.calls for p in plains)]
         for name, fn in split_of.items():
             c += [getattr(fn, f"launches_{kp}") for kp in SPLIT[name]]
@@ -1148,11 +1167,13 @@ def main() -> int:
     check(path_counts["tail"][SPLIT["K5"]["wgmma"]] > 0
           and path_counts["block"][SPLIT["K6"]["wgmma"]] > 0,
           "the tail / block runs launched no K5 / K6 on wgmma")
-    # K7 and K9: every launch of the stage, packed stage and ivr runs on
-    # the runner
+    # K7, K8 and K9: every launch of the stage, packed stage and ivr runs
+    # on the runner; K4: every launch of the tail, block and stage runs on
+    # the two-GEMM tile
     sp7, sp9 = SPLIT["K7"], SPLIT["K9"]
+    sp4, sp8 = SPLIT["K4"], SPLIT["K8"]
     for key, c in path_counts.items():
-        for kern, sp in (("K7", sp7), ("K9", sp9)):
+        for kern, sp in (("K7", sp7), ("K9", sp9), ("K4", sp4), ("K8", sp8)):
             check(c[sp["igemm"]] == 0 and c[sp["wgmma"]] == c[KIDX[kern]],
                   f"{key}: {kern} launches {c[KIDX[kern]]}, on the runner "
                   f"{c[sp['wgmma']]}, on the older kernel {c[sp['igemm']]}")
@@ -1161,6 +1182,12 @@ def main() -> int:
           and path_counts["ivr"][sp9["wgmma"]] > 0,
           "the stage / packed stage / ivr runs launched no K7 / K9 on the "
           "runner")
+    check(all(path_counts[k][sp4["wgmma"]] > 0 and
+              (path_counts[k][sp8["wgmma"]] > 0) == (k in ("stage",
+                                                          "cfg5_stage"))
+              for k in ("tail", "block", "stage", "cfg5_stage")),
+          "the tail / block / stage / packed stage runs launched no K4 on "
+          "the two-GEMM tile, or the stage runs no K8 on the runner")
     check(path_counts["mnv1"][s2["stem"]] == 1, "the MobileNet-v1 int8 "
           "stem did not take K2's stem kernel")
     c = path_counts["rn50_int8stem"]
@@ -1168,13 +1195,15 @@ def main() -> int:
           f"{RN50_INT8STEM}: K1 igemm {c[13]}, K2 wgmma {c[s2['wgmma']]} "
           f"and stem {c[s2['stem']]} (want 0, 16 and 1)")
     log("launches by kernel per serving run (K1 int8 + int4; K2; K3; K5; "
-        "K6; K7; K9): "
+        "K6; K7; K9; K4; K8): "
         + "; ".join(f"{k} K1 wgmma {c[12]} + {c[14]}, igemm {c[13]} + "
                     f"{c[15]}; K2 wgmma {c[16]}, stem {c[17]}, igemm "
                     f"{c[18]}; K3 halo {c[19]}, scalar {c[20]}; K5 wgmma "
                     f"{c[21]}, igemm {c[22]}; K6 wgmma {c[23]}, igemm "
                     f"{c[24]}; K7 wgmma {c[25]}, igemm {c[26]}; K9 wgmma "
-                    f"{c[27]}, igemm {c[28]}; pad copies {c[PADS]}"
+                    f"{c[27]}, igemm {c[28]}; K4 wgmma {c[29]}, igemm "
+                    f"{c[30]}; K8 wgmma {c[31]}, igemm {c[32]}; pad copies "
+                    f"{c[PADS]}"
                     for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
     for kern in kernels:
@@ -1335,8 +1364,16 @@ def main() -> int:
                                           cuda_core_ops=dw_ops)[0]
         else:
             H, cmid, cout, cin, s = kern.pop("case")
-            run_k, run_p, run_u, _, _ = fused_case(kind, 128, H, cmid, cout,
-                                                   cin, s)
+            run_k, run_p, run_u, nbytes, ops = fused_case(kind, 128, H, cmid,
+                                                          cout, cin, s)
+            kern["bound_ms_b128"] = bound(nbytes, ops)[0]
+            n0 = k4.qproj_folded.launches_wgmma
+            run_k()
+            kpath = ("wgmma" if k4.qproj_folded.launches_wgmma == n0 + 1
+                     else "igemm")
+
+            def run_o(run_k=run_k):
+                return run_k("igemm")
         # the B = 128 plans (K7's two tiles a unit, the fused modes of the
         # runs that split at B = 8) against the plain version too
         y, _ = compare(f"{kern['name']} B=128", run_k, run_p)
@@ -1344,12 +1381,13 @@ def main() -> int:
               "differs from the unfused sequence at B = 128")
         kern["ms_b128"] = timed(torch, run_k, 10)
         kern["unfused_ms_b128"] = timed(torch, run_u, 10)
-        if run_o is not None:   # K7, K9: the older kernel forced
-            check(torch.equal(run_o(), y) and kpath == kern["chain_path"],
+        if run_o is not None:   # the older kernel forced
+            check(torch.equal(run_o(), y) and kpath == kern.get(
+                "chain_path", kern.get("k4_path")),
                   f"{kern['name']}: the older kernel differs at B = 128, or "
                   f"the dispatch took {kpath}")
             kern["igemm_ms_b128"] = timed(torch, run_o, 10)
-            if kpath == "wgmma":
+            if kpath == "wgmma" and kind in chain_meta:
                 kern["plan_b128"] = (f"{plan.mode}, w {plan.w}, {plan.tm} "
                                      f"tile(s) a unit, {plan.stages} stages")
         del run_k, run_p, run_u, run_o, y
@@ -1383,6 +1421,9 @@ def main() -> int:
         elif "plan" in kern:
             extra += (f"; the older mma.sync kernel {kern['igemm_ms']:.4f} "
                       f"ms; plan: {kern['plan']}")
+        elif "k4_path" in kern:
+            extra += (f"; on {kern['k4_path']}, the older mma.sync kernel "
+                      f"{kern['igemm_ms']:.4f} ms")
         if "unfused_ms" in kern:
             extra += (f"; the unfused K1/K2/K3 sequence "
                       f"{kern['unfused_ms']:.4f} ms")
@@ -1435,14 +1476,18 @@ def profile_forward(what, flat, x, torch):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        fam = ("K8 qstage_proj_fused" if re.search(
+        fam = ("K8 qstage_proj_fused [igemm]" if re.search(
             r"qstage_kernel<\w+, true>", e.key) else
+               "K8 qstage_proj_fused [wgmma]" if re.search(
+                   r"chain_kernel<false, \d+, \d+, false, true>", e.key)
+               else
                "K7 qstage_fused [igemm]" if "qstage_kernel" in e.key else
                "K9 qivr_fused [igemm]" if "qivr_kernel" in e.key else
                "K7 qstage_fused [wgmma]" if "chain_kernel<false" in e.key
                else
                "K9 qivr_fused [wgmma]" if "chain_kernel<true" in e.key else
-               "K4 qproj_fused" if "qproj_kernel" in e.key else
+               "K4 qproj_fused [wgmma]" if "qproj_wg_kernel" in e.key else
+               "K4 qproj_fused [igemm]" if "qproj_kernel" in e.key else
                "K5 qtail_fused [wgmma]" if "tail_wg_kernel<false" in e.key
                else
                "K6 qbottleneck_fused [wgmma]" if "tail_wg_kernel<true" in

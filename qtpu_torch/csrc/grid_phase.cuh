@@ -49,11 +49,13 @@ namespace qtpu {
 // three phases p (conv1 / expand, conv2 / depthwise, conv3 / project)
 // [3p] the operand copies (issue and wait), [3p + 1] the mma.sync loop (the
 // whole depthwise loop for K9's phase 1), [3p + 2] the epilogue; [9] the
-// waits at the grid barrier, [10] the tiles the block ran; the new kernels
-// (wgmma_phase.cuh) their own slots; [15] the block's total.  add(i, c)
-// adds c cycles to slot i; without the flag it compiles to nothing.
+// waits at the grid barrier, [10] the tiles the block ran; K8's projection
+// block the same at [18 + 3p ..] for its phases (conv1, conv2, conv3 +
+// downsample) and [27] its barrier waits; the new kernels (wgmma_phase.cuh)
+// their own slots; [31] the block's total.  add(i, c) adds c cycles to slot
+// i; without the flag it compiles to nothing.
 #ifdef QTPU_PHASE_PROBE
-constexpr int PROBE_SLOTS = 16, PRODUCER_SLOT = 12;
+constexpr int PROBE_SLOTS = 32, PRODUCER_SLOT = 12;
 __device__ long long* qtpu_phase_probe;
 struct PhaseProbe {
   long long v[PROBE_SLOTS], t0;

@@ -79,127 +79,8 @@ struct ConvLoader {
   __device__ __forceinline__ const int8_t* base() const { return x; }
 };
 
-struct ConvShape {
-  int Bn, H, W, Ci, Co, KH, KW, stride, pt, pl, OH, OW, zp;
-};
-
-// ---- the implicit GEMM's x stages: TMA im2col -----------------------------
-
-typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const int*, const int*,
-                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeIm2col from the driver the runtime already loaded.
-EncodeIm2col encode_im2col() {
-  static EncodeIm2col fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeIm2col", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &f, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeIm2col>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Stage kt of the tile at output pixel m0: tap = 64 kt / Ci, channels
-// 64 kt % Ci .. +63, for BM consecutive output pixels.  TMA's im2col mode
-// walks the window corners (ow*s - pl, oh*s - pt) of the bounding box
-// [-pl, (OW-1)*s - pl] x [-pt, (OH-1)*s - pt] of each image at stride s,
-// across rows and images, and loads the pixel at corner + (kw, kh); one
-// outside the image reads 0.
-struct ConvX {
-  const int8_t* x;
-  const int* tapsum;  // (KH*KW, Co) int32; null when zp == 0 or no pads
-  ConvShape s;
-  struct Tile {
-    int w, h, n;
-  };
-  __device__ __forceinline__ Tile tile(int m0) const {
-    const int ow = m0 % s.OW, t = m0 / s.OW;
-    return {ow * s.stride - s.pl, (t % s.OH) * s.stride - s.pt, t / s.OH};
-  }
-  __device__ __forceinline__ void load(void* dst, const CUtensorMap* tm,
-                                       uint64_t* bar, const Tile& t,
-                                       int kt) const {
-    const int k0 = kt * qtpu::wg::BK;
-    const int tap = k0 / s.Ci;
-    const int kh = tap / s.KW;
-    qtpu::wg::tma_load_im2col(dst, tm, bar, k0 - tap * s.Ci, t.w, t.h, t.n,
-                              tap - kh * s.KW, kh);
-  }
-  // The zero-point term of the taps the zero fill dropped, on the thread's
-  // two rows of its warpgroup's 64-row slab at m_base (wgmma's fragment:
-  // acc[4j + 2h + e] is row 16 warp + lane / 4 + 8h, column 8j + 2 (lane %
-  // 4) + e).  Rows whose window lies inside the image skip it.
-  template <int BN>
-  __device__ __forceinline__ void fix(int (&acc)[BN / 2], int M, int N,
-                                      int m_base, int n0, int tw) const {
-    if (s.zp == 0 || tapsum == nullptr) return;
-    const int lane = tw & 31;
-    const int r0 = (tw >> 5) * 16 + (lane >> 2);
-    const int cq = 2 * (lane & 3);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m_base + r0 + 8 * h;
-      if (m >= M) continue;
-      const int ow = m % s.OW, oh = (m / s.OW) % s.OH;
-      const int ih = oh * s.stride - s.pt, iw = ow * s.stride - s.pl;
-      const int h0 = ih < 0 ? -ih : 0;
-      const int h1 = s.H - ih < s.KH ? s.H - ih : s.KH;
-      const int w0 = iw < 0 ? -iw : 0;
-      const int w1 = s.W - iw < s.KW ? s.W - iw : s.KW;
-      if (h0 == 0 && h1 == s.KH && w0 == 0 && w1 == s.KW) continue;
-      for (int kh = 0; kh < s.KH; ++kh) {
-        const bool row_in = kh >= h0 && kh < h1;
-        for (int kw = 0; kw < s.KW; ++kw) {
-          if (row_in && kw >= w0 && kw < w1) continue;
-          const int* ts = tapsum + (kh * s.KW + kw) * N + n0 + cq;
-#pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            if (n0 + 8 * j + cq < N) {
-              const int2 v = __ldg(reinterpret_cast<const int2*>(ts + 8 * j));
-              acc[4 * j + 2 * h] += s.zp * v.x;
-              acc[4 * j + 2 * h + 1] += s.zp * v.y;
-            }
-          }
-        }
-      }
-    }
-  }
-  bool encode(CUtensorMap* tm, int BM) const {
-    const EncodeIm2col enc = encode_im2col();
-    if (!enc) return false;
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(s.Ci),
-                                static_cast<cuuint64_t>(s.W),
-                                static_cast<cuuint64_t>(s.H),
-                                static_cast<cuuint64_t>(s.Bn)};
-    const cuuint64_t strides[3] = {
-        static_cast<cuuint64_t>(s.Ci),
-        static_cast<cuuint64_t>(s.W) * s.Ci,
-        static_cast<cuuint64_t>(s.H) * s.W * s.Ci};
-    const int lower[2] = {-s.pl, -s.pt};
-    const int upper[2] = {(s.OW - 1) * s.stride - s.pl - (s.W - 1),
-                          (s.OH - 1) * s.stride - s.pt - (s.H - 1)};
-    const cuuint32_t es[4] = {1, static_cast<cuuint32_t>(s.stride),
-                              static_cast<cuuint32_t>(s.stride), 1};
-    return enc(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(x),
-               dims, strides, lower, upper, qtpu::wg::BK, BM, es,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  }
-};
+using qtpu::wg::ConvShape;
+using qtpu::wg::ConvX;
 
 // ---- the stem kernel (Ci = 3) ------------------------------------------------
 

@@ -75,10 +75,11 @@ struct StageParams {
 
 // conv3 + downsample of the projection block, per tile: the downsample's
 // f32 dequant in registers, then conv3's accumulator and K1's f32-residual
-// epilogue (qproj.cu's order).
+// epilogue (qproj.cu's order).  In a probe build, both mainloops' copies
+// and mma.sync go to slots 24 and 25, the dequant and the epilogue to 26.
 template <bool VEC>
 __device__ void proj_phase(const StageParams& p, const float* s,
-                           int8_t* dst, PhaseSmem sm) {
+                           int8_t* dst, PhaseSmem sm, qtpu::PhaseProbe& pr) {
   typedef qtpu::PhaseTile T;
   const Proj& q = p.proj;
   const int N = p.chain.Cin;
@@ -91,11 +92,21 @@ __device__ void proj_phase(const StageParams& p, const float* s,
     const int m0 = t / tn * T::BM, n0 = t % tn * T::BN;
     int acc[T::MT][T::NT][4];
     float td[T::MT][T::NT][4];
+#ifdef QTPU_PHASE_PROBE
+    long long lp[3] = {0, 0, 0};
+#else
+    long long* lp = nullptr;
+#endif
     {
       qtpu::PhaseA<T, VEC, Rows1x1> a(xs, sm.As, p.M, m0);
       qtpu::StagedB<T, VEC> b(q.wd, sm.Bs, N, q.Cp, n0);
-      qtpu::mainloop<T>(a, b, q.Cp, acc);
+      qtpu::mainloop<T>(a, b, q.Cp, acc, lp);
     }
+#ifdef QTPU_PHASE_PROBE
+    pr.add(24, lp[0] + lp[1]);
+    pr.add(25, lp[2]);
+    long long te = clock64();
+#endif
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -108,11 +119,19 @@ __device__ void proj_phase(const StageParams& p, const float* s,
             td[i][j][2 * h + e] = qtpu::ep_affine(
                 acc[i][j][2 * h + e], __ldg(q.ad + n), __ldg(q.bd + n));
           }
+#ifdef QTPU_PHASE_PROBE
+    pr.add(26, clock64() - te);
+#endif
     {
       qtpu::PhaseA<T, VEC, Rows1x1> a(bs, sm.As, p.M, m0);
       qtpu::StagedB<T, VEC> b(q.w3, sm.Bs, N, q.Cm, n0);
-      qtpu::mainloop<T>(a, b, q.Cm, acc);
+      qtpu::mainloop<T>(a, b, q.Cm, acc, lp);
     }
+#ifdef QTPU_PHASE_PROBE
+    pr.add(24, lp[0] + lp[1]);
+    pr.add(25, lp[2]);
+    te = clock64();
+#endif
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -132,7 +151,13 @@ __device__ void proj_phase(const StageParams& p, const float* s,
                                                                 shift);
           }
       }
+#ifdef QTPU_PHASE_PROBE
+    pr.add(26, clock64() - te);
+    pr.add(10, 1);
+#endif
+    (void)lp;
   }
+  (void)pr;
 }
 
 template <bool VEC, bool PROJ>
@@ -153,24 +178,31 @@ __global__ void __launch_bounds__(qtpu::PHASE_THREADS)
   int w = 0;
   const int8_t* x = p.x;
   if (PROJ) {
+    // probe slots: the projection's phases at 18 + 3 ph (conv1, conv2,
+    // conv3 + downsample), its barriers at 27
+    auto proj_barrier = [&] {
+      const long long t = PHASE_CLOCK();
+      qtpu::grid_barrier(p.bar);
+      pr.add(27, PHASE_CLOCK() - t);
+    };
     const Proj& q = p.proj;
     float s[NSCAL];
 #pragma unroll
     for (int k = 0; k < NSCAL; ++k) s[k] = __ldg(q.scal + k);
     qtpu::gemm_phase<VEC>(Rows1x1{p.x, q.Cp}, q.w1, p.M, q.Cm, q.Cp,
                           Requant{p.a, q.a1, q.b1, s[0], s[1], s[2], q.Cm},
-                          sm);
-    qtpu::grid_barrier(p.bar);
+                          sm, &pr, 6);
+    proj_barrier();
     qtpu::gemm_phase<VEC>(
         Taps3x3{p.a, q.Cm, p.H, p.W, static_cast<int>(s[10])}, q.w2, p.M,
         q.Cm, 9 * q.Cm, Requant{p.b, q.a2, q.b2, s[3], s[4], s[5], q.Cm},
-        sm);
-    qtpu::grid_barrier(p.bar);
+        sm, &pr, 7);
+    proj_barrier();
     int8_t* dst = (writes - 1 - w) & 1 ? p.tmp : p.out;
-    proj_phase<VEC>(p, s, dst, sm);
+    proj_phase<VEC>(p, s, dst, sm, pr);
     ++w;
     x = dst;
-    if (c.nblk > 0) qtpu::grid_barrier(p.bar);
+    if (c.nblk > 0) proj_barrier();
   }
   for (int i = 0; i < c.nblk; ++i, ++w) {
     float s[NSCAL];

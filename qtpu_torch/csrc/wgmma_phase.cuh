@@ -110,6 +110,10 @@ enum Map {
   M_A2, M_A4,            // workspace a / e: (M, Cm) w x 64; NHWC halo
   M_B2, M_B4,            // split: workspace b, 64 x 128; NHWC w x 8 x 8
   M_W1, M_W2, M_W3,      // weights stacked per block, (rows, K) 64 x n
+  // K8's projection block: x (M, Cp) 64 x 128; conv1 (Cm, Cp) 64 x w,
+  // conv2 (Cm, 9 Cm) 64 x w, conv3 (C, Cm) and the downsample (C, Cp)
+  // 64 x 128
+  M_XP2, M_WP1, M_WP2, M_WP3, M_WD,
   NMAPS
 };
 struct Maps {
@@ -125,27 +129,39 @@ struct Chain {
   unsigned* bar;
   int nblk, Bn, H, W, M, C, Cm;  // C: K7's Cin, K9's C; Cm: Cmid, E
   int mode, w, tm, stages, nres;
+  // K8's projection block (Cm = the chain's Cmid, its output C channels):
+  // conv1's, conv2's (Cm) and conv3's (C) rows, the downsample's Ad, Bd (C)
+  // and its NSCAL scalars (C3 = 1 / next scale); Cp its input channels
+  const float *pa1, *pb1, *pa2, *pb2, *pa3, *pb3, *pad, *pbd, *pscal;
+  int Cp;
 };
 
 __host__ __device__ constexpr int up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
 // Shared-memory offsets of a block (from a 1024-aligned base);
 // ops/chain_plan.py: phase_smem_bytes computes the same total, and the host
 // entry refuses a plan where they differ.  The ring, four output slabs,
 // nres x tm residual slabs, K7's halo (tm tiles), the fused modes' mid (K7
 // tm tiles of 64 x Cmid, K9 64 x E padded to 64), K1's A, B rows, phase
-// B's A, B rows, the mbarriers.
+// B's A, B rows, the mbarriers.  K8 (proj) lays its projection's td tile
+// (128 x 128 f32, the two-GEMM tile's residual) over the residual slabs,
+// the halo and mid, which its phase P2 does not use, and extends that
+// region to the td tile's size where it is smaller.
+constexpr int TD_BYTES = 128 * 128 * 4;
 struct Layout {
   int obuf, res, halo, mid, coef_a, coef_b, bars, total;
   __host__ __device__ Layout(bool ivr, bool split, int c, int cm, int tm,
-                             int stages, int nres)
+                             int stages, int nres, bool proj = false)
       : obuf(stages * STAGE),
         res(obuf + 4 * SLAB),
         halo(res + nres * tm * SLAB),
         mid(halo + (ivr ? 0 : tm * (cm / 16) * CHP)),
-        coef_a(mid + (split ? 0 : tm * 64 * (ivr ? up(cm, 64) : cm))),
+        coef_a(imax(mid + (split ? 0 : tm * 64 * (ivr ? up(cm, 64) : cm)),
+                   proj ? res + TD_BYTES : 0)),
         coef_b(coef_a + COEF_A),
         bars(coef_b + 8 * (ivr ? up(cm, 64) + up(c, 128) : cm + c)),
         total(1024 + bars + BAR_BYTES) {}
@@ -597,15 +613,16 @@ __device__ void halo_consume(Ctx& x, Slot& hb, int t0, int zp) {
 }
 
 // conv2's weight stages of one W2-wide pass at channel np (k2p stages:
-// with KSPLIT a zero stage past w2's rows pads them to pairs).
+// with KSPLIT a zero stage past w2's rows pads them to pairs), from map
+// wmap (the chain's stacked w2; K8's projection conv2).
 template <int W2, bool KSPLIT>
 __device__ void conv2_produce(Ctx& x, PRing& ring, int row0, int np,
-                              int kt0 = 0) {
+                              int kt0 = 0, int wmap = M_W2) {
   const int k2t = 9 * x.p.Cm / 64, k2p = KSPLIT ? (k2t + 1) & ~1 : k2t;
   for (int kt = kt0; kt < k2p; ++kt) {
     uint64_t* bar;
     uint8_t* st = ring.take(W2 * 64, bar);
-    tma_load(st, &x.maps.m[M_W2], bar, 64 * kt, row0 + np);
+    tma_load(st, &x.maps.m[wmap], bar, 64 * kt, row0 + np);
   }
 }
 
@@ -613,7 +630,7 @@ __device__ void conv2_produce(Ctx& x, PRing& ring, int row0, int np,
 // the barrier (the halo, after it, lies outside the ring).
 template <int W2, bool KSPLIT>
 __device__ void conv2_prefetch(Ctx& x, PRing& ring, Pre& pre, int units,
-                               int row0, int np) {
+                               int row0, int np, int wmap = M_W2) {
   const int k2t = 9 * x.p.Cm / 64, k2p = KSPLIT ? (k2t + 1) & ~1 : k2t;
   pre.n = 0;
   if (static_cast<int>(blockIdx.x) >= units) return;
@@ -621,7 +638,7 @@ __device__ void conv2_prefetch(Ctx& x, PRing& ring, Pre& pre, int units,
        ++pre.n) {
     uint64_t* bar;
     uint8_t* st = ring.take(W2 * 64, bar);
-    tma_load(st, &x.maps.m[M_W2], bar, 64 * pre.n, row0 + np);
+    tma_load(st, &x.maps.m[wmap], bar, 64 * pre.n, row0 + np);
   }
 }
 
@@ -837,17 +854,19 @@ __device__ void tail_consume(Ctx& x, CRing& ring, Res& rr, Slot& hb,
   if (storer) bulk_wait_all();
 }
 
-// Split mode's conv2: units (8 x 8 tile, W2-wide pass), conv2's codes into
-// workspace b (NHWC, W2 x 8 x 8 boxes).
+// Split mode's conv2 (and K8's projection conv2, phase P1, from map wmap):
+// units (8 x 8 tile, W2-wide pass), conv2's codes into workspace b (NHWC,
+// W2 x 8 x 8 boxes).
 template <int W2>
 __device__ void conv2_units_produce(Ctx& x, PRing& ring, Slot& hb, Pre& pre,
-                                    int i) {
+                                    int i, int wmap = M_W2) {
   const Chain& p = x.p;
   const int tiles = p.Bn * ((p.H + 7) / 8) * ((p.W + 7) / 8);
   const int npass = p.Cm / W2;
   for (int u = blockIdx.x; u < tiles * npass; u += gridDim.x) {
     halo_produce<1>(x, hb, u / npass);
-    conv2_produce<W2, W2 == 64>(x, ring, i * p.Cm, u % npass * W2, pre.n);
+    conv2_produce<W2, W2 == 64>(x, ring, i * p.Cm, u % npass * W2, pre.n,
+                                wmap);
     pre.n = 0;
   }
 }
@@ -897,6 +916,199 @@ __device__ void conv2_units_consume(Ctx& x, CRing& ring, Slot& hb, int& oc,
     ring.pr->add(10, 1);
   }
   if (x.tid == 0) bulk_wait_all();
+}
+
+// K8's projection conv2 (phase P1) where a unit of the plan holds two 8 x 8
+// tiles (its halo buffer two tiles): units (tile pair, W2-wide pass), each
+// consumer warpgroup conv2 of its own tile over the whole K from its own
+// halo, both on the same weight stages (no K split, no reduction), its
+// codes into workspace b (NHWC, W2 x 8 x 8 boxes) by its own TMA store.
+template <int W2>
+__device__ void conv2_pairs_produce(Ctx& x, PRing& ring, Slot& hb, Pre& pre,
+                                    int wmap) {
+  const Chain& p = x.p;
+  const int tiles = p.Bn * ((p.H + 7) / 8) * ((p.W + 7) / 8);
+  const int npass = p.Cm / W2;
+  for (int u = blockIdx.x; u < (tiles + 1) / 2 * npass; u += gridDim.x) {
+    halo_produce<2>(x, hb, u / npass * 2);
+    conv2_produce<W2, false>(x, ring, 0, u % npass * W2, pre.n, wmap);
+    pre.n = 0;
+  }
+}
+
+template <int W2>
+__device__ void conv2_pairs_consume(Ctx& x, CRing& ring, Slot& hb,
+                                    const Epilogue& ep2, int zp) {
+  const Chain& p = x.p;
+  const int tiles = p.Bn * ((p.H + 7) / 8) * ((p.W + 7) / 8);
+  const int npass = p.Cm / W2, k2t = 9 * p.Cm / 64;
+  constexpr uint32_t K32_HALO = 2 * CHP >> 4;  // the next 32 channels
+  const float* sA2 = reinterpret_cast<const float*>(x.smem + x.L.coef_b);
+  const float* sB2 = sA2 + p.Cm;
+  uint8_t* my_halo = x.smem + x.L.halo + x.wg * (p.Cm / 16) * CHP;
+  int par = 0;
+  for (int u = blockIdx.x; u < (tiles + 1) / 2 * npass; u += gridDim.x,
+           par ^= 1) {
+    const int t = u / npass * 2 + x.wg, np = u % npass * W2;
+    const Tile8 my(p.H, p.W, t);
+    const long long c0 = PHASE_CLOCK();
+    halo_consume<2>(x, hb, u / npass * 2, zp);
+    int acc[W2 / 2];
+#pragma unroll
+    for (int k = 0; k < W2 / 2; ++k) acc[k] = 0;
+    wt::HaloWalk hw{smem_u32(my_halo), p.Cm / 64, 0, 0, 0};
+    for (int kt = 0; kt < k2t; ++kt) {
+      uint8_t* st = ring.wait();
+      const uint64_t da = hw.desc();
+      hw.advance(1);
+      const uint64_t db = desc_sw64(st);
+      wgmma_fence();
+      wgmma_n<W2>(acc, da, db);
+      wgmma_n<W2>(acc, da + K32_HALO, db + 2);
+      ring.done(x.lane);
+    }
+    ring.drain(x.lane);
+    if (x.lane == 0) mbar_arrive(x.halo_empty);
+    // the slab's last store has read it
+    if (x.tw == 0) bulk_wait_read<1>();
+    named_bar(4 + x.wg, 128);
+    uint8_t* cs = x.smem + x.L.obuf + (2 * x.wg + par) * SLAB;
+    fill_slab<W2, W2, false>(acc, ep2, sA2 + np, sB2 + np, nullptr, cs, 0,
+                             x.tw);
+    fence_async_smem();
+    named_bar(4 + x.wg, 128);
+    if (x.tw == 0 && t < tiles) {
+      tma_store4(&x.maps.m[M_B4], cs, np, my.tx0, my.ty0, my.b);
+      bulk_commit();
+    }
+    ring.pr->add(11, PHASE_CLOCK() - c0);
+    ring.pr->add(10, 1);
+  }
+  if (x.tw == 0) bulk_wait_all();
+}
+
+// ---- K8's phase P2: the projection's conv3 + downsample ---------------------
+
+// The two-GEMM tile (wgmma_gemm.cuh: td_slab) on K1's 128 x 128 tiles of the
+// (M, C) output: per tile the downsample's k-stages (x's rows, map M_XP2,
+// and wd's, M_WD), then conv3's (workspace b's rows, M_B2, and w3's,
+// M_WP3).  The first tile's x stages go into the stages `pre` armed before
+// the barrier (gemm_prefetch of wd).
+__device__ void proj_produce(Ctx& x, PRing& ring, Pre& pre) {
+  const Chain& p = x.p;
+  const int ntn = p.C / 128;
+  const int tiles = (p.M + 127) / 128 * ntn;
+  const int kd = p.Cp / 64, k3 = p.Cm / 64;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / ntn * 128, n0 = t % ntn * 128;
+    for (int kt = 0; kt < pre.n; ++kt)
+      tma_load(pre.st[kt], &x.maps.m[M_XP2], pre.bar[kt], kt * 64, m0);
+    const int kt0 = pre.n;
+    pre.n = 0;
+    for (int kt = kt0; kt < kd + k3; ++kt) {  // x's stage, then w's
+      const bool down = kt < kd;
+      const int k = down ? kt : kt - kd;
+      uint64_t* bar;
+      uint8_t* st = ring.take(XBYTES, bar);
+      tma_load(st, &x.maps.m[down ? M_XP2 : M_B2], bar, k * 64, m0);
+      st = ring.take(128 * 64, bar);
+      tma_load(st, &x.maps.m[down ? M_WD : M_WP3], bar, k * 64, n0);
+    }
+  }
+}
+
+// The epilogue of warpgroup wg's 64 x 128 output slab (fill_slab's layout)
+// with the f32 residual td from the two-GEMM tile's residual tile `td`.
+__device__ __forceinline__ void fill_td(const int (&acc)[64],
+                                        const Epilogue& ep, const float* sA,
+                                        const float* sB, const uint8_t* td,
+                                        uint8_t* cs, int wg, int tw) {
+  const int lane = tw & 31;
+  const int r0 = (tw >> 5) * 16 + (lane >> 2);
+  const unsigned flip = ep.shift != 0.f ? 0x8080u : 0u;  // - shift, mod 256
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    const float2 a = *reinterpret_cast<const float2*>(sA + c);
+    const float2 b = *reinterpret_cast<const float2*>(sB + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float2 q = *reinterpret_cast<const float2*>(
+          wg::res_at<128, 128, 4>(td, wg, r, c));
+      *reinterpret_cast<unsigned short*>(cs + swz<128>(r * 128 + c)) =
+          code_pair(ep,
+                    ep_pair<true>(ep, acc[4 * j + 2 * h],
+                                  acc[4 * j + 2 * h + 1], a, b, q),
+                    flip);
+    }
+  }
+}
+
+// n k-steps of K1's tile (an x stage and a w stage each) into acc, zeroed
+// first; every stage freed.
+__device__ __forceinline__ void proj_product(Ctx& x, CRing& ring,
+                                             int (&acc)[64], int n) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int kt = 0; kt < n; ++kt) {
+    uint8_t* sx = ring.wait(0);
+    uint8_t* sw = ring.wait(1);
+    const uint64_t da = desc_sw64(sx + x.wg * 64 * 64);
+    const uint64_t db = desc_sw64(sw);
+    wgmma_fence();
+    wgmma_tile<128>(acc, da, db, 1);
+    wgmma_tile<128>(acc, da + 2, db + 2, 1);  // k + 32: 32 bytes on
+    ring.done(x.lane, 2);
+  }
+  ring.drain(x.lane);
+}
+
+// The consumers' side: accumulate the downsample, write td (Ad, Bd from
+// coef_b, loaded for all C columns at the phase's start) into the td tile
+// at L.res, run conv3 into the same registers, and requant with td as the
+// f32 residual (C3 = ep.C) into the output slabs, stored by TMA to map
+// `outmap` (128 x 64 boxes).
+__device__ void proj_consume(Ctx& x, CRing& ring, const Epilogue& ep,
+                             int outmap) {
+  const Chain& p = x.p;
+  const int ntn = p.C / 128;
+  const int tiles = (p.M + 127) / 128 * ntn;
+  const int kd = p.Cp / 64, k3 = p.Cm / 64;
+  float* sA = reinterpret_cast<float*>(x.smem + x.L.coef_a) + x.wg * 256;
+  float* sB = sA + 128;
+  const float* sAd = reinterpret_cast<const float*>(x.smem + x.L.coef_b);
+  const float* sBd = sAd + p.C;
+  uint8_t* td = x.smem + x.L.res;
+  int ab_n0 = -1, par = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, par ^= 1) {
+    uint8_t* cs = x.smem + x.L.obuf + (2 * x.wg + par) * SLAB;
+    const int m0 = t / ntn * 128, n0 = t % ntn * 128;
+    int acc[64];
+    proj_product(x, ring, acc, kd);
+    wg::td_slab<128, 128>(acc, sAd + n0, sBd + n0, td, x.wg, x.tw);
+    proj_product(x, ring, acc, k3);
+    const long long c0 = PHASE_CLOCK();
+    // the slab's last store has read it; A, B rows in while the tile
+    // column stays
+    if (x.tw == 0) bulk_wait_read<1>();
+    if (n0 != ab_n0) {
+      sA[x.tw] = ep.A[n0 + x.tw];
+      sB[x.tw] = ep.B[n0 + x.tw];
+      ab_n0 = n0;
+    }
+    named_bar(4 + x.wg, 128);
+    fill_td(acc, ep, sA, sB, td, cs, x.wg, x.tw);
+    fence_async_smem();
+    named_bar(4 + x.wg, 128);
+    const int m = m0 + 64 * x.wg;
+    if (x.tw == 0 && m < p.M) {
+      tma_store(&x.maps.m[outmap], cs, n0, m);
+      bulk_commit();
+    }
+    ring.pr->add(ring.sw + 2, PHASE_CLOCK() - c0);
+  }
+  if (x.tw == 0) bulk_wait_all();
 }
 
 // ---- K9's phase B: the depthwise + project tile -----------------------------
@@ -1169,15 +1381,23 @@ __device__ void dw_units_consume(Ctx& x, CRing& ring, int& oc,
 struct BlockEp {
   Epilogue e1, e2, e3;
   int zp;
-  __device__ BlockEp(const Chain& p, int i) {
+  __device__ BlockEp(const Chain& p, int i)
+      : BlockEp(p.a1 + static_cast<size_t>(i) * p.Cm,
+                p.b1 + static_cast<size_t>(i) * p.Cm,
+                p.a2 + static_cast<size_t>(i) * p.Cm,
+                p.b2 + static_cast<size_t>(i) * p.Cm,
+                p.a3 + static_cast<size_t>(i) * p.C,
+                p.b3 + static_cast<size_t>(i) * p.C, p.scal + i * NSCAL) {}
+  // one block's rows and scalars (K8: its projection block's)
+  __device__ BlockEp(const float* a1, const float* b1, const float* a2,
+                     const float* b2, const float* a3, const float* b3,
+                     const float* scal) {
     float s[NSCAL];
 #pragma unroll
-    for (int k = 0; k < NSCAL; ++k) s[k] = __ldg(p.scal + i * NSCAL + k);
-    const size_t cm = static_cast<size_t>(i) * p.Cm;
-    const size_t c = static_cast<size_t>(i) * p.C;
-    e1 = requant(p.a1 + cm, p.b1 + cm, 0.f, s[0], s[1], s[2]);
-    e2 = requant(p.a2 + cm, p.b2 + cm, 0.f, s[3], s[4], s[5]);
-    e3 = requant(p.a3 + c, p.b3 + c, s[9], s[6], s[7], s[8]);
+    for (int k = 0; k < NSCAL; ++k) s[k] = __ldg(scal + k);
+    e1 = requant(a1, b1, 0.f, s[0], s[1], s[2]);
+    e2 = requant(a2, b2, 0.f, s[3], s[4], s[5]);
+    e3 = requant(a3, b3, s[9], s[6], s[7], s[8]);
     zp = static_cast<int>(s[10]);
   }
   // an int8 requant (the residual and the output go through tensor maps)
@@ -1213,9 +1433,12 @@ __device__ void load_coef_b(Ctx& x, const BlockEp& be) {
 }
 
 // The maps of block i's input and output: the inputs alternate between the
-// output and tmp so that the last block writes the output.
-__device__ __forceinline__ int in_of(const Chain& p, int i) {
-  return i == 0 ? 0 : ((p.nblk - i) & 1 ? 1 : 2);
+// output and tmp so that the last block writes the output.  With K8's
+// projection block first (proj), block 0 reads what it wrote, at
+// out_of(p, -1).
+__device__ __forceinline__ int in_of(const Chain& p, int i,
+                                     bool proj = false) {
+  return i == 0 && !proj ? 0 : ((p.nblk - i) & 1 ? 1 : 2);
 }
 __device__ __forceinline__ int out_of(const Chain& p, int i) {
   return (p.nblk - 1 - i) & 1 ? 1 : 2;
@@ -1223,15 +1446,18 @@ __device__ __forceinline__ int out_of(const Chain& p, int i) {
 
 // IVR: K9 (w = 64, one tile a unit; NARROW: C-byte rows that are no TMA
 // tensor, RawRows); else K7 with conv1's tile width and conv2's pass width
-// W, TM tiles a unit of the fused phase B.
-template <bool IVR, int W, int TM, bool NARROW = false>
+// W, TM tiles a unit of the fused phase B; PROJ: K8, K7's chain behind the
+// projection block's three phases (an instantiation of its own, so that
+// K7's and K9's hold no code of it).
+template <bool IVR, int W, int TM, bool NARROW = false, bool PROJ = false>
 __global__ void __launch_bounds__(NTHREADS, 1)
     chain_kernel(const __grid_constant__ Maps maps,
                  const __grid_constant__ Chain p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const Layout L(IVR, p.mode == SPLIT, p.C, p.Cm, TM, p.stages, p.nres);
+  const Layout L(IVR, p.mode == SPLIT, p.C, p.Cm, TM, p.stages, p.nres,
+                 PROJ);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + MAX_ST;
   uint64_t* res_full = empty + MAX_ST;
@@ -1274,9 +1500,74 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // split mode's conv3 / project tile width (K9's C is at most 160)
   constexpr int N3T = IVR ? 64 : 128;
   const int tiles8 = p.Bn * ((p.H + 7) / 8) * ((p.W + 7) / 8);
+  if constexpr (PROJ) {
+    // K8's projection block: P0 conv1 (K1's tile) onto workspace a, P1
+    // conv2 (split mode's units; with two tiles a unit, a tile a
+    // warpgroup) onto workspace b, P2 conv3 + downsample (the two-GEMM
+    // tile) onto block 0's input
+    const BlockEp pe(p.pa1, p.pb1, p.pa2, p.pb2, p.pa3, p.pb3, p.pscal);
+    const int pout = in_of(p, 0, true);
+    for (int ph = 0; ph < 3; ++ph) {
+      const long long c0 = PHASE_CLOCK();
+      if (tid < NCONS) {
+        cring.sw = 20;  // the probe's slots of P0 and P2's k-loops
+        cring.sm = 21;
+        if (ph == 0) {
+          gemm_consume<W, false>(x, cring, rr, p.M, p.Cm, p.Cp, pe.e1, M_A2);
+        } else if (ph == 1) {
+          load_coef_b<false>(x, pe);
+          if constexpr (TM == 2)
+            conv2_pairs_consume<W>(x, cring, hb, pe.e2, pe.zp);
+          else
+            conv2_units_consume<W>(x, cring, hb, oc, pe.e2, pe.zp);
+        } else {
+          // Ad, Bd of every column into coef_b (conv2's rows are done)
+          float* s = reinterpret_cast<float*>(smem + L.coef_b);
+          for (int k = tid; k < p.C; k += NCONS) {
+            s[k] = __ldg(p.pad + k);
+            s[p.C + k] = __ldg(p.pbd + k);
+          }
+          named_bar(1, NCONS);
+          proj_consume(x, cring, pe.e3, M_XR + pout);
+        }
+      } else if (tid == NCONS) {
+        if (ph == 0)
+          gemm_produce<W, false>(x, pring, rr, pre, p.M, p.Cm, p.Cp, M_XP2,
+                                 M_WP1, 0, 0);
+        else if (ph == 1 && TM == 2)
+          conv2_pairs_produce<W>(x, pring, hb, pre, M_WP2);
+        else if (ph == 1)
+          conv2_units_produce<W>(x, pring, hb, pre, 0, M_WP2);
+        else
+          proj_produce(x, pring, pre);
+        // the next phase's first weight stages, before the barrier
+        if (ph == 0 && TM == 2)
+          conv2_prefetch<W, false>(x, pring, pre,
+                                   (tiles8 + 1) / 2 * (p.Cm / W), 0,
+                                   blockIdx.x % (p.Cm / W) * W, M_WP2);
+        else if (ph == 0)
+          conv2_prefetch<W, W == 64>(x, pring, pre, tiles8 * (p.Cm / W), 0,
+                                     blockIdx.x % (p.Cm / W) * W, M_WP2);
+        else if (ph == 1)
+          gemm_prefetch<128>(pring, pre, &maps.m[M_WD], p.M, p.C, p.Cp, 0,
+                             nullptr);
+        else
+          gemm_prefetch<W>(pring, pre, &maps.m[M_W1], p.M, p.Cm, p.C, 0,
+                           nullptr);
+      }
+      pr.add(16 + ph, PHASE_CLOCK() - c0);
+      // as the chain's barriers below: the phase's stores complete and
+      // ordered before it, the producer's loads after it
+      const long long c1 = PHASE_CLOCK();
+      if (tid < NCONS && (tid & 127) == 0) fence_proxy_global();
+      grid_barrier(p.bar);
+      if (tid == NCONS) fence_proxy_global();
+      pr.add(19, PHASE_CLOCK() - c1);
+    }
+  }
   for (int i = 0; i < p.nblk; ++i) {
     const BlockEp be(p, i);
-    const int in = in_of(p, i), out = out_of(p, i);
+    const int in = in_of(p, i, PROJ), out = out_of(p, i);
     for (int ph = 0; ph < nph; ++ph) {
       if (tid < NCONS) {
         cring.sw = ph == 1 ? 6 : 0;  // the probe's slots of the phase
@@ -1333,7 +1624,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         // after it
         const int ni = ph + 1 < nph ? i : i + 1, nph_ = (ph + 1) % nph;
         if (tid == NCONS) {
-          const Narrow nw{p.act[in_of(p, ni)], p.w1, p.nblk * p.Cm};
+          const Narrow nw{p.act[in_of(p, ni, PROJ)], p.w1, p.nblk * p.Cm};
           if (nph_ == 0)
             gemm_prefetch<W>(pring, pre, &maps.m[M_W1], p.M, p.Cm, p.C,
                              ni * p.Cm, narrow ? &nw : nullptr);
@@ -1370,7 +1661,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // The tensors of a launch.
 struct Tensors {
   const void *x, *w1, *w2, *w3;
-  void *out, *tmp, *a, *b;  // tmp: null for one block; b: split mode's
+  void *out, *tmp, *a, *b;  // tmp: null for one block; b: split mode's, K8's
+  // K8: the projection block's input (M, Cp) and weights (x is then null)
+  const void *xp = nullptr, *wp1 = nullptr, *wp2 = nullptr, *wp3 = nullptr,
+             *wd = nullptr;
 };
 
 // A (n, h, row) byte tensor, boxes of (1, bh, bw) bytes, no swizzle.
@@ -1423,20 +1717,26 @@ inline bool encode_maps(Maps& mp, const Chain& p, const Tensors& t,
        byte_map(&mp.m[M_W3], t.w3, rows_w3, p.Cm, 64,
                 ivr && p.mode == SPLIT ? 64 : 128, SW64) &&
        (ivr || byte_map(&mp.m[M_W2], t.w2, rows_w1, 9 * p.Cm, 64, p.w, SW64));
-  if (ok && p.mode == SPLIT)
+  if (ok && (p.mode == SPLIT || t.xp))
     ok = byte_map(&mp.m[M_B2], t.b, p.M, p.Cm, 64, 128, SW64) &&
          nhwc_map(&mp.m[M_B4], t.b, p.Bn, p.H, p.W, p.Cm, p.w, 8, 8,
                   wg::swizzle_of(p.w));
+  if (ok && t.xp)  // K8's projection block
+    ok = byte_map(&mp.m[M_XP2], t.xp, p.M, p.Cp, 64, 128, SW64) &&
+         byte_map(&mp.m[M_WP1], t.wp1, p.Cm, p.Cp, 64, p.w, SW64) &&
+         byte_map(&mp.m[M_WP2], t.wp2, p.Cm, 9 * p.Cm, 64, p.w, SW64) &&
+         byte_map(&mp.m[M_WP3], t.wp3, p.C, p.Cm, 64, 128, SW64) &&
+         byte_map(&mp.m[M_WD], t.wd, p.C, p.Cp, 64, 128, SW64);
   return ok;
 }
 
 // One launch of a plan (ops/chain_plan.py): `smem` its bytes, checked
 // against Layout; `grid` the blocks it asks for, capped at what the card
 // holds at once with that much shared memory.
-template <bool IVR, int W, int TM, bool NARROW = false>
+template <bool IVR, int W, int TM, bool NARROW = false, bool PROJ = false>
 cudaError_t launch_kernel(const Maps& mp, const Chain& p, int smem,
                           int grid, cudaStream_t stream) {
-  void (*kernel)(Maps, Chain) = chain_kernel<IVR, W, TM, NARROW>;
+  void (*kernel)(Maps, Chain) = chain_kernel<IVR, W, TM, NARROW, PROJ>;
   // the opt-in above 48 KB is an attribute of the current device: set it at
   // every launch (cheap next to a cooperative launch), so that any device
   // of a process takes the runner

@@ -8,7 +8,7 @@ together).  The library name carries a digest of the sources and flags, so
 a stale build is never loaded; the build directory is git-ignored.  A
 variant built with extra ``-D`` defines (the clock64 probes of
 ``ops/probe_k1.py``, ``ops/probe_k2.py``, ``ops/probe_tail.py`` and
-``ops/probe_chain.py``) gets a
+``ops/probe_chain.py``, ``ops/probe_k4.py``) gets a
 library of its own.
 """
 from __future__ import annotations
@@ -29,7 +29,8 @@ SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qdepthwise": "qdepthwise.cu", "qproj": "qproj.cu",
            "qtail": "qtail.cu", "qblock": "qblock.cu",
            "qstage": "qstage.cu", "qivr": "qivr.cu",
-           "qstage_wg": "qstage_wg.cu", "qivr_wg": "qivr_wg.cu"}
+           "qstage_wg": "qstage_wg.cu", "qivr_wg": "qivr_wg.cu",
+           "qstage_proj_wg": "qstage_proj_wg.cu"}
 HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "fused_tail.cuh",
            "wgmma_tail.cuh", "grid_phase.cuh", "wgmma_phase.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,17 +1,18 @@
-"""Where K7 (qstage) and K9 (qivr) spend their cycles, on the card: clock64
-probes of both kernels of each.
+"""Where K7 (qstage), K8 (qstage_proj) and K9 (qivr) spend their cycles, on
+the card: clock64 probes of both kernels of each.
 
     python -m qtpu_torch.ops.probe_chain [--out FILE] [--paths igemm,wgmma]
-                                         [--batches 8,128]
+                                         [--batches 8,128] [--kernels K7,K8]
 
 It builds ``csrc/qstage.cu``, ``csrc/qivr.cu`` (the older kernels: three
 phases of ``igemm.cuh``'s ``mma.sync`` loop a chained block) and
-``csrc/qstage_wg.cu``, ``csrc/qivr_wg.cu`` (the wgmma runner,
-``csrc/wgmma_phase.cuh``) once more with ``-DQTPU_PHASE_PROBE
--DQTPU_IGEMM_PROBE`` (libraries of their own; the kernels every other
-caller loads carry no probe code) and runs the chained engines' runs —
-K7 at ResNet-50's four identity runs, K9 at MobileNet-v2's five — at each
-batch.  Thread 0 of every block sums its ``clock64()`` cycles by slot
+``csrc/qstage_wg.cu``, ``csrc/qstage_proj_wg.cu``, ``csrc/qivr_wg.cu``
+(the wgmma runner, ``csrc/wgmma_phase.cuh``) once more with
+``-DQTPU_PHASE_PROBE -DQTPU_IGEMM_PROBE`` (libraries of their own; the
+kernels every other caller loads carry no probe code) and runs the chained
+engines' runs — K7 at ResNet-50's four identity runs, K8 at its whole
+layer1 (the projection block, then 2 chained blocks), K9 at
+MobileNet-v2's five — at each batch.  Thread 0 of every block sums its ``clock64()`` cycles by slot
 (grid_phase.cuh: PhaseProbe), reported as the mean and the largest over
 the blocks that ran a tile, with the block's total:
 
@@ -29,7 +30,13 @@ the blocks that ran a tile, with the block's total:
   second and third phases whole; ``producer_wait`` the producer thread's
   waits for a free stage;
 * both: ``barrier`` (the waits at the grid barriers) and ``tiles`` (the
-  tiles a block ran, over all phases).
+  tiles a block ran, over all phases);
+* K8's projection block apart from its chain: the older kernel's
+  ``p_conv1_*``, ``p_conv2_*``, ``p_conv3_*`` (``copy``, ``mma``,
+  ``epilogue``; conv3's with the downsample's mainloop and dequant) and
+  ``p_barrier``; the runner's ``p0`` (conv1), ``p1`` (conv2), ``p2``
+  (conv3 + downsample) whole, ``p_barrier``, and P0's and P2's
+  ``p_wait_stage``, ``p_wgmma``, ``p_epilogue``.
 
 Each row also gives the kernel's device time by CUDA events (probe
 launches) and checks its output against the plain version.  Cycles are SM
@@ -55,19 +62,29 @@ from qtpu_torch.ops.probe_k1 import _sm_mhz, check
 from qtpu_torch.ops.probe_k2 import _events_ms
 
 DEFINES = ("-DQTPU_PHASE_PROBE", "-DQTPU_IGEMM_PROBE")
-SLOTS = 16
-OLD = {"K7": ("conv1", "conv2", "conv3"), "K9": ("expand", "dw", "project")}
+SLOTS = 32
+OLD = {"K7": ("conv1", "conv2", "conv3"), "K8": ("conv1", "conv2", "conv3"),
+       "K9": ("expand", "dw", "project")}
+# K8's own slots: the older kernel's projection phases from slot 18, the
+# runner's from 16
+OLD_PROJ = ["p_" + f"{ph}_{what}" for ph in ("conv1", "conv2", "conv3")
+            for what in ("copy", "mma", "epilogue")] + ["p_barrier"]
+NEW_PROJ = ("p0", "p1", "p2", "p_barrier", "p_wait_stage", "p_wgmma",
+            "p_epilogue")
 NEW = ("a_wait_stage", "a_wgmma", "a_epilogue", "b_halo", "b_conv2",
        "b_requant", "b_wait_stage", "b_wgmma", "b_epilogue", "barrier",
        "tiles", "split_conv2", "producer_wait", "split_conv3")
 # the chained engines' runs: K7 (label, H, Cin, Cmid, blocks), K9 (label,
-# H, C, E, blocks)
+# H, C, E, blocks); K8 (label, H, (Cp, Cm, Co), chained blocks): the
+# projection's Cm is the chain's Cmid
 RUNS = {"K7": (("layer1", 56, 256, 64, 2), ("layer2", 28, 512, 128, 3),
                ("layer3", 14, 1024, 256, 5), ("layer4", 7, 2048, 512, 2)),
+        "K8": (("layer1 stage", 56, (64, 64, 256), 64, 2),),
         "K9": (("block2", 56, 24, 144, 1), ("block4-5", 28, 32, 192, 2),
                ("block7-9", 14, 64, 384, 3), ("block11-12", 14, 96, 576, 2),
                ("block14-15", 7, 160, 960, 2))}
 _LIBS = {("K7", "igemm"): "qstage", ("K7", "wgmma"): "qstage_wg",
+         ("K8", "igemm"): "qstage", ("K8", "wgmma"): "qstage_proj_wg",
          ("K9", "igemm"): "qivr", ("K9", "wgmma"): "qivr_wg"}
 
 
@@ -82,11 +99,25 @@ def _coeffs(n, k, g, dev, **kw):
 
 def chain_case(kind, B, H, c, cm, n, g, dev, zp=-9):
     """(x, w1, w2 or wd, w3, ChainCoeffs) of a K7 or K9 run on random codes
-    with ``chip_smoke.py``'s requant coefficients."""
+    with ``chip_smoke.py``'s requant coefficients; for K8 (``c`` = (Cp, Cm,
+    Co), ``cm`` the chain's Cmid) (x, wp1, wp2, wp3, wd, pco, cod, w1, w2,
+    w3, co), :func:`qtpu_torch.ops.qstage.qstage_proj_folded`'s
+    operands."""
     def i8(*shape, lo=-128):
         return torch.randint(lo, 128, shape, generator=g,
                              dtype=torch.int8).to(dev)
     req = dict(requant_scale=0.05, requant_zp=-20, relu=True)
+    if kind == "K8":
+        cp_, cmp_, co = c
+        _, *chain = chain_case("K7", B, H, co, cm, n, g, dev, zp)
+        pco = k7.stack_chain([(_coeffs(cmp_, cp_, g, dev, **req),
+                               _coeffs(cmp_, 9 * cmp_, g, dev, **req),
+                               _coeffs(co, cmp_, g, dev, res_f32=True, **req),
+                               zp)])
+        cod, _ = _coeffs(co, cp_, g, dev)
+        return (i8(B, H, H, cp_), i8(cmp_, cp_, lo=-127),
+                i8(cmp_, 9 * cmp_, lo=-127), i8(co, cmp_, lo=-127),
+                i8(co, cp_, lo=-127), pco, cod, *chain)
     if kind == "K7":
         blocks = [(_coeffs(cm, c, g, dev, **req),
                    _coeffs(cm, 9 * cm, g, dev, **req),
@@ -107,8 +138,9 @@ def chain_case(kind, B, H, c, cm, n, g, dev, zp=-9):
 
 
 def probe_row(kind, label, B, H, c, cm, n, g, dev, paths):
-    fn, plain = ((k7.qstage_folded, k7.qstage_folded_plain) if kind == "K7"
-                 else (k9.qivr_folded, k9.qivr_folded_plain))
+    fn, plain = {"K7": (k7.qstage_folded, k7.qstage_folded_plain),
+                 "K8": (k7.qstage_proj_folded, k7.qstage_proj_folded_plain),
+                 "K9": (k9.qivr_folded, k9.qivr_folded_plain)}[kind]
     args = chain_case(kind, B, H, c, cm, n, g, dev)
     ref = plain(*args)
     row = dict(kernel=kind, label=label, B=B, H=H, C=c, Cm=cm, blocks=n)
@@ -136,9 +168,15 @@ def probe_row(kind, label, B, H, c, cm, n, g, dev, paths):
             names = [f"{ph}_{what}" for ph in OLD[kind]
                      for what in ("copy", "mma", "epilogue")]
             names += ["barrier", "tiles"]
+            extra = OLD_PROJ if kind == "K8" else ()
+            first = 18
         else:
             names = list(NEW)
-        for i, name in enumerate(names):
+            extra = NEW_PROJ if kind == "K8" else ()
+            first = 16
+        slots = list(enumerate(names)) + [(first + i, nm)
+                                          for i, nm in enumerate(extra)]
+        for i, name in slots:
             row[f"{path}_{name}_cycles"] = float(used[:, i].mean())
             row[f"{path}_{name}_max"] = float(used[:, i].max())
     return row
@@ -166,6 +204,8 @@ def main(argv=None) -> int:
     p.add_argument("--paths", default="igemm,wgmma",
                    help="the kernels to probe, of igemm,wgmma")
     p.add_argument("--batches", default="8,128")
+    p.add_argument("--kernels", default="K7,K8,K9",
+                   help="the rows to probe, of K7,K8,K9")
     p.add_argument("--coop-cluster", action="store_true",
                    help="also try a cooperative launch with clusters")
     args = p.parse_args(argv)
@@ -181,7 +221,10 @@ def main(argv=None) -> int:
     paths = [q for q in args.paths.split(",") if q]
     if not paths or any(q not in ("igemm", "wgmma") for q in paths):
         p.error("--paths takes some of igemm,wgmma")
-    _build.build(sorted({_LIBS[(k, q)] for k in RUNS for q in paths}
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not kernels or any(k not in RUNS for k in kernels):
+        p.error("--kernels takes some of K7,K8,K9")
+    _build.build(sorted({_LIBS[(k, q)] for k in kernels for q in paths}
                         | ({"qstage"} if args.coop_cluster else set())),
                  DEFINES)
     result = {"card": card, "rows": []}
@@ -190,8 +233,8 @@ def main(argv=None) -> int:
         print(json.dumps(result["coop_cluster"]), flush=True)
     g = torch.Generator().manual_seed(0)
     for B in (int(b) for b in args.batches.split(",")):
-        for kind, runs in RUNS.items():
-            for label, H, c, cm, n in runs:
+        for kind in kernels:
+            for label, H, c, cm, n in RUNS[kind]:
                 row = probe_row(kind, label, B, H, c, cm, n, g, dev, paths)
                 row["sm_mhz"] = _sm_mhz()
                 result["rows"].append(row)

@@ -13,9 +13,20 @@ in one kernel, ``csrc/qproj.cu``, so its codes are bit-identical to the
 pair.  The downsample's stride is an address computation on the block input
 ``x_q``: the caller passes the whole input, not the strided slice.
 
+K4 has two kernels, chosen per call by :func:`k4_path` and counted apart
+(``qproj_folded.launches_wgmma``, ``.launches_igemm``):
+
+* ``"wgmma"``: K1's TMA + wgmma ring (``csrc/wgmma_gemm.cuh``) as a
+  two-GEMM tile — the downsample's k-stages, then conv3's through one ring,
+  td written as f32 into a shared-memory residual tile between the two,
+  K1's f32-residual epilogue; at stride 2 the downsample's rows come as TMA
+  im2col loads of a 1×1 window (K2's);
+* ``"igemm"``: the older ``igemm.cuh`` tile (two ``mma.sync`` mainloops),
+  for the rest.
+
 ``qproj_folded`` is the kernel wrapper: on a CUDA tensor it launches K4 (or
 raises), on a CPU tensor it takes ``qproj_folded_plain``, the unfused K1
-pair in plain PyTorch.  Its ``launches`` attribute counts kernel launches
+pair in plain PyTorch.  Its ``launches`` attributes count kernel launches
 and nothing else.  Weights are stored (N, K), as for K1.
 
 ``qproj_fused`` (NHWC) and ``qproj2d_fused`` ((M, C) rows) keep qtpu's call
@@ -28,16 +39,19 @@ adds only zero products, ``bb``/``bm``/``vmem_mb`` size its VMEM blocks and
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from qtpu_torch.ops import _build, qops
-from qtpu_torch.ops.qmatmul import check_int8, check_vectors
+from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P,) * 9 + (_I,) * 9 + (_F,) * 4 + (_P,)
+# the fused kernels' two entries: the Hopper redesign and the older tile
+PATHS = ("wgmma", "igemm")
+_SYMBOLS = {"wgmma": "qtpu_qproj_fused", "igemm": "qtpu_qproj_fused_igemm"}
 # the downsample branch: dequant only (f32, no relu)
 DOWN_MODE = EpilogueMode(False, 0.0, False, None)
 # the requant the TPU kernels hard-code: affine grid, relu folded into lo
@@ -50,20 +64,44 @@ def check_requant(mode: EpilogueMode, what: str) -> None:
                          "(requant mode)")
 
 
-def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
-                 wd_nk: torch.Tensor, co3: EpilogueCoeffs,
-                 mode3: EpilogueMode, cod: EpilogueCoeffs, *,
-                 stride: int = 1) -> torch.Tensor:
-    """conv3 of the int8 (B, H, W, Cmid) ``b_q`` with the (Cout, Cmid)
-    weight, plus the downsample of the block input ``x_q`` (B, Hx, Wx, Cin)
-    at ``stride`` with the (Cout, Cin) weight, dequantized on ``cod``, then
-    the requant ``co3``/``mode3`` → int8 (B, H, W, Cout)."""
-    if b_q.device.type == "cpu":
-        return qproj_folded_plain(b_q, x_q, w3_nk, wd_nk, co3, mode3, cod,
-                                  stride=stride)
-    if not b_q.is_cuda:
-        raise ValueError(f"unsupported device {b_q.device}")
-    dev = b_q.device
+def choose(path: Optional[str], auto: str, what: str) -> str:
+    """``path`` if given (the older kernel takes any shape), else
+    ``auto``."""
+    if path is None:
+        return auto
+    if path not in PATHS or (path == "wgmma" and auto != "wgmma"):
+        raise ValueError(f"{what} path {path!r} cannot take these operands "
+                         f"(they take {auto!r})")
+    return path
+
+
+def count(fn, path: str) -> None:
+    """One launch of ``fn``'s kernel ``path``."""
+    fn.launches += 1
+    name = f"launches_{path}"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def k4_path(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
+            wd_nk: torch.Tensor, co3: EpilogueCoeffs, mode3: EpilogueMode,
+            stride: int) -> str:
+    """The kernel K4 takes: ``"wgmma"`` where Cmid and Cin are multiples of
+    64 (one 64-byte k-stage each), Cout of 128 (whole 128-wide tiles),
+    ``stride`` 1 or 2, every tensor 16-byte aligned (TMA) and the requant
+    grid one ``code_bits`` takes (:func:`~qtpu_torch.ops.qmatmul.int_grid`);
+    ``"igemm"`` otherwise."""
+    cmid, cin, cout = b_q.shape[-1], x_q.shape[-1], w3_nk.shape[0]
+    ok = (cmid % 64 == 0 and cin % 64 == 0 and cout % 128 == 0
+          and stride in (1, 2) and int_grid(co3.lo, co3.hi, mode3.shift)
+          and all(t.data_ptr() % 16 == 0 for t in (b_q, x_q, w3_nk, wd_nk)))
+    return "wgmma" if ok else "igemm"
+
+
+def check_proj(b_q, x_q, w3_nk, wd_nk, stride: int):
+    """The shapes of a K4 call (on any device): b_q (B, H, W, Cmid) and
+    x_q (B, Hx, Wx, Cin) NHWC with (H, W) = ⌈(Hx, Wx) / stride⌉, stride 1
+    or 2, weights (Cout, Cmid) and (Cout, Cin) → (B, H, W, Cmid, Hx, Wx,
+    Cin, Cout); raises otherwise."""
     if b_q.dim() != 4 or x_q.dim() != 4:
         raise ValueError(f"b_q and x_q must be NHWC, got {tuple(b_q.shape)} "
                          f"and {tuple(x_q.shape)}")
@@ -80,14 +118,40 @@ def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
         raise ValueError(f"weights {tuple(w3_nk.shape)}, "
                          f"{tuple(wd_nk.shape)} do not match ({Cout}, "
                          f"{Cmid}) and ({Cout}, {Cin})")
+    return B, H, W, Cmid, Hx, Wx, Cin, Cout
+
+
+def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
+                 wd_nk: torch.Tensor, co3: EpilogueCoeffs,
+                 mode3: EpilogueMode, cod: EpilogueCoeffs, *,
+                 stride: int = 1, path: Optional[str] = None,
+                 defines: tuple = ()) -> torch.Tensor:
+    """conv3 of the int8 (B, H, W, Cmid) ``b_q`` with the (Cout, Cmid)
+    weight, plus the downsample of the block input ``x_q`` (B, Hx, Wx, Cin)
+    at ``stride`` with the (Cout, Cin) weight, dequantized on ``cod``, then
+    the requant ``co3``/``mode3`` → int8 (B, H, W, Cout).  ``path`` forces
+    a kernel (``"igemm"`` takes any shape); ``defines`` selects a probe
+    build (``ops/probe_k4.py``)."""
+    B, H, W, Cmid, Hx, Wx, Cin, Cout = check_proj(b_q, x_q, w3_nk, wd_nk,
+                                                  stride)
+    if path not in (None, *PATHS):
+        raise ValueError(f"K4 path {path!r}: one of {PATHS}")
+    if b_q.device.type == "cpu":
+        return qproj_folded_plain(b_q, x_q, w3_nk, wd_nk, co3, mode3, cod,
+                                  stride=stride)
+    if not b_q.is_cuda:
+        raise ValueError(f"unsupported device {b_q.device}")
+    dev = b_q.device
     if Cmid % 16 or Cin % 16:
         raise ValueError(f"Cmid {Cmid} and Cin {Cin} must be multiples of 16")
     check_int8(dev, b_q=b_q, x_q=x_q, w3_nk=w3_nk, wd_nk=wd_nk)
     check_vectors(co3, Cout, dev)
     check_vectors(cod, Cout, dev)
     check_requant(mode3, "qproj")
+    path = choose(path, k4_path(b_q, x_q, w3_nk, wd_nk, co3, mode3, stride),
+                  "K4")
     out = torch.empty((B, H, W, Cout), dtype=torch.int8, device=dev)
-    fn = _build.load("qproj", "qtpu_qproj_fused", _ARGTYPES)
+    fn = _build.load("qproj", _SYMBOLS[path], _ARGTYPES, defines)
     err = fn(b_q.data_ptr(), x_q.data_ptr(), w3_nk.data_ptr(),
              wd_nk.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(),
              cod.A.data_ptr(), cod.B.data_ptr(), out.data_ptr(),
@@ -95,14 +159,16 @@ def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
              co3.C, co3.lo, co3.hi, mode3.shift,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"qproj_fused kernel launch failed: CUDA error "
-                           f"{err} (b {tuple(b_q.shape)}, x "
+        raise RuntimeError(f"qproj_fused kernel ({path}) launch failed: CUDA "
+                           f"error {err} (b {tuple(b_q.shape)}, x "
                            f"{tuple(x_q.shape)}, Cout={Cout})")
-    qproj_folded.launches += 1
+    count(qproj_folded, path)
     return out
 
 
 qproj_folded.launches = 0
+qproj_folded.launches_wgmma = 0
+qproj_folded.launches_igemm = 0
 
 
 def qproj_folded_plain(b_q: torch.Tensor, x_q: torch.Tensor,

@@ -25,7 +25,18 @@ apart (``qstage_folded.launches_wgmma``, ``.launches_igemm``):
 * ``"igemm"``, the older kernel (three phases of ``igemm.cuh``'s
   ``mma.sync`` loop, ``csrc/qstage.cu``), for the rest.
 
-K8 runs only on the older kernel's phases.
+K8 likewise, chosen by :func:`stage_proj_path` and counted apart
+(``qstage_proj_folded.launches_wgmma``, ``.launches_igemm``):
+
+* ``"wgmma"`` (``csrc/qstage_proj_wg.cu``, the runner's instantiation of
+  its own) for Cp a multiple of 64, Cm = Cmid a multiple of 64, Co of 128,
+  grids ``code_bits`` takes, 16-byte aligned tensors and at least one
+  chained block: the projection block as three phases ahead of K7's chain
+  — conv1 on K1's tile, conv2 on split mode's units, conv3 + downsample on
+  the two-GEMM tile (the downsample's f32 td in shared memory between the
+  two products) — planned by ``chain_plan("stage_proj", ...)``;
+* ``"igemm"``, the older kernel's phases (``csrc/qstage.cu``), for the
+  rest.
 
 ``qstage_folded`` / ``qstage_proj_folded`` are the kernel wrappers: on a
 CUDA tensor they launch K7 / K8 (or raise), on a CPU tensor they take
@@ -63,6 +74,10 @@ _WG_ARGTYPES = (_P,) * 14 + (_I,) * 6 + (_I,) * 7 + (_P,)
 _SYMBOLS = {"wgmma": ("qstage_wg", "qtpu_qstage_fused_wg"),
             "igemm": ("qstage", "qtpu_qstage_fused")}
 _PROJ_ARGTYPES = (_P,) * 27 + (_I,) * 9 + (_P,)
+# K8's wgmma entry: the old one's arguments but vec, then the plan
+_PROJ_WG_ARGTYPES = (_P,) * 27 + (_I,) * 8 + (_I,) * 7 + (_P,)
+_PROJ_SYMBOLS = {"wgmma": ("qstage_proj_wg", "qtpu_qstage_proj_fused_wg"),
+                 "igemm": ("qstage", "qtpu_qstage_proj_fused")}
 # scalars per block: lo/hi/shift of the three convs, C3, the pad zero point
 NSCAL = 12
 ConvCoeffs = Tuple[EpilogueCoeffs, EpilogueMode]
@@ -188,6 +203,22 @@ def stage_path(B: int, H: int, W: int, cin: int, cmid: int,
     return "wgmma" if ok else "igemm"
 
 
+def stage_proj_path(B: int, H: int, W: int, cp_: int, cm: int, co: int,
+                    cmid: int, pco: ChainCoeffs, chain: ChainCoeffs, n: int,
+                    *tensors: torch.Tensor, sms: int) -> str:
+    """The kernel K8 takes: ``"wgmma"`` for Cp a multiple of 64, the
+    projection's Cm equal to the chain's Cmid and a multiple of 64, Co a
+    multiple of 128, ``n`` ≥ 1 chained blocks, grids ``code_bits`` takes
+    (the projection's and the chain's), 16-byte aligned ``tensors`` (TMA)
+    and a ``"stage_proj"`` plan that fits; ``"igemm"`` otherwise."""
+    ok = (cp_ % 64 == 0 and cm == cmid and cm % 64 == 0 and co % 128 == 0
+          and n >= 1 and int_grids(pco) and int_grids(chain)
+          and all(t.data_ptr() % 16 == 0 for t in tensors)
+          and cp.chain_plan("stage_proj", B, H, W, co, cm, sms=sms)
+          is not None)
+    return "wgmma" if ok else "igemm"
+
+
 def resolve_plan(plan: Optional[cp.ChainPlan], path: str, kind: str,
                  B: int, H: int, W: int, c: int, cm: int,
                  sms: int) -> Optional[cp.ChainPlan]:
@@ -306,18 +337,18 @@ def qstage_proj_folded(x_q: torch.Tensor, wp1: torch.Tensor,
                        wd: torch.Tensor, pco: ChainCoeffs,
                        cod: EpilogueCoeffs, w1: torch.Tensor,
                        w2: torch.Tensor, w3: torch.Tensor,
-                       co: ChainCoeffs) -> torch.Tensor:
+                       co: ChainCoeffs, *, path: Optional[str] = None,
+                       plan: Optional[cp.ChainPlan] = None,
+                       defines: tuple = ()) -> torch.Tensor:
     """A whole stride-1 stage on the int8 (B, H, W, Cp) ``x_q``: the
     projection block — conv1 (Cm, Cp), conv2 (Cm, 9·Cm), conv3 (Co, Cm)
     with the downsample (Co, Cp) dequantized on ``cod`` as f32 residual,
     its coefficients one row of ``pco`` (C3 = 1 / next scale) — then the
-    chain of :func:`qstage_folded` with Cin = Co → int8 (B, H, W, Co)."""
-    if x_q.device.type == "cpu":
-        return qstage_proj_folded_plain(x_q, wp1, wp2, wp3, wd, pco, cod, w1,
-                                        w2, w3, co)
-    if not x_q.is_cuda:
-        raise ValueError(f"unsupported device {x_q.device}")
-    dev = x_q.device
+    chain of :func:`qstage_folded` with Cin = Co → int8 (B, H, W, Co).
+    ``path`` forces a kernel (``"igemm"`` takes any shape), ``plan`` the
+    wgmma kernel's (a ``chain_plan("stage_proj", ...)`` of the call's
+    shape, :func:`resolve_plan`); ``defines`` selects a probe build
+    (``ops/probe_chain.py``)."""
     if x_q.dim() != 4:
         raise ValueError(f"x_q must be NHWC, got {tuple(x_q.shape)}")
     B, H, W, Cp = x_q.shape
@@ -329,6 +360,14 @@ def qstage_proj_folded(x_q: torch.Tensor, wp1: torch.Tensor,
                          f"{tuple(wp2.shape)}, {tuple(wp3.shape)}, "
                          f"{tuple(wd.shape)} do not match ({Cm}, {Cp}), "
                          f"({Cm}, 9*{Cm}), ({Co}, {Cm}), ({Co}, {Cp})")
+    if path not in (None, "wgmma", "igemm"):
+        raise ValueError(f"K8 path {path!r}: wgmma or igemm")
+    if x_q.device.type == "cpu":
+        return qstage_proj_folded_plain(x_q, wp1, wp2, wp3, wd, pco, cod, w1,
+                                        w2, w3, co)
+    if not x_q.is_cuda:
+        raise ValueError(f"unsupported device {x_q.device}")
+    dev = x_q.device
     check_int8(dev, x_q=x_q, wp1=wp1, wp2=wp2, wp3=wp3, wd=wd)
     check_chain(pco, 1, Cm, Co, dev)
     check_vectors(cod, Co, dev)
@@ -336,29 +375,48 @@ def qstage_proj_folded(x_q: torch.Tensor, wp1: torch.Tensor,
            and Cp % 16 == 0 and Cm % 16 == 0)
     M = B * H * W
     out = torch.empty((B, H, W, Co), dtype=torch.int8, device=dev)
-    ws = torch.empty(2 * M * max(Cm, Cmid) + (M * Co if n > 0 else 0),
-                     dtype=torch.int8, device=dev)
-    fn = _build.load("qstage", "qtpu_qstage_proj_fused", _PROJ_ARGTYPES)
-    err = fn(x_q.data_ptr(), wp1.data_ptr(), wp2.data_ptr(), wp3.data_ptr(),
-             wd.data_ptr(), pco.a1.data_ptr(), pco.b1.data_ptr(),
-             pco.a2.data_ptr(), pco.b2.data_ptr(), pco.a3.data_ptr(),
-             pco.b3.data_ptr(), cod.A.data_ptr(), cod.B.data_ptr(),
-             pco.scal.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-             w3.data_ptr(), co.a1.data_ptr(), co.b1.data_ptr(),
-             co.a2.data_ptr(), co.b2.data_ptr(), co.a3.data_ptr(),
-             co.b3.data_ptr(), co.scal.data_ptr(), out.data_ptr(),
-             ws.data_ptr(), barrier_words(dev).data_ptr(), B, H, W, Cp, Cm,
-             n, Co, Cmid, int(vec),
-             torch.cuda.current_stream(dev).cuda_stream)
+    sms = _sm_count(dev.index)
+    path = choose(path, stage_proj_path(B, H, W, Cp, Cm, Co, Cmid, pco, co,
+                                        n, x_q, wp1, wp2, wp3, wd, w1, w2,
+                                        w3, out, sms=sms), "K8")
+    pl = resolve_plan(plan, path, "stage_proj", B, H, W, Co, Cm, sms)
+    if path == "wgmma":
+        # workspaces a and b (conv1's and conv2's codes), then the block
+        # outputs before the last, 16-byte aligned (TMA)
+        ws_bytes = -(-2 * M * Cm // 16) * 16 + M * Co
+    else:
+        ws_bytes = 2 * M * max(Cm, Cmid) + (M * Co if n > 0 else 0)
+    ws = torch.empty(ws_bytes, dtype=torch.int8, device=dev)
+    lib, sym = _PROJ_SYMBOLS[path]
+    fn = _build.load(lib, sym, _PROJ_WG_ARGTYPES if path == "wgmma" else
+                     _PROJ_ARGTYPES, defines)
+    args = (x_q.data_ptr(), wp1.data_ptr(), wp2.data_ptr(), wp3.data_ptr(),
+            wd.data_ptr(), pco.a1.data_ptr(), pco.b1.data_ptr(),
+            pco.a2.data_ptr(), pco.b2.data_ptr(), pco.a3.data_ptr(),
+            pco.b3.data_ptr(), cod.A.data_ptr(), cod.B.data_ptr(),
+            pco.scal.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            w3.data_ptr(), co.a1.data_ptr(), co.b1.data_ptr(),
+            co.a2.data_ptr(), co.b2.data_ptr(), co.a3.data_ptr(),
+            co.b3.data_ptr(), co.scal.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), barrier_words(dev).data_ptr(), B, H, W, Cp, Cm,
+            n, Co, Cmid)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if path == "wgmma":
+        err = fn(*args, *plan_args(pl), stream)
+    else:
+        err = fn(*args, int(vec), stream)
     if err:
-        raise RuntimeError(f"qstage_proj_fused kernel launch failed: CUDA "
-                           f"error {err} (x {tuple(x_q.shape)}, Cm={Cm}, "
-                           f"Co={Co}, {n} chained blocks)")
-    qstage_proj_folded.launches += 1
+        raise RuntimeError(f"qstage_proj_fused kernel ({path}) launch "
+                           f"failed: CUDA error {err} (x {tuple(x_q.shape)}, "
+                           f"Cm={Cm}, Co={Co}, {n} chained blocks, plan "
+                           f"{pl})")
+    count(qstage_proj_folded, path)
     return out
 
 
 qstage_proj_folded.launches = 0
+qstage_proj_folded.launches_wgmma = 0
+qstage_proj_folded.launches_igemm = 0
 
 
 def qstage_proj_folded_plain(x_q, wp1, wp2, wp3, wd, pco: ChainCoeffs,

@@ -45,12 +45,12 @@ import torch
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
-from qtpu_torch.ops.qproj import AFFINE_RELU, check_requant, flat_f32
+from qtpu_torch.ops.qproj import (AFFINE_RELU, PATHS, check_requant,
+                                  choose, count, flat_f32)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the plan's six ints (cs, tm, stages, nc, nres, smem) follow the floats
 _ARGTYPES = (_P,) * 9 + (_I,) * 7 + (_F,) * 7 + (_I,) * 6 + (_P,)
-PATHS = ("wgmma", "igemm")
 _SYMBOLS = {"wgmma": "qtpu_qtail_fused", "igemm": "qtpu_qtail_fused_igemm"}
 # the largest dynamic shared memory a block may have on the H100, and what
 # one SM holds (1 KB of it reserved per block)
@@ -230,17 +230,6 @@ def tail_path(cmid: int, cout: int, co3: EpilogueCoeffs,
     return "wgmma" if ok else "igemm"
 
 
-def choose(path: Optional[str], auto: str, what: str) -> str:
-    """``path`` if given (the older kernel takes any shape), else
-    ``auto``."""
-    if path is None:
-        return auto
-    if path not in PATHS or (path == "wgmma" and auto != "wgmma"):
-        raise ValueError(f"{what} path {path!r} cannot take these operands "
-                         f"(they take {auto!r})")
-    return path
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: Optional[int]) -> int:
     return torch.cuda.get_device_properties(
@@ -285,13 +274,6 @@ def check_tail(dev: torch.device, cmid: int, cout: int, w2: torch.Tensor,
     check_vectors(co3, cout, dev)
     check_requant(mode2, "tail conv2")
     check_requant(mode3, "tail conv3")
-
-
-def count(fn, path: str) -> None:
-    """One launch of ``fn``'s kernel ``path``."""
-    fn.launches += 1
-    name = f"launches_{path}"
-    setattr(fn, name, getattr(fn, name) + 1)
 
 
 def qtail_folded(a_q: torch.Tensor, r_q: torch.Tensor, w2: torch.Tensor,

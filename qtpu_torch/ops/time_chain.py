@@ -1,14 +1,16 @@
-"""K7's and K9's device time on the card at the chained engines' runs: the
-wgmma runner with the plan ``chain_plan`` picks, the older kernel forced
-(``path="igemm"``) and the unfused K1/K2/K3 sequence each replaces; with
-``--sweep`` also every other plan ``chain_plan`` takes.
+"""K7's, K8's and K9's device time on the card at the chained engines'
+runs: the wgmma runner with the plan ``chain_plan`` picks, the older
+kernel forced (``path="igemm"``) and the unfused K1/K2/K3 sequence each
+replaces; with ``--sweep`` also every other plan ``chain_plan`` takes.
 
     python -m qtpu_torch.ops.time_chain [--sweep] [--batches 8,128]
-                                        [--out FILE]
+                                        [--kernels K7,K8,K9] [--out FILE]
 
 The rows: K7 at ResNet-50's four identity runs (layer1: 2 blocks of Cin
 256 / Cmid 64 at 56²; layer2 3 of 512/128 at 28²; layer3 5 of 1024/256 at
-14²; layer4 2 of 2048/512 at 7²) and K9 at MobileNet-v2's five runs
+14²; layer4 2 of 2048/512 at 7²), K8 at its whole layer1 (the projection
+block Cp 64 / Cm 64 / Co 256, then 2 chained blocks, at 56²) and K9 at
+MobileNet-v2's five runs
 (block2 1 of C 24 / E 144 at 56²; block4-5 2 of 32/192 at 28²; block7-9 3
 of 64/384 at 14²; block11-12 2 of 96/576 at 14²; block14-15 2 of 160/960
 at 7²), with ``probe_chain.py``'s coefficients.  Each time is the device
@@ -38,9 +40,11 @@ from qtpu_torch.ops import qmatmul as k1
 from qtpu_torch.ops import qops
 from qtpu_torch.ops import qstage as k7
 from qtpu_torch.ops.probe_chain import RUNS, chain_case
+from qtpu_torch.ops.qproj import DOWN_MODE
 from qtpu_torch.ops.time_k3 import timed
 
 PAD1 = ((1, 1), (1, 1))
+PLAN_KIND = {"K7": "stage", "K8": "stage_proj", "K9": "ivr"}
 
 
 def unfused(kind, x, w1, w2, w3, co):
@@ -65,14 +69,27 @@ def unfused(kind, x, w1, w2, w3, co):
     return x
 
 
+def unfused_stage(x, wp1, wp2, wp3, wd, pco, cod, w1, w2, w3, co):
+    """K8's sequence unfused: the projection block's K1 → K2 → K1 f32
+    downsample → K1 + f32 residual, then :func:`unfused` of the chain."""
+    B, H, W, cp_ = x.shape
+    (co1, m1), (co2, m2), (co3, m3), zp = pco.block(0)
+    a = k1.qmatmul_folded(x.reshape(-1, cp_), wp1, co1, m1)
+    b = k2.qconv2d_folded(qops.pad_nhwc(a.reshape(B, H, W, -1), PAD1, zp),
+                          wp2, co2, m2, kernel_hw=(3, 3))
+    td = k1.qmatmul_folded(x.reshape(-1, cp_), wd, cod, DOWN_MODE)
+    x1 = k1.qmatmul_folded(b.reshape(-1, b.shape[-1]), wp3, co3, m3, td)
+    return unfused("K7", x1.reshape(B, H, W, -1), w1, w2, w3, co)
+
+
 def plans(kind, B, H, c, cm, sms):
     """Every plan ``chain_plan`` takes for the row (both modes; two tiles a
     unit only for K7's fused mode)."""
     out = []
     for mode in cp.MODES:
-        for tm in ((1, 2) if kind == "K7" and mode == "fused" else (1,)):
-            pl = cp.chain_plan("stage" if kind == "K7" else "ivr", B, H, H,
-                               c, cm, sms=sms, mode=mode, tm=tm)
+        for tm in ((1, 2) if kind != "K9" and mode == "fused" else (1,)):
+            pl = cp.chain_plan(PLAN_KIND[kind], B, H, H, c, cm, sms=sms,
+                               mode=mode, tm=tm)
             if pl is not None:
                 out.append(pl)
     return out
@@ -80,12 +97,14 @@ def plans(kind, B, H, c, cm, sms):
 
 def row(kind, label, B, H, c, cm, n, g, dev, sweep, iters, sms):
     args = chain_case(kind, B, H, c, cm, n, g, dev)
-    fn, plain = ((k7.qstage_folded, k7.qstage_folded_plain) if kind == "K7"
-                 else (k9.qivr_folded, k9.qivr_folded_plain))
-    pk = "stage" if kind == "K7" else "ivr"
+    fn, plain = {"K7": (k7.qstage_folded, k7.qstage_folded_plain),
+                 "K8": (k7.qstage_proj_folded, k7.qstage_proj_folded_plain),
+                 "K9": (k9.qivr_folded, k9.qivr_folded_plain)}[kind]
+    pk = PLAN_KIND[kind]
     ref = plain(*args)
     runs = {"new": lambda: fn(*args), "old": lambda: fn(*args, path="igemm"),
-            "unfused": lambda: unfused(kind, *args)}
+            "unfused": lambda: (unfused_stage(*args) if kind == "K8" else
+                                unfused(kind, *args))}
     for name, run in runs.items():
         if not torch.equal(run(), ref):
             raise RuntimeError(f"{kind} {label} B={B}: {name} differs from "
@@ -93,9 +112,14 @@ def row(kind, label, B, H, c, cm, n, g, dev, sweep, iters, sms):
     ms = {k: 0.0 for k in runs}
     for name in ("new", "old", "unfused", "unfused", "old", "new"):
         ms[name] += timed(torch, runs[name], iters) / 2
-    path = (k7.stage_path(B, H, H, c, cm, args[-1], *args[:4], sms=sms)
-            if kind == "K7" else
-            k9.ivr_path(B, H, H, c, cm, args[-1], *args[:4], sms=sms))
+    if kind == "K8":    # c: (Cp, Cm, Co); the plan's widths Co, Cm
+        path = k7.stage_proj_path(B, H, H, *c, cm, args[5], args[-1], n,
+                                  *args[:5], *args[7:10], sms=sms)
+        c, cm = c[2], c[1]
+    elif kind == "K7":
+        path = k7.stage_path(B, H, H, c, cm, args[-1], *args[:4], sms=sms)
+    else:
+        path = k9.ivr_path(B, H, H, c, cm, args[-1], *args[:4], sms=sms)
     plan = cp.chain_plan(pk, B, H, H, c, cm, sms=sms)
     out = dict(kernel=kind, label=label, B=B, H=H, C=c, Cm=cm, blocks=n,
                path=path, plan=plan._asdict() if plan else None,
@@ -120,6 +144,8 @@ def main(argv=None) -> int:
                    help="also time every plan chain_plan takes")
     p.add_argument("--batches", default="8,128")
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--kernels", default="K7,K8,K9",
+                   help="the rows to time, of K7,K8,K9")
     p.add_argument("--out", help="also write the rows as JSON here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -133,12 +159,12 @@ def main(argv=None) -> int:
     print(card, flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _build.build(["qmatmul", "qconv", "qdepthwise", "qstage", "qivr",
-                  "qstage_wg", "qivr_wg"])
+                  "qstage_wg", "qstage_proj_wg", "qivr_wg"])
     g = torch.Generator().manual_seed(0)
     rows = []
     for B in (int(b) for b in args.batches.split(",")):
-        for kind, runs in RUNS.items():
-            for label, H, c, cm, n in runs:
+        for kind in args.kernels.split(","):
+            for label, H, c, cm, n in RUNS[kind]:
                 r = row(kind, label, B, H, c, cm, n, g, dev, args.sweep,
                         args.iters if B <= 8 else max(args.iters // 4, 3),
                         sms)

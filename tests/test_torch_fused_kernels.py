@@ -76,9 +76,12 @@ NEXT = (0.019, -3)
 
 # (B, H, W, Cmid, Cin): odd H, W = H + 1, Cout = 4·Cmid
 SHAPES = [(1, 5, 6, 16, 16), (2, 4, 4, 32, 64), (2, 7, 8, 16, 32)]
+# K4's too: 180 rows (90 at stride 2), more than one 128-row tile and not a
+# multiple of it
+PROJ_SHAPES = SHAPES + [(2, 9, 10, 16, 32)]
 
 
-@pytest.mark.parametrize("B,H,W,cmid,cin", SHAPES)
+@pytest.mark.parametrize("B,H,W,cmid,cin", PROJ_SHAPES)
 def test_qproj_matches_qtpu(B, H, W, cmid, cin):
     cout = 4 * cmid
     c3 = _np_node(1, cmid, cout, 9, 0.017)
@@ -107,6 +110,18 @@ def test_qproj_matches_qtpu(B, H, W, cmid, cin):
                      interpret=True)
     assert_codes(got2, ref2)
     np.testing.assert_array_equal(got2, got.reshape(m, cout))
+    # the block input whole at stride 2 (odd sides 2H - 1, 2W - 1: the
+    # strided pixels are xd), as the port's engines pass it
+    x = _codes(B, 2 * H - 1, 2 * W - 1, cin)
+    x[:, ::2, ::2] = xd
+    co3, mode3, cod = tproj.unfold_proj(*(tco[k] for k in (
+        "scalars", "a3", "b3", "ad", "bd")))
+    got3 = tproj.qproj_folded(
+        torch.from_numpy(b), torch.from_numpy(x),
+        torch.from_numpy(np.ascontiguousarray(w["w3"].T)),
+        torch.from_numpy(np.ascontiguousarray(w["wd"].T)), co3, mode3, cod,
+        stride=2).numpy()
+    np.testing.assert_array_equal(got3, got)
 
 
 @pytest.mark.parametrize("B,H,W,cmid,cin", SHAPES)
@@ -159,7 +174,7 @@ def _grid(node):
     return Grid(float(node["act_scale"]), int(node["act_zp"]))
 
 
-@pytest.mark.parametrize("B,H,W,cmid,cin", SHAPES)
+@pytest.mark.parametrize("B,H,W,cmid,cin", PROJ_SHAPES)
 @pytest.mark.parametrize("stride", [1, 2])
 def test_proj_bit_identical_to_unfused(B, H, W, cmid, cin, stride):
     cout = 4 * cmid

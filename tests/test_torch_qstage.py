@@ -127,7 +127,8 @@ def test_qstage_matches_qtpu(B, H, cin, cmid, nblk):
 
 
 @pytest.mark.parametrize("B,H,cp,cm,co,cmid,nblk", [
-    (2, 7, 64, 64, 256, 64, 2), (2, 5, 128, 64, 256, 128, 1)])
+    (2, 7, 64, 64, 256, 64, 2), (2, 5, 128, 64, 256, 128, 1),
+    (3, 7, 64, 32, 128, 32, 3)])
 def test_qstage_proj_matches_qtpu(B, H, cp, cm, co, cmid, nblk):
     proj = _proj(cp, cm, co)
     blocks = _chain(nblk, co, cmid)
