@@ -44,6 +44,16 @@ success):
    residual, layer3 conv1, layer4 conv3, layer4_0's f32 downsample), also
    against the int8 entry on the unpacked weights; the im2col conv at
    ResNet-50's quantized 7×7/2 stem, also against K2 (its stem kernel);
+   for the module SERVE path and the KL configs, at B = 8 and 128: K2's
+   raw int32 accumulator at zero-point-padded shapes (ResNet-50's layer1
+   3×3 and a 3×3/2 on wgmma, the pads corrected by zp·tapsum; LeNet-5's
+   conv1, 28² Ci = 1 5×5 SAME, and conv2, 14² Ci = 6 VALID, on the old
+   loop, conv1 on its padded copy; ResNet-18's 1×1/2 downsample as a 1×1
+   window on wgmma), K3's raw accumulator at MobileNet-v2's block2, K1's
+   raw accumulator at LeNet-5's fc shapes (K = 400 / 120 / 84, N = 120 /
+   84 / 10), and K1 and K2 (wgmma and the stem kernel) requantising onto
+   symmetric grids (shift 0) at ResNet-18's shapes — each also on the old
+   loop forced, which must agree;
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -75,6 +85,24 @@ success):
      K1's int4 entry and 16 K2, no int8 K1; one forward of its ``stage``
      configuration with ``packed_int4``: 7 K1 int4, 5 K2, 3 K4, 2 K7, 1 K8
      (layer4 stays unchained: its consumer is the fp32 fc);
+   * ``build_engine`` for ``lenet_mnist_int8`` serves through
+     ``ServingEngine`` on the module SERVE path (3 K1 and 2 K2 a forward;
+     conv1's old-loop pad copy reported), its logits equal to the SERVE
+     model's called directly; ``build_engine`` for
+     ``resnet18_cifar10_int8_kl`` (flat engine, BasicBlock, the int8 CIFAR
+     stem on K2's stem kernel, symmetric grids: 4 K1, 17 K2) and one
+     forward of its tree on the module path (1 K1, 20 K2: the downsamples
+     as 1×1 windows); ``build_engine`` for ``resnet20_cifar10_int8_kl``
+     (3 K1, 19 K2; width 16 puts layer1 on the old loop);
+     ``resnet50_imagenet_int8_ptq_fp32stem`` with ``exclude=("stem*",
+     "*/down")`` through ``build_engine`` on the module path at full width
+     (33 K1 and 16 K2 a forward, all raw, no pad copy); one module-path
+     forward of ``mobilenetv2_imagenet_int8_ptq_fp32stem`` with
+     ``exclude=("stem*", "block1/*")`` (33 K1, 16 K3 raw); one flat-engine
+     forward of ``resnet101_imagenet_int8_ptq_fp32stem`` (71 K1, 33 K2),
+     calibrated on 2 of its 8 batches (a cut, to keep the script short);
+     each build's calibration seconds, the KL configs' histogram pass and
+     host threshold search apart;
    * on every one of these runs K1's, K2's, K3's, K5's and K6's launches
      are also counted by kernel (``launches_wgmma``/``_igemm`` of K1's two
      entries, ``launches_wgmma``/``_stem``/``_igemm`` of K2,
@@ -102,10 +130,18 @@ success):
    sequence they replace); the same for config 5's packed and packed
    ``stage`` engines, against its product engine (the int8 entry on the
    unpacked weights) on the card, the last block's f32 output (the fp32
-   fc's input) equal to the CPU's to 1e-6 of its largest value;
+   fc's input) equal to the CPU's to 1e-6 of its largest value; the
+   ResNet-18/20 KL and ResNet-101 flat engines walked step by step the
+   same way; the module-path models (LeNet-5, ResNet-18 KL, the ResNet-50
+   and MobileNet-v2 ones) against the same trees' models on the CPU: the
+   codes at every quantized layer's input by the tie rule, logits to
+   rel-L2 ≤ 1e-4;
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
-   as one CUDA graph beside it — ResNet-50 (product at B = 8 and 128,
+   as one CUDA graph beside it — LeNet-5, ResNet-18 KL and ResNet-20 KL at
+   B = 8 and 128, the ResNet-50 module path at B = 128 beside the flat
+   engine's ResNet-50 (only its stem in fp32), ResNet-50 (product at B = 8
+   and 128,
    tail, block, stage at 128), config 5's product and packed engines at
    B = 8 and 128, MobileNet-v2 (product, ivr) at B = 32 and 128; each kernel's
    device time (repeated launches captured in a CUDA graph) beside its
@@ -117,7 +153,9 @@ success):
    and a
    library yardstick that computes the
    int32 accumulator only, without the epilogue: ``torch._int_mm`` for K1
-   (for the int4 entry on the unpacked weight, beside the int8 entry's
+   (cuBLAS fp32 ``torch.mm``, TF32 off, on the codes as floats where
+   ``_int_mm`` refuses the shape: M ≤ 16, K or N off a multiple of 8;
+   for the int4 entry on the unpacked weight, beside the int8 entry's
    time), cuDNN's fp32 ``F.conv2d`` (TF32 off; ``groups=C`` for K3) on the
    zero-point-padded codes for K2, K3 and the im2col conv (which also has
    K2's time beside it) (no single PyTorch call computes
@@ -128,12 +166,18 @@ success):
    B = 128 first held against their plain version and the unfused sequence,
    as the B = 128 plans — K7's two tiles a unit, the fused modes of the runs
    that split at B = 8 — run only there); a profiler
-   breakdown of one B = 128 forward of each engine.
+   breakdown of one B = 128 forward of each engine (for the ResNet-50
+   module path also the elementwise kernels' time by the PyTorch operation
+   that launched them, with its input shapes); the device time of
+   ``qops.spatial_mean`` beside ``torch.mean`` at the ResNet-18 (4×4×512)
+   and ResNet-20 (8×8×64) heads at B = 128; for K1's rows whose yardstick
+   is cuBLAS ``torch.mm``, the kernels that one such call launches.
 
 Each phase's seconds are printed as it ends.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``.
 """
+import dataclasses
 import json
 import os
 import re
@@ -214,6 +258,37 @@ CFG5 = "resnet50_int4w_int8a_qat"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
         "mobilenetv1_imagenet_int8_ptq")
+# the module SERVE path and the KL configs, with their launches per forward:
+# LeNet-5 on the module path (fc1-fc3 on K1, conv1 and conv2 on K2);
+# ResNet-18 KL on the flat engine (three downsamples and the fc on K1, the
+# stem and sixteen 3×3s on K2) and its tree on the module path (the fc on
+# K1; the stem, the 3×3s and the three 1×1/2 downsamples, as 1×1 windows,
+# on K2); ResNet-20 KL (two downsamples and the fc; the stem and eighteen
+# 3×3s); ResNet-50 on the module path with its stem and downsamples in fp32
+# (thirty-two 1×1s and the fc on K1, sixteen 3×3s on K2); MobileNet-v2 on
+# the module path with its stem and block1 in fp32 (33 K1, 16 K3);
+# ResNet-101 on the flat engine (66 1×1s, 4 downsamples and the fc on K1,
+# 33 3×3s on K2)
+LENET = "lenet_mnist_int8"
+RN18 = "resnet18_cifar10_int8_kl"
+RN20 = "resnet20_cifar10_int8_kl"
+RN101 = "resnet101_imagenet_int8_ptq_fp32stem"
+RN50_MODULE_EXCLUDE = ("stem*", "*/down")
+MNV2_MODULE_EXCLUDE = ("stem*", "block1/*")
+RN50_MODULE = f"{RN50} exclude={RN50_MODULE_EXCLUDE}"
+MNV2_MODULE = f"{MNV2} exclude={MNV2_MODULE_EXCLUDE}"
+LENET_FWD = (3, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN18_FWD = (4, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN18_MODULE_FWD = (1, 20, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN20_FWD = (3, 19, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN50_MODULE_FWD = (33, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+MNV2_MODULE_FWD = (33, 0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN101_FWD = (71, 33, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN101_CALIB_BATCHES = 2     # of the config's 8, to keep the script short
+# runs whose K2 launches take the old loop on a zero-point-padded copy:
+# LeNet-5's conv1 (Ci = 1), the module path's int8 CIFAR stem (the raw
+# accumulator has no stem kernel), ResNet-20's 16-channel layer1
+PADDED = ("lenet", "rn18_module", "rn20")
 
 
 class SmokeFailure(Exception):
@@ -300,12 +375,13 @@ def main() -> int:
     from qtpu_torch.ops import qstage as k78
     from qtpu_torch.ops import qtail as k5
     from qtpu_torch.ops.chain_plan import chain_plan
-    from qtpu_torch.serve.cli import build_engine, freeze_from_config
+    from qtpu_torch.serve.cli import (build_engine, freeze_from_config,
+                                      serve_module)
     from qtpu_torch.serve.dispatch import resnet_arch
     from qtpu_torch.serve.engine import ServingEngine
     from qtpu_torch.serve.experimental import (
         ExperimentalMobileNetV2Int8Engine, ExperimentalResNetInt8Engine)
-    from qtpu_torch.serve.fused_ops import grid_of
+    from qtpu_torch.serve.fused_ops import grid_of, tree_to_device
     from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
                                                       MobileNetV1Int8Engine)
@@ -374,6 +450,7 @@ def main() -> int:
 
     requant = dict(requant_scale=0.05, requant_zp=-20, relu=True)
     relu6 = dict(requant_scale=0.05, requant_zp=-20, relu=True, act_max=6.0)
+    sym = dict(requant_scale=0.05, requant_symmetric=True)
     # (path, label, M, K, N, epilogue, residual)
     k1_cases = [
         ("rn50", "layer1 conv3 +int8 residual", 25088, 64, 256,
@@ -396,6 +473,19 @@ def main() -> int:
         ("rn50", "B=128 layer4 conv3 +int8 residual", 6272, 512, 2048,
          dict(res_scale=0.04, res_zp=-7, **requant), "i8"),
         ("rn50", "B=128 fc raw_acc", 128, 2048, 1000, None, None),
+        # the module SERVE path's raw accumulators at LeNet-5's fc shapes
+        # (rows of 120 and 84 bytes, and N = 10's 40-byte output rows, on
+        # the old loop), and a requant onto a symmetric grid (shift 0, the
+        # KL configs' grids) at ResNet-18's layer2_0 downsample shape
+        ("lenet", "LeNet fc1 raw_acc", 8, 400, 120, None, None),
+        ("lenet", "LeNet fc2 raw_acc", 8, 120, 84, None, None),
+        ("lenet", "LeNet fc3 raw_acc", 8, 84, 10, None, None),
+        ("lenet", "B=128 LeNet fc1 raw_acc", 128, 400, 120, None, None),
+        ("lenet", "B=128 LeNet fc2 raw_acc", 128, 120, 84, None, None),
+        ("lenet", "B=128 LeNet fc3 raw_acc", 128, 84, 10, None, None),
+        ("rn18", "RN18 1x1 symmetric requant", 2048, 64, 128, sym, None),
+        ("rn18", "B=128 RN18 1x1 symmetric requant", 32768, 64, 128, sym,
+         None),
     ]
     kernels = []
     for path, label, M, K, N, kw, res in k1_cases:
@@ -421,10 +511,24 @@ def main() -> int:
         nbytes = M * K + N * K + y.element_size() * M * N + \
             (0 if raw else 8 * N) + (M * N if r is not None else 0)
         b_ms, b_by = bound(nbytes, 2 * M * N * K)
-        lib_ms = None
-        if M > 16:        # torch._int_mm needs more than 16 rows
-            wt = w.t()
+        wt = w.t()
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            # torch._int_mm needs more than 16 rows, K and N multiples of 8
+            lib_call = "torch._int_mm"
             lib_ms = timed(torch, lambda: torch._int_mm(x, wt), 50)
+        else:
+            # cuBLAS fp32 (TF32 off) on the codes as floats: the int32
+            # accumulator exactly while |acc| < 2^24
+            lib_call = "torch.mm fp32"
+            xf, wf = x.float(), wt.float()
+            with fp32_exact():
+                # 20 calls of warm-up first (cuBLAS picks its kernel at the
+                # first call of a shape), then the kernels of one call
+                for _ in range(20):
+                    torch.mm(xf, wf)
+                lib_call += " (" + ", ".join(device_kernels(
+                    torch, lambda: torch.mm(xf, wf))) + ")"
+                lib_ms = timed(torch, lambda: torch.mm(xf, wf), 50)
         kernels.append(dict(
             name=f"qmatmul_fused [{label}]", route="cuda", source=SRC_K1,
             replaces=TPU_K1, path=path, shape=f"M={M} K={K} N={N}",
@@ -432,7 +536,7 @@ def main() -> int:
             igemm_ms=timed(torch, run_old, 50),
             eager_ms=timed_eager(torch, run_k, 50),
             plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+            library_ms=lib_ms, library_call=lib_call))
         del x, w, r, y, run_k, run_p, run_old
         torch.cuda.empty_cache()
 
@@ -648,6 +752,124 @@ def main() -> int:
             bound_by=b_by,
             library_ms=conv_fp32_ms(xp.contiguous(),
                                     w.t().reshape(C, 1, 3, 3), s, groups=C)))
+
+    # the module SERVE path's raw accumulators and the KL configs'
+    # symmetric grids on K2: raw int32 at zero-point-padded shapes (on
+    # wgmma the pads read 0 by TMA and corrected by zp·tapsum; LeNet's convs
+    # on the old loop, conv1 on its zero-point-padded copy), the 1×1/2
+    # window that runs the module path's quantized downsample, and ReLU +
+    # requant onto a symmetric grid (shift 0) on wgmma and the stem kernel;
+    # every row also on the old loop forced, which must agree
+    # (path, label, B, H, Ci, Co, kernel, stride, padding, zp, epilogue,
+    # the path k2_path must give, TPU kernel)
+    k2_more = []
+    for B in (8, 128):
+        pre = "" if B == 8 else "B=128 "
+        k2_more += [
+            ("rn50_module", f"{pre}layer1 conv2 3x3/1 raw", B, 56, 64, 64, 3,
+             1, "SAME", -9, None, "wgmma", TPU_K2),
+            ("rn50_module", f"{pre}layer2_0 conv2 3x3/2 raw", B, 56, 128,
+             128, 3, 2, "SAME", 23, None, "wgmma", TPU_K2S),
+            ("lenet", f"{pre}LeNet conv1 5x5 SAME raw", B, 28, 1, 6, 5, 1,
+             "SAME", -17, None, "igemm", TPU_K2),
+            ("lenet", f"{pre}LeNet conv2 5x5 VALID raw", B, 14, 6, 16, 5, 1,
+             "VALID", 5, None, "igemm", TPU_K2),
+            ("rn18_module", f"{pre}RN18 layer2_0 down 1x1/2 raw", B, 32, 64,
+             128, 1, 2, "SAME", 7, None, "wgmma", TPU_K2S),
+            ("rn18", f"{pre}RN18 stem 3x3/1 symmetric", B, 32, 3, 64, 3, 1,
+             "SAME", 0, dict(sym, relu=True), "stem", TPU_K2),
+            ("rn18", f"{pre}RN18 layer1 conv1 3x3/1 symmetric", B, 32, 64,
+             64, 3, 1, "SAME", 0, dict(sym, relu=True), "wgmma", TPU_K2),
+        ]
+    for (path, label, B, H, Ci, Co, k, s, padding, zp, kw, want,
+         tpu) in k2_more:
+        raw = kw is None
+        x = i8(B, H, H, Ci, lo=-128 if zp else -127)
+        pads = qops.resolve_pads((H, H), (k, k), (s, s), padding)
+        w = i8(Co, k * k * Ci, lo=-127)
+        co, mode = (None, None) if raw else coeffs(Co, k * k * Ci, **kw)
+        kargs = dict(kernel_hw=(k, k), stride=s, pads=pads, zp=zp,
+                     raw_acc=raw)
+        ts = k2.tapsum_of(w, (k, k))
+        xp = qops.pad_nhwc(x, pads, zp).contiguous()
+
+        def run_k(x=x, w=w, co=co, mode=mode, ts=ts, kargs=kargs):
+            return k2.qconv2d_folded(x, w, co, mode, tapsum=ts, **kargs)
+
+        def run_p(x=x, w=w, co=co, mode=mode, kargs=kargs):
+            return k2.qconv2d_folded_plain(x, w, co, mode, **kargs)
+
+        def run_old(xp=xp, w=w, co=co, mode=mode, k=k, s=s, raw=raw):
+            # the old loop alone, on the zero-point-padded copy
+            return k2.qconv2d_folded(xp, w, co, mode, kernel_hw=(k, k),
+                                     stride=s, raw_acc=raw, path="igemm")
+
+        def run_old_pad(x=x, w=w, co=co, mode=mode, kargs=kargs):
+            # the old loop with the pad copy it needs
+            return k2.qconv2d_folded(x, w, co, mode, path="igemm", **kargs)
+
+        kpath = k2.k2_path(x, w, pads, s, co, mode, kernel_hw=(k, k),
+                           out_dtype=torch.int32 if raw else torch.int8)
+        check(kpath == want, f"K2 {label}: k2_path gives {kpath!r}")
+        y, err = compare(f"K2 {label} [{kpath}]", run_k, run_p)
+        check(torch.equal(y, run_old()) and torch.equal(y, run_old_pad()),
+              f"K2 {label}: the {kpath} and igemm kernels differ")
+        M = B * y.shape[1] * y.shape[2]
+        nbytes = x.numel() + w.numel() + y.numel() * y.element_size() + (
+            0 if raw else 8 * Co)
+        b_ms, b_by = bound(nbytes, 2 * M * Co * k * k * Ci)
+        w_oihw = w.reshape(Co, k, k, Ci).permute(0, 3, 1, 2)
+        kernels.append(dict(
+            name=f"qconv2d_fused [{label}]", route="cuda", source=SRC_K2,
+            replaces=tpu, path=path, kernel="K2", k2_path=kpath,
+            shape=f"B={B} H={H} Ci={Ci} Co={Co} {k}x{k}/{s} {padding} "
+            f"zp={zp}", max_abs_err=err, ms=timed(torch, run_k, 20),
+            igemm_ms=timed(torch, run_old, 10),
+            igemm_pad_ms=timed(torch, run_old_pad, 10),
+            eager_ms=timed_eager(torch, run_k, 10),
+            plain_ms=timed(torch, run_p, 2), bound_ms=b_ms, bound_by=b_by,
+            library_ms=conv_fp32_ms(xp, w_oihw, s)))
+        del x, xp, w, y, run_k, run_p, run_old, run_old_pad
+        torch.cuda.empty_cache()
+
+    # K3's raw accumulator (the module path's depthwise) at MobileNet-v2's
+    # block2 shape
+    for B in (8, 128):
+        label = f"{'' if B == 8 else 'B=128 '}block2 dw 3x3/1 raw"
+        x, w = i8(B, 56, 56, 144), i8(9, 144, lo=-127)
+        dargs = dict(kernel_hw=(3, 3), stride=1, padding="SAME", zp=-41,
+                     raw_acc=True)
+
+        def run_k(x=x, w=w):
+            return k3.qdepthwise_folded(x, w, None, None, **dargs)
+
+        def run_p(x=x, w=w):
+            return k3.qdepthwise_folded_plain(x, w, None, None, **dargs)
+
+        y, err = compare(f"K3 {label}", run_k, run_p)
+        plan = k3.k3_plan(B, 56, 56, 144, 56, 56, (3, 3), 1,
+                          sms=torch.cuda.get_device_properties(
+                              dev).multi_processor_count)
+        check(plan.path == "halo", f"K3 {label}: plan {plan}")
+        b_ms, b_by = bound(x.numel() + 4 * y.numel() + w.numel(),
+                           2 * 9 * y.numel(), PEAK_CUDA_CORE_OPS)
+        xp = qops.pad_nhwc(x, ((1, 1), (1, 1)), -41)
+        kernels.append(dict(
+            name=f"qdepthwise_fused [{label}]", route="cuda", source=SRC_K3,
+            replaces=TPU_K3, path="mnv2_module",
+            shape=f"B={B} H=56 C=144 3x3/1 zp=-41",
+            k3_plan=f"{plan.path} rows {plan.th} channels {plan.cc} "
+            f"threads {plan.threads}",
+            max_abs_err=err, ms=timed(torch, run_k, 20),
+            eager_ms=timed_eager(torch, run_k, 10),
+            plain_ms=timed(torch, run_p, 2), bound_ms=b_ms, bound_by=b_by,
+            library_ms=conv_fp32_ms(xp.contiguous(),
+                                    w.t().reshape(144, 1, 3, 3), 1,
+                                    groups=144)))
+        del x, w, y, xp, run_k, run_p
+        torch.cuda.empty_cache()
+    log("K2 and K3 raw accumulators exact at zero-point-padded shapes; K1 "
+        "and K2 exact on symmetric grids")
 
     def fused_case(kind, B, H, cmid, cout, cin, stride=1):
         """K4/K5/K6 at one ResNet-50 shape: (run kernel, run plain, run the
@@ -1019,9 +1241,10 @@ def main() -> int:
     rng = np.random.default_rng(1)
     imgs = rng.standard_normal((45, 224, 224, 3)).astype(np.float32)
 
-    def drive(what, engine, flat, per_fwd, classes):
+    def drive(what, engine, flat, per_fwd, classes, imgs=imgs, exact=False):
         """One direct forward, then 45 requests in two waves through
-        ``engine`` (a ServingEngine over ``flat``'s forward)."""
+        ``engine`` (a ServingEngine over ``flat``'s forward); ``exact``:
+        the served logits must equal the direct forward's."""
         try:
             one_forward(flat, torch.from_numpy(imgs[:8]).to(dev), per_fwd,
                         what)
@@ -1048,22 +1271,33 @@ def main() -> int:
             direct = flat.forward(torch.from_numpy(imgs)).cpu().numpy()
         rel = float(np.linalg.norm(served - direct) / np.linalg.norm(direct))
         check(rel <= 1e-4, f"{what}: served logits vs forward: rel-L2 {rel}")
+        check(not exact or np.array_equal(served, direct),
+              f"{what}: served logits differ from the direct forward's")
         log(f"{what}: served 45 requests in {rounds} rounds "
             f"{st['rounds_per_bucket']}: {fmt_counts(run_counts)}; rel-L2 "
             f"vs forward {rel:.2e}")
         return run_counts
 
-    def serve(cfg_name, make_flat, per_fwd):
-        cfg = CONFIGS[cfg_name]
+    def serve(cfg, make_flat, per_fwd, imgs=imgs, what=None, exact=False):
+        """``build_engine`` for ``cfg`` (a config or its name), driven; the
+        flat engine ``make_flat`` builds over its tree, or for the module
+        SERVE path the engine's own model, is the direct forward."""
+        cfg = CONFIGS[cfg] if isinstance(cfg, str) else cfg
+        what = what or cfg.name
         t0 = time.monotonic()
         # a 20 ms collection window: the burst of 40 lands in a bucket above 8
         engine, info = build_engine(cfg, buckets=(8, 32, 128),
                                     max_wait_ms=20.0, device=dev)
-        log(f"build_engine ({cfg.name}): {time.monotonic() - t0:.1f} s, "
-            f"{info['serve_path']}, buckets {info['buckets']}")
-        flat = make_flat(engine.vars)
-        run_counts = drive(cfg.name, engine, flat, per_fwd,
-                           cfg.num_classes)
+        cs = info["calib_seconds"]
+        log(f"build_engine ({what}): {time.monotonic() - t0:.1f} s, "
+            f"{info['serve_path']}, buckets {info['buckets']}; calibration "
+            f"range pass {cs['range']:.2f} s, histogram pass "
+            f"{cs['hist']:.2f} s, threshold search (host) "
+            f"{cs['search']:.2f} s")
+        flat = (engine.model if info["serve_path"] == "module"
+                else make_flat(engine.vars))
+        run_counts = drive(what, engine, flat, per_fwd, cfg.num_classes,
+                           imgs=imgs, exact=exact)
         return flat, run_counts, engine.vars
 
     cfg = CONFIGS[RN50]
@@ -1140,6 +1374,54 @@ def main() -> int:
         stage5, torch.from_numpy(imgs[:8]).to(dev), CFG5_STAGE,
         f"{CFG5} [stage, packed_int4]")
 
+    # the module SERVE path and the KL configs (symmetric grids)
+    small = np.random.default_rng(2)
+    imgs_mnist = small.standard_normal((45, 28, 28, 1)).astype(np.float32)
+    imgs_cifar = small.standard_normal((45, 32, 32, 3)).astype(np.float32)
+    lenet, path_counts["lenet"], lenet_vars = serve(
+        LENET, None, LENET_FWD, imgs=imgs_mnist, exact=True)
+    cfg18 = CONFIGS[RN18]
+    arch18 = resnet_arch(cfg18.model, num_classes=cfg18.num_classes,
+                         image_size=cfg18.image_size, width=cfg18.width,
+                         cifar_stem=cfg18.cifar_stem)
+    rn18, path_counts["rn18"], rn18_vars = serve(
+        RN18, lambda v: ResNetInt8Engine(v, arch18, device=dev), RN18_FWD,
+        imgs=imgs_cifar)
+    rn18_mod = serve_module(cfg18, rn18_vars, device=dev)
+    path_counts["rn18_module"] = one_forward(
+        rn18_mod, torch.from_numpy(imgs_cifar[:8]).to(dev), RN18_MODULE_FWD,
+        f"{RN18} [module path]")
+    cfg20 = CONFIGS[RN20]
+    arch20 = resnet_arch(cfg20.model, num_classes=cfg20.num_classes,
+                         image_size=cfg20.image_size, width=cfg20.width,
+                         cifar_stem=cfg20.cifar_stem)
+    rn20, path_counts["rn20"], rn20_vars = serve(
+        RN20, lambda v: ResNetInt8Engine(v, arch20, device=dev), RN20_FWD,
+        imgs=imgs_cifar)
+    cfg50m = dataclasses.replace(CONFIGS[RN50], exclude=RN50_MODULE_EXCLUDE)
+    rn50m, path_counts["rn50_module"], rn50m_vars = serve(
+        cfg50m, None, RN50_MODULE_FWD, what=RN50_MODULE)
+    cfg2m = dataclasses.replace(CONFIGS[MNV2], exclude=MNV2_MODULE_EXCLUDE)
+    t0 = time.monotonic()
+    mnv2m_vars = freeze_from_config(cfg2m, device=dev)
+    log(f"freeze ({MNV2_MODULE}): {time.monotonic() - t0:.1f} s")
+    mnv2m = serve_module(cfg2m, mnv2m_vars, device=dev)
+    path_counts["mnv2_module"] = one_forward(
+        mnv2m, torch.from_numpy(imgs[:8]).to(dev), MNV2_MODULE_FWD,
+        MNV2_MODULE)
+    cfg101 = dataclasses.replace(CONFIGS[RN101],
+                                 calib_batches=RN101_CALIB_BATCHES)
+    t0 = time.monotonic()
+    rn101_vars = freeze_from_config(cfg101, device=dev)
+    log(f"freeze ({RN101}, {RN101_CALIB_BATCHES} calibration batches): "
+        f"{time.monotonic() - t0:.1f} s")
+    arch101 = resnet_arch(cfg101.model, num_classes=cfg101.num_classes,
+                          image_size=cfg101.image_size, width=cfg101.width,
+                          cifar_stem=cfg101.cifar_stem)
+    rn101 = ResNetInt8Engine(rn101_vars, arch101, device=dev)
+    path_counts["rn101"] = one_forward(
+        rn101, torch.from_numpy(imgs[:8]).to(dev), RN101_FWD, RN101)
+
     # by kernel: every K1 and K2 launch of the ResNet-50 and config-5
     # engines on the wgmma kernels, MobileNet-v1's int8 stem on the stem
     # kernel, every K3 launch on the halo kernel (every depthwise of the
@@ -1148,14 +1430,15 @@ def main() -> int:
     s2, s3 = SPLIT["K2"], SPLIT["K3"]
     for key, c in path_counts.items():
         if key in ("rn50", "tail", "block", "stage", "cfg5", "cfg5_packed",
-                   "cfg5_stage"):
+                   "cfg5_stage", "rn50_module", "rn101"):
             check(c[13] == 0 and c[15] == 0, f"{key}: {c[13]} K1 and "
                   f"{c[15]} K1 int4 launches took the igemm kernel")
             check(c[s2["wgmma"]] == c[KIDX["K2"]] > 0, f"{key}: K2 "
                   f"launches {c[KIDX['K2']]}, on wgmma {c[s2['wgmma']]}")
         check(c[s3["halo"]] == c[KIDX["K3"]], f"{key}: K3 launches "
               f"{c[KIDX['K3']]}, on the halo kernel {c[s3['halo']]}")
-        check(c[PADS] == 0, f"{key}: {c[PADS]} zero-point pad copies")
+        check(c[PADS] == 0 or key in PADDED,
+              f"{key}: {c[PADS]} zero-point pad copies")
     # K5 and K6: every launch of every run on the wgmma kernel (the tail
     # and block runs' 12 a forward)
     for key, c in path_counts.items():
@@ -1190,6 +1473,15 @@ def main() -> int:
           "the two-GEMM tile, or the stage runs no K8 on the runner")
     check(path_counts["mnv1"][s2["stem"]] == 1, "the MobileNet-v1 int8 "
           "stem did not take K2's stem kernel")
+    # ResNet-18 KL: the int8 CIFAR stem on the stem kernel, the 3×3s on
+    # wgmma, onto symmetric grids
+    c = path_counts["rn18"]
+    rounds18 = c[KIDX["K2"]] // RN18_FWD[1]
+    check(c[s2["stem"]] == rounds18 and c[s2["wgmma"]] == 16 * rounds18,
+          f"{RN18}: K2 stem {c[s2['stem']]}, wgmma {c[s2['wgmma']]} over "
+          f"{rounds18} forwards (want 1 and 16 a forward)")
+    check(path_counts["mnv2_module"][s3["halo"]] == 16,
+          f"{MNV2_MODULE}: K3 raw not on the halo kernel 16 times")
     c = path_counts["rn50_int8stem"]
     check(c[13] == 0 and c[s2["wgmma"]] == 16 and c[s2["stem"]] == 1,
           f"{RN50_INT8STEM}: K1 igemm {c[13]}, K2 wgmma {c[s2['wgmma']]} "
@@ -1233,7 +1525,7 @@ def main() -> int:
               f"{frac:.2e} of codes differ")
         return frac
 
-    def logits_agree(flat, cpu, what):
+    def logits_agree(flat, cpu, what, x2=x2):
         with torch.inference_mode():
             y_gpu = flat.forward(x2).cpu().numpy()
             y_cpu = cpu.forward(x2).numpy()
@@ -1246,7 +1538,7 @@ def main() -> int:
             return eng._block_in_grid(eng._blocks()[0][0])
         return grid_of(eng._node(eng._block_names()[0][0], "conv1"))
 
-    def walk_vs_cpu(flat, cpu, what, ref=None):
+    def walk_vs_cpu(flat, cpu, what, ref=None, x2=x2):
         """Step by step through the forward's plan (a block, or a chained
         run), card against CPU (tie rule), and, given the product engine
         ``ref`` on the card, the codes after each step against its blocks'
@@ -1274,7 +1566,7 @@ def main() -> int:
                         r_out, rg = ref._step(r_out, rg, (k, 1, None))
                     differ += int((g_out != r_out).sum().item())
                 g_codes, gg, cg = g_out, gn, cn
-        rel_cpu = logits_agree(flat, cpu, what)
+        rel_cpu = logits_agree(flat, cpu, what, x2)
         check(differ == 0, f"{what}: {differ} codes differ from the product "
               "engine's on the card")
         log(f"{what}, card vs CPU plain path over {len(plan)} steps: worst "
@@ -1303,6 +1595,50 @@ def main() -> int:
     walk_vs_cpu(stage5, ExperimentalResNetInt8Engine(
         vars5, arch5, device="cpu", packed_int4=True, **STAGE_FLAGS),
         f"{CFG5} [stage, packed_int4]", ref=prod5)
+
+    # the KL configs' flat engines, walked step by step
+    x2c = torch.from_numpy(imgs_cifar[:2])
+    walk_vs_cpu(rn18, ResNetInt8Engine(rn18_vars, arch18, device="cpu"),
+                RN18, x2=x2c)
+    walk_vs_cpu(rn20, ResNetInt8Engine(rn20_vars, arch20, device="cpu"),
+                RN20, x2=x2c)
+    walk_vs_cpu(rn101, ResNetInt8Engine(rn101_vars, arch101, device="cpu"),
+                RN101)
+
+    def module_vs_cpu(card, cfg, tree, x, what):
+        """A module-path model on the card against the same tree's model on
+        the CPU, both fed ``x``: each quantized layer's input quantized
+        onto its grid (tie rule), and the logits (rel-L2 ≤ 1e-4)."""
+        cpu = serve_module(cfg, tree_to_device(tree, torch.device("cpu")),
+                           device="cpu")
+        seen, hooks = {}, []
+        for name, model in (("card", card), ("cpu", cpu)):
+            for path in model.kinds:
+                layer = model.net.get_submodule(path.replace("/", "."))
+
+                def hook(m, args, key=(name, path)):
+                    g = m.node["grid"]
+                    a = args[0] if args[0].dim() == 2 else \
+                        args[0].permute(0, 2, 3, 1)
+                    seen[key] = qops.quantize_act(a, g.scale, g.zp,
+                                                  symmetric=g.sym)
+                hooks.append(layer.register_forward_pre_hook(hook))
+        try:
+            rel = logits_agree(card, cpu, what, x)
+        finally:
+            for h in hooks:
+                h.remove()
+        worst = max(tie_rule(seen["card", p], seen["cpu", p],
+                             f"{what} {p}") for p in card.kinds)
+        log(f"{what}, card vs CPU plain path at the inputs of its "
+            f"{len(card.kinds)} quantized layers: worst layer {worst:.2e} of "
+            f"codes differ, logits rel-L2 {rel:.2e}")
+
+    module_vs_cpu(lenet, CONFIGS[LENET], lenet_vars,
+                  torch.from_numpy(imgs_mnist[:2]), LENET)
+    module_vs_cpu(rn18_mod, cfg18, rn18_vars, x2c, f"{RN18} [module path]")
+    module_vs_cpu(rn50m, cfg50m, rn50m_vars, x2, RN50_MODULE)
+    module_vs_cpu(mnv2m, cfg2m, mnv2m_vars, x2, MNV2_MODULE)
 
     # MobileNet-v1 with the quantized stem (K2 at Ci = 3), the tree of the
     # last phase-4 forward
@@ -1333,7 +1669,12 @@ def main() -> int:
     phase_done("5 (card against CPU)")
 
     # -- 6. engine throughput and a profile ------------------------------------------
-    for what, flat, batches in ((RN50, rn50, (8, 128)),
+    graph_ms = {}
+    for what, flat, batches in ((LENET, lenet, (8, 128)),
+                                (RN18, rn18, (8, 128)),
+                                (RN20, rn20, (8, 128)),
+                                (RN50_MODULE, rn50m, (128,)),
+                                (RN50, rn50, (8, 128)),
                                 (CFG5, prod5, (8, 128)),
                                 (f"{CFG5} [packed_int4]", packed5, (8, 128)),
                                 (f"{RN50} [tail]", fused["tail"], (128,)),
@@ -1341,15 +1682,31 @@ def main() -> int:
                                 (f"{RN50} [stage]", fused["stage"], (128,)),
                                 (MNV2, mnv2, (32, 128)),
                                 (f"{MNV2} [ivr]", ivr, (32, 128))):
+        hwc = ((28, 28, 1) if flat is lenet else
+               (32, 32, 3) if flat in (rn18, rn20) else (224, 224, 3))
         for B in batches:
-            x = torch.randn((B, 224, 224, 3), generator=g).to(dev)
+            x = torch.randn((B, *hwc), generator=g).to(dev)
             with torch.inference_mode():
                 ms = timed_eager(torch, lambda: flat.forward(x), 10)
-                graph_ms = timed(torch, lambda: flat.forward(x), 5)
+                graph_ms[what, B] = timed(torch, lambda: flat.forward(x), 5)
             log(f"{what} engine forward B={B}: {ms:.3f} ms, "
                 f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
-                f"{graph_ms:.3f} ms)")
-        profile_forward(what, flat, x, torch)
+                f"{graph_ms[what, B]:.3f} ms)")
+        profile_forward(what, flat, x, torch,
+                        by_op=flat is rn50m)
+    # the fixed-order head mean against torch.mean at the CIFAR heads
+    for what, shape in ((RN18, (128, 4, 4, 512)), (RN20, (128, 8, 8, 64))):
+        x = torch.randn(shape, generator=g).to(dev)
+        log(f"{what} head mean B=128 {shape[1]}x{shape[2]}x{shape[3]}: "
+            f"qops.spatial_mean "
+            f"{timed(torch, lambda: qops.spatial_mean(x), 10):.4f} ms, "
+            f"torch.mean "
+            f"{timed(torch, lambda: torch.mean(x, dim=(1, 2)), 10):.4f} ms "
+            "(device time, CUDA graph)")
+    log(f"{RN50_MODULE} on the module SERVE path B=128: "
+        f"{graph_ms[RN50_MODULE, 128]:.3f} ms as one CUDA graph, the flat "
+        f"engine on {RN50} (only the stem in fp32) "
+        f"{graph_ms[RN50, 128]:.3f} ms")
     # K4-K9 against the unfused sequence at the B = 128 operating point
     for kern in kernels:
         if "kind" not in kern:
@@ -1444,8 +1801,10 @@ def main() -> int:
                "run)" if kern["path"] else
                f"no engine calls it: {kern['launches']} launches over every "
                "serving run)"))
-    log("library: K1 torch._int_mm (K1 int4: on the unpacked weight; no "
-        "PyTorch call takes int4), K2/K3 and the im2col conv cuDNN fp32 "
+    log("library: K1 torch._int_mm (where it takes the shape; else cuBLAS "
+        "fp32 torch.mm, TF32 off, on the codes as floats; K1 int4: "
+        "torch._int_mm on the unpacked weight; no PyTorch call takes int4), "
+        "K2/K3 and the im2col conv cuDNN fp32 "
         "F.conv2d (TF32 off) on the zero-point-padded codes — the int32 "
         f"accumulator only; K4-K9 none: {NO_LIBRARY}")
 
@@ -1457,9 +1816,51 @@ def main() -> int:
     return 0
 
 
-def profile_forward(what, flat, x, torch):
+def device_kernels(torch, fn):
+    """The names (cut to 60 characters) of the device kernels one call of
+    ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name[:60] for e in prof.events()
+            if e.device_type == DeviceType.CUDA] or ["none reported"]
+
+
+def elementwise_by_op(prof):
+    """The PyTorch elementwise kernels' device time by the outermost
+    operation that launched them and the ranks of its inputs (a 4-d tensor
+    against a (C,) vector or a 0-dim tensor tells a broadcast apart):
+    (op, kernel family, ranks) → [launches, µs, the first call's input
+    shapes]."""
+    ops = {}
+    for e in prof.events():
+        ks = [k for k in getattr(e, "kernels", ())
+              if "elementwise_kernel" in k.name]
+        if not ks:
+            continue
+        top = e
+        while top.cpu_parent is not None:
+            top = top.cpu_parent
+        for k in ks:
+            fam = ("unvectorised" if re.search(r"\belementwise_kernel<",
+                                               k.name)
+                   else "vectorised")
+            key = (top.name, fam,
+                   tuple(len(sh) for sh in top.input_shapes))
+            n, us, shapes = ops.get(key, (0, 0.0, None))
+            ops[key] = (n + 1, us + k.duration, shapes or top.input_shapes)
+    return ops
+
+
+def profile_forward(what, flat, x, torch, by_op=False):
     """Device time of one forward by kernel (torch.profiler), and the share
-    of the forward's wall time the card was busy."""
+    of the forward's wall time the card was busy; with ``by_op`` also the
+    elementwise kernels by the operation that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1467,7 +1868,8 @@ def profile_forward(what, flat, x, torch):
         flat.forward(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=by_op) as prof:
             t0 = time.perf_counter()
             flat.forward(x)
             torch.cuda.synchronize()
@@ -1519,6 +1921,14 @@ def profile_forward(what, flat, x, torch):
         "kernel: " + "; ".join(
             f"{k} x{n} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
             for k, (n, us) in top))
+    if by_op:
+        ops = sorted(elementwise_by_op(prof).items(), key=lambda kv:
+                     -kv[1][1])
+        log(f"{what} profile B={x.shape[0]}: elementwise kernels by the "
+            "operation that launched them: " + "; ".join(
+                f"{op} {fam} ranks {list(ranks)} x{n} {us / 1e3:.3f} ms "
+                f"({100 * us / total:.1f}%), first inputs {shapes}"
+                for (op, fam, ranks), (n, us, shapes) in ops))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Calibration observers (port of the min-max and EMA observers of
-qtpu/calib/observers.py).  The histogram observer and the KL threshold
-search are still to port (ROADMAP.md).
+"""Calibration observers (port of qtpu/calib/observers.py): min-max, EMA
+and the |x| histogram of KL calibration.
 
-State: ``{"min": 0-d float32 tensor, "max": 0-d float32 tensor, "count":
-int}``.  Min and max stay on the activations' device; the count is a host
-integer, so an update never waits on the device.
+State of the range observers: ``{"min": 0-d float32 tensor, "max": 0-d
+float32 tensor, "count": int}``.  Min and max stay on the activations'
+device; the count is a host integer, so an update never waits on the
+device.  Histogram state: ``{"counts": (nbins,) float32, "amax": 0-d
+float32}``, both on the device — |x| binned over the range ``[0, amax]``
+a preceding min-max pass froze (qtpu's two-pass scheme); only the
+threshold search (:mod:`qtpu_torch.calib.kl`) runs on the host.
 """
 from __future__ import annotations
 
@@ -12,7 +15,11 @@ from typing import Dict, Optional
 
 import torch
 
+from qtpu_torch.ops import fakequant as fq
+
 State = Dict[str, object]
+
+HIST_NBINS = 2048   # the histogram's bin count, as qtpu's
 
 
 def minmax_init(device: Optional[torch.device] = None) -> State:
@@ -48,3 +55,45 @@ def ema_update(state: State, x: torch.Tensor, momentum: float = 0.99
     return {"min": m * state["min"] + one_m * bmin,
             "max": m * state["max"] + one_m * bmax,
             "count": state["count"] + 1}
+
+
+def hist_init(nbins: int = HIST_NBINS,
+              device: Optional[torch.device] = None) -> State:
+    return {"counts": torch.zeros((nbins,), dtype=torch.float32,
+                                  device=device),
+            "amax": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+def hist_set_range(state: State, amax) -> State:
+    """Freeze the histogram range (once, after the min-max pass)."""
+    amax = torch.as_tensor(amax, dtype=torch.float32,
+                           device=state["counts"].device)
+    return {**state, "amax": amax}
+
+
+def hist_update(state: State, x: torch.Tensor) -> State:
+    """Accumulate the |x| histogram over [0, amax] on the device: bin
+    ``clip(int32(|x| / amax * nbins), 0, nbins - 1)`` in float32, in that
+    order, with ``amax`` a device tensor (a host-scalar divide becomes a
+    reciprocal multiply on CUDA and moves values across bin edges).  Values
+    above amax land in the last bin.  The batch is counted exactly in
+    integers, then added to the float32 running counts: scattering +1.0
+    into a float32 total would stop a bin at 2^24."""
+    counts = state["counts"]
+    nbins = counts.shape[0]
+    amax = torch.clamp_min(state["amax"], 1e-12)
+    ax = torch.abs(x).to(torch.float32).reshape(-1)
+    idx = torch.clamp((ax / amax * nbins).to(torch.int32), 0, nbins - 1)
+    batch = torch.bincount(idx.to(torch.int64), minlength=nbins)
+    return {**state, "counts": counts + batch.to(torch.float32)}
+
+
+def minmax_to_affine(state: State, bits: int = 8):
+    """(scale, zero point) of the affine grid over a range state."""
+    return fq.affine_qparams(state["min"], state["max"], bits)
+
+
+def minmax_to_symmetric(state: State, bits: int = 8) -> torch.Tensor:
+    """Scale of the symmetric grid over a range state."""
+    amax = torch.maximum(torch.abs(state["min"]), torch.abs(state["max"]))
+    return fq.symmetric_scale(amax, bits)

@@ -1,10 +1,14 @@
-"""Typed experiment configs (port of qtpu/examples/configs.py): the INT8
-PTQ serving configs of ResNet-50 and MobileNet-v1/v2, and
-``resnet50_int4w_int8a_qat`` (BASELINE config 5: int4 per-channel weights,
-int8 affine activations on the EMA observer, stem and fc in fp32).  The
-port serves config 5 as qtpu's ``build_engine`` does — calibrate and freeze
-— since its QAT loop waits for the trainer.  The other configs, and the
-training fields, arrive with their models and the trainer (ROADMAP.md)."""
+"""Typed experiment configs (port of qtpu/examples/configs.py): BASELINE
+config 1 ``lenet_mnist_int8`` (per-tensor weights, min-max; served on the
+module SERVE path), config 2 ``resnet18_cifar10_int8_kl`` and
+``resnet20_cifar10_int8_kl`` (per-channel weights, KL activations on
+symmetric grids, CIFAR stem), the INT8 PTQ serving configs of
+ResNet-50/101 and MobileNet-v1/v2, and ``resnet50_int4w_int8a_qat``
+(BASELINE config 5: int4 per-channel weights, int8 affine activations on
+the EMA observer, stem and fc in fp32).  The port serves config 5 as
+qtpu's ``build_engine`` does — calibrate and freeze — since its QAT loop
+waits for the trainer.  Config 3 and the training fields arrive with the
+trainer (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +45,18 @@ class ExperimentConfig:
 
 
 CONFIGS = {
+    "lenet_mnist_int8": ExperimentConfig(
+        name="lenet_mnist_int8", model="lenet5", dataset="mnist",
+        num_classes=10, image_size=28, method="ptq", per_channel=False,
+        act_observer="minmax"),
+    "resnet18_cifar10_int8_kl": ExperimentConfig(
+        name="resnet18_cifar10_int8_kl", model="resnet18", dataset="cifar10",
+        num_classes=10, image_size=32, method="ptq", per_channel=True,
+        act_observer="kl", cifar_stem=True, batch_size=64),
+    "resnet20_cifar10_int8_kl": ExperimentConfig(
+        name="resnet20_cifar10_int8_kl", model="resnet20", dataset="cifar10",
+        num_classes=10, image_size=32, method="ptq", per_channel=True,
+        act_observer="kl", cifar_stem=True, batch_size=64),
     "resnet50_imagenet_int8_ptq": ExperimentConfig(
         name="resnet50_imagenet_int8_ptq", model="resnet50",
         dataset="imagenet", num_classes=1000, image_size=224,
@@ -62,6 +78,11 @@ CONFIGS = {
     "mobilenetv2_imagenet_int8_ptq_fp32stem": ExperimentConfig(
         name="mobilenetv2_imagenet_int8_ptq_fp32stem", model="mobilenet_v2",
         dataset="imagenet", num_classes=1000, image_size=224,
+        per_channel=True, act_observer="minmax", batch_size=16,
+        n_train=2048, exclude=("stem*",)),
+    "resnet101_imagenet_int8_ptq_fp32stem": ExperimentConfig(
+        name="resnet101_imagenet_int8_ptq_fp32stem", model="resnet101",
+        dataset="imagenet", num_classes=1000, image_size=224, method="ptq",
         per_channel=True, act_observer="minmax", batch_size=16,
         n_train=2048, exclude=("stem*",)),
     "resnet50_int4w_int8a_qat": ExperimentConfig(

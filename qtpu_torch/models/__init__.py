@@ -1,13 +1,26 @@
-"""Model zoo (torch modules, NHWC at the boundary): the ResNet family and
-MobileNet-v1/v2; LeNet-5 is still to port (ROADMAP.md)."""
+"""Model zoo (torch modules, NHWC at the boundary): LeNet-5, the ResNet
+family and MobileNet-v1/v2."""
 import functools
 
 from qtpu_torch.models import resnet as _resnet
+from qtpu_torch.models.lenet import LeNet5
 from qtpu_torch.models.mobilenet import (DWSeparable, InvertedResidual,
                                          MobileNetV1, MobileNetV2)
 from qtpu_torch.models.resnet import (BasicBlock, Bottleneck, ResNet,
                                       init_weights)
-from qtpu_torch.nn.layers import ConvBN, layer_paths, load_flax_variables
+from qtpu_torch.nn.layers import (Conv, ConvBN, layer_paths,
+                                  load_flax_variables)
+
+
+def _lenet(*, width=None, cifar_stem=False, torch_pad=False, **kwargs):
+    """LeNet-5 from a config's common fields: one width of its own, no
+    CIFAR stem and no torchvision geometry (qtpu's takes none of them)."""
+    if width is not None or cifar_stem or torch_pad:
+        raise ValueError(f"LeNet5 takes no width={width!r}, "
+                         f"cifar_stem={cifar_stem!r} or "
+                         f"torch_pad={torch_pad!r}")
+    return LeNet5(**kwargs)
+
 
 def _mobilenet(cls):
     """A MobileNet constructor that also takes the ResNet fields of a
@@ -23,6 +36,7 @@ def _mobilenet(cls):
 
 
 _REGISTRY = {
+    "lenet5": _lenet,
     **{name: functools.partial(_resnet.get_model, name)
        for name in _resnet.STAGES},
     "mobilenet_v1": _mobilenet(MobileNetV1),
@@ -34,7 +48,8 @@ def get_model(name: str, **kwargs):
     """qtpu.models.get_model.  Every family takes a config's common fields
     (``num_classes``, ``torch_pad``, ``width``, ``cifar_stem``,
     ``in_channels``); besides, ResNet takes ``stage_sizes`` and MobileNet
-    ``width_mult``."""
+    ``width_mult``.  LeNet-5 takes ``num_classes`` and ``in_channels``
+    and refuses the rest."""
     try:
         ctor = _REGISTRY[name.lower()]
     except KeyError:
@@ -43,6 +58,6 @@ def get_model(name: str, **kwargs):
     return ctor(**kwargs)
 
 
-__all__ = ["BasicBlock", "Bottleneck", "ConvBN", "DWSeparable",
-           "InvertedResidual", "MobileNetV1", "MobileNetV2", "ResNet",
+__all__ = ["BasicBlock", "Bottleneck", "Conv", "ConvBN", "DWSeparable",
+           "InvertedResidual", "LeNet5", "MobileNetV1", "MobileNetV2", "ResNet",
            "get_model", "init_weights", "layer_paths", "load_flax_variables"]

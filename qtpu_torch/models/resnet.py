@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from qtpu_torch.nn.layers import ConvBN, pad3
-from qtpu_torch.ops.qops import resolve_pads
+from qtpu_torch.ops.qops import resolve_pads, spatial_mean
 
 
 class BasicBlock(nn.Module):
@@ -100,7 +100,7 @@ class ResNet(nn.Module):
                                    value=float("-inf")), 3, 2)
         for name in self.block_names:
             x = getattr(self, name)(x)
-        return self.fc(torch.mean(x, dim=(2, 3)))
+        return self.fc(spatial_mean(x, (2, 3)))
 
 
 STAGES = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3),

@@ -293,20 +293,63 @@ def apply_epilogue(acc: torch.Tensor, co: EpilogueCoeffs, mode: EpilogueMode,
     return t if out_dtype is None else t.to(out_dtype)
 
 
+def dequant_coeffs(*, act_scale: Scalar, act_zp: Scalar,
+                   w_scale: torch.Tensor, colsum: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-channel constants of :func:`dequant_epilogue`:
+    ``act_zp·colsum`` (exact integers) and ``act_scale·w_scale``, on
+    ``colsum``'s device.  A layer whose grid is frozen computes them once."""
+    dev = colsum.device
+    zp = act_zp.to(dev) if isinstance(act_zp, torch.Tensor) \
+        else int(act_zp)
+    if isinstance(act_scale, torch.Tensor):
+        sw = act_scale.to(dev) * w_scale
+    else:
+        sw = w_scale * float(np.float32(act_scale))
+    return zp * colsum, sw
+
+
+def dequant_apply(acc: torch.Tensor, zp_colsum: torch.Tensor,
+                  sw: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`dequant_epilogue` on constants from :func:`dequant_coeffs`."""
+    y = (acc - zp_colsum).to(torch.float32) * sw
+    if bias is not None:
+        y = y + bias
+    return y
+
+
 def dequant_epilogue(acc: torch.Tensor, *, act_scale: Scalar,
                      act_zp: Scalar, w_scale: torch.Tensor,
                      colsum: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``act_scale·w_scale[o]·(acc[..., o] − act_zp·colsum[o]) + b[o]`` with
     the zero-point correction in exact integer arithmetic first."""
-    zp = act_zp.to(acc.device) if isinstance(act_zp, torch.Tensor) \
-        else int(act_zp)
-    corrected = acc - zp * colsum
-    if isinstance(act_scale, torch.Tensor):
-        sw = act_scale.to(acc.device) * w_scale
-    else:
-        sw = w_scale * float(np.float32(act_scale))
-    y = corrected.to(torch.float32) * sw
-    if bias is not None:
-        y = y + bias
-    return y
+    zp_colsum, sw = dequant_coeffs(act_scale=act_scale, act_zp=act_zp,
+                                   w_scale=w_scale, colsum=colsum)
+    return dequant_apply(acc, zp_colsum, sw, bias)
+
+
+def spatial_mean(x: torch.Tensor, dims: Tuple[int, int] = (1, 2)
+                 ) -> torch.Tensor:
+    """Mean over the two spatial ``dims`` (NHWC (1, 2), NCHW (2, 3)) — the
+    global pool before a quantized fc.  Over an even count of values on one
+    grid the mean can sit exactly on a half step of the fc's quantizer,
+    where the float32 sum's order decides the rounding, and a parallel
+    reduction on the card sums in another order than the CPU.  So an even
+    count is summed in one fixed order on every device — row-major, the
+    order of PyTorch's CPU sum up to 16 values and of XLA:CPU's at 4×4 and
+    8×8 — and divided by the count as a device tensor (a true division on
+    CUDA too).  An odd count cannot put the mean on a half step:
+    ``torch.mean``."""
+    h, w = x.shape[dims[0]], x.shape[dims[1]]
+    if (h * w) % 2:
+        return torch.mean(x, dim=dims)
+    grid = x.movedim(dims, (0, 1))
+    acc = grid[0, 0]
+    for i in range(h):
+        for j in range(w):
+            if i or j:
+                acc = acc + grid[i, j]
+    return acc / torch.full((), float(h * w), dtype=acc.dtype,
+                            device=acc.device)

@@ -3,8 +3,10 @@
 Eligibility is decided as the conversion decides exclusion — ``fnmatch``
 globs over the model's quantizable layer paths — and the flat engines
 (ResNet, MobileNet-v1/v2) run ``stem``/``fc`` exclusions in fp32
-themselves.  The host-quantized int8 ingest (which needs the native
-preprocessor) is still to port (ROADMAP.md).
+themselves.  Every other config (LeNet-5, or excludes beyond stem/fc)
+takes the module SERVE path (``qtpu_torch.nn.serve_layers``).  The
+host-quantized int8 ingest (which needs the native preprocessor) is still
+to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -97,15 +99,22 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                       std: Sequence[float] = (1.0,), device=None):
     """(forward_factory, preprocess_fn, raw_dtype, serve_path).
 
-    f32 ingest → the engine's ``forward``; with an excluded fp32 stem,
-    ``uint8_ingest`` puts raw 0-255 pixels on the wire, normalized on the
-    device (``forward_u8``).  The module SERVE path and host-quantized int8
-    ingest are not ported and raise."""
+    * ineligible config → ``(None, None, float32, "module")``, the module
+      SERVE path; with ``uint8_ingest`` there, SystemExit — the module
+      path takes f32 images;
+    * f32 ingest → the engine's ``forward``; with an excluded fp32 stem,
+      ``uint8_ingest`` puts raw 0-255 pixels on the wire, normalized on the
+      device (``forward_u8``).  Host-quantized int8 ingest is not ported
+      and raises."""
     eligible, exc = flat_engine_eligible(model, exclude)
     if not eligible:
-        raise NotImplementedError(
-            f"{model} with excludes {sorted(exc) or list(exclude)} needs the "
-            "module SERVE path, which is not ported yet (ROADMAP.md)")
+        if uint8_ingest:
+            raise SystemExit(
+                "--uint8-ingest needs a flat-engine config (resnet/mobilenet "
+                f"with excludes limited to stem/fc; this one excludes "
+                f"{sorted(exc) or list(exclude)}): the module SERVE path "
+                "takes f32 images")
+        return None, None, np.float32, "module"
     stem_excluded = "stem" in exc
     if uint8_ingest and not stem_excluded:
         raise NotImplementedError(

@@ -48,14 +48,12 @@ class ServingEngine:
                  pipeline: bool = True, device=None):
         """``forward_fn(variables, batch) -> logits`` or
         ``forward_factory(variables) -> fn(batch)`` (e.g.
-        ``lambda sv: ResNetInt8Engine(sv, arch).forward``).  ``model`` is
-        the module SERVE path's model, which is not ported: pass a forward.
-        ``device``: ``None`` means the card; ``"cpu"`` for the plain path.
+        ``lambda sv: ResNetInt8Engine(sv, arch).forward``); with neither,
+        the engine serves ``model(batch)`` — the module SERVE path's model
+        (``qtpu_torch.nn.serve_layers.serve_model``), as qtpu serves
+        ``model.apply``.  ``device``: ``None`` means the card; ``"cpu"``
+        for the plain path.
         """
-        if forward_fn is None and forward_factory is None:
-            raise NotImplementedError(
-                "the module SERVE path is not ported to qtpu_torch: pass "
-                "forward_fn or forward_factory (ROADMAP.md)")
         if forward_fn is not None and forward_factory is not None:
             raise ValueError("pass forward_fn OR forward_factory")
         self.model = model
@@ -64,6 +62,11 @@ class ServingEngine:
         if forward_factory is not None:
             inner = forward_factory(serve_vars)
             forward_fn = lambda _v, x: inner(x)   # noqa: E731
+        elif forward_fn is None:
+            if not callable(model):
+                raise ValueError("pass forward_fn, forward_factory or a "
+                                 f"callable model (got {type(model).__name__})")
+            forward_fn = lambda _v, x: model(x)   # noqa: E731
         self._fwd = forward_fn
         self._preprocess = preprocess_fn
         self._raw_dtype = np.dtype(raw_dtype)

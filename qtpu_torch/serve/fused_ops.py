@@ -253,38 +253,46 @@ def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
 
 def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
          relu: bool = False, act_max: Optional[float] = None,
-         requant=None, padding="SAME") -> torch.Tensor:
+         requant=None, padding="SAME", raw_acc: bool = False
+         ) -> torch.Tensor:
     """K×K conv (stride 1 or 2) over a frozen node (K2): the zero-point
     pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi))) read in
-    the kernel, no padded copy; int8 codes with ``requant``, f32
-    otherwise."""
+    the kernel where its path allows; int8 codes with ``requant``, f32
+    otherwise, the int32 accumulator with ``raw_acc``."""
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     node = _prepared(node, x_q.device)
     kh_kw = node["kernel_hw"]
     pads = qops.resolve_pads(x_q.shape[1:3], kh_kw, strides, padding)
-    co, mode = _epilogue(node, relu=relu, act_max=act_max, requant=requant,
-                         res_kind=None, res_grid=None)
+    co = mode = None
+    if not raw_acc:
+        co, mode = _epilogue(node, relu=relu, act_max=act_max,
+                             requant=requant, res_kind=None, res_grid=None)
     return qconv2d_folded(x_q, node["w_nk"], co, mode, kernel_hw=kh_kw,
                           stride=strides[0], pads=pads, zp=node["grid"].zp,
-                          tapsum=node.get("tapsum"))
+                          tapsum=node.get("tapsum"), raw_acc=raw_acc)
 
 
 def depthwise(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
               relu: bool = False, act_max: Optional[float] = None,
-              requant=None, padding="SAME") -> torch.Tensor:
+              requant=None, padding="SAME", raw_acc: bool = False
+              ) -> torch.Tensor:
     """Depthwise K×K conv (stride 1 or 2) over a frozen (KH, KW, 1, C) node
     (K3): the pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi)))
     read the zero point inside the kernel; int8 codes with ``requant``
-    (relu6 as ``relu`` with ``act_max=6``), f32 otherwise."""
+    (relu6 as ``relu`` with ``act_max=6``), f32 otherwise, the int32
+    accumulator with ``raw_acc``."""
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     node = _prepared(node, x_q.device, depthwise=True)
-    co, mode = _epilogue(node, relu=relu, act_max=act_max, requant=requant,
-                         res_kind=None, res_grid=None)
+    co = mode = None
+    if not raw_acc:
+        co, mode = _epilogue(node, relu=relu, act_max=act_max,
+                             requant=requant, res_kind=None, res_grid=None)
     return qdepthwise_folded(x_q, node["w_taps"], co, mode,
                              kernel_hw=node["kernel_hw"], stride=strides[0],
-                             padding=padding, zp=node["grid"].zp)
+                             padding=padding, zp=node["grid"].zp,
+                             raw_acc=raw_acc)
 
 
 # -- the fused bottleneck pieces (experimental engine) -------------------------

@@ -237,5 +237,5 @@ class ResNetInt8Engine(FlatInt8Engine):
         if fc is None:
             pooled = torch.mean(x_q, dim=(1, 2))   # fp32 from final block
         else:
-            pooled = torch.mean(dequant(x_q, grid), dim=(1, 2))
+            pooled = qops.spatial_mean(dequant(x_q, grid))
         return self._fc(pooled)

@@ -1,5 +1,5 @@
-"""Post-training calibration (port of the range pass of
-qtpu/transform/calibrate.py): min-max and EMA observers.
+"""Post-training calibration (port of qtpu/transform/calibrate.py): min-max,
+EMA and KL observers.
 
 qtpu records each quantized layer's *input* range during the fp32 forward
 that ``QuantMode.CALIB_RANGE`` runs: BatchNorm on running statistics, no
@@ -7,44 +7,79 @@ weight fake-quant.  Here the fp32 model's eval forward is that forward, and
 forward pre-hooks — the reference's own idiom — observe each quantized
 layer's input, with the layer's observer: ``"minmax"`` the running
 min/max, ``"ema"`` qtpu's ``ema_update`` at the spec's ``ema_momentum``
-over the batches in order.  The observer state is fresh on every call, so
-calibration is idempotent.  The histogram / KL pass and PACT are still to
-port (ROADMAP.md) and raise.
+over the batches in order, ``"kl"`` the running min/max too.  Layers on the
+KL observer then take qtpu's second pass: each histogram's range is seeded
+with ``max(|min|, |max|, 1e-12)``, the same batches run again with
+pre-hooks that bin |x| (``hist_update``, on the device), and the host
+threshold search (``kl_threshold``) freezes a symmetric grid, ``act_scale =
+symmetric_scale(T)`` and ``act_zp = 0``.  The observer state is fresh on
+every call, so calibration is idempotent.  PACT waits for the QAT slice
+(ROADMAP.md) and raises.
 
-Returns ``{"quant_stats": {path: state}, "quant_params": {path: {"act_scale",
-"act_zp", "calibrated"}}}`` keyed by qtpu's "/"-joined layer paths.
+Returns ``{"quant_stats": {path: state}, "quant_params": {path:
+{"act_scale", "act_zp", "calibrated"}}, "seconds": {"range", "hist",
+"search"}}`` keyed by qtpu's "/"-joined layer paths; a KL layer's state
+also holds ``hist`` (the counts) and ``hist_amax``.
 """
 from __future__ import annotations
 
-from typing import Iterable
+import time
+from typing import Callable, Dict, Iterable
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from qtpu_torch.calib import observers as obs
+from qtpu_torch.calib.kl import kl_threshold
 from qtpu_torch.nn.layers import layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.utils.device import fp32_exact
 
 
+def _run(model: nn.Module, batches, hooks: Dict[str, Callable],
+         layers: Dict[str, nn.Module], device: torch.device) -> float:
+    """One eval forward of every batch with ``hooks[path]`` as the forward
+    pre-hook of ``layers[path]``; returns the pass's seconds."""
+    t0 = time.perf_counter()
+    handles = [layers[p].register_forward_pre_hook(h)
+               for p, h in hooks.items()]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), fp32_exact():
+            for b in batches:
+                if not isinstance(b, torch.Tensor):
+                    b = torch.tensor(np.asarray(b, np.float32))
+                model(b.to(device, torch.float32))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        for h in handles:
+            h.remove()
+        model.train(was_training)
+    return time.perf_counter() - t0
+
+
 def calibrate(model: nn.Module, policy: QuantPolicy,
               batches: Iterable) -> dict:
     """Run ``batches`` (NHWC arrays or tensors) through ``model`` and freeze
-    affine/symmetric activation grids for every quantized layer."""
+    affine/symmetric activation grids for every quantized layer.  The
+    batches are iterated twice when a layer uses the KL observer."""
     device = next(model.parameters()).device
+    batches = list(batches)
     layers = {p: m for p, m in layer_paths(model).items()
               if policy.spec_for(p) is not None
               and policy.spec_for(p).quantize_acts}
     for p in layers:
-        if policy.spec_for(p).act_observer not in ("minmax", "ema"):
+        if policy.spec_for(p).act_observer == "pact":
             raise NotImplementedError(
-                f"{p}: only the min-max and EMA observers are ported "
-                "(KL / PACT: ROADMAP.md)")
+                f"{p}: the PACT observer comes with the QAT slice "
+                "(ROADMAP.md)")
     stats = {p: obs.minmax_init(device) for p in layers}
 
-    def observer(path):
+    def ranger(path):
         spec = policy.spec_for(path)
 
         def hook(_module, args):
@@ -55,31 +90,47 @@ def calibrate(model: nn.Module, policy: QuantPolicy,
                 stats[path] = obs.minmax_update(stats[path], args[0])
         return hook
 
-    hooks = [m.register_forward_pre_hook(observer(p))
-             for p, m in layers.items()]
-    was_training = model.training
-    model.eval()
-    try:
-        with torch.no_grad(), fp32_exact():
-            for b in batches:
-                if not isinstance(b, torch.Tensor):
-                    b = torch.tensor(np.asarray(b, np.float32))
-                model(b.to(device, torch.float32))
-    finally:
-        for h in hooks:
-            h.remove()
-        model.train(was_training)
+    seconds = {"range": _run(model, batches,
+                             {p: ranger(p) for p in layers}, layers, device),
+               "hist": 0.0, "search": 0.0}
 
+    kl = [p for p in layers if policy.spec_for(p).act_observer == "kl"
+          and stats[p]["count"] > 0]
+    hists = {}
+    for p in kl:
+        st = stats[p]
+        amax = torch.maximum(torch.abs(st["min"]), torch.abs(st["max"]))
+        hists[p] = obs.hist_set_range(obs.hist_init(device=device),
+                                      torch.clamp_min(amax, 1e-12))
+
+    def binner(path):
+        def hook(_module, args):
+            hists[path] = obs.hist_update(hists[path], args[0])
+        return hook
+
+    if kl:
+        seconds["hist"] = _run(model, batches, {p: binner(p) for p in kl},
+                               layers, device)
+
+    t0 = time.perf_counter()
     qparams = {}
     for p, st in stats.items():
         spec = policy.spec_for(p)
         if st["count"] == 0:
             continue
-        if spec.act_symmetric:
-            amax = torch.maximum(torch.abs(st["min"]), torch.abs(st["max"]))
-            scale = fq.symmetric_scale(amax, spec.a_bits)
+        if p in hists:
+            h = hists[p]
+            stats[p] = {**st, "hist": h["counts"], "hist_amax": h["amax"]}
+            t = kl_threshold(h["counts"].cpu().numpy(),
+                             float(h["amax"].cpu()), bits=spec.a_bits)
+            scale = fq.symmetric_scale(np.float32(t), spec.a_bits).to(device)
+            zp = torch.zeros((), dtype=torch.float32, device=device)
+        elif spec.act_symmetric:
+            scale = obs.minmax_to_symmetric(st, spec.a_bits)
             zp = torch.zeros((), dtype=torch.float32, device=device)
         else:
-            scale, zp = fq.affine_qparams(st["min"], st["max"], spec.a_bits)
+            scale, zp = obs.minmax_to_affine(st, spec.a_bits)
         qparams[p] = {"act_scale": scale, "act_zp": zp, "calibrated": True}
-    return {"quant_stats": stats, "quant_params": qparams}
+    seconds["search"] = time.perf_counter() - t0
+    return {"quant_stats": stats, "quant_params": qparams,
+            "seconds": seconds}

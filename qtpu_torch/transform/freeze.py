@@ -7,7 +7,10 @@ the output axis when even), ``w_scale`` (per channel (N,) or per tensor ()),
 ``colsum`` (int32), ``bias`` (BN folded, f32), ``act_scale``, ``act_zp``
 (signed-grid int32) and ``act_sym``; plus ``params``/``batch_stats`` of the
 excluded layers in qtpu's names and layouts, so the engines fold their BN
-from the trained running statistics.
+from the trained running statistics.  A bias conv without BatchNorm
+(:class:`qtpu_torch.nn.layers.Conv`, qtpu's ``QuantConv``) freezes its
+kernel and bias as they are, qtpu's no-BN branch; excluded, it keeps
+``params/<path>/{kernel, bias}``.
 
 Like qtpu, it refuses ``quantize_weights=False`` (the integer path has no
 fp32-weight form) and raises on a quantized layer that calibration never
@@ -20,7 +23,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from qtpu_torch.nn.layers import BN_EPS, ConvBN, layer_paths
+from qtpu_torch.nn.layers import BN_EPS, Conv, ConvBN, layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.utils import debug
@@ -33,7 +36,7 @@ def _set(tree: Dict, path: str, value) -> None:
     tree[keys[-1]] = value
 
 
-def _hwio(m: ConvBN) -> torch.Tensor:
+def _hwio(m) -> torch.Tensor:
     return m.conv.weight.detach().to(torch.float32).permute(2, 3, 1, 0)
 
 
@@ -56,6 +59,9 @@ def freeze(model: nn.Module, policy: QuantPolicy, calib: dict) -> dict:
                     _set(batch_stats, path,
                          {"mean": m.bn.running_mean.detach().clone(),
                           "var": m.bn.running_var.detach().clone()})
+                elif isinstance(m, Conv):
+                    _set(params, path, {"kernel": _hwio(m).contiguous(),
+                                        "bias": m.conv.bias.detach().clone()})
                 else:
                     _set(params, path,
                          {"kernel": m.weight.detach().t().contiguous(),
@@ -72,6 +78,9 @@ def freeze(model: nn.Module, policy: QuantPolicy, calib: dict) -> dict:
                 sigma = torch.sqrt(bn.running_var + BN_EPS)
                 w_f = kernel * (bn.weight / sigma)
                 b_f = bn.bias - bn.weight * bn.running_mean / sigma
+            elif isinstance(m, Conv):
+                w_f = _hwio(m)
+                b_f = m.conv.bias.detach().to(torch.float32)
             else:
                 w_f = m.weight.detach().to(torch.float32).t()
                 b_f = m.bias.detach().to(torch.float32)

@@ -1,0 +1,256 @@
+"""The module SERVE path's kernel calls and the KL configs' engines on the
+card (no JAX: ``python -m pytest --noconftest -m gpu
+tests/test_torch_gpu_serve.py``).
+
+Every test here is ``gpu``-marked and skips without a CUDA device:
+
+* K2's raw int32 accumulator at zero-point-padded shapes — LeNet-5's conv1
+  (28², Ci = 1, 5×5 SAME: the old loop on the padded copy) and conv2 (14²,
+  Ci = 6, VALID), ResNet-50's layer1 3×3 and a 3×3/2 on the implicit GEMM
+  (TMA's zero fill repaired by ``zp · tapsum``), the 1×1/2 downsample as a
+  1×1 window — exact against the plain version, on the kernel ``k2_path``
+  gives and on the old loop forced, with the launches and pad copies
+  counted;
+* K3's raw accumulator at a MobileNet-v2 depthwise shape;
+* K1's raw accumulator at LeNet-5's fc shapes (K = 400 / 120 / 84, N = 120
+  / 84 / 10), and K1 and K2 requantising onto a symmetric grid (shift 0)
+  at ResNet-18's shapes, the stem kernel included;
+* the module SERVE path's models (LeNet-5, a narrowed ResNet-18 with its
+  downsamples in fp32) on the card against the same models on the CPU
+  (codes by the tie rule through the logits: rel-L2 ≤ 1e-4), with the
+  launches per forward counted by kernel family;
+* ``build_engine`` for ``lenet_mnist_int8`` (3 K1 + 2 K2 a forward) and
+  ``resnet18_cifar10_int8_kl`` (4 K1 + 17 K2 a forward, every K2 launch
+  on the stem kernel or wgmma, no pad copy), none on the plain path.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from qtpu_torch.examples.configs import CONFIGS
+from qtpu_torch.nn import LayerQuantSpec, QuantPolicy
+from qtpu_torch.nn.serve_layers import serve_model
+from qtpu_torch.ops import qconv as tconv
+from qtpu_torch.ops import qdepthwise as tdw
+from qtpu_torch.ops import qmatmul as tmm
+from qtpu_torch.ops import qops as tq
+from qtpu_torch.serve.cli import build_engine
+from qtpu_torch.models import get_model, init_weights
+from qtpu_torch.transform import calibrate, freeze
+
+RNG = np.random.default_rng(21)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _dev(a, dev):
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+def _k2_counts():
+    f = tconv.qconv2d_folded
+    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_igemm,
+            tq.resolve_and_pad.calls)
+
+
+# (B, H, Ci, Co, k, stride, padding, zp, the path k2_path gives)
+K2_RAW = [
+    (8, 28, 1, 6, 5, 1, "SAME", -17, "igemm"),      # LeNet conv1
+    (8, 14, 6, 16, 5, 1, "VALID", 5, "igemm"),      # LeNet conv2
+    (2, 56, 64, 64, 3, 1, "SAME", -9, "wgmma"),     # RN50 layer1 3x3
+    (2, 28, 128, 128, 3, 2, "SAME", 23, "wgmma"),   # a 3x3/2
+    (2, 14, 256, 512, 1, 2, "SAME", 7, "wgmma"),    # 1x1/2 downsample
+    (3, 9, 16, 24, 3, 2, ((1, 1), (1, 1)), -128, "igemm"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Ci,Co,k,stride,padding,zp,want", K2_RAW)
+def test_k2_raw_accumulator_matches_plain(cuda, B, H, Ci, Co, k, stride,
+                                          padding, zp, want):
+    x = _dev(RNG.integers(-128, 128, (B, H, H, Ci)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (Co, k * k * Ci)).astype(np.int8), cuda)
+    pads = tq.resolve_pads((H, H), (k, k), (stride, stride), padding)
+    args = dict(kernel_hw=(k, k), stride=stride, pads=pads, zp=zp,
+                raw_acc=True)
+    path = tconv.k2_path(x, w, pads, stride, kernel_hw=(k, k),
+                         out_dtype=torch.int32)
+    assert path == want
+    ref = tconv.qconv2d_folded_plain(x, w, None, None, **args)
+    padded = pads != ((0, 0), (0, 0))
+    for force in (None, "igemm"):
+        c0 = _k2_counts()
+        got = tconv.qconv2d_folded(x, w, None, None, path=force,
+                                   tapsum=tconv.tapsum_of(w, (k, k)), **args)
+        torch.cuda.synchronize()
+        used = force or path
+        assert _k2_counts() == tuple(c + d for c, d in zip(c0, (
+            1, used == "wgmma", used == "stem", used == "igemm",
+            used == "igemm" and padded)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,C,stride", [(8, 56, 144, 1), (8, 112, 96, 2),
+                                         (2, 7, 960, 1)])
+def test_k3_raw_accumulator_matches_plain(cuda, B, H, C, stride):
+    x = _dev(RNG.integers(-128, 128, (B, H, H, C)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (9, C)).astype(np.int8), cuda)
+    args = dict(kernel_hw=(3, 3), stride=stride, padding="SAME", zp=-41,
+                raw_acc=True)
+    f = tdw.qdepthwise_folded
+    n0, h0 = f.launches, f.launches_halo
+    got = f(x, w, None, None, **args)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_halo) == (n0 + 1, h0 + 1)
+    ref = tdw.qdepthwise_folded_plain(x, w, None, None, **args)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8, 400, 120), (8, 120, 84), (8, 84, 10),
+                                   (128, 400, 120), (128, 120, 84),
+                                   (128, 84, 10)])
+def test_k1_raw_at_lenet_shapes(cuda, M, K, N):
+    x = _dev(RNG.integers(-128, 128, (M, K)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (N, K)).astype(np.int8), cuda)
+    f = tmm.qmatmul_folded
+    path = tmm.k1_path(x, w, torch.int32, None)
+    c0 = (f.launches, f.launches_wgmma, f.launches_igemm)
+    got = f(x, w, None, None, raw_acc=True)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_wgmma, f.launches_igemm) == (
+        c0[0] + 1, c0[1] + (path == "wgmma"), c0[2] + (path == "igemm"))
+    # rows of 120 and 84 bytes and 40-byte output rows take the old loop
+    assert path == ("wgmma" if K % 16 == 0 and N * 4 % 16 == 0 else "igemm")
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        tmm.qmatmul_folded_plain(x, w, None, None, raw_acc=True)
+        .cpu().numpy())
+
+
+def _sym_coeffs(n, k, dev, relu):
+    return tq.epilogue_coeffs(
+        act_scale=0.02, act_zp=0,
+        w_scale=_dev(RNG.uniform(0.001, 0.01, n).astype(np.float32), dev),
+        colsum=_dev(RNG.integers(-127 * k // 8, 127 * k // 8, n)
+                    .astype(np.int32), dev),
+        bias=_dev(RNG.standard_normal(n).astype(np.float32), dev),
+        requant_scale=0.05, requant_zp=None, requant_symmetric=True,
+        relu=relu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,relu", [(8 * 256, 64, 128, False),
+                                        (8 * 1024, 64, 64, True),
+                                        (130, 512, 10, False)])
+def test_k1_symmetric_requant_matches_plain(cuda, M, K, N, relu):
+    x = _dev(RNG.integers(-127, 128, (M, K)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (N, K)).astype(np.int8), cuda)
+    co, mode = _sym_coeffs(N, K, cuda, relu)
+    assert mode.shift == 0.0 and co.lo == (0.0 if relu else -127.0)
+    ref = tmm.qmatmul_folded_plain(x, w, co, mode)
+    for force in (None, "igemm"):
+        got = tmm.qmatmul_folded(x, w, co, mode, path=force)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Ci,Co,stride,want", [
+    (8, 32, 3, 64, 1, "stem"),        # ResNet-18's CIFAR stem
+    (8, 32, 64, 64, 1, "wgmma"),      # layer1
+    (8, 16, 128, 256, 2, "wgmma")])   # layer3_0 conv1
+def test_k2_symmetric_requant_matches_plain(cuda, B, H, Ci, Co, stride, want):
+    x = _dev(RNG.integers(-127, 128, (B, H, H, Ci)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (Co, 9 * Ci)).astype(np.int8), cuda)
+    co, mode = _sym_coeffs(Co, 9 * Ci, cuda, True)
+    pads = tq.same_pads((H, H), (3, 3), (stride, stride))
+    args = dict(kernel_hw=(3, 3), stride=stride, pads=pads, zp=0)
+    assert tconv.k2_path(x, w, pads, stride, co, mode, kernel_hw=(3, 3),
+                         out_dtype=torch.int8) == want
+    ref = tconv.qconv2d_folded_plain(x, w, co, mode, **args)
+    for force in (None, "igemm"):
+        got = tconv.qconv2d_folded(x, w, co, mode, path=force, **args)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+def _launches():
+    return (tmm.qmatmul_folded.launches, tconv.qconv2d_folded.launches,
+            tdw.qdepthwise_folded.launches,
+            tmm.qmatmul_folded_plain.calls + tconv.qconv2d_folded_plain.calls
+            + tdw.qdepthwise_folded_plain.calls)
+
+
+def _frozen(name, policy, cuda, **kw):
+    m = get_model(name, **kw)
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(cuda).eval()
+    shape = (4, 28, 28, 1) if name == "lenet5" else (4, 16, 16, 3)
+    x = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    return freeze(m, policy, calibrate(m, policy, [x])), x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw,policy,per_forward", [
+    ("lenet5", dict(num_classes=10),
+     QuantPolicy(default=LayerQuantSpec(per_channel=False)), (3, 2, 0)),
+    ("lenet5", dict(num_classes=10),
+     QuantPolicy(default=LayerQuantSpec(act_observer="kl")), (3, 2, 0)),
+    ("resnet18", dict(num_classes=10, cifar_stem=True, width=64,
+                      stage_sizes=(1, 1, 1, 1)),
+     QuantPolicy.int8_ptq(exclude=("*/down",)), (1, 9, 0))])
+def test_module_serve_on_the_card_matches_cpu(cuda, name, kw, policy,
+                                              per_forward):
+    tree, x = _frozen(name, policy, cuda, **kw)
+    card = serve_model(name, policy, tree, device=cuda, **kw)
+    cpu = serve_model(name, policy, _to_cpu(tree), device="cpu", **kw)
+    c0 = _launches()
+    y = card(torch.tensor(x))
+    torch.cuda.synchronize()
+    got = tuple(b - a for a, b in zip(c0, _launches()))
+    assert got == (*per_forward, 0)
+    y_cpu = cpu(torch.tensor(x)).numpy()
+    y = y.cpu().numpy()
+    assert np.isfinite(y).all()
+    assert (np.linalg.norm(y - y_cpu) / np.linalg.norm(y_cpu)) <= 1e-4
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,per_forward", [("lenet_mnist_int8", (3, 2)),
+                                              ("resnet18_cifar10_int8_kl",
+                                               (4, 17))])
+def test_build_engine_launches(cuda, name, per_forward):
+    cfg = dataclasses.replace(CONFIGS[name], calib_batches=2, n_train=256)
+    eng, info = build_engine(cfg, buckets=(8,), max_wait_ms=5.0, device=cuda)
+    try:
+        x = np.random.default_rng(7).standard_normal(
+            (8, *info["image_shape"])).astype(np.float32)
+        f2 = tconv.qconv2d_folded
+        c0 = (*_launches(), f2.launches_wgmma, f2.launches_stem,
+              tq.resolve_and_pad.calls)
+        y = eng.predict(x)
+        torch.cuda.synchronize()
+        c1 = (*_launches(), f2.launches_wgmma, f2.launches_stem,
+              tq.resolve_and_pad.calls)
+        d = tuple(b - a for a, b in zip(c0, c1))
+        assert d[:4] == (*per_forward, 0, 0)
+        assert y.shape == (8, 10) and np.isfinite(y).all()
+        if name.startswith("resnet18"):
+            assert d[4] + d[5] == 17 and d[5] == 1 and d[6] == 0
+    finally:
+        eng.stop()

@@ -120,8 +120,32 @@ def test_stop_mid_stream_never_hangs_callers():
 
 
 def test_module_path_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ServingEngine(object(), {}, device="cpu")
+    """With no forward, ServingEngine serves ``model(batch)`` — the module
+    SERVE path (the name is kept from when that path raised); passing
+    both forwards still raises, and so does passing neither with a model
+    that cannot be called."""
+    calls = []
+
+    def model(x):
+        calls.append(x.shape[0])
+        return tiny_forward(None, x)
+
+    eng = ServingEngine(model, {}, batch_buckets=(4,), max_wait_ms=1.0,
+                        device="cpu")
+    try:
+        xs = np.random.default_rng(2).standard_normal(
+            (3, 8, 8, 1)).astype(np.float32)
+        np.testing.assert_allclose(
+            eng.predict(xs), tiny_forward(None, torch.from_numpy(xs)),
+            rtol=1e-6, atol=1e-6)
+        assert calls and set(calls) == {4}
+    finally:
+        eng.stop()
+    with pytest.raises(ValueError, match="OR"):
+        ServingEngine(model, {}, forward_fn=tiny_forward,
+                      forward_factory=lambda sv: model, device="cpu")
+    with pytest.raises(ValueError, match="callable model"):
+        ServingEngine(None, {}, device="cpu")
 
 
 def test_build_engine_fp32_stem_config_answers_predict():
@@ -166,8 +190,9 @@ def test_dispatch_refusals():
 
     # MobileNet-v2 now serves on the flat engine: no refusal
     assert td.flat_engine_eligible("mobilenet_v2", ()) == (True, frozenset())
-    with pytest.raises(NotImplementedError, match="module SERVE"):
-        td.make_flat_forward("resnet50", exclude=("layer1_0/*",))
+    # an exclude beyond stem/fc goes to the module SERVE path
+    assert td.make_flat_forward("resnet50", exclude=("layer1_0/*",),
+                                device="cpu")[3] == "module"
     with pytest.raises(NotImplementedError, match="preprocessor"):
         td.make_flat_forward("resnet50", uint8_ingest=True)
 
