@@ -53,7 +53,15 @@ success):
    raw accumulator at LeNet-5's fc shapes (K = 400 / 120 / 84, N = 120 /
    84 / 10), and K1 and K2 (wgmma and the stem kernel) requantising onto
    symmetric grids (shift 0) at ResNet-18's shapes — each also on the old
-   loop forced, which must agree;
+   loop forced, which must agree; the raw accumulators at the QAT
+   trainer's B = 16 (config 5's layer1_1 conv1, layer1 3×3, layer2_0's
+   3×3/2 and 1×1/2 downsample; config 3's block2 expand, depthwise and
+   project and its Ci = 3 stem); and the integer-forward QAT conv
+   (``ops/qat_int.qat_int_conv``) at those eight shapes against its plain
+   version (``qat_int_conv_plain``, the float64 accumulator) on the card:
+   the int32 accumulators, the output and both gradients equal; the fp32
+   simulation on the card (TF32 off) against the integer forward, rel-L2
+   ≤ 1e-5;
 4. the slices, each driven with the launch counters zeroed just before and
    read just after:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
@@ -103,6 +111,19 @@ success):
      calibrated on 2 of its 8 batches (a cut, to keep the script short);
      each build's calibration seconds, the KL configs' histogram pass and
      host threshold search apart;
+   * the QAT trainer, BASELINE configs 5 (``resnet50_int4w_int8a_qat``)
+     and 3 (``mobilenetv2_imagenet_int8_qat``) at full width (224², 1000
+     classes, B = 16) with the integer forward, through
+     ``examples.run.experiment`` (the path ``run_experiment`` takes: fp32
+     steps, convert, QAT steps, evaluation, its JSON line), cut to
+     ``n_train`` 64, ``n_eval`` 32, one fp32 and one QAT epoch: the run's
+     launches equal its QAT forwards (steps and eval batches) times one
+     QAT forward's, which the module path's routing gives (config 5: 33
+     K1 + 19 K2; config 3: 34 K1 + 1 K2 + 17 K3), none plain, the
+     parameters finite; one more QAT step launching exactly that, its
+     loss finite; then each QAT-trained model frozen from its EMA state
+     and served on its flat engine through ``ServingEngine`` (config 5:
+     36 K1 + 16 K2; config 3: 35 K1 + 1 K2 + 17 K3);
    * on every one of these runs K1's, K2's, K3's, K5's and K6's launches
      are also counted by kernel (``launches_wgmma``/``_igemm`` of K1's two
      entries, ``launches_wgmma``/``_stem``/``_igemm`` of K2,
@@ -135,7 +156,14 @@ success):
    same way; the module-path models (LeNet-5, ResNet-18 KL, the ResNet-50
    and MobileNet-v2 ones) against the same trees' models on the CPU: the
    codes at every quantized layer's input by the tie rule, logits to
-   rel-L2 ≤ 1e-4;
+   rel-L2 ≤ 1e-4; the QAT-frozen models walked the same way; one QAT step
+   of each config (integer forward, B = 2, full width) on the card
+   against the same step on the CPU from the same weights, teacher-forced
+   layer by layer (each layer's CPU copy takes the input, the output
+   gradient and the batch statistics the card's saw: outputs rel-L2 ≤
+   1e-5, parameter gradients rel-L2 ≤ 1e-3, running statistics rtol
+   1e-6, EMA observers equal) and as a whole step (losses finite and
+   within rtol 5e-2: codes across ties amplify);
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
    as one CUDA graph beside it — LeNet-5, ResNet-18 KL and ResNet-20 KL at
@@ -172,6 +200,12 @@ success):
    ``qops.spatial_mean`` beside ``torch.mean`` at the ResNet-18 (4×4×512)
    and ResNet-20 (8×8×64) heads at B = 128; for K1's rows whose yardstick
    is cuBLAS ``torch.mm``, the kernels that one such call launches.
+
+Phase 6 also times one train step (forward + backward + AdamW) of each
+QAT config at B = 16 — the fp32 step, the QAT step on the simulation and
+on the integer forward — and profiles an integer-forward step by kernel
+family (K1/K2/K3, cuDNN's fp32 convs, PyTorch's elementwise kernels by
+the operation that launched them).
 
 Each phase's seconds are printed as it ends.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
@@ -288,7 +322,39 @@ RN101_CALIB_BATCHES = 2     # of the config's 8, to keep the script short
 # runs whose K2 launches take the old loop on a zero-point-padded copy:
 # LeNet-5's conv1 (Ci = 1), the module path's int8 CIFAR stem (the raw
 # accumulator has no stem kernel), ResNet-20's 16-channel layer1
-PADDED = ("lenet", "rn18_module", "rn20")
+PADDED = ("lenet", "rn18_module", "rn20", "qat_cfg3")
+# the QAT trainer's runs, cut from the configs' budgets (full width: 224²,
+# 1000 classes, B = 16), with the integer forward
+QAT_RUNS = {"qat_cfg5": "resnet50_int4w_int8a_qat",
+            "qat_cfg3": "mobilenetv2_imagenet_int8_qat"}
+QAT_CUT = dict(n_train=64, n_eval=32, fp32_epochs=1, qat_epochs=1,
+               qat_forward="int")
+# launches one QAT forward makes by the module path's routing: config 5
+# (stem and fc fp32): 33 K1 (16 conv1, 16 conv3, layer1_0's 1×1/1
+# downsample), 19 K2 (16 3×3s, three 1×1/2 downsamples); config 3: 34 K1
+# (16 expands, 17 projects, the head), 1 K2 (the Ci = 3 stem), 17 K3; the
+# quantized fc is dense and runs the simulation (qtpu's integer forward
+# covers convs only)
+QAT_FWD = {"qat_cfg5": (33, 19, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+           "qat_cfg3": (34, 1, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
+# the QAT-frozen models served on their flat engines: config 5 as
+# CFG5_PRODUCT; config 3 with its quantized stem (K2's stem kernel) and fc
+QAT_SERVED = {"qat_cfg5": CFG5_PRODUCT,
+              "qat_cfg3": (35, 1, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
+# the integer-forward QAT conv's shapes at the trainer's B = 16: (what, Ci,
+# Co, kernel, stride, groups, H, weight bits) — config 5's layer1_1 conv1,
+# layer1 conv2, layer2_0 conv2 (3×3/2) and downsample (1×1/2), config 3's
+# block2 expand, depthwise and project and its Ci = 3 stem
+QAT_INT_CASES = (
+    ("config 5 layer1_1 conv1 1x1", 256, 64, 1, 1, 1, 56, 4),
+    ("config 5 layer1 conv2 3x3", 64, 64, 3, 1, 1, 56, 4),
+    ("config 5 layer2_0 conv2 3x3/2", 128, 128, 3, 2, 1, 56, 4),
+    ("config 5 layer2_0 down 1x1/2", 256, 512, 1, 2, 1, 56, 4),
+    ("config 3 block2 expand 1x1", 24, 144, 1, 1, 1, 56, 8),
+    ("config 3 block2 dw 3x3", 144, 144, 3, 1, 144, 56, 8),
+    ("config 3 block2 project 1x1", 144, 24, 1, 1, 1, 56, 8),
+    ("config 3 stem 3x3/2", 3, 32, 3, 2, 1, 224, 8),
+)
 
 
 class SmokeFailure(Exception):
@@ -354,17 +420,182 @@ def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS, cuda_core_ops=0):
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
+def qat_launches(model):
+    """The launches one integer-forward QAT forward of a converted model
+    makes, by the module path's routing of each quantized conv
+    (``ops.qat_int.conv_kind``): (K1, K2, K3, then zeros as the launch
+    tuples have them)."""
+    import torch
+    from qtpu_torch.nn.layers import layer_paths
+    from qtpu_torch.ops.qat_int import conv_kind
+
+    n = {"gemm": 0, "conv": 0, "depthwise": 0}
+    for m in layer_paths(model).values():
+        if m.spec is None or isinstance(m, torch.nn.Linear):
+            continue
+        n[conv_kind(m.kernel, m.stride, m.padding, m.groups,
+                    m.conv.in_channels, m.conv.out_channels)] += 1
+    return (n["gemm"], n["conv"], n["depthwise"]) + (0,) * 9
+
+
+def qat_step_vs_cpu(what, model, policy, torch):
+    """One QAT step (the integer forward) of ``model`` converted by
+    ``policy``, on the card and on the CPU from the same weights and one
+    B = 2 batch at full width.  The whole step: loss, gradients and
+    statistics reported, the losses finite and within rtol 5e-2 (fp32 sums
+    in another order put codes across ties, which later layers' batch
+    statistics and EMA ranges amplify: the gradients come out unrelated).
+    Layer by layer, teacher-forced: each layer's CPU copy (its state
+    before the step) takes the input and the output gradient the card's
+    layer saw, and the batch statistics the card's layer computed (their
+    values; the gradient through them is the CPU's own), so the weights
+    fold to the same bits and the codes are the card's — outputs to
+    rel-L2 ≤ 1e-5, every parameter's gradient to rel-L2 ≤ 1e-3 (cuDNN's
+    and the CPU's fp32 weight gradients sum over B·H·W positions in
+    other orders: MobileNet-v2's stem, 2·112², reaches 1.2e-4), BatchNorm
+    running statistics to rtol 1e-6, the EMA observers equal."""
+    import copy
+
+    import numpy as np
+
+    from qtpu_torch.nn import layers as qlayers
+    from qtpu_torch.nn.layers import layer_paths
+    from qtpu_torch.train import create_train_state, train_step
+    from qtpu_torch.transform import convert_model
+    from qtpu_torch.utils.device import fp32_exact
+
+    batch_stats, current, card_stats = qlayers._batch_stats, [None], {}
+
+    def record(y):
+        m, v = batch_stats(y)
+        card_stats[current[0]] = (m.detach().cpu(), v.detach().cpu())
+        return m, v
+
+    def replay(y):
+        m, v = batch_stats(y)
+        cm, cv = card_stats[current[0]]
+        return m + (cm - m).detach(), v + (cv - v).detach()
+
+    gpu = convert_model(model, policy)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    pre = copy.deepcopy(cpu)
+    rs = np.random.default_rng(7)
+    xb = rs.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    yb = rs.integers(0, 1000, 2)
+    seen = {}
+
+    def hook(path):
+        def fwd(_mod, args, out):
+            rec = seen[path] = {"x": args[0].detach().clone(),
+                                "y": out.detach().clone()}
+            out.register_hook(lambda g: rec.__setitem__(
+                "g", g.detach().clone()))
+        return fwd
+
+    def enter(path):
+        def pre(_mod, _args):
+            current[0] = path
+        return pre
+    glayers = layer_paths(gpu)
+    handles = [m.register_forward_hook(hook(p))
+               for p, m in glayers.items()]
+    handles += [m.register_forward_pre_hook(enter(p))
+                for p, m in glayers.items()]
+    qlayers._batch_stats = record
+    try:
+        mg = train_step(create_train_state(gpu, 1e-4), xb, yb)
+        torch.cuda.synchronize()
+    finally:
+        qlayers._batch_stats = batch_stats
+        for h in handles:
+            h.remove()
+    mc = train_step(create_train_state(cpu, 1e-4), xb, yb)
+    lg, lc = float(mg["loss"]), float(mc["loss"])
+    loss_rel = abs(lg - lc) / abs(lc)
+    clayers = layer_paths(cpu)
+    grad_rel, stat_rel = [], []
+    for path, m in glayers.items():
+        cm = dict(clayers[path].named_parameters())
+        for name, p in m.named_parameters():
+            grad_rel.append(((p.grad.cpu() - cm[name].grad).norm()
+                             / cm[name].grad.norm().clamp_min(1e-30)
+                             ).item())
+        for name, b in m.named_buffers():
+            cb = dict(clayers[path].named_buffers())[name]
+            if b.is_floating_point() and b.numel() > 0:
+                stat_rel.append(((b.cpu() - cb).abs().max() / cb.abs(
+                ).max().clamp_min(1e-30)).item())
+    log(f"{what}: one QAT step (integer forward) at B = 2, card vs CPU "
+        f"from the same weights: loss {lg:.6f} vs {lc:.6f} (rel "
+        f"{loss_rel:.2e}); gradients' rel-L2 per tensor median "
+        f"{float(np.median(grad_rel)):.2e}, worst {max(grad_rel):.2e}; "
+        f"BatchNorm and EMA state worst rel {max(stat_rel):.2e}")
+    check(np.isfinite(lg) and np.isfinite(lc) and loss_rel <= 5e-2,
+          f"{what}: QAT step loss card {lg} vs CPU {lc}")
+    worst = {"y": 0.0, "grad": 0.0, "stats": 0.0}
+    where = {}
+    for path, m_pre in layer_paths(pre).items():
+        rec = seen[path]
+        layer = copy.deepcopy(m_pre).train()
+        xin = rec["x"].cpu()
+        if xin.is_floating_point():
+            xin.requires_grad_()
+        current[0] = path
+        qlayers._batch_stats = replay
+        try:
+            with fp32_exact():
+                out = layer(xin)
+                out.backward(rec["g"].cpu())
+        finally:
+            qlayers._batch_stats = batch_stats
+        got = {"y": ((out.detach() - rec["y"].cpu()).norm()
+                     / rec["y"].norm().cpu().clamp_min(1e-30)).item()}
+        gparams = dict(glayers[path].named_parameters())
+        got["grad"] = max(((p.grad - gparams[n].grad.cpu()).norm()
+                           / gparams[n].grad.norm().cpu().clamp_min(1e-30)
+                           ).item() for n, p in layer.named_parameters())
+        gbufs = dict(glayers[path].named_buffers())
+        got["stats"] = 0.0
+        for name, b in layer.named_buffers():
+            g_ref = gbufs[name].cpu()
+            if name.startswith("in_q."):
+                check(torch.equal(b, g_ref), f"{what} {path}: observer "
+                      f"{name} differs")
+            elif b.is_floating_point():
+                got["stats"] = max(got["stats"], ((b - g_ref).abs().max()
+                                   / g_ref.abs().max().clamp_min(1e-30)
+                                   ).item())
+        for k, v in got.items():
+            if v >= worst[k]:
+                worst[k], where[k] = v, path
+    log(f"{what}: teacher-forced over {len(seen)} layers (each layer's CPU "
+        f"copy on the card's input, output gradient and batch statistics): "
+        f"outputs worst "
+        f"rel-L2 {worst['y']:.2e} ({where['y']}), parameter gradients worst "
+        f"rel-L2 {worst['grad']:.2e} ({where['grad']}), running statistics "
+        f"worst rel {worst['stats']:.2e} ({where['stats']}), EMA observers "
+        "equal")
+    check(worst["y"] <= 1e-5 and worst["grad"] <= 1e-3
+          and worst["stats"] <= 1e-6, f"{what}: teacher-forced layers "
+          f"outside their tolerances: {worst}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script measures the card "
               "and has no CPU mode", file=sys.stderr)
         return 2
+    import copy
+
     import numpy as np
     import torch.nn.functional as F
 
     from qtpu_torch.examples.configs import CONFIGS
-    from qtpu_torch.ops import _build, qops
+    from qtpu_torch.examples.run import experiment
+    from qtpu_torch.nn.layers import layer_paths
+    from qtpu_torch.ops import _build, qat_int, qops
+    from qtpu_torch.ops import fakequant as fq
     from qtpu_torch.ops import qblock as k6
     from qtpu_torch.ops import qconv as k2
     from qtpu_torch.ops import qdepthwise as k3
@@ -386,6 +617,8 @@ def main() -> int:
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
                                                       MobileNetV1Int8Engine)
     from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+    from qtpu_torch.train import create_train_state, train_step
+    from qtpu_torch.transform import convert_model, freeze
     from qtpu_torch.utils.device import fp32_exact
 
     dev = torch.device("cuda")
@@ -485,6 +718,15 @@ def main() -> int:
         ("lenet", "B=128 LeNet fc3 raw_acc", 128, 84, 10, None, None),
         ("rn18", "RN18 1x1 symmetric requant", 2048, 64, 128, sym, None),
         ("rn18", "B=128 RN18 1x1 symmetric requant", 32768, 64, 128, sym,
+         None),
+        # the integer-forward QAT conv's raw accumulators at B = 16 (the
+        # trainer's batch): config 5's layer1_1 conv1, config 3's block2
+        # expand (24-byte rows: the old loop) and project
+        ("qat_cfg5", "QAT B=16 layer1_1 conv1 raw", 50176, 256, 64, None,
+         None),
+        ("qat_cfg3", "QAT B=16 block2 expand raw", 50176, 24, 144, None,
+         None),
+        ("qat_cfg3", "QAT B=16 block2 project raw", 50176, 144, 24, None,
          None),
     ]
     kernels = []
@@ -781,6 +1023,19 @@ def main() -> int:
             ("rn18", f"{pre}RN18 layer1 conv1 3x3/1 symmetric", B, 32, 64,
              64, 3, 1, "SAME", 0, dict(sym, relu=True), "wgmma", TPU_K2),
         ]
+    # the integer-forward QAT conv's raw accumulators at B = 16: config 5's
+    # layer1 3×3, layer2_0's 3×3/2 and 1×1/2 downsample, config 3's Ci = 3
+    # stem (the raw accumulator has no stem kernel: the old loop)
+    k2_more += [
+        ("qat_cfg5", "QAT B=16 layer1 conv2 3x3/1 raw", 16, 56, 64, 64, 3, 1,
+         "SAME", -9, None, "wgmma", TPU_K2),
+        ("qat_cfg5", "QAT B=16 layer2_0 conv2 3x3/2 raw", 16, 56, 128, 128, 3,
+         2, "SAME", 23, None, "wgmma", TPU_K2S),
+        ("qat_cfg5", "QAT B=16 layer2_0 down 1x1/2 raw", 16, 56, 256, 512, 1,
+         2, "SAME", 7, None, "wgmma", TPU_K2S),
+        ("qat_cfg3", "QAT B=16 stem 3x3/2 raw", 16, 224, 3, 32, 3, 2, "SAME",
+         -5, None, "igemm", TPU_K2S),
+    ]
     for (path, label, B, H, Ci, Co, k, s, padding, zp, kw, want,
          tpu) in k2_more:
         raw = kw is None
@@ -832,10 +1087,12 @@ def main() -> int:
         del x, xp, w, y, run_k, run_p, run_old, run_old_pad
         torch.cuda.empty_cache()
 
-    # K3's raw accumulator (the module path's depthwise) at MobileNet-v2's
-    # block2 shape
-    for B in (8, 128):
-        label = f"{'' if B == 8 else 'B=128 '}block2 dw 3x3/1 raw"
+    # K3's raw accumulator (the module path's depthwise, and the QAT conv's
+    # at the trainer's B = 16) at MobileNet-v2's block2 shape
+    for B, path, label in (
+            (8, "mnv2_module", "block2 dw 3x3/1 raw"),
+            (128, "mnv2_module", "B=128 block2 dw 3x3/1 raw"),
+            (16, "qat_cfg3", "QAT B=16 block2 dw 3x3/1 raw")):
         x, w = i8(B, 56, 56, 144), i8(9, 144, lo=-127)
         dargs = dict(kernel_hw=(3, 3), stride=1, padding="SAME", zp=-41,
                      raw_acc=True)
@@ -856,7 +1113,7 @@ def main() -> int:
         xp = qops.pad_nhwc(x, ((1, 1), (1, 1)), -41)
         kernels.append(dict(
             name=f"qdepthwise_fused [{label}]", route="cuda", source=SRC_K3,
-            replaces=TPU_K3, path="mnv2_module",
+            replaces=TPU_K3, path=path,
             shape=f"B={B} H=56 C=144 3x3/1 zp=-41",
             k3_plan=f"{plan.path} rows {plan.th} channels {plan.cc} "
             f"threads {plan.threads}",
@@ -1174,6 +1431,65 @@ def main() -> int:
     log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace; K7, "
         "K8 and K9 on the runner, equal to the older kernel forced")
 
+    # the integer-forward QAT conv at the trainer's B = 16 (config 5: int4
+    # weights; config 3: int8): the kernels' int32 accumulator against the
+    # plain float64 one on the card, the conv's output and both gradients
+    # against qat_int_conv_plain on the card (equal; the backward's conv
+    # transposes on cuDNN's deterministic algorithms — its default wgrad
+    # at some shapes sums with atomics, in another order each run), and
+    # the simulation on the card (cuDNN fp32, TF32 off) against the
+    # integer forward
+    def deterministic_cudnn():
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                          deterministic=True,
+                                          allow_tf32=False)
+    gq = torch.Generator(device="cpu").manual_seed(12)
+    for what, Ci, Co, k, s, groups, H, w_bits in QAT_INT_CASES:
+        x = (torch.randn((16, Ci, H, H), generator=gq) * 2).to(dev)
+        w = (torch.randn((Co, Ci // groups, k, k), generator=gq) * 0.1
+             ).to(dev)
+        scale, zp_u = fq.affine_qparams(x.min(), x.max(), 8)
+        kw = dict(w_bits=w_bits, strides=(s, s), groups=groups)
+        w_codes, _ = qat_int.weight_codes(w, w_bits, True)
+        x_codes = qat_int.act_codes(x.permute(0, 2, 3, 1), scale, zp_u, 8,
+                                    False).contiguous()
+        pad_zp = int(torch.round(zp_u).item()) - 128
+        acc_args = dict(stride=s, padding="SAME", groups=groups, zp=pad_zp)
+        acc = qat_int.int_acc(x_codes, w_codes, **acc_args)
+        acc_p = qat_int.int_acc_plain(x_codes, w_codes, **acc_args)
+        check(torch.equal(acc, acc_p), f"qat_int {what}: int32 accumulator "
+              "differs from the plain version")
+        outs = {}
+        for name, fn in (("kernel", qat_int.qat_int_conv),
+                         ("plain", qat_int.qat_int_conv_plain)):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = fn(xr, wr, scale, zp_u, **kw)
+            with deterministic_cudnn():
+                y.backward(torch.ones_like(y) * 0.01)
+            outs[name] = (y.detach(), xr.grad, wr.grad)
+        for t_k, t_p, part in zip(outs["kernel"], outs["plain"],
+                                  ("y", "dx", "dw")):
+            check(torch.equal(t_k, t_p), f"qat_int {what}: {part} differs "
+                  "from the plain version")
+        with fp32_exact():
+            xq = fq.fake_quant(x, scale, zp_u, bits=8, signed=False,
+                               symmetric=False)
+            wq = fq.fake_quant_weight(w, bits=w_bits, channel_axis=0)
+            pads = qops.resolve_pads((H, H), (k, k), (s, s), "SAME")
+            (hlo, hhi), (wlo, whi) = pads
+            y_sim = F.conv2d(F.pad(xq, (wlo, whi, hlo, hhi)), wq, stride=s,
+                             groups=groups)
+        y = outs["kernel"][0]
+        rel = ((y_sim - y).norm() / y.norm()).item()
+        check(rel <= 1e-5, f"qat_int {what}: simulation vs integer forward "
+              f"rel-L2 {rel}")
+        kind = qat_int.conv_kind((k, k), (s, s), "SAME", groups, Ci, Co)
+        log(f"qat_int_conv {what} B=16 ({kind}): int32 accumulator, y, dx "
+            f"and dw equal to the plain version on the card; simulation vs "
+            f"integer forward rel-L2 {rel:.2e}")
+        del x, w, acc, acc_p, outs, y, y_sim, xq, wq
+        torch.cuda.empty_cache()
+
     kmods = (k1.qmatmul_folded, k2.qconv2d_folded, k3.qdepthwise_folded,
              k4.qproj_folded, k5.qtail_folded, k6.qblock_folded,
              k78.qstage_folded, k78.qstage_proj_folded, k9.qivr_folded,
@@ -1422,6 +1738,68 @@ def main() -> int:
     path_counts["rn101"] = one_forward(
         rn101, torch.from_numpy(imgs[:8]).to(dev), RN101_FWD, RN101)
 
+    # the QAT trainer (BASELINE configs 5 and 3) at full width, cut to
+    # QAT_CUT: experiment() — the path run_experiment takes: fp32 steps,
+    # convert, QAT steps on the integer forward, evaluation, its JSON line —
+    # with the launch counts zeroed just before and read just after; the
+    # launches one QAT forward makes, derived from the model by the module
+    # path's routing (ops.qat_int.conv_kind); one more QAT step on a copy
+    # with the counts zeroed, which must launch exactly that; then the
+    # QAT-trained model frozen from its own EMA state and served on its flat
+    # engine through ServingEngine
+    qat = {}
+    labels16 = rng.integers(0, 1000, 16)
+    for key, cname in QAT_RUNS.items():
+        qcfg = dataclasses.replace(CONFIGS[cname], **QAT_CUT)
+        log(f"{cname}: experiment at full width ({qcfg.image_size}², "
+            f"{qcfg.num_classes} classes, B = {qcfg.batch_size}), cut to "
+            + ", ".join(f"{k}={v}" for k, v in QAT_CUT.items()))
+        t0 = time.monotonic()
+        zero_counts()
+        qex = experiment(qcfg, seed=0, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        qrun = counts()
+        qfwd = qat_launches(qex.eval_model)
+        qn = (qcfg.n_train // qcfg.batch_size * qcfg.qat_epochs
+              + -(-qcfg.n_eval // qcfg.batch_size))
+        check(qfwd == QAT_FWD[key], f"{cname}: the module path's routing "
+              f"gives {qfwd} launches a QAT forward, not {QAT_FWD[key]}")
+        check(qrun[:PLAIN + 1] == tuple(qn * n for n in qfwd),
+              f"{cname}: the run's {qn} QAT forwards launched "
+              f"K1..K9/K1 int4/im2col/plain = {qrun}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in qex.eval_model.parameters()),
+              f"{cname}: non-finite parameters after QAT")
+        probe = copy.deepcopy(qex.eval_model)
+        zero_counts()
+        qm = train_step(create_train_state(probe, qcfg.qat_lr), imgs[:16],
+                        labels16)
+        torch.cuda.synchronize()
+        qone = counts()
+        check(qone[:PLAIN + 1] == qfwd, f"{cname}: one QAT step launched "
+              f"{qone}, expected {qfwd}")
+        check(bool(torch.isfinite(qm["loss"])), f"{cname}: QAT loss "
+              f"{float(qm['loss'])}")
+        del probe
+        log(f"{cname}: experiment {time.monotonic() - t0:.1f} s, "
+            f"{qn} QAT forwards (training steps and eval batches): "
+            f"{fmt_counts(qrun)}; one QAT forward by the module path's "
+            f"routing: {qfwd[0]} K1 + {qfwd[1]} K2 + {qfwd[2]} K3, "
+            f"as one QAT step launched them: {fmt_counts(qone)}; that "
+            f"step's "
+            f"loss {float(qm['loss']):.4f}")
+        path_counts[key] = qrun
+        t0 = time.monotonic()
+        qtree = freeze(qex.eval_model, qex.eval_model.quant)
+        qflat = (ResNetInt8Engine(qtree, arch5, device=dev)
+                 if key == "qat_cfg5" else
+                 MobileNetV2Int8Engine(qtree, num_classes=1000, device=dev))
+        log(f"{cname}: frozen from its EMA state in "
+            f"{time.monotonic() - t0:.1f} s")
+        path_counts[f"{key}_served"] = serve_factory(
+            f"{cname} QAT-frozen", qtree, qflat, QAT_SERVED[key])
+        qat[key] = (qcfg, qex, qtree, qflat)
+
     # by kernel: every K1 and K2 launch of the ResNet-50 and config-5
     # engines on the wgmma kernels, MobileNet-v1's int8 stem on the stem
     # kernel, every K3 launch on the halo kernel (every depthwise of the
@@ -1430,7 +1808,8 @@ def main() -> int:
     s2, s3 = SPLIT["K2"], SPLIT["K3"]
     for key, c in path_counts.items():
         if key in ("rn50", "tail", "block", "stage", "cfg5", "cfg5_packed",
-                   "cfg5_stage", "rn50_module", "rn101"):
+                   "cfg5_stage", "rn50_module", "rn101", "qat_cfg5",
+                   "qat_cfg5_served"):
             check(c[13] == 0 and c[15] == 0, f"{key}: {c[13]} K1 and "
                   f"{c[15]} K1 int4 launches took the igemm kernel")
             check(c[s2["wgmma"]] == c[KIDX["K2"]] > 0, f"{key}: K2 "
@@ -1666,6 +2045,16 @@ def main() -> int:
         f"codes differ, last block f32 equal to rtol 1e-6, logits rel-L2 "
         f"{rel_cpu:.2e}")
 
+    # the QAT-frozen models: card against the CPU on the same trees
+    for key, (qcfg, qex, qtree, qflat) in qat.items():
+        qcpu = (ResNetInt8Engine(qtree, arch5, device="cpu")
+                if key == "qat_cfg5" else
+                MobileNetV2Int8Engine(qtree, num_classes=1000, device="cpu"))
+        walk_vs_cpu(qflat, qcpu, f"{qcfg.name} QAT-frozen")
+        del qcpu
+    for key, (qcfg, qex, qtree, qflat) in qat.items():
+        qat_step_vs_cpu(qcfg.name, qex.model, qcfg.policy(), torch)
+
     phase_done("5 (card against CPU)")
 
     # -- 6. engine throughput and a profile ------------------------------------------
@@ -1753,16 +2142,16 @@ def main() -> int:
         extra = ""
         if "k1_path" in kern:
             extra = (f"; on {kern['k1_path']}, the old mma.sync loop "
-                     f"{kern['igemm_ms']:.4f} ms; the serving run's "
+                     f"{kern['igemm_ms']:.4f} ms; the run's "
                      f"launches by kernel {kern['path_launches']}")
         elif "k2_path" in kern:
             extra = (f"; on {kern['k2_path']}, the old mma.sync loop "
                      f"{kern['igemm_ms']:.4f} ms on the padded copy, "
                      f"{kern['igemm_pad_ms']:.4f} ms with its pad copy; the "
-                     f"serving run's launches by kernel "
+                     f"run's launches by kernel "
                      f"{kern['path_launches']}")
         elif "k3_plan" in kern:
-            extra = (f"; {kern['k3_plan']}; the serving run's launches by "
+            extra = (f"; {kern['k3_plan']}; the run's launches by "
                      f"kernel {kern['path_launches']}")
         if "int8_ms" in kern:
             extra += (f"; K1's int8 entry on the unpacked weight "
@@ -1797,8 +2186,8 @@ def main() -> int:
             f"device, {kern['eager_ms']:.4f} ms launched from Python (bound "
             f"{kern['bound_ms']:.4f} ms, {kern['bound_by']}; plain "
             f"{kern['plain_ms']:.3f} ms; library {kern['library_ms']}{extra}; "
-            + (f"{kern['launches']} launches in the {kern['path']} serving "
-               "run)" if kern["path"] else
+            + (f"{kern['launches']} launches in the {kern['path']} run)"
+               if kern["path"] else
                f"no engine calls it: {kern['launches']} launches over every "
                "serving run)"))
     log("library: K1 torch._int_mm (where it takes the shape; else cuBLAS "
@@ -1808,6 +2197,34 @@ def main() -> int:
         "F.conv2d (TF32 off) on the zero-point-padded codes — the int32 "
         f"accumulator only; K4-K9 none: {NO_LIBRARY}")
 
+    # the QAT trainer's step (forward + backward + AdamW) at B = 16, full
+    # width, with CUDA events after two steps of warm-up: the fp32 step,
+    # the QAT step on the simulation and on the integer forward; then one
+    # integer-forward QAT step profiled
+    log(f"training steps on {card}")
+    y16 = rng.integers(0, 1000, 16)
+    for key, (qcfg, qex, qtree, qflat) in qat.items():
+        step_ms = {}
+        for form in ("fp32", "sim", "int"):
+            qmodel = (copy.deepcopy(qex.model) if form == "fp32" else
+                      convert_model(qex.model, dataclasses.replace(
+                          qcfg.policy(), qat_forward=form)))
+            qst = create_train_state(qmodel, qcfg.qat_lr)
+            for _ in range(2):
+                train_step(qst, imgs[:16], y16)
+            torch.cuda.synchronize()
+            step_ms[form] = events_ms(
+                torch, lambda: [train_step(qst, imgs[:16], y16)
+                                for _ in range(5)], 5)
+            if form == "int":
+                profile_step(f"{qcfg.name} QAT step (integer forward)",
+                             qst, imgs[:16], y16, torch)
+            del qmodel, qst
+            torch.cuda.empty_cache()
+        log(f"{qcfg.name} train step B=16 (forward + backward + AdamW, "
+            f"CUDA events over 5 steps after 2 of warm-up): fp32 "
+            f"{step_ms['fp32']:.3f} ms, QAT simulation {step_ms['sim']:.3f} "
+            f"ms, QAT integer forward {step_ms['int']:.3f} ms ({card})")
     phase_done("6 (timings)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1857,6 +2274,100 @@ def elementwise_by_op(prof):
     return ops
 
 
+def kernel_family(key):
+    """The port's kernel (and which of its kernels) a device kernel name
+    belongs to, or None."""
+    return (
+        "K8 qstage_proj_fused [igemm]"
+        if re.search(r"qstage_kernel<\w+, true>", key) else
+        "K8 qstage_proj_fused [wgmma]"
+        if re.search(r"chain_kernel<false, \d+, \d+, false, true>", key)
+        else
+        "K7 qstage_fused [igemm]" if "qstage_kernel" in key else
+        "K9 qivr_fused [igemm]" if "qivr_kernel" in key else
+        "K7 qstage_fused [wgmma]" if "chain_kernel<false" in key else
+        "K9 qivr_fused [wgmma]" if "chain_kernel<true" in key else
+        "K4 qproj_fused [wgmma]" if "qproj_wg_kernel" in key else
+        "K4 qproj_fused [igemm]" if "qproj_kernel" in key else
+        "K5 qtail_fused [wgmma]" if "tail_wg_kernel<false" in key else
+        "K6 qbottleneck_fused [wgmma]" if "tail_wg_kernel<true" in key else
+        "K5 qtail_fused [igemm]" if "qtail_kernel" in key else
+        "K6 qbottleneck_fused [igemm]" if "qblock_kernel" in key else
+        "K2 qconv2d_fused [wgmma]" if "ConvX" in key else
+        "K2 qconv2d_fused [stem]" if "stem_kernel" in key else
+        "K1 int4 qmatmul_fused_w4 [wgmma]"
+        if re.search(r"wgmma_gemm_kernel<\d+, \d+, true", key) else
+        "K1 qmatmul_fused [wgmma]" if "wgmma_gemm_kernel" in key else
+        "K1 int4 qmatmul_fused_w4 [igemm]" if "GemmLoader, true>" in key
+        else
+        "K1 qmatmul_fused [igemm]" if "GemmLoader" in key else
+        "K2 qconv2d_fused [igemm]" if "ConvLoader" in key else
+        "K3 qdepthwise_fused [halo]" if "dw_halo_kernel" in key else
+        "K3 qdepthwise_fused [scalar]" if "dw_scalar_kernel" in key else
+        None)
+
+
+def step_family(key):
+    """A training step's device kernel by family: the port's kernels,
+    cuDNN's and cuBLAS's fp32 kernels (the statistics conv, the
+    simulation's conv, the conv transposes, the fp32 layers), PyTorch's
+    elementwise and reduction kernels (fake-quant, BatchNorm, the
+    observers, AdamW), else the name."""
+    fam = kernel_family(key)
+    if fam:
+        return fam
+    low = key.lower()
+    if any(t in low for t in ("cudnn", "xmma", "implicit_convolve",
+                              "conv2d", "dgrad", "wgrad", "fprop")):
+        return "cuDNN fp32 conv"
+    if any(t in low for t in ("gemm", "cublas", "cutlass")):
+        return "cuBLAS fp32 matmul"
+    if "elementwise_kernel" in key:
+        return "PyTorch elementwise"
+    if "reduce_kernel" in key:
+        return "PyTorch reduction"
+    return key[:70]
+
+
+def profile_step(what, state, x, y, torch):
+    """Device time of one training step by kernel family (torch.profiler),
+    the share of the step's wall time the card was busy, and the
+    elementwise kernels by the PyTorch operation that launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qtpu_torch.train import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        train_step(state, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        fam = step_family(e.key)
+        n, us = fams.get(fam, (0, 0.0))
+        fams[fam] = (n + e.count, us + e.self_device_time_total)
+    total = sum(us for _, us in fams.values())
+    if not total:
+        log(f"{what} profile: no device time reported (not measured)")
+        return
+    top = sorted(fams.items(), key=lambda kv: -kv[1][1])[:12]
+    log(f"{what} profile B={len(y)}: device busy {total / 1e3:.3f} ms of "
+        f"{wall_ms:.3f} ms wall (profiled); by family: " + "; ".join(
+            f"{k} x{n} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
+            for k, (n, us) in top))
+    ops = sorted(elementwise_by_op(prof).items(), key=lambda kv: -kv[1][1])
+    log(f"{what} profile: elementwise kernels by the operation that "
+        "launched them: " + "; ".join(
+            f"{op} {fam} ranks {list(ranks)} x{n} {us / 1e3:.3f} ms "
+            f"({100 * us / total:.1f}%)"
+            for (op, fam, ranks), (n, us, _) in ops[:15]))
+
+
 def profile_forward(what, flat, x, torch, by_op=False):
     """Device time of one forward by kernel (torch.profiler), and the share
     of the forward's wall time the card was busy; with ``by_op`` also the
@@ -1878,37 +2389,7 @@ def profile_forward(what, flat, x, torch, by_op=False):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        fam = ("K8 qstage_proj_fused [igemm]" if re.search(
-            r"qstage_kernel<\w+, true>", e.key) else
-               "K8 qstage_proj_fused [wgmma]" if re.search(
-                   r"chain_kernel<false, \d+, \d+, false, true>", e.key)
-               else
-               "K7 qstage_fused [igemm]" if "qstage_kernel" in e.key else
-               "K9 qivr_fused [igemm]" if "qivr_kernel" in e.key else
-               "K7 qstage_fused [wgmma]" if "chain_kernel<false" in e.key
-               else
-               "K9 qivr_fused [wgmma]" if "chain_kernel<true" in e.key else
-               "K4 qproj_fused [wgmma]" if "qproj_wg_kernel" in e.key else
-               "K4 qproj_fused [igemm]" if "qproj_kernel" in e.key else
-               "K5 qtail_fused [wgmma]" if "tail_wg_kernel<false" in e.key
-               else
-               "K6 qbottleneck_fused [wgmma]" if "tail_wg_kernel<true" in
-               e.key else
-               "K5 qtail_fused [igemm]" if "qtail_kernel" in e.key else
-               "K6 qbottleneck_fused [igemm]" if "qblock_kernel" in e.key else
-               "K2 qconv2d_fused [wgmma]" if "ConvX" in e.key else
-               "K2 qconv2d_fused [stem]" if "stem_kernel" in e.key else
-               "K1 int4 qmatmul_fused_w4 [wgmma]" if re.search(
-                   r"wgmma_gemm_kernel<\d+, \d+, true", e.key) else
-               "K1 qmatmul_fused [wgmma]" if "wgmma_gemm_kernel" in e.key else
-               "K1 int4 qmatmul_fused_w4 [igemm]" if "GemmLoader, true>" in
-               e.key else
-               "K1 qmatmul_fused [igemm]" if "GemmLoader" in e.key else
-               "K2 qconv2d_fused [igemm]" if "ConvLoader" in e.key else
-               "K3 qdepthwise_fused [halo]" if "dw_halo_kernel" in e.key else
-               "K3 qdepthwise_fused [scalar]" if "dw_scalar_kernel" in e.key
-               else
-               e.key[:70])
+        fam = kernel_family(e.key) or e.key[:70]
         n, us = fams.get(fam, (0, 0.0))
         fams[fam] = (n + e.count, us + e.self_device_time_total)
     total = sum(us for _, us in fams.values())

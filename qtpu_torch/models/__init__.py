@@ -49,13 +49,15 @@ def get_model(name: str, **kwargs):
     (``num_classes``, ``torch_pad``, ``width``, ``cifar_stem``,
     ``in_channels``); besides, ResNet takes ``stage_sizes`` and MobileNet
     ``width_mult``.  LeNet-5 takes ``num_classes`` and ``in_channels``
-    and refuses the rest."""
+    and refuses the rest.  The model comes in eval mode, qtpu's ``train=
+    False`` default: ``model.train()`` selects batch statistics and the
+    observers' updates."""
     try:
         ctor = _REGISTRY[name.lower()]
     except KeyError:
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{sorted(_REGISTRY)} (others: ROADMAP.md)") from None
-    return ctor(**kwargs)
+    return ctor(**kwargs).eval()
 
 
 __all__ = ["BasicBlock", "Bottleneck", "Conv", "ConvBN", "DWSeparable",

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from qtpu_torch.nn.layers import Conv
+from qtpu_torch.nn.layers import Conv, QuantDense
 
 FLAT = 5 * 5 * 16      # conv2's pooled output of a 28×28 image
 
@@ -24,9 +24,9 @@ class LeNet5(nn.Module):
         super().__init__()
         self.conv1 = Conv(in_channels, 6, 5, padding="SAME")
         self.conv2 = Conv(6, 16, 5, padding="VALID")
-        self.fc1 = nn.Linear(FLAT, 120)
-        self.fc2 = nn.Linear(120, 84)
-        self.fc3 = nn.Linear(84, num_classes)
+        self.fc1 = QuantDense(FLAT, 120)
+        self.fc2 = QuantDense(120, 84)
+        self.fc3 = QuantDense(84, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)

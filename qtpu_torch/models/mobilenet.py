@@ -4,16 +4,17 @@ Layer names follow qtpu's (``stem``, ``block{i}/dw|pw`` for v1,
 ``block{i}/expand|dw|project``, ``head`` for v2, ``fc``), so QuantPolicy
 globs and frozen-tree paths match.  Inputs are NHWC like qtpu's; inside,
 the convs run NCHW.  The depthwise convs are :class:`ConvBN` with
-``groups`` equal to their channel count.  ``torch_pad=True`` pads the 3×3
-convs (1, 1) on both sides, torchvision's geometry, where SAME pads (0, 1)
-at stride 2.
+``groups`` equal to their channel count, the fc a ``QuantDense``; the
+train, eval and QAT forms are the layers' own.  ``torch_pad=True`` pads
+the 3×3 convs (1, 1) on both sides, torchvision's geometry, where SAME
+pads (0, 1) at stride 2.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from qtpu_torch.nn.layers import ConvBN, pad3
+from qtpu_torch.nn.layers import ConvBN, QuantDense, pad3
 
 # (expand, out_ch, repeats, stride) — the standard v2 schedule
 V2_CFG = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
@@ -58,7 +59,7 @@ class MobileNetV1(nn.Module):
             setattr(self, f"block{i}", DWSeparable(cin, w(c), s, torch_pad))
             self.block_names.append(f"block{i}")
             cin = w(c)
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = QuantDense(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x.permute(0, 3, 1, 2))
@@ -105,7 +106,7 @@ class MobileNetV2(nn.Module):
                 cin = w(c)
         head = w(1280) if width_mult > 1.0 else 1280
         self.head = ConvBN(cin, head, 1, act="relu6")
-        self.fc = nn.Linear(head, num_classes)
+        self.fc = QuantDense(head, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x.permute(0, 3, 1, 2))

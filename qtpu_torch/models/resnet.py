@@ -7,9 +7,11 @@ Inputs are NHWC like qtpu's; inside, the convs run NCHW (torch's layout).
 Geometry is qtpu's: SAME pads asymmetrically (lo = total//2) as XLA does,
 ``torch_pad=True`` pads symmetrically (torchvision).
 
-The layers are :class:`qtpu_torch.nn.layers.ConvBN` (BatchNorm on running
-statistics — the eval / calibration forward; batch-statistics training
-comes with the training slice, ROADMAP.md).
+The layers are :class:`qtpu_torch.nn.layers.ConvBN` and the fc a
+:class:`~qtpu_torch.nn.layers.QuantDense`: in eval BatchNorm runs on the
+running statistics (the calibration forward), under ``model.train()`` on
+the batch's, and a converted model (``transform.convert_model``) runs the
+QAT forms of its layers.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from qtpu_torch.nn.layers import ConvBN, pad3
+from qtpu_torch.nn.layers import ConvBN, QuantDense, pad3
 from qtpu_torch.ops.qops import resolve_pads, spatial_mean
 
 
@@ -88,7 +90,7 @@ class ResNet(nn.Module):
                 setattr(self, name, block(cin, feat, stride, torch_pad))
                 self.block_names.append(name)
                 cin = feat * block.expansion
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = QuantDense(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x.permute(0, 3, 1, 2))

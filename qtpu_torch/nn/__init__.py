@@ -1,3 +1,3 @@
-from qtpu_torch.nn.config import LayerQuantSpec, QuantPolicy
+from qtpu_torch.nn.config import LayerQuantSpec, QuantMode, QuantPolicy
 
-__all__ = ["LayerQuantSpec", "QuantPolicy"]
+__all__ = ["LayerQuantSpec", "QuantMode", "QuantPolicy"]

@@ -45,6 +45,7 @@ from qtpu_torch.models import get_model
 from qtpu_torch.nn.config import LayerQuantSpec, QuantPolicy
 from qtpu_torch.nn.layers import flax_taker, layer_paths, load_layer
 from qtpu_torch.ops import qops
+from qtpu_torch.ops.qat_int import conv_kind
 from qtpu_torch.ops.qmatmul import qmatmul_folded
 from qtpu_torch.serve import fused_ops
 from qtpu_torch.utils.device import fp32_exact, resolve_device
@@ -54,20 +55,13 @@ KINDS = ("dense", "gemm", "conv", "depthwise")
 
 def kind_of(m: nn.Module) -> str:
     """The kernel family a quantized layer's SERVE forward runs: ``dense``
-    and ``gemm`` (K1), ``conv`` (K2), ``depthwise`` (K3)."""
+    and ``gemm`` (K1), ``conv`` (K2), ``depthwise`` (K3) — the routing of
+    the integer-forward QAT conv too (``ops.qat_int.conv_kind``)."""
     if isinstance(m, nn.Linear):
         return "dense"
     conv = m.conv
-    if m.groups != 1:
-        if m.groups == conv.in_channels == conv.out_channels:
-            return "depthwise"
-        raise ValueError(f"grouped conv ({m.groups} groups of "
-                         f"{conv.in_channels}) has no SERVE kernel")
-    no_pads = m.padding in ("SAME", "VALID") or all(
-        v == 0 for p in m.padding for v in p)
-    if m.kernel == (1, 1) and m.stride == (1, 1) and no_pads:
-        return "gemm"
-    return "conv"
+    return conv_kind(m.kernel, m.stride, m.padding, m.groups,
+                     conv.in_channels, conv.out_channels)
 
 
 class ServeLayer(nn.Module):

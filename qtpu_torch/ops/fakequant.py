@@ -1,13 +1,19 @@
-"""Quantization grids and real quantization (port of qtpu.ops.fakequant).
+"""Quantization grids, fake quantization with straight-through gradients,
+and real quantization (port of qtpu.ops.fakequant).
 
-The serving subset: grid ranges, symmetric and affine scales, per-channel
-absolute max, the export scale of the weight quantizer, quantize/dequantize
-and the int4 nibble packing of frozen weights.  ``fake_quant`` and PACT with
-straight-through gradients come with the training slice (ROADMAP.md).
+Grid ranges, symmetric and affine scales, per-channel absolute max, the
+export scale of the weight quantizer, quantize/dequantize and the int4
+nibble packing of frozen weights; and the QAT quantizers
+:func:`fake_quant` (pass-through or clip STE), :func:`fake_quant_pact`
+(PACT's learnable clip α) and :func:`fake_quant_weight` (the scale
+recomputed from the live weights).  No gradient flows into a scale or a
+zero point.
 
 All arithmetic is float32 in the reference's order, so codes match qtpu's
 bit for bit on the same inputs; ``torch.round`` rounds half to even like
-``jnp.round``.
+``jnp.round``.  Every division is by a tensor on the operand's device: on
+CUDA, PyTorch turns a division by a host scalar into a multiplication by
+its reciprocal, which is another float32 number.
 """
 from __future__ import annotations
 
@@ -34,10 +40,15 @@ def _f32(v: Scalar) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
 
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` as a true float32 division on ``a``'s device."""
+    return a / torch.tensor(float(b), dtype=torch.float32, device=a.device)
+
+
 def symmetric_scale(amax: Scalar, bits: int) -> torch.Tensor:
     """Scale for a symmetric grid from an absolute-max value."""
     _, qmax = qrange(bits, signed=True, symmetric=True)
-    return torch.clamp_min(_f32(amax), 1e-12) / qmax
+    return _div(torch.clamp_min(_f32(amax), 1e-12), qmax)
 
 
 def affine_qparams(xmin: Scalar, xmax: Scalar, bits: int,
@@ -47,7 +58,7 @@ def affine_qparams(xmin: Scalar, xmax: Scalar, bits: int,
     qmin, qmax = qrange(bits, signed=signed, symmetric=False)
     xmin = torch.clamp_max(_f32(xmin), 0.0)
     xmax = torch.clamp_min(_f32(xmax), 0.0)
-    scale = torch.clamp_min((xmax - xmin) / (qmax - qmin), 1e-12)
+    scale = torch.clamp_min(_div(xmax - xmin, qmax - qmin), 1e-12)
     zp = torch.clamp(torch.round(qmin - xmin / scale), qmin, qmax)
     return scale, zp
 
@@ -69,6 +80,82 @@ def weight_qparams(w: torch.Tensor, *, bits: int = 8,
 
 def _quantize_to_grid(x, scale, zero_point, qmin: int, qmax: int):
     return torch.clamp(torch.round(x / scale + zero_point), qmin, qmax)
+
+
+def _on(v: Scalar, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``like``'s device, outside autograd."""
+    return torch.as_tensor(v, dtype=torch.float32).to(like.device).detach()
+
+
+def fake_quant(x: torch.Tensor, scale: Scalar, zero_point: Scalar = 0.0, *,
+               bits: int = 8, signed: bool = True, symmetric: bool = True,
+               ste: str = "passthrough") -> torch.Tensor:
+    """``dequantize(quantize(x))`` with a straight-through gradient:
+    ``"passthrough"`` d/dx = 1 everywhere, ``"clip"`` 1 where ``x / scale
+    + zero_point`` lies in the grid's range and 0 outside.  ``scale`` and
+    ``zero_point`` broadcast against ``x`` and get no gradient."""
+    if ste not in ("passthrough", "clip"):
+        raise ValueError(f"unknown ste {ste!r}")
+    qmin, qmax = qrange(bits, signed=signed, symmetric=symmetric)
+    scale, zero_point = _on(scale, x), _on(zero_point, x)
+    q = _quantize_to_grid(x, scale, zero_point, qmin, qmax)
+    xq = (q - zero_point) * scale
+    if ste == "passthrough":
+        return x + (xq - x).detach()
+    t = x / scale + zero_point
+    inside = (t >= qmin) & (t <= qmax)
+    return torch.where(inside, x + (xq - x).detach(), xq.detach())
+
+
+class _Balanced(torch.autograd.Function):
+    """``max(a, b)`` (or ``min``) with JAX's gradient: the larger (smaller)
+    operand takes it all, and at a tie each takes half."""
+
+    @staticmethod
+    def forward(ctx, a, b, is_max: bool):
+        ctx.save_for_backward(a, b)
+        ctx.is_max = is_max
+        return torch.maximum(a, b) if is_max else torch.minimum(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        wins = a > b if ctx.is_max else a < b
+        loses = a < b if ctx.is_max else a > b
+        wa = torch.where(wins, 1.0, torch.where(loses, 0.0, 0.5))
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g * wa).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gb = (g * (1.0 - wa)).sum_to_size(b.shape)
+        return ga, gb, None
+
+
+def fake_quant_pact(x: torch.Tensor, alpha: torch.Tensor, *, bits: int = 8,
+                    ste: str = "passthrough") -> torch.Tensor:
+    """PACT: ``clip(x, 0, α)`` with a learnable α, fake-quantized on the
+    unsigned grid over ``[0, α]`` (zero point 0).  α's gradient is the
+    paper's ``1{x ≥ α}`` from the clip, with qtpu's gradients at ties
+    (``jnp.clip`` and ``jnp.maximum``): x = 0 and x = α pass half to x,
+    and x = α half to α; the grid's scale takes none."""
+    _, qmax = qrange(bits, signed=False, symmetric=False)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = _Balanced.apply(alpha, torch.full_like(alpha, 1e-6), True)
+    yc = _Balanced.apply(_Balanced.apply(x, torch.zeros_like(alpha), True),
+                         alpha, False)
+    return fake_quant(yc, _div(alpha.detach(), qmax), 0.0, bits=bits,
+                      signed=False, symmetric=False, ste=ste)
+
+
+def fake_quant_weight(w: torch.Tensor, *, bits: int = 8,
+                      channel_axis: Optional[int] = None,
+                      ste: str = "passthrough") -> torch.Tensor:
+    """Symmetric weight fake-quant with the scale ``max|W| / (2^(b-1)-1)``
+    recomputed from the live weights (per tensor, or per channel along
+    ``channel_axis``), as the reference's weight pre-hook."""
+    scale = weight_qparams(w.detach(), bits=bits, channel_axis=channel_axis)
+    return fake_quant(w, scale, 0.0, bits=bits, signed=True, symmetric=True,
+                      ste=ste)
 
 
 def quantize(x: torch.Tensor, scale: Scalar, zero_point: Scalar = 0.0, *,

@@ -1,25 +1,28 @@
 """Post-training calibration (port of qtpu/transform/calibrate.py): min-max,
-EMA and KL observers.
+EMA, KL and PACT observers.
 
 qtpu records each quantized layer's *input* range during the fp32 forward
 that ``QuantMode.CALIB_RANGE`` runs: BatchNorm on running statistics, no
-weight fake-quant.  Here the fp32 model's eval forward is that forward, and
-forward pre-hooks — the reference's own idiom — observe each quantized
-layer's input, with the layer's observer: ``"minmax"`` the running
-min/max, ``"ema"`` qtpu's ``ema_update`` at the spec's ``ema_momentum``
-over the batches in order, ``"kl"`` the running min/max too.  Layers on the
-KL observer then take qtpu's second pass: each histogram's range is seeded
-with ``max(|min|, |max|, 1e-12)``, the same batches run again with
-pre-hooks that bin |x| (``hist_update``, on the device), and the host
-threshold search (``kl_threshold``) freezes a symmetric grid, ``act_scale =
-symmetric_scale(T)`` and ``act_zp = 0``.  The observer state is fresh on
-every call, so calibration is idempotent.  PACT waits for the QAT slice
-(ROADMAP.md) and raises.
+weight fake-quant.  Here the fp32 model's eval forward is that forward (a
+converted model's fp32 copy, ``strip_quant``), and forward pre-hooks — the
+reference's own idiom — observe each quantized layer's input, with the
+layer's observer: ``"minmax"`` the running min/max, ``"ema"`` qtpu's
+``ema_update`` at the spec's ``ema_momentum`` over the batches in order,
+``"kl"`` the running min/max too, ``"pact"`` the range ``(0, α)`` every
+batch (α the layer's ``in_q.pact_alpha`` in a converted model, else the
+spec's ``pact_init``).  Layers on the KL observer then take qtpu's second
+pass: each histogram's range is seeded with ``max(|min|, |max|, 1e-12)``,
+the same batches run again with pre-hooks that bin |x| (``hist_update``,
+on the device), and the host threshold search (``kl_threshold``) freezes
+a symmetric grid, ``act_scale = symmetric_scale(T)`` and ``act_zp = 0``.
+The observer state is fresh on every call, so calibration is idempotent.
 
 Returns ``{"quant_stats": {path: state}, "quant_params": {path:
 {"act_scale", "act_zp", "calibrated"}}, "seconds": {"range", "hist",
 "search"}}`` keyed by qtpu's "/"-joined layer paths; a KL layer's state
-also holds ``hist`` (the counts) and ``hist_amax``.
+also holds ``hist`` (the counts) and ``hist_amax``.  In a converted model
+the same state is written into each layer's ``in_q`` buffers, as qtpu's
+calibrate returns its variables with ``quant_params`` filled.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from qtpu_torch.calib.kl import kl_threshold
 from qtpu_torch.nn.layers import layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
+from qtpu_torch.transform.convert import strip_quant
 from qtpu_torch.utils.device import fp32_exact
 
 
@@ -69,28 +73,37 @@ def calibrate(model: nn.Module, policy: QuantPolicy,
     batches are iterated twice when a layer uses the KL observer."""
     device = next(model.parameters()).device
     batches = list(batches)
-    layers = {p: m for p, m in layer_paths(model).items()
+    converted = getattr(model, "quant", None) is not None
+    fp32 = strip_quant(model) if converted else model
+    own = layer_paths(model)
+    layers = {p: m for p, m in layer_paths(fp32).items()
               if policy.spec_for(p) is not None
               and policy.spec_for(p).quantize_acts}
-    for p in layers:
-        if policy.spec_for(p).act_observer == "pact":
-            raise NotImplementedError(
-                f"{p}: the PACT observer comes with the QAT slice "
-                "(ROADMAP.md)")
     stats = {p: obs.minmax_init(device) for p in layers}
+
+    def pact_alpha(path):
+        aq = getattr(own[path], "in_q", None)
+        if aq is not None and aq.pact_alpha is not None:
+            return aq.pact_alpha.detach().to(torch.float32).clone()
+        return torch.tensor(policy.spec_for(path).pact_init,
+                            dtype=torch.float32, device=device)
 
     def ranger(path):
         spec = policy.spec_for(path)
+        alpha = pact_alpha(path) if spec.act_observer == "pact" else None
 
         def hook(_module, args):
-            if spec.act_observer == "ema":
+            if alpha is not None:
+                stats[path] = {"min": torch.zeros_like(alpha), "max": alpha,
+                               "count": stats[path]["count"] + 1}
+            elif spec.act_observer == "ema":
                 stats[path] = obs.ema_update(stats[path], args[0],
                                              spec.ema_momentum)
             else:
                 stats[path] = obs.minmax_update(stats[path], args[0])
         return hook
 
-    seconds = {"range": _run(model, batches,
+    seconds = {"range": _run(fp32, batches,
                              {p: ranger(p) for p in layers}, layers, device),
                "hist": 0.0, "search": 0.0}
 
@@ -109,7 +122,7 @@ def calibrate(model: nn.Module, policy: QuantPolicy,
         return hook
 
     if kl:
-        seconds["hist"] = _run(model, batches, {p: binner(p) for p in kl},
+        seconds["hist"] = _run(fp32, batches, {p: binner(p) for p in kl},
                                layers, device)
 
     t0 = time.perf_counter()
@@ -132,5 +145,25 @@ def calibrate(model: nn.Module, policy: QuantPolicy,
             scale, zp = obs.minmax_to_affine(st, spec.a_bits)
         qparams[p] = {"act_scale": scale, "act_zp": zp, "calibrated": True}
     seconds["search"] = time.perf_counter() - t0
+    if converted:
+        _write(own, stats, qparams)
     return {"quant_stats": stats, "quant_params": qparams,
             "seconds": seconds}
+
+
+def _write(layers: Dict[str, nn.Module], stats: dict, qparams: dict) -> None:
+    """Calibration state into the converted layers' ``in_q`` buffers."""
+    with torch.no_grad():
+        for path, st in stats.items():
+            aq = layers[path].in_q
+            aq.min.copy_(st["min"])
+            aq.max.copy_(st["max"])
+            aq.count.fill_(st["count"])
+            if "hist" in st and hasattr(aq, "hist"):
+                aq.hist.copy_(st["hist"])
+                aq.hist_amax.copy_(st["hist_amax"])
+            q = qparams.get(path)
+            if q is not None:
+                aq.act_scale.copy_(q["act_scale"])
+                aq.act_zp.copy_(q["act_zp"])
+                aq.calibrated.fill_(True)

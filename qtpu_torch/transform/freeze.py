@@ -12,13 +12,22 @@ from the trained running statistics.  A bias conv without BatchNorm
 kernel and bias as they are, qtpu's no-BN branch; excluded, it keeps
 ``params/<path>/{kernel, bias}``.
 
+Each quantized layer's activation grid comes, as qtpu's, from the
+calibrated ``quant_params`` first; else from a PACT layer's α, an affine
+grid over ``[0, α]``; else from the observer's min/max (the EMA state of a
+QAT run).  ``calib`` is :func:`qtpu_torch.transform.calibrate.calibrate`'s
+output, or for a converted model left out: the model's own ``in_q`` state
+(``transform.convert.quant_state``), so a QAT-trained model freezes from
+what training left — its EMA observers and the running statistics its
+fake-BN steps updated.
+
 Like qtpu, it refuses ``quantize_weights=False`` (the integer path has no
-fp32-weight form) and raises on a quantized layer that calibration never
-saw.
+fp32-weight form) and raises on a quantized layer whose observer saw no
+batch.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -26,6 +35,7 @@ import torch.nn as nn
 from qtpu_torch.nn.layers import BN_EPS, Conv, ConvBN, layer_paths
 from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
+from qtpu_torch.transform.convert import quant_state
 from qtpu_torch.utils import debug
 
 
@@ -40,13 +50,40 @@ def _hwio(m) -> torch.Tensor:
     return m.conv.weight.detach().to(torch.float32).permute(2, 3, 1, 0)
 
 
-def freeze(model: nn.Module, policy: QuantPolicy, calib: dict) -> dict:
-    """``calib``: :func:`qtpu_torch.transform.calibrate.calibrate` output."""
+def _act_grid(path: str, spec, calib: dict):
+    """(act_scale, unsigned-grid zero point) of a quantized layer."""
+    aq = calib.get("quant_params", {}).get(path)
+    alpha = calib.get("pact_alpha", {}).get(path)
+    if aq is not None and aq.get("calibrated", False):
+        return (torch.as_tensor(aq["act_scale"], dtype=torch.float32),
+                torch.as_tensor(aq["act_zp"], dtype=torch.float32))
+    if alpha is not None:
+        return fq.affine_qparams(torch.zeros_like(alpha),
+                                 torch.clamp_min(alpha, 1e-6), spec.a_bits)
+    st = calib.get("quant_stats", {}).get(path)
+    if st is None:
+        raise ValueError(f"no activation stats for layer {path}")
+    if int(st.get("count", 0)) == 0:
+        raise ValueError(
+            f"layer {path} was never calibrated and its observer saw no "
+            "batches — run transform.calibrate (or a QAT epoch with an EMA "
+            "observer) before freeze")
+    if spec.act_symmetric:
+        amax = torch.maximum(torch.abs(st["min"]), torch.abs(st["max"]))
+        return (fq.symmetric_scale(amax, spec.a_bits),
+                torch.zeros((), dtype=torch.float32))
+    return fq.affine_qparams(st["min"], st["max"], spec.a_bits)
+
+
+def freeze(model: nn.Module, policy: QuantPolicy,
+           calib: Optional[dict] = None) -> dict:
+    """``calib``: :func:`qtpu_torch.transform.calibrate.calibrate` output;
+    ``None`` reads a converted model's own observer state."""
     qweights: Dict = {}
     params: Dict = {}
     batch_stats: Dict = {}
-    qparams = calib.get("quant_params", {})
-    qstats = calib.get("quant_stats", {})
+    if calib is None:
+        calib = quant_state(model)
     with torch.no_grad():
         for path, m in layer_paths(model).items():
             spec = policy.spec_for(path)
@@ -94,21 +131,11 @@ def freeze(model: nn.Module, policy: QuantPolicy, calib: dict) -> dict:
             packed = spec.w_bits == 4 and w_q.shape[-1] % 2 == 0
             w_store = fq.pack_int4(w_q, axis=-1) if packed else w_q
 
-            aq = qparams.get(path)
-            if aq is None or not aq.get("calibrated", False):
-                st = qstats.get(path)
-                if st is not None and st.get("count", 0) == 0:
-                    raise ValueError(
-                        f"layer {path} was never calibrated and its observer "
-                        "saw no batches — run transform.calibrate before "
-                        "freeze")
-                raise ValueError(f"no activation stats for layer {path}")
-            a_scale = torch.as_tensor(aq["act_scale"], dtype=torch.float32)
+            a_scale, zp_u = _act_grid(path, spec, calib)
             if spec.act_symmetric:
                 zp = torch.zeros((), dtype=torch.int32)
             else:
-                zp = (torch.as_tensor(aq["act_zp"], dtype=torch.float32)
-                      - (1 << (spec.a_bits - 1))).to(torch.int32)
+                zp = (zp_u - (1 << (spec.a_bits - 1))).to(torch.int32)
             dev = w_q.device
             node = {
                 "kernel_q": w_store.contiguous(),

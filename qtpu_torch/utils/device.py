@@ -40,3 +40,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def cpu_conv_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` made contiguous (NCHW) on the CPU, as it is elsewhere, for a
+    conv whose backward runs: PyTorch's CPU conv backward corrupts the
+    heap on some channels-last inputs (a 1×1 stride-2 conv of an (N, 8,
+    32, 32) view of NHWC memory, with several threads), and the models'
+    inputs are such views.  Forwards without autograd — the eval forms
+    that calibration, freeze and the engines' fp32 layers run — do not
+    call it, and keep their layout and their bits."""
+    return x.contiguous() if x.device.type == "cpu" else x

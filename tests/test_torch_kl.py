@@ -37,7 +37,8 @@ from qtpu.transform import convert_model
 from qtpu_torch.calib import kl as tkl
 from qtpu_torch.calib import observers as tobs
 from qtpu_torch.models import get_model, load_flax_variables
-from qtpu_torch.nn import LayerQuantSpec, QuantPolicy
+from qtpu_torch.nn import LayerQuantSpec, QuantMode, QuantPolicy
+from qtpu_torch.nn.act_quant import ActQuant
 from qtpu_torch.transform import calibrate
 
 KEY = jax.random.PRNGKey(0)
@@ -244,7 +245,12 @@ def test_kl_calibrate_is_idempotent(kl_pair):
 
 
 def test_pact_still_raises():
+    """Calibration takes PACT layers now, recording (0, α); the integer
+    forward still refuses them (their α needs the fake-quant gradient)."""
     m = get_model("lenet5", num_classes=10)
     pol = QuantPolicy(default=LayerQuantSpec(act_observer="pact"))
-    with pytest.raises(NotImplementedError, match="PACT"):
-        calibrate(m, pol, [np.zeros((1, 28, 28, 1), np.float32)])
+    got = calibrate(m, pol, [np.zeros((1, 28, 28, 1), np.float32)])
+    assert float(got["quant_stats"]["conv1"]["max"]) == 6.0
+    aq = ActQuant(LayerQuantSpec(act_observer="pact"))
+    with pytest.raises(ValueError, match="PACT"):
+        aq(torch.zeros(2, 2), QuantMode.QUANT_EMA, emit_qparams=True)
