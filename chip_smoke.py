@@ -23,7 +23,8 @@ success):
    (B = 8 layer1 and layer2_0; B = 128 the stride-1 conv2 of every stage
    and the stride-2 conv2 of layer2_0-layer4_0: the implicit GEMM on the
    TMA + wgmma ring, pads read in the kernel) and at the quantized stems
-   (Ci = 3: MobileNet-v1's 3×3/2, ResNet-50's 7×7/2: the stem kernel),
+   (Ci = 3: MobileNet-v1's 3×3/2, ResNet-50's 7×7/2 with SAME pads and
+   with torchvision's (3, 3): the stem kernel),
    every K2 row also on the old mma.sync loop forced, which must agree,
    and the fused bottleneck kernels at one ResNet-50 block per stage: K4
    (qproj) at layer1_0 (stride 1) and layer2_0-layer4_0 (stride 2), K5
@@ -164,6 +165,36 @@ success):
    1e-5, parameter gradients rel-L2 ≤ 1e-3, running statistics rtol
    1e-6, EMA observers equal) and as a whole step (losses finite and
    within rtol 5e-2: codes across ties amplify);
+7. the HTTP server (runs before the timings of 6): phase 4's ResNet-50
+   tree (fp32 stem) saved by ``utils.checkpoint`` (``--save-frozen``'s
+   code) and served by ``python -m qtpu_torch.serve --load-frozen``
+   (server A), while a second server process imports a torchvision-named
+   ResNet-50 of seeded weights (``--torch-ckpt``, ``resnet50_imagenet_
+   int8_ptq``: torchvision geometry, the 7×7/2 stem padded (3, 3)),
+   calibrates it on the card and serves it with ``--uint8-ingest``
+   (server B, ``--save-frozen``).  Meanwhile, in this process: the native
+   ``preprocess_quantize`` equal to its plain version on 8 images; the
+   bf16 stem (``stem_dtype=torch.bfloat16``) on phase 4's tree, 37 K1 +
+   16 K2 a forward, none plain, walked card against CPU; the same tree
+   through ``build_engine(load_frozen=...)`` behind the HTTP front in
+   process, 4 client threads × 6 requests of 1-8 images, 37 K1 + 16 K2
+   a round.  Server B's uint8 answers equal ``forward_codes`` on the
+   host codes of the tree it saved, and the f32 path of that tree to
+   atol 1e-4 with equal argmax; SIGTERM stops it.  Its int8-ingest
+   forward launches 37 K1 + 17 K2 (16 wgmma, the stem kernel once; no pad
+   copy) and is walked card against CPU.  Then server A answers the same
+   requests: every response equal to the direct forward to 1e-6 of its
+   largest logit (bit-equal ones counted); then, with server B stopped
+   and this process idle on the card, a timed window of 480 requests
+   cycling through them (each response checked too), whose client-side
+   p50/p90/p99 per request and images/s are printed; ``/healthz`` 200,
+   ``/stats`` counting the images, ``/metrics`` with
+   ``qtpu_serving_healthy 1``, a malformed body 400 and healthy after,
+   SIGTERM exit 0 with its STOPPED line.  The ResNet-50 forwards (f32
+   stem, bf16 stem, the torchvision tree on f32 and on int8 codes)
+   graph-timed at B = 128, and the f32-stem and int8-ingest forwards
+   profiled by kernel, the elementwise kernels by the PyTorch operation
+   that launched them.  Both servers are killed if the phase fails;
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
    as one CUDA graph beside it — LeNet-5, ResNet-18 KL and ResNet-20 KL at
@@ -218,6 +249,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -357,6 +389,25 @@ QAT_INT_CASES = (
 )
 
 
+# phase 7: the HTTP server (``python -m qtpu_torch.serve``) — 4 client
+# threads x 6 requests of 1-8 images checked, then 480 of them timed (every
+# response checked too); the torchvision-named ResNet-50 that
+# the second server imports (--torch-ckpt), served with --uint8-ingest; the
+# launches one forward makes on its int8-ingest path (37 K1, 16 K2 on
+# wgmma and the stem kernel for the quantized 7×7/2 stem) and with the bf16
+# stem (37 K1, 16 K2; the stem a cuDNN fp32 conv on bf16-rounded operands)
+HTTP_THREADS, HTTP_REQUESTS, HTTP_MAX_IMAGES = 4, 6, 8
+HTTP_TIMED_REQUESTS = 480   # server A's timed window: several seconds
+HTTP_BUCKETS = "8,32"
+RN50_FWD = (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN50_TV_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+# the K2 rows whose launches phase 7 counts, and their pads where not SAME
+PHASE7_PATHS = ("rn50_tv",)
+K2_PADS = {"RN50 torchvision int8 stem 7x7/2": ((3, 3), (3, 3))}
+SERVER_START_S = 300        # a server's start: imports, build, warm-up
+HTTP_TIMEOUT_S = 120
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -409,6 +460,155 @@ def timed_eager(torch, fn, iters):
         for _ in range(iters):
             fn()
     return events_ms(torch, run, iters)
+
+
+def tv_resnet50_state(seed):
+    """A ResNet-50 ``state_dict`` in torchvision's names and shapes
+    (conv1/bn1, layerN.M.convK/bnK, layerN.0.downsample.0/1, fc) from
+    seeded random weights: He-normal convs, BatchNorm affine and running
+    statistics drawn near their neutral values."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, co, ci, k):
+        sd[f"{key}.weight"] = (torch.randn(co, ci, k, k, generator=g)
+                               * (2.0 / (ci * k * k)) ** 0.5)
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = 0.5 + 0.5 * torch.rand(c, generator=g)
+        sd[f"{key}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{key}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{key}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, (n, w) in enumerate(((3, 64), (4, 128), (6, 256), (3, 512))):
+        for b in range(n):
+            t = f"layer{s + 1}.{b}"
+            for k, (co, ci, kk) in enumerate(((w, cin, 1), (w, w, 3),
+                                              (4 * w, w, 1))):
+                conv(f"{t}.conv{k + 1}", co, ci, kk)
+                bn(f"{t}.bn{k + 1}", co)
+            if b == 0:
+                conv(f"{t}.downsample.0", 4 * w, cin, 1)
+                bn(f"{t}.downsample.1", 4 * w)
+            cin = 4 * w
+    sd["fc.weight"] = torch.randn(1000, cin, generator=g) * cin ** -0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def start_server(args, what):
+    """``python -m qtpu_torch.serve *args`` from the checkout's root; its
+    merged output lines go to a queue, read by :func:`wait_line`."""
+    import queue
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "qtpu_torch.serve", "--host", "127.0.0.1",
+         "--port", "0", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+    threading.Thread(target=pump, daemon=True, name=what).start()
+    return proc, lines, []
+
+
+def wait_line(server, prefix, timeout):
+    """The JSON after ``prefix`` on the server's first line that starts
+    with it; fails on a timeout or when the server's output ends first."""
+    import queue
+    proc, lines, seen = server
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        try:
+            line = lines.get(timeout=max(left, 0.01)) if left > 0 else None
+        except queue.Empty:
+            line = None
+        if line is None:
+            raise SmokeFailure(f"server {proc.args[3:]}: no {prefix.strip()}"
+                               f" line within {timeout} s (exit "
+                               f"{proc.poll()}); its output:\n"
+                               + "".join(seen[-40:]))
+        seen.append(line)
+        if line.startswith(prefix):
+            return json.loads(line[len(prefix):])
+
+
+def stop_server(server, timeout=60):
+    """SIGTERM; the exit code and the STOPPED line's stats."""
+    import signal
+    proc = server[0]
+    proc.send_signal(signal.SIGTERM)
+    stats = wait_line(server, "QTPU_SERVE_STOPPED ", timeout)
+    return proc.wait(timeout=timeout), stats
+
+
+def http(url, body=None):
+    """One request; (status, body bytes) — HTTP errors are answers too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, body,
+                                    timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def post_npy(url, arr):
+    import io
+
+    import numpy as np
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    code, body = http(url + "/predict", buf.getvalue())
+    check(code == 200, f"POST {url}/predict: {code} {body[:300]!r}")
+    return np.load(io.BytesIO(body))
+
+
+def drive_http(url, requests, threads):
+    """``requests`` (arrays) posted by ``threads`` client threads, each
+    taking the next one; returns (logits per request, client-side seconds
+    per request, wall seconds)."""
+    import threading
+    out = [None] * len(requests)
+    lat = [None] * len(requests)
+    errors = []
+    nxt = iter(range(len(requests)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                out[i] = post_npy(url, requests[i])
+            except Exception as e:   # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+                return
+            lat[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=client) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=HTTP_TIMEOUT_S * len(requests))
+    wall = time.perf_counter() - t0
+    check(not errors and all(o is not None for o in out),
+          f"HTTP clients failed: {errors[:3]}")
+    return out, lat, wall
 
 
 def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS, cuda_core_ops=0):
@@ -854,6 +1054,8 @@ def main() -> int:
         ("mnv1", "MNv1 int8 stem 3x3/2", 8, 224, 3, 32, 3, 2, TPU_K2S),
         ("rn50_int8stem", "RN50 int8 stem 7x7/2", 8, 224, 3, 64, 7, 2,
          TPU_K2S),
+        ("rn50_tv", "RN50 torchvision int8 stem 7x7/2", 8, 224, 3, 64, 7, 2,
+         TPU_K2S),
         ("rn50", "B=128 layer1 conv2 3x3/1", 128, 56, 64, 64, 3, 1, TPU_K2),
         ("rn50", "B=128 layer2 conv2 3x3/1", 128, 28, 128, 128, 3, 1, TPU_K2),
         ("rn50", "B=128 layer3 conv2 3x3/1", 128, 14, 256, 256, 3, 1, TPU_K2),
@@ -867,7 +1069,7 @@ def main() -> int:
     ]
     for path, label, B, H, Ci, Co, k, s, tpu in k2_cases:
         x = i8(B, H, H, Ci)
-        pads = qops.same_pads((H, H), (k, k), (s, s))
+        pads = K2_PADS.get(label) or qops.same_pads((H, H), (k, k), (s, s))
         w = i8(Co, k * k * Ci, lo=-127)
         co, mode = coeffs(Co, k * k * Ci, **requant)
         ts = k2.tapsum_of(w, (k, k))
@@ -1538,10 +1740,10 @@ def main() -> int:
                 f"{name} " + ", ".join(f"{kp} {c[i]}" for kp, i in idx.items())
                 for name, idx in SPLIT.items()) + f"; pad copies {c[PADS]}"
 
-    def one_forward(flat, x, expect, what):
+    def one_forward(flat, x, expect, what, entry="forward"):
         zero_counts()
         with torch.inference_mode():
-            y = flat.forward(x)
+            y = getattr(flat, entry)(x)
         torch.cuda.synchronize()
         got = counts()
         check(got[:PLAIN + 1] == expect, f"{what}: one forward launched "
@@ -1621,8 +1823,7 @@ def main() -> int:
                        image_size=cfg.image_size, width=cfg.width,
                        cifar_stem=cfg.cifar_stem)
     rn50, rn50_counts, rn50_vars = serve(
-        RN50, lambda v: ResNetInt8Engine(v, arch, device=dev),
-        (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0))
+        RN50, lambda v: ResNetInt8Engine(v, arch, device=dev), RN50_FWD)
     # the experimental engine's two configurations on the same frozen tree,
     # served as qtpu serves it: ServingEngine with a forward factory
     fused, path_counts = {}, {"rn50": rn50_counts}
@@ -1877,19 +2078,27 @@ def main() -> int:
                     f"{c[PADS]}"
                     for k, c in path_counts.items()))
     srcs = (SRC_K1, SRC_K2, SRC_K3, SRC_K4, SRC_K5, SRC_K6)
+
+    def set_launches(kern):
+        """A row's launches from its path's counted run."""
+        c = path_counts[kern["path"]]
+        kern["launches"] = c[KIDX[kern["kernel"]]]
+        if kern["kernel"] in SPLIT:
+            kern["path_launches"] = {kp: c[i] for kp, i in
+                                     SPLIT[kern["kernel"]].items()}
+
     for kern in kernels:
         if "kernel" not in kern:
             kern["kernel"] = f"K{srcs.index(kern['source']) + 1}"
+        if kern["path"] in PHASE7_PATHS:
+            continue               # counted in phase 7
         # no engine calls the im2col conv: its launches are those counted
         # over every path's serving run (each checked to be 0 above)
-        kern["launches"] = (
-            sum(c[KIDX["im2col"]] for c in path_counts.values())
-            if kern["path"] is None else
-            path_counts[kern["path"]][KIDX[kern["kernel"]]])
-        if kern["kernel"] in SPLIT:
-            c = path_counts[kern["path"]]
-            kern["path_launches"] = {kp: c[i] for kp, i in
-                                     SPLIT[kern["kernel"]].items()}
+        if kern["path"] is None:
+            kern["launches"] = sum(c[KIDX["im2col"]]
+                                   for c in path_counts.values())
+        else:
+            set_launches(kern)
 
     phase_done("4 (serving runs)")
 
@@ -1904,10 +2113,10 @@ def main() -> int:
               f"{frac:.2e} of codes differ")
         return frac
 
-    def logits_agree(flat, cpu, what, x2=x2):
+    def logits_agree(flat, cpu, what, x2=x2, entry="forward"):
         with torch.inference_mode():
-            y_gpu = flat.forward(x2).cpu().numpy()
-            y_cpu = cpu.forward(x2).numpy()
+            y_gpu = getattr(flat, entry)(x2).cpu().numpy()
+            y_cpu = getattr(cpu, entry)(x2).numpy()
         rel = float(np.linalg.norm(y_gpu - y_cpu) / np.linalg.norm(y_cpu))
         check(rel <= 1e-4, f"{what}: card vs CPU logits rel-L2 {rel}")
         return rel
@@ -1917,17 +2126,19 @@ def main() -> int:
             return eng._block_in_grid(eng._blocks()[0][0])
         return grid_of(eng._node(eng._block_names()[0][0], "conv1"))
 
-    def walk_vs_cpu(flat, cpu, what, ref=None, x2=x2):
+    def walk_vs_cpu(flat, cpu, what, ref=None, x2=x2, codes=False):
         """Step by step through the forward's plan (a block, or a chained
         run), card against CPU (tie rule), and, given the product engine
         ``ref`` on the card, the codes after each step against its blocks'
         (the fused and chained kernels are bit-exact against the sequence
-        they replace, so none may differ)."""
+        they replace, so none may differ).  ``codes``: ``x2`` holds int8
+        codes on the stem's grid (the int8 ingest's ``forward_codes``)."""
         worst, differ = 0.0, 0
         with torch.inference_mode():
             gg, cg = first_grid(flat), first_grid(cpu)
-            g_codes = flat._stem(x2.to(dev), gg)
-            worst = max(worst, tie_rule(g_codes, cpu._stem(x2, cg), "stem"))
+            g_codes = flat._stem(x2.to(dev), gg, pre_quantized=codes)
+            worst = max(worst, tie_rule(
+                g_codes, cpu._stem(x2, cg, pre_quantized=codes), "stem"))
             plan = flat._plan()
             for step in plan:
                 g_out, gn = flat._step(g_codes, gg, step)
@@ -1945,7 +2156,8 @@ def main() -> int:
                         r_out, rg = ref._step(r_out, rg, (k, 1, None))
                     differ += int((g_out != r_out).sum().item())
                 g_codes, gg, cg = g_out, gn, cn
-        rel_cpu = logits_agree(flat, cpu, what, x2)
+        rel_cpu = logits_agree(flat, cpu, what, x2,
+                               "forward_codes" if codes else "forward")
         check(differ == 0, f"{what}: {differ} codes differ from the product "
               "engine's on the card")
         log(f"{what}, card vs CPU plain path over {len(plan)} steps: worst "
@@ -2056,6 +2268,246 @@ def main() -> int:
         qat_step_vs_cpu(qcfg.name, qex.model, qcfg.policy(), torch)
 
     phase_done("5 (card against CPU)")
+
+    # -- 7. the HTTP server, ``python -m qtpu_torch.serve``, on the card --------
+    # Two server processes start together beside this one: A serves phase
+    # 4's ResNet-50 tree (fp32 stem) saved by --save-frozen's code path, B
+    # imports a torchvision-named ResNet-50 (seeded weights, --torch-ckpt),
+    # calibrates it and serves it with --uint8-ingest onto its quantized
+    # stem.  While they start, this process checks the new forwards (the
+    # host int8 ingest, the bf16 stem) card against CPU with their launches
+    # counted, and serves A's tree through the same HTTP front in process
+    # with the launches counted; then B answers over HTTP and stops, and A
+    # answers a checked window, then a timed one.
+    from qtpu_torch.data import native
+    from qtpu_torch.serve.cli import build_engine as cli_build_engine
+    from qtpu_torch.serve.http_front import serve_http
+    from qtpu_torch.utils import checkpoint as ckpt
+
+    work = os.path.join(ROOT, "qtpu_torch", "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    frozen_a = os.path.join(work, "frozen_rn50")
+    frozen_b = os.path.join(work, "frozen_rn50_tv")
+    tv_pth = os.path.join(work, "tv_resnet50.pth")
+    ckpt.save(frozen_a, rn50_vars)
+    torch.save(tv_resnet50_state(seed=13), tv_pth)
+    torch.cuda.empty_cache()
+    servers = {}
+    try:
+        servers["A"] = start_server(
+            ["--config", RN50, "--load-frozen", frozen_a, "--buckets",
+             HTTP_BUCKETS], "server A")
+        servers["B"] = start_server(
+            ["--config", RN50_INT8STEM, "--torch-ckpt", tv_pth,
+             "--uint8-ingest", "--save-frozen", frozen_b, "--buckets",
+             HTTP_BUCKETS], "server B")
+
+        # the host ingest: the native library against its plain version
+        x8 = rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        q_nat = native.preprocess_quantize(x8, (0.0,), (1.0,), 0.0173, -37)
+        check(np.array_equal(q_nat, native.preprocess_quantize_plain(
+            x8, (0.0,), (1.0,), 0.0173, -37)),
+            "preprocess_quantize: the native library differs from plain")
+        log(f"preprocess_quantize (native, {native.library_path().name}) "
+            "equal to its plain version on 8 images 224²")
+
+        # the bf16 stem on phase 4's tree: launches, card against CPU
+        bf16 = ResNetInt8Engine(rn50_vars, arch, device=dev,
+                                stem_dtype=torch.bfloat16)
+        path_counts["rn50_bf16"] = one_forward(
+            bf16, torch.from_numpy(imgs[:8]).to(dev), RN50_FWD,
+            f"{RN50} [bf16 stem]")
+        walk_vs_cpu(bf16, ResNetInt8Engine(rn50_vars, arch, device="cpu",
+                                           stem_dtype=torch.bfloat16),
+                    f"{RN50} [bf16 stem]")
+
+        # A's tree through the HTTP front in this process, launches counted
+        rs = np.random.default_rng(17)
+        plan = [rs.standard_normal((int(rs.integers(1, HTTP_MAX_IMAGES + 1)),
+                                    224, 224, 3)).astype(np.float32)
+                for _ in range(HTTP_THREADS * HTTP_REQUESTS)]
+        n_img = sum(len(r) for r in plan)
+        with torch.inference_mode():
+            direct = [rn50.forward(torch.from_numpy(r).to(dev)).cpu().numpy()
+                      for r in plan]
+        eng, info = cli_build_engine(
+            CONFIGS[RN50], buckets=(8, 32), load_frozen=frozen_a,
+            device=dev)
+        server, _ = serve_http(eng, host="127.0.0.1", port=0, block=False)
+        try:
+            rounds0 = eng.stats()["batches"]
+            zero_counts()
+            got, _, _ = drive_http(
+                f"http://127.0.0.1:{server.server_address[1]}", plan,
+                HTTP_THREADS)
+            torch.cuda.synchronize()
+            c = path_counts["rn50_http"] = counts()
+            st = eng.stats()
+        finally:
+            server.shutdown()
+            eng.stop()
+        rounds = st["batches"] - rounds0
+        check(c[:PLAIN + 1] == tuple(n * rounds for n in RN50_FWD),
+              f"{RN50} over HTTP in process: {rounds} rounds launched "
+              f"{fmt_counts(c)}")
+        check(st["images"] == n_img, f"in-process HTTP: {st['images']} of "
+              f"{n_img} images counted")
+
+        def agree(got, ref, what):
+            """Max |Δ| over max |ref| per response; counts bit-equal ones."""
+            worst, equal = 0.0, 0
+            for i, (a, b) in enumerate(zip(got, ref)):
+                check(a.shape == b.shape and np.isfinite(a).all(),
+                      f"{what} response {i}: {a.shape} vs {b.shape}")
+                d = float(np.abs(a - b).max() / np.abs(b).max())
+                worst = max(worst, d)
+                equal += int(np.array_equal(a, b))
+            check(worst <= 1e-6, f"{what}: logits differ from the in-process "
+                  f"engine by {worst:.2e} of their largest")
+            return worst, equal
+
+        w_in, eq_in = agree(got, direct, f"{RN50} HTTP in process")
+        log(f"{RN50} through the HTTP front in process ({info['serve_path']}"
+            f", {len(plan)} requests, {n_img} images, {rounds} rounds "
+            f"{st['rounds_per_bucket']}): {fmt_counts(c)}; {eq_in} of "
+            f"{len(plan)} responses bit-equal to the direct forward, worst "
+            f"{w_in:.2e}")
+
+        # server B: --torch-ckpt --uint8-ingest --save-frozen
+        ready = wait_line(servers["B"], "QTPU_SERVE_READY ", SERVER_START_S)
+        check(ready["serve_path"] == "flat-engine+int8-ingest"
+              and ready["raw_dtype"] == "uint8" and ready["torch_pad"],
+              f"server B: READY {ready}")
+        url_b = f"http://127.0.0.1:{ready['port']}"
+        tv_tree = ckpt.load(frozen_b, device=dev)
+        arch_tv = resnet_arch("resnet50", num_classes=1000, image_size=224,
+                              torch_pad=True, cifar_stem=False)
+        tv = ResNetInt8Engine(tv_tree, arch_tv, device=dev)
+        plan8 = [rs.integers(0, 256, (int(rs.integers(1, HTTP_MAX_IMAGES
+                                                      + 1)), 224, 224, 3),
+                             dtype=np.uint8) for _ in range(2 * HTTP_THREADS)]
+        s_tv, zp_tv = tv.stem_grid()[:2]
+        with torch.inference_mode():
+            direct8 = [tv.forward_codes(torch.from_numpy(
+                native.preprocess_quantize(r, (0.0,), (1.0,), s_tv, zp_tv)
+            ).to(dev)).cpu().numpy() for r in plan8]
+            f32_8 = [tv.forward(torch.from_numpy(
+                r.astype(np.float32) / 255.0).to(dev)).cpu().numpy()
+                for r in plan8]
+        got_b, _, _ = drive_http(url_b, plan8, HTTP_THREADS)
+        w_b, eq_b = agree(got_b, direct8, f"{RN50_INT8STEM} server B")
+        worst_f32 = max(float(np.abs(a - b).max())
+                        for a, b in zip(got_b, f32_8))
+        check(worst_f32 <= 1e-4 and all(
+            (a.argmax(-1) == b.argmax(-1)).all()
+            for a, b in zip(got_b, f32_8)),
+            f"server B: uint8 ingest vs the f32 path max |Δ| {worst_f32}")
+        rc, stopped = stop_server(servers.pop("B"))
+        check(rc == 0, f"server B: exit {rc} on SIGTERM")
+        log(f"{RN50_INT8STEM} server B (--torch-ckpt torchvision-named "
+            f"ResNet-50, --uint8-ingest, --save-frozen; {card}): "
+            f"{len(plan8)} uint8 requests, {eq_b} of {len(plan8)} responses "
+            f"bit-equal to forward_codes on the host codes of the saved tree "
+            f"(worst {w_b:.2e}); the f32 path of the same tree max |Δ| "
+            f"{worst_f32:.2e}, argmax equal; SIGTERM exit 0")
+
+        # the int8 ingest in process: launches (the torchvision 7×7/2 stem
+        # on K2's stem kernel, no pad copy), card against CPU
+        q8 = torch.from_numpy(native.preprocess_quantize(
+            x8, (0.0,), (1.0,), s_tv, zp_tv))
+        c = path_counts["rn50_tv"] = one_forward(
+            tv, q8.to(dev), RN50_TV_FWD, f"{RN50_INT8STEM} torchvision "
+            "[int8 ingest]", entry="forward_codes")
+        check(c[SPLIT["K2"]["stem"]] == 1 and c[SPLIT["K2"]["wgmma"]] == 16
+              and c[PADS] == 0 and c[13] == 0,
+              f"torchvision int8 ingest: K2 stem {c[SPLIT['K2']['stem']]}, "
+              f"wgmma {c[SPLIT['K2']['wgmma']]}, pad copies {c[PADS]}")
+        walk_vs_cpu(tv, ResNetInt8Engine(tv_tree, arch_tv, device="cpu"),
+                    f"{RN50_INT8STEM} torchvision [int8 ingest]",
+                    x2=q8[:2], codes=True)
+        for kern in kernels:
+            if kern["path"] in PHASE7_PATHS:
+                set_launches(kern)
+
+        # server A: python -m qtpu_torch.serve --load-frozen.  Timed only
+        # now: server B has stopped, and this process runs nothing on the
+        # card while its clients wait.  The checked window (the plan) warms
+        # it up; the timed window is HTTP_TIMED_REQUESTS requests cycling
+        # through the plan, every response checked too.
+        ready = wait_line(servers["A"], "QTPU_SERVE_READY ", SERVER_START_S)
+        check(ready["device"] == "cuda" and ready["serve_path"] ==
+              "flat-engine" and ready["raw_dtype"] == "float32",
+              f"server A: READY {ready}")
+        url = f"http://127.0.0.1:{ready['port']}"
+        got_a, _, _ = drive_http(url, plan, HTTP_THREADS)
+        w_a, eq_a = agree(got_a, direct, f"{RN50} server A")
+        cycle = [i % len(plan) for i in range(HTTP_TIMED_REQUESTS)]
+        timed_plan = [plan[i] for i in cycle]
+        n_timed = sum(len(r) for r in timed_plan)
+        rounds_before = json.loads(
+            http(url + "/stats")[1])["rounds_per_bucket"]
+        torch.cuda.synchronize()
+        got_t, lat, wall = drive_http(url, timed_plan, HTTP_THREADS)
+        w_t, eq_t = agree(got_t, [direct[i] for i in cycle],
+                          f"{RN50} server A, timed window")
+        code, body = http(url + "/healthz")
+        check(code == 200, f"server A /healthz: {code}")
+        code, body = http(url + "/stats")
+        sa = json.loads(body)
+        check(code == 200 and sa["images"] == n_img + n_timed,
+              f"server A /stats: {code} {sa}")
+        code, body = http(url + "/metrics")
+        check(code == 200 and b"qtpu_serving_healthy 1" in body
+              and b'qtpu_serving_rounds_per_bucket{bucket="' in body,
+              f"server A /metrics: {code} {body[:300]!r}")
+        code, body = http(url + "/predict", b"not an npy payload")
+        check(code == 400, f"server A, malformed body: {code}")
+        check(http(url + "/healthz")[0] == 200,
+              "server A unhealthy after a malformed body")
+        rc, stopped = stop_server(servers.pop("A"))
+        check(rc == 0 and stopped["images"] == n_img + n_timed,
+              f"server A: exit {rc} on SIGTERM, STOPPED {stopped}")
+        ms = np.array(lat) * 1e3
+        timed_rounds = {k: v - rounds_before.get(k, 0)
+                        for k, v in sa["rounds_per_bucket"].items()}
+        log(f"{RN50} server A (python -m qtpu_torch.serve --load-frozen, "
+            f"buckets {HTTP_BUCKETS}; {card}): checked window {len(plan)} "
+            f"requests, {eq_a} bit-equal to the in-process forward (worst "
+            f"{w_a:.2e}); timed window after server B stopped: "
+            f"{len(timed_plan)} requests of 1-{HTTP_MAX_IMAGES} f32 224² "
+            f"images from {HTTP_THREADS} client threads in this process, "
+            f"{n_timed} images in {wall:.3f} s = {n_timed / wall:.1f} img/s; "
+            f"client-side per request p50 {np.percentile(ms, 50):.2f} ms, "
+            f"p90 {np.percentile(ms, 90):.2f} ms, p99 "
+            f"{np.percentile(ms, 99):.2f} ms, max {ms.max():.2f} ms; rounds "
+            f"{timed_rounds}; {eq_t} of {len(timed_plan)} responses "
+            f"bit-equal (worst {w_t:.2e}); malformed body 400, healthy "
+            f"after; SIGTERM exit 0")
+
+        # graph-timed forwards at B = 128
+        x128 = torch.randn((128, 224, 224, 3), generator=g).to(dev)
+        q128 = torch.randint(-128, 128, (128, 224, 224, 3), generator=g,
+                             dtype=torch.int8).to(dev)
+        with torch.inference_mode():
+            t7 = {"f32 stem": timed(torch, lambda: rn50.forward(x128), 5),
+                  "bf16 stem": timed(torch, lambda: bf16.forward(x128), 5),
+                  "torchvision, f32 in": timed(
+                      torch, lambda: tv.forward(x128), 5),
+                  "torchvision, int8 ingest": timed(
+                      torch, lambda: tv.forward_codes(q128), 5)}
+        log(f"ResNet-50 forward B=128 as one CUDA graph ({card}): "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in t7.items()))
+        profile_forward(f"{RN50} [f32 stem]", rn50, x128, torch, by_op=True)
+        profile_forward(f"{RN50_INT8STEM} torchvision [int8 ingest]",
+                        types.SimpleNamespace(forward=tv.forward_codes),
+                        q128, torch, by_op=True)
+        del x128, q128
+    finally:
+        for proc, _, _ in servers.values():
+            proc.kill()
+            proc.wait(timeout=60)
+        torch.cuda.empty_cache()
+    phase_done("7 (HTTP server)")
 
     # -- 6. engine throughput and a profile ------------------------------------------
     graph_ms = {}
@@ -2248,20 +2700,43 @@ def device_kernels(torch, fn):
             if e.device_type == DeviceType.CUDA] or ["none reported"]
 
 
-def elementwise_by_op(prof):
+def profiled(torch, run, record_shapes):
+    """One call of ``run`` traced by torch.profiler after one traced call
+    of warm-up — a forward traced alone lacked its first kernels on the
+    card (the fp32 stem's conv, the int8 stem kernel): (the per-kernel
+    averages, the events, the traced call's wall ms)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    held, wall = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes,
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: held.append(
+                     (p.key_averages(), p.events()))) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            prof.step()
+    return held[-1][0], held[-1][1], wall[-1]
+
+
+def elementwise_by_op(events):
     """The PyTorch elementwise kernels' device time by the outermost
     operation that launched them and the ranks of its inputs (a 4-d tensor
     against a (C,) vector or a 0-dim tensor tells a broadcast apart):
     (op, kernel family, ranks) → [launches, µs, the first call's input
     shapes]."""
     ops = {}
-    for e in prof.events():
+    for e in events:
         ks = [k for k in getattr(e, "kernels", ())
               if "elementwise_kernel" in k.name]
         if not ks:
             continue
         top = e
-        while top.cpu_parent is not None:
+        while top.cpu_parent is not None and not \
+                top.cpu_parent.name.startswith("ProfilerStep"):
             top = top.cpu_parent
         for k in ks:
             fam = ("unvectorised" if re.search(r"\belementwise_kernel<",
@@ -2334,19 +2809,15 @@ def profile_step(what, state, x, y, torch):
     the share of the step's wall time the card was busy, and the
     elementwise kernels by the PyTorch operation that launched them."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from qtpu_torch.train import train_step
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        train_step(state, x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages, events, wall_ms = profiled(
+        torch, lambda: train_step(state, x, y), True)
     fams = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in averages:
+        if e.device_type != DeviceType.CUDA or e.key.startswith(
+                "ProfilerStep"):       # the step's span, not a kernel
             continue
         fam = step_family(e.key)
         n, us = fams.get(fam, (0, 0.0))
@@ -2360,7 +2831,7 @@ def profile_step(what, state, x, y, torch):
         f"{wall_ms:.3f} ms wall (profiled); by family: " + "; ".join(
             f"{k} x{n} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
             for k, (n, us) in top))
-    ops = sorted(elementwise_by_op(prof).items(), key=lambda kv: -kv[1][1])
+    ops = sorted(elementwise_by_op(events).items(), key=lambda kv: -kv[1][1])
     log(f"{what} profile: elementwise kernels by the operation that "
         "launched them: " + "; ".join(
             f"{op} {fam} ranks {list(ranks)} x{n} {us / 1e3:.3f} ms "
@@ -2373,21 +2844,16 @@ def profile_forward(what, flat, x, torch, by_op=False):
     of the forward's wall time the card was busy; with ``by_op`` also the
     elementwise kernels by the operation that launched them."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         flat.forward(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=by_op) as prof:
-            t0 = time.perf_counter()
-            flat.forward(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages, events, wall_ms = profiled(
+            torch, lambda: flat.forward(x), by_op)
     fams = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in averages:
+        if e.device_type != DeviceType.CUDA or e.key.startswith(
+                "ProfilerStep"):       # the step's span, not a kernel
             continue
         fam = kernel_family(e.key) or e.key[:70]
         n, us = fams.get(fam, (0, 0.0))
@@ -2403,7 +2869,7 @@ def profile_forward(what, flat, x, torch, by_op=False):
             f"{k} x{n} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
             for k, (n, us) in top))
     if by_op:
-        ops = sorted(elementwise_by_op(prof).items(), key=lambda kv:
+        ops = sorted(elementwise_by_op(events).items(), key=lambda kv:
                      -kv[1][1])
         log(f"{what} profile B={x.shape[0]}: elementwise kernels by the "
             "operation that launched them: " + "; ".join(

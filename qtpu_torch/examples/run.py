@@ -10,10 +10,14 @@ quantized model is then frozen (from its calibrated or EMA state) and the
 eval set served through the single-host ``ServingEngine`` on the engine
 ``serve.dispatch`` picks — the dispatch ``build_engine`` uses.
 
-Any config field can be overridden: ``--set fp32_epochs=5``,
-``--set qat_forward=int``.  It runs on the card unless ``--device cpu``
-asks for the CPU.  ``--torch-ckpt``, ``--save-state``/``--load-state`` and
-``--dp`` are not ported yet (ROADMAP.md, queue A).
+The fp32 baseline is trained, or imported from a torchvision-named
+``.pth`` (``--torch-ckpt``: torchvision's geometry, no fp32 training), or
+restored from an fp32 ``state_dict`` checkpoint (``--load-state``, loaded
+strictly; ``--save-state`` writes one after the fp32 phase,
+``utils.checkpoint``).  Any config field can be overridden: ``--set
+fp32_epochs=5``, ``--set qat_forward=int``.  It runs on the card unless
+``--device cpu`` asks for the CPU.  ``--dp`` is not ported yet
+(ROADMAP.md A11).
 """
 from __future__ import annotations
 
@@ -28,23 +32,15 @@ import torch
 from qtpu_torch.data import load_dataset
 from qtpu_torch.examples.configs import CONFIGS, ExperimentConfig
 from qtpu_torch.nn import QuantMode
-from qtpu_torch.serve.cli import build_model, serve_module
+from qtpu_torch.data.import_torch import (import_torch_state,
+                                          load_torch_checkpoint)
+from qtpu_torch.serve.cli import build_model, check_torch_ckpt, serve_module
 from qtpu_torch.serve.dispatch import make_flat_forward
 from qtpu_torch.serve.engine import ServingEngine
 from qtpu_torch.train import evaluate, fit
 from qtpu_torch.transform import calibrate, convert_model, freeze, set_mode
+from qtpu_torch.utils import checkpoint as ckpt
 from qtpu_torch.utils.device import resolve_device
-
-NOT_PORTED = {
-    "torch_ckpt": "--torch-ckpt waits for the torchvision checkpoint "
-                  "import (ROADMAP.md queue A: the HTTP front and the CLI)",
-    "save_state": "--save-state waits for utils/checkpoint (ROADMAP.md "
-                  "queue A: tooling)",
-    "load_state": "--load-state waits for utils/checkpoint (ROADMAP.md "
-                  "queue A: tooling)",
-    "dp": "--dp waits for data-parallel training on torch.distributed "
-          "(ROADMAP.md queue A: parallel)",
-}
 
 
 class Experiment(NamedTuple):
@@ -85,17 +81,31 @@ def _serve(cfg: ExperimentConfig, eval_model, eval_ds, dev) -> tuple:
 
 
 def experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
-               device=None) -> Experiment:
-    """Train, quantize, evaluate (and serve) ``cfg``; prints the JSON
-    line."""
+               device=None, save_state: Optional[str] = None,
+               load_state: Optional[str] = None,
+               torch_ckpt: Optional[str] = None) -> Experiment:
+    """Train (or import, or restore), quantize, evaluate (and serve)
+    ``cfg``; prints the JSON line."""
+    if torch_ckpt:
+        check_torch_ckpt(cfg.model)
     dev = resolve_device(device)
     train_ds = load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=seed)
     eval_ds = load_dataset(cfg.dataset, "test", n=cfg.n_eval, seed=seed)
     log_every = 50 if verbose else 0
 
-    model = build_model(cfg, seed=seed, device=dev)
-    fit(model, train_ds, epochs=cfg.fp32_epochs, batch_size=cfg.batch_size,
-        lr=cfg.lr, seed=seed, log_every=log_every)
+    model = build_model(cfg, torch_pad=bool(torch_ckpt), seed=seed,
+                        device=dev)
+    if torch_ckpt:
+        import_torch_state(cfg.model, load_torch_checkpoint(torch_ckpt),
+                           model)
+    elif load_state:
+        model.load_state_dict(ckpt.load(load_state), strict=True)
+    else:
+        fit(model, train_ds, epochs=cfg.fp32_epochs,
+            batch_size=cfg.batch_size, lr=cfg.lr, seed=seed,
+            log_every=log_every)
+    if save_state:
+        ckpt.save(save_state, model.state_dict())
     fp32_top1, fp32_top5 = evaluate(model, eval_ds, cfg.batch_size)
 
     qmodel = convert_model(model, cfg.policy())   # the trained fp32 state
@@ -140,12 +150,12 @@ def run_experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
                    torch_ckpt: Optional[str] = None,
                    dp: Optional[int] = None) -> dict:
     """qtpu's ``run_experiment``: the JSON result of :func:`experiment`."""
-    for name, value in (("save_state", save_state),
-                        ("load_state", load_state),
-                        ("torch_ckpt", torch_ckpt), ("dp", dp)):
-        if value is not None:
-            raise SystemExit(NOT_PORTED[name])
-    return experiment(cfg, seed=seed, verbose=verbose, device=device).result
+    if dp is not None:
+        raise SystemExit("--dp waits for data-parallel training on "
+                         "torch.distributed (ROADMAP.md A11)")
+    return experiment(cfg, seed=seed, verbose=verbose, device=device,
+                      save_state=save_state, load_state=load_state,
+                      torch_ckpt=torch_ckpt).result
 
 
 def _override(cfg: ExperimentConfig, k: str, v: str) -> ExperimentConfig:
@@ -170,8 +180,15 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--quiet", action="store_true")
-    for flag in ("--save-state", "--load-state", "--torch-ckpt", "--dp"):
-        p.add_argument(flag, help="not ported yet (ROADMAP.md)")
+    p.add_argument("--save-state",
+                   help="save the fp32 model's state_dict here")
+    p.add_argument("--load-state",
+                   help="restore the fp32 model from a --save-state "
+                        "checkpoint instead of training it")
+    p.add_argument("--torch-ckpt",
+                   help="torchvision-named .pth as the fp32 baseline (no "
+                        "fp32 training)")
+    p.add_argument("--dp", type=int, help="not ported yet (ROADMAP.md A11)")
     args = p.parse_args(argv)
 
     cfg = CONFIGS[args.config]

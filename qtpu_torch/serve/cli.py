@@ -1,33 +1,63 @@
-"""Serving stack assembly (port of ``build_engine`` of qtpu/serve/cli.py).
+"""Serve CLI: ``python -m qtpu_torch.serve --config <name>`` — the
+launchable server (port of qtpu/serve/cli.py, single host).
 
-model (seeded random weights) → calibration on qtpu's data (the config's
-observer: min-max, KL for the CIFAR ResNets, or EMA for
-``resnet50_int4w_int8a_qat``): the first ``calib_batches`` batches of
-``load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=0)``, real images
-under ``$QTPU_DATA_DIR`` or the synthetic set, at the dataset's own image
-size → ``freeze`` (int8, or nibble-packed int4 weights) → the flat int8
-engine, or for the configs dispatch sends to the module SERVE path
-(LeNet-5, excludes beyond stem/fc) the SERVE-mode model
-(:func:`serve_module`) → :class:`ServingEngine`, warmed on every
-bucket.  As qtpu's, the engine
-runs int4 trees on the unpacked weights; ``ResNetInt8Engine(...,
-packed_int4=True)`` served through a forward factory runs K1's int4
-entry.  No mesh, checkpoint or torch-checkpoint import yet; the HTTP
-front and the CLI ``main`` wait too (ROADMAP.md).
+``build_engine`` assembles the serving stack for an experiment config:
+
+1. weights — ``load_frozen`` (a tree saved by an earlier ``save_frozen``:
+   no calibration), or build: the config's fp32 model (seeded random
+   weights; ``torch_ckpt``, a torchvision-named ``.pth``, through
+   ``data.import_torch``; or ``load_state``, an fp32 ``state_dict`` saved
+   by ``examples.run --save-state``), calibrated on qtpu's data (the
+   config's observer — min-max, KL for the CIFAR ResNets, EMA for
+   ``resnet50_int4w_int8a_qat`` — on the first ``calib_batches`` batches
+   of ``load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=0)``,
+   real images under ``$QTPU_DATA_DIR`` or the synthetic set) and frozen
+   (int8, or nibble-packed int4 weights); at most one weight source;
+2. the engine ``serve.dispatch`` picks: a flat int8 engine (ResNet,
+   MobileNet-v1/v2; ``stem``/``fc`` excludes in fp32 inside it,
+   ``stem_dtype=torch.bfloat16`` for its stem conv), or for LeNet-5 and
+   excludes beyond stem/fc the SERVE-mode model (:func:`serve_module`);
+   ``uint8_ingest`` puts uint8 pixels on the wire, quantized on the host
+   onto a quantized stem's grid or normalized on the device before an
+   fp32 stem;
+3. :class:`ServingEngine`, warmed on every bucket.
+
+As qtpu's, the engine runs int4 trees on the unpacked weights;
+``ResNetInt8Engine(..., packed_int4=True)`` served through a forward
+factory runs K1's int4 entry.  A torch checkpoint carries torchvision's
+stride-2 geometry, so ``torch_ckpt`` implies ``torch_pad``.
+
+``main`` serves it over HTTP (``serve.http_front``) until SIGINT or
+SIGTERM: the handlers are installed before the port is bound, the line
+``QTPU_SERVE_READY {json}`` is printed once it is bound, and
+``QTPU_SERVE_STOPPED {stats}`` when it stops; the exit code is 0 unless
+the engine died.  One card, one process: ``--tp`` other than 1, ``--dp``
+and ``--round-timeout`` (qtpu's mesh and multi-host lockstep) exit with a
+message (ROADMAP.md A11).  The server runs on the card unless
+``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import argparse
+import json
+import signal
+import sys
+import threading
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from qtpu_torch.data import load_dataset
+from qtpu_torch.data.import_torch import (import_torch_state,
+                                          load_torch_checkpoint,
+                                          supported_models)
 from qtpu_torch.models import get_model, init_weights
 from qtpu_torch.nn.serve_layers import serve_model
 from qtpu_torch.serve.dispatch import make_flat_forward
 from qtpu_torch.serve.engine import ServingEngine
 from qtpu_torch.transform import calibrate, freeze
+from qtpu_torch.utils import checkpoint as ckpt
 from qtpu_torch.utils.device import resolve_device
 
 
@@ -46,13 +76,21 @@ def build_model(cfg, *, torch_pad: bool = False, seed: int = 0,
 
 
 def calibrate_from_config(cfg, *, torch_pad: bool = False, seed: int = 0,
-                          device=None):
-    """model → calibrate, as qtpu's ``_freeze_from_config``: the
+                          device=None, torch_ckpt: Optional[str] = None,
+                          load_state: Optional[str] = None):
+    """model → calibrate, as qtpu's ``_freeze_from_config``: the fp32
+    weights are the seed's, a torchvision ``.pth`` (``torch_ckpt``) or an
+    fp32 ``state_dict`` checkpoint (``load_state``, loaded strictly); the
     calibration batches are ``ds.images[i*bs:(i+1)*bs]``, ``i <
     calib_batches``, of the config's training set (empty ones dropped);
     only those images are built.  Returns ``(model, policy, calib)``, the
     arguments of ``freeze``."""
     model = build_model(cfg, torch_pad=torch_pad, seed=seed, device=device)
+    if torch_ckpt:
+        import_torch_state(cfg.model, load_torch_checkpoint(torch_ckpt),
+                           model)
+    if load_state:
+        model.load_state_dict(ckpt.load(load_state), strict=True)
     bs = cfg.batch_size
     ds = load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=0,
                       first=bs * cfg.calib_batches)
@@ -77,26 +115,57 @@ def serve_module(cfg, tree: dict, *, torch_pad: bool = False, device=None):
                        **_model_kwargs(cfg, torch_pad))
 
 
+def check_torch_ckpt(model: str) -> None:
+    """SystemExit unless ``model`` has a torchvision importer."""
+    if model not in supported_models():
+        raise SystemExit(
+            f"--torch-ckpt: no torch importer for '{model}' (available: "
+            f"{', '.join(supported_models())}; see "
+            "qtpu_torch/data/import_torch.py for why)")
+
+
 def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
-                 uint8_ingest: bool = False, torch_pad: bool = False,
+                 uint8_ingest: bool = False,
+                 load_state: Optional[str] = None,
+                 torch_ckpt: Optional[str] = None, torch_pad: bool = False,
+                 load_frozen: Optional[str] = None,
+                 save_frozen: Optional[str] = None,
                  max_wait_ms: float = 2.0, mean: Sequence[float] = (0.0,),
-                 std: Sequence[float] = (1.0,), pipeline: bool = True,
-                 seed: int = 0, device=None):
-    """Build the serving stack for an ExperimentConfig; returns
-    ``(engine, info)``.  ``info["calib_seconds"]``: the calibration's range
-    pass, histogram pass and threshold search (``calibrate``'s
-    ``seconds``)."""
+                 std: Sequence[float] = (1.0,),
+                 stem_dtype: Optional[torch.dtype] = None,
+                 pipeline: bool = True, seed: int = 0, device=None):
+    """Build the serving stack for an ExperimentConfig (module docstring);
+    returns ``(engine, info)``.  ``info["calib_seconds"]``: the
+    calibration's range pass, histogram pass and threshold search
+    (``calibrate``'s ``seconds``; None for a loaded tree)."""
+    sources = [f for f, v in (("--torch-ckpt", torch_ckpt),
+                              ("--load-state", load_state),
+                              ("--load-frozen", load_frozen)) if v]
+    if len(sources) > 1:
+        raise SystemExit(f"{' and '.join(sources)} conflict: pick one fp32 "
+                         "weight source")
+    if torch_ckpt:
+        check_torch_ckpt(cfg.model)
+    torch_pad = torch_pad or bool(torch_ckpt)
     dev = resolve_device(device)
     shape = (cfg.image_size, cfg.image_size,
              1 if cfg.dataset == "mnist" else 3)
-    model, policy, calib = calibrate_from_config(
-        cfg, torch_pad=torch_pad, seed=seed, device=dev)
-    tree = freeze(model, policy, calib)
     forward_factory, preprocess_fn, raw_dtype, serve_path = make_flat_forward(
         cfg.model, exclude=cfg.exclude, num_classes=cfg.num_classes,
         image_size=cfg.image_size, width=cfg.width, torch_pad=torch_pad,
         cifar_stem=cfg.cifar_stem, uint8_ingest=uint8_ingest, mean=mean,
-        std=std, device=dev)
+        std=std, stem_dtype=stem_dtype, device=dev)
+    calib_seconds = None
+    if load_frozen:
+        tree = ckpt.load(load_frozen, device=dev)
+    else:
+        model, policy, calib = calibrate_from_config(
+            cfg, torch_pad=torch_pad, seed=seed, device=dev,
+            torch_ckpt=torch_ckpt, load_state=load_state)
+        tree = freeze(model, policy, calib)
+        calib_seconds = dict(calib["seconds"])
+    if save_frozen:
+        ckpt.save(save_frozen, tree)
     smodel = (serve_module(cfg, tree, torch_pad=torch_pad, device=dev)
               if serve_path == "module" else None)
     engine = ServingEngine(
@@ -108,5 +177,109 @@ def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
                 buckets=list(engine.buckets), serve_path=serve_path,
                 torch_pad=torch_pad, device=str(dev),
                 raw_dtype=str(np.dtype(raw_dtype)),
-                calib_seconds=dict(calib["seconds"]))
+                calib_seconds=calib_seconds)
     return engine, info
+
+
+def main(argv=None) -> int:
+    from qtpu_torch.examples.configs import CONFIGS
+    from qtpu_torch.serve.http_front import serve_http
+
+    p = argparse.ArgumentParser(prog="python -m qtpu_torch.serve",
+                                description=__doc__)
+    p.add_argument("--config", required=True,
+                   help="experiment config name (qtpu_torch.examples.configs)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 binds a free port (the READY line names it)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-axis size: 1 (one card; ROADMAP.md A11)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-axis size: not ported (ROADMAP.md A11)")
+    p.add_argument("--buckets", default="8,32,128",
+                   help="comma-separated batch buckets")
+    p.add_argument("--max-wait-ms", type=float, default=2.0)
+    p.add_argument("--max-body-mb", type=float, default=256.0,
+                   help="reject POST bodies larger than this (HTTP 413)")
+    p.add_argument("--round-timeout", type=float, default=None,
+                   help="multi-host round deadline: not ported (ROADMAP.md "
+                        "A11)")
+    p.add_argument("--uint8-ingest", action="store_true",
+                   help="accept uint8 images: quantized on the host onto a "
+                        "quantized stem's grid, or normalized on the card "
+                        "before an fp32 stem")
+    p.add_argument("--mean", default="0.0",
+                   help="per-channel normalize mean(s), for --uint8-ingest")
+    p.add_argument("--std", default="1.0",
+                   help="per-channel normalize std(s), for --uint8-ingest")
+    p.add_argument("--stem-dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="an excluded stem's conv inputs (f32 accumulation)")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="serial upload -> forward -> download rounds")
+    p.add_argument("--load-state",
+                   help="fp32 state_dict checkpoint (examples.run "
+                        "--save-state) to quantize")
+    p.add_argument("--torch-ckpt",
+                   help="torchvision-named .pth to import as the fp32 "
+                        "baseline (torchvision geometry)")
+    p.add_argument("--torch-pad", action="store_true",
+                   help="with --load-frozen: the tree came from a "
+                        "torchvision-geometry model")
+    p.add_argument("--load-frozen", help="frozen serving tree to serve")
+    p.add_argument("--save-frozen", help="save the frozen serving tree here")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    for flag, bad in (("--tp", args.tp != 1), ("--dp", args.dp is not None),
+                      ("--round-timeout", args.round_timeout is not None)):
+        if bad:
+            p.exit(2, f"{p.prog}: {flag}: one card, one process — the mesh "
+                      "and multi-host serving are not ported (ROADMAP.md "
+                      "A11)\n")
+    if args.config not in CONFIGS:
+        p.error(f"unknown config {args.config!r}; "
+                f"choices: {', '.join(sorted(CONFIGS))}")
+    try:
+        dev = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        p.exit(2, f"{p.prog}: {e}\n")
+
+    engine, info = build_engine(
+        CONFIGS[args.config],
+        buckets=tuple(int(b) for b in args.buckets.split(",") if b),
+        uint8_ingest=args.uint8_ingest, load_state=args.load_state,
+        torch_ckpt=args.torch_ckpt, torch_pad=args.torch_pad,
+        load_frozen=args.load_frozen, save_frozen=args.save_frozen,
+        max_wait_ms=args.max_wait_ms,
+        mean=[float(v) for v in args.mean.split(",")],
+        std=[float(v) for v in args.std.split(",")],
+        stem_dtype=(torch.bfloat16 if args.stem_dtype == "bfloat16"
+                    else None),
+        pipeline=not args.no_pipeline, seed=args.seed, device=dev)
+
+    # Handlers before the bind, READY only after it: a supervisor that
+    # stops a slow start still gets a clean exit, and a READY reader never
+    # races the bind.
+    stop_evt = threading.Event()
+    signal.signal(signal.SIGINT, lambda _s, _f: stop_evt.set())
+    signal.signal(signal.SIGTERM, lambda _s, _f: stop_evt.set())
+    server, _ = serve_http(engine, host=args.host, port=args.port,
+                           block=False,
+                           max_body_bytes=int(args.max_body_mb * 2**20))
+    info.update(host=args.host, port=int(server.server_address[1]))
+    print("QTPU_SERVE_READY " + json.dumps(info), flush=True)
+    try:
+        while not stop_evt.is_set() and engine.healthy:
+            stop_evt.wait(0.5)
+    finally:
+        server.shutdown()
+        engine.stop()
+        print("QTPU_SERVE_STOPPED " + json.dumps(engine.stats()), flush=True)
+    return 0 if engine._error is None else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

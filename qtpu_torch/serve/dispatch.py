@@ -4,9 +4,11 @@ Eligibility is decided as the conversion decides exclusion — ``fnmatch``
 globs over the model's quantizable layer paths — and the flat engines
 (ResNet, MobileNet-v1/v2) run ``stem``/``fc`` exclusions in fp32
 themselves.  Every other config (LeNet-5, or excludes beyond stem/fc)
-takes the module SERVE path (``qtpu_torch.nn.serve_layers``).  The
-host-quantized int8 ingest (which needs the native preprocessor) is still
-to port (ROADMAP.md).
+takes the module SERVE path (``qtpu_torch.nn.serve_layers``).  Ingest
+is assembled here for every family: f32 images; with ``uint8_ingest`` and
+a quantized stem, codes quantized on the host onto the stem's grid
+(``data.native.preprocess_quantize``); with an excluded stem, raw uint8
+normalized on the device.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import fnmatch
 from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from qtpu_torch.data.native import preprocess_quantize
 from qtpu_torch.serve.mobilenet_engine import (V2_BLOCKS,
                                                MobileNetV2Int8Engine)
 from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
@@ -96,16 +100,24 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                       cifar_stem: Optional[bool] = None,
                       uint8_ingest: bool = False,
                       mean: Sequence[float] = (0.0,),
-                      std: Sequence[float] = (1.0,), device=None):
+                      std: Sequence[float] = (1.0,),
+                      stem_dtype: Optional[torch.dtype] = None,
+                      device=None):
     """(forward_factory, preprocess_fn, raw_dtype, serve_path).
 
     * ineligible config → ``(None, None, float32, "module")``, the module
       SERVE path; with ``uint8_ingest`` there, SystemExit — the module
       path takes f32 images;
-    * f32 ingest → the engine's ``forward``; with an excluded fp32 stem,
-      ``uint8_ingest`` puts raw 0-255 pixels on the wire, normalized on the
-      device (``forward_u8``).  Host-quantized int8 ingest is not ported
-      and raises."""
+    * f32 ingest → the engine's ``forward``;
+    * ``uint8_ingest`` with a quantized stem → uint8 pixels on the wire,
+      normalized and quantized on the host onto ``engine.stem_grid()``
+      (``preprocess_fn``, the native library), the engine's
+      ``forward_codes`` on the int8 codes;
+    * ``uint8_ingest`` with an excluded fp32 stem → raw 0-255 pixels on the
+      wire, normalized on the device (``forward_u8``).
+
+    ``stem_dtype``: an excluded stem's conv dtype (``torch.bfloat16`` or
+    None for f32)."""
     eligible, exc = flat_engine_eligible(model, exclude)
     if not eligible:
         if uint8_ingest:
@@ -115,11 +127,6 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                 f"{sorted(exc) or list(exclude)}): the module SERVE path "
                 "takes f32 images")
         return None, None, np.float32, "module"
-    stem_excluded = "stem" in exc
-    if uint8_ingest and not stem_excluded:
-        raise NotImplementedError(
-            "uint8 ingest onto a quantized stem needs the native host "
-            "preprocessor, not ported yet (ROADMAP.md)")
     channels = 1 if image_size <= 28 else 3
     normalize = (
         tuple(np.broadcast_to(np.asarray(mean, np.float32),
@@ -131,13 +138,28 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
         if model in _MOBILENET_ENGINES:
             return _MOBILENET_ENGINES[model](
                 sv, num_classes=num_classes, torch_pad=torch_pad,
-                device=device, normalize=normalize)
+                device=device, normalize=normalize, stem_dtype=stem_dtype)
         arch = resnet_arch(model, num_classes=num_classes,
                            image_size=image_size, width=width,
                            torch_pad=torch_pad, cifar_stem=cifar_stem)
-        return ResNetInt8Engine(sv, arch, device=device, normalize=normalize)
+        return ResNetInt8Engine(sv, arch, device=device, normalize=normalize,
+                                stem_dtype=stem_dtype)
 
     if not uint8_ingest:
         return (lambda sv: build(sv).forward), None, np.float32, "flat-engine"
-    return ((lambda sv: build(sv).forward_u8), None, np.uint8,
-            "flat-engine+u8-ingest")
+    if "stem" in exc:
+        return ((lambda sv: build(sv).forward_u8), None, np.uint8,
+                "flat-engine+u8-ingest")
+    grid = []          # the stem's (scale, zp), read once the engine is built
+
+    def forward_factory(sv):
+        eng = build(sv)
+        grid.append(eng.stem_grid()[:2])
+        return eng.forward_codes
+
+    def preprocess_fn(imgs_u8):
+        scale, zp = grid[-1]
+        return preprocess_quantize(imgs_u8, normalize[0], normalize[1],
+                                   scale, zp)
+
+    return forward_factory, preprocess_fn, np.uint8, "flat-engine+int8-ingest"

@@ -11,8 +11,9 @@ queue resolves the pending round at once.  Requests are validated at
 ``submit`` (dtype by numpy "same_kind", shape against the first request or
 ``warmup``), so one malformed request fails its own caller only.  A crash in
 the scheduler fails every in-flight and queued future and marks the engine
-unhealthy.  The mesh, multi-host lockstep and watchdog parts are still to
-port (ROADMAP.md).
+unhealthy.  A round is packed into its bucket by ``data.native.pack_batch``
+(one copy, only the padding tail zeroed).  The mesh, multi-host lockstep
+and watchdog parts are still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,15 +27,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from qtpu_torch.data.native import pack_batch
 from qtpu_torch.utils.device import resolve_device
-
-
-def pack_batch(images, pad_to: int, dtype, shape) -> np.ndarray:
-    """One copy of ``images`` into a zero-padded (pad_to, *shape) buffer."""
-    out = np.zeros((pad_to, *shape), dtype)
-    for i, im in enumerate(images):
-        out[i] = im
-    return out
 
 
 class ServingEngine:

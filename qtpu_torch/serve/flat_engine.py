@@ -12,7 +12,12 @@ on the device for a scalar.  The entry points are qtpu's:
 * ``forward_u8(x8)`` — raw 0-255 uint8 pixels, normalized on the device.
 
 ``torch_pad=True`` runs torchvision's geometry: explicit (1, 1) pads on
-the strided 3×3 convs, where SAME pads (0, 1).  ``device``: ``None`` means
+the strided 3×3 convs, where SAME pads (0, 1).  ``stem_dtype=torch.bfloat16``
+runs an excluded stem's conv on bf16 inputs and weights with f32
+accumulation, as qtpu's ``preferred_element_type=float32`` conv: both are
+rounded to bf16 and back, and the conv runs in full f32 (every product of
+two bf16 values is exact in f32), so the output is not rounded to bf16.
+``device``: ``None`` means
 the card (raises without one); pass ``"cpu"`` for the plain path, where
 the same code runs the kernels' plain versions.  ``packed_int4``: the 1×1
 int4 nodes keep their weights nibble-packed for K1's int4 entry
@@ -44,8 +49,12 @@ class FlatInt8Engine:
     depthwise_keys: Collection[str] = ()
 
     def __init__(self, variables: Dict[str, Any], torch_pad: bool = False,
-                 device=None, normalize=None, packed_int4: bool = False):
+                 device=None, normalize=None, packed_int4: bool = False,
+                 stem_dtype: Optional[torch.dtype] = None):
+        if stem_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"stem_dtype {stem_dtype}: float32 or bfloat16")
         self.device = resolve_device(device)
+        self.stem_dtype = stem_dtype
         self.torch_pad = bool(torch_pad)
         self._pad3 = pad3(self.torch_pad)
         self.packed_int4 = bool(packed_int4)
@@ -120,10 +129,15 @@ class FlatInt8Engine:
     def _stem_conv_fp32(self, x: torch.Tensor, strides, padding
                         ) -> torch.Tensor:
         """The excluded stem's conv (BN folded at build) in full fp32 — no
-        TF32 — on NHWC ``x``, bias added; NHWC out, before the activation."""
+        TF32 — on NHWC ``x``, bias added; NHWC out, before the activation.
+        With the bf16 ``stem_dtype`` ``x`` and the folded weight are rounded
+        to bf16 first."""
         w, b = self._stem_fp32
         pads = qops.resolve_pads(x.shape[1:3], w.shape[2:], strides, padding)
         xp = qops.pad_nhwc(x, pads, 0.0).permute(0, 3, 1, 2)
+        if self.stem_dtype == torch.bfloat16:
+            xp = xp.to(torch.bfloat16).to(torch.float32)
+            w = w.to(torch.bfloat16).to(torch.float32)
         with fp32_exact():
             y = F.conv2d(xp, w, stride=strides)
         return y.permute(0, 2, 3, 1) + b

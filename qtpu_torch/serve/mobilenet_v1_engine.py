@@ -36,9 +36,10 @@ class MobileNetV1Int8Engine(FlatInt8Engine):
     depthwise_keys = ("dw",)
 
     def __init__(self, variables: Dict[str, Any], num_classes: int,
-                 torch_pad: bool = False, device=None, normalize=None):
+                 torch_pad: bool = False, device=None, normalize=None,
+                 stem_dtype=None):
         super().__init__(variables, torch_pad=torch_pad, device=device,
-                         normalize=normalize)
+                         normalize=normalize, stem_dtype=stem_dtype)
         self.num_classes = num_classes
 
     def _stem(self, x: torch.Tensor, first: Grid,

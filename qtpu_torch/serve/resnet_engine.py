@@ -74,10 +74,11 @@ class ResNetInt8Engine(FlatInt8Engine):
     """
 
     def __init__(self, variables: Dict[str, Any], arch: Dict[str, Any],
-                 device=None, normalize=None, packed_int4: bool = False):
+                 device=None, normalize=None, packed_int4: bool = False,
+                 stem_dtype=None):
         super().__init__(variables, torch_pad=arch.get("torch_pad", False),
                          device=device, normalize=normalize,
-                         packed_int4=packed_int4)
+                         packed_int4=packed_int4, stem_dtype=stem_dtype)
         self.arch = dict(arch)
         self._names = self._block_names()
         # Fused-kernel dispatch tables (block name -> entry, and stage index

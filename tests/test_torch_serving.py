@@ -193,8 +193,14 @@ def test_dispatch_refusals():
     # an exclude beyond stem/fc goes to the module SERVE path
     assert td.make_flat_forward("resnet50", exclude=("layer1_0/*",),
                                 device="cpu")[3] == "module"
-    with pytest.raises(NotImplementedError, match="preprocessor"):
-        td.make_flat_forward("resnet50", uint8_ingest=True)
+    # uint8 ingest onto a quantized stem: host-quantized int8 codes
+    _, pre, raw_dtype, path = td.make_flat_forward(
+        "resnet50", uint8_ingest=True, device="cpu")
+    assert (path, raw_dtype) == ("flat-engine+int8-ingest", np.uint8)
+    assert pre is not None
+    with pytest.raises(SystemExit, match="flat-engine"):
+        td.make_flat_forward("resnet50", exclude=("layer1_0/*",),
+                             uint8_ingest=True, device="cpu")
 
 
 def test_uint8_ingest_composes_with_excluded_stem():

@@ -354,8 +354,12 @@ def test_run_cli_device_and_refusals(capsys):
                  "--set", "fp32_epochs=1", "--set", "batch_size=16",
                  "--set", "calib_batches=1"]) == 0
     assert '"method": "ptq"' in capsys.readouterr().out
-    for flag, value in (("--dp", "2"), ("--save-state", "s"),
-                        ("--load-state", "s"), ("--torch-ckpt", "c.pth")):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            main(["--config", "lenet_mnist_int8", "--device", "cpu", flag,
-                  value])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        main(["--config", "lenet_mnist_int8", "--device", "cpu", "--dp",
+              "2"])
+    # --save-state, --load-state and --torch-ckpt are ported (the
+    # checkpoint and import tests run them); LeNet-5 has no torchvision
+    # naming, so --torch-ckpt refuses it by name
+    with pytest.raises(SystemExit, match="no torch importer"):
+        main(["--config", "lenet_mnist_int8", "--device", "cpu",
+              "--torch-ckpt", "c.pth"])
