@@ -238,6 +238,39 @@ on the integer forward — and profiles an integer-forward step by kernel
 family (K1/K2/K3, cuDNN's fp32 convs, PyTorch's elementwise kernels by
 the operation that launched them).
 
+8. the parallel runtime (``qtpu_torch/parallel``) as two ranks on the one
+   card: two processes this script starts (``python chip_smoke.py
+   --phase8-rank DIR``, ``parallel.launch.run_world``: ``QTPU_*``
+   variables, a file rendezvous, backend gloo — NCCL refuses two ranks on
+   one card — a deadline of its own past which both are killed), both on
+   ``cuda:0``, loading phase 4's frozen ResNet-50 and MobileNet-v2 trees
+   through ``utils/checkpoint``: (a) TP = 2 — ResNet-50 at B = 8 and 32
+   and MobileNet-v2 at B = 8 over ``shard_variables``' slices, the codes
+   after the stem and every step and the logits bit-equal to TP = 1 on the
+   same rank, each rank's launches a forward by route (37 K1 + 16 K2 on
+   half the channels; 35 K1 + 17 K3), none plain, the all-gathers a
+   forward and how many were staged on the host (gloo's collectives take
+   host tensors: ``parallel.collectives`` copies CUDA tensors there and
+   back explicitly), and the eager wall ms of the B = 32 ResNet-50 forward
+   at TP = 2 and TP = 1 with the all-gathers' share; (b) DP = 2 lockstep
+   serving through ``ServingEngine(mesh=...)`` with ``round_timeout_s``,
+   each rank submitting its own requests, the second wave from rank 0
+   alone (rank 1 idle in that round), every rank's rows bit-equal to the
+   single-process forward; (c) ``spatial_conv2d`` at sp = 2 — ResNet-50's
+   7×7/2 stem geometry (zero point −3), the 3×3/2 max-pool of its codes and
+   a layer1 3×3 (zero point 11) on K2's raw entry — equal to the unsharded
+   K2 result and ``maxpool_codes``; (d) ``pipeline_apply``, layer3's
+   identity blocks 1 and 2 as two stages over 4 microbatches, equal to the
+   blocks in sequence; (e) one DP = 2 integer-forward QAT step of config 5
+   at full width (B = 16, 8 a rank) against the single-process step from
+   the same weights: losses rtol 1e-4, parameters rtol 2e-4 / atol 2e-5,
+   observers within the same bounds — or, where codes at ties move the
+   free-running step beyond that, held as phase 5 holds a QAT step (loss
+   rtol 5e-2) and teacher-forced: the single step's batch statistics
+   replayed in the DP step, which must then meet those bounds (parameters
+   but for 0.1% of them, each within AdamW's 2·lr).  Any failure in a rank
+   fails the phase.
+
 Each phase's seconds are printed as it ends.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2678,6 +2711,12 @@ def main() -> int:
             f"{step_ms['fp32']:.3f} ms, QAT simulation {step_ms['sim']:.3f} "
             f"ms, QAT integer forward {step_ms['int']:.3f} ms ({card})")
     phase_done("6 (timings)")
+
+    # -- 8. the parallel runtime: two ranks (gloo) on the one card --------------------
+    ckpt.save(os.path.join(work, "frozen_mnv2"), mnv2_vars)
+    torch.cuda.empty_cache()
+    phase8(dev, work, card, torch)
+    phase_done("8 (parallel runtime)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2878,7 +2917,503 @@ def profile_forward(what, flat, x, torch, by_op=False):
                 for (op, fam, ranks), (n, us, shapes) in ops))
 
 
+# -- 8. the parallel runtime: two ranks on the one card ------------------------------
+
+PHASE8_RANKS = 2
+PHASE8_TIMEOUT_S = 400     # the world's deadline: both ranks killed past it
+PHASE8_BACKEND = "gloo"    # NCCL refuses two ranks on one card
+PHASE8_QAT_B = 16          # (e): the global batch, 8 a rank
+PHASE8_TIMED = 5           # (a): eager forwards timed at B = 32
+
+
+def phase8(dev, work, card, torch):
+    """Start the two ranks (``phase8_rank``) with the frozen ResNet-50 and
+    MobileNet-v2 trees saved under ``work``, wait for both, check and print
+    what they measured.  Either rank failing fails the phase; the ranks are
+    killed on any failure and past ``PHASE8_TIMEOUT_S``."""
+    import numpy as np
+
+    from qtpu_torch.parallel.launch import run_world
+
+    rdzv = os.path.join(work, "phase8_rdzv")
+    for f in os.listdir(work):
+        if f.startswith("phase8_"):
+            os.remove(os.path.join(work, f))
+    t0 = time.monotonic()
+    res = run_world([sys.executable, os.path.abspath(__file__),
+                     "--phase8-rank", work], PHASE8_RANKS, rdzv,
+                    timeout_s=PHASE8_TIMEOUT_S, backend=PHASE8_BACKEND,
+                    cwd=ROOT)
+    wall = time.monotonic() - t0
+    for r in res:
+        for line in r.output.splitlines():
+            if line.startswith("phase8 "):
+                log(f"rank {r.rank}: {line[7:]}")
+        check(r.returncode == 0, f"phase 8 rank {r.rank} exited "
+              f"{r.returncode}:\n{r.output[-8000:]}")
+    out = []
+    for r in range(PHASE8_RANKS):
+        with open(os.path.join(work, f"phase8_rank{r}.json")) as f:
+            out.append(json.load(f))
+    for r, o in enumerate(out):
+        check(o["backend"] == PHASE8_BACKEND and o["world"] == PHASE8_RANKS,
+              f"rank {r}: backend {o['backend']}, world {o['world']}")
+        for what, t in o["tp"].items():
+            check(t["equal"], f"rank {r} {what}: TP = 2 codes or logits "
+                  f"differ from TP = 1 ({t['differ']})")
+            check(t["plain"] == 0, f"rank {r} {what}: plain versions ran")
+            check(t["per_forward"] == t["want"], f"rank {r} {what}: launches "
+                  f"{t['per_forward']}, expected {t['want']}")
+        check(o["dp"]["own_rows_equal"], f"rank {r}: DP rows differ")
+        check(o["dp"]["images"] == o["dp"]["served"], f"rank {r}: served "
+              f"{o['dp']['images']} images, submitted {o['dp']['served']}")
+        for what, ok in o["spatial"]["equal"].items():
+            check(ok, f"rank {r} spatial {what}: differs from unsharded")
+        check(o["spatial"]["plain"] == 0, f"rank {r}: spatial ran plain")
+        check(o["pipeline"]["equal"], f"rank {r}: pipeline differs")
+    check(out[1]["dp"]["idle_rounds"] >= 1, "DP serving: rank 1 was never "
+          "idle in a round")
+    check(out[0]["dp"]["rounds"] == out[1]["dp"]["rounds"],
+          "DP serving: the ranks ran different rounds")
+    q = out[0]["qat"]
+    check(q["replicated"], "DP QAT: the ranks' states differ")
+    check(all(np.isfinite(v) for v in (q["loss_dp"], q["loss_single"])),
+          f"DP QAT: loss not finite {q}")
+    strict = (q["loss_rel"] <= 1e-4 and q["param_off"] == 0
+              and q["observer_off"] == 0)
+    if not strict:
+        # codes at ties move the free-running step: held as phase 5 holds
+        # a whole-network QAT step — the loss within rtol 5e-2 — and
+        # teacher-forced: the single step's batch statistics replayed in
+        # the DP step (the values; the gradient through the DP step's own)
+        check(q["loss_rel"] <= 5e-2, f"DP QAT: loss rel {q['loss_rel']}")
+        t = q["forced"]
+        check(t["loss_rel"] <= 1e-4 and t["observer_off"] == 0
+              and t["param_off"] <= max(2, 1e-3 * t["params"])
+              and t["param_worst_abs"] <= 2 * q["lr"] * 1.01,
+              f"DP QAT teacher-forced outside its bounds: {t}")
+    log(f"phase 8 ({PHASE8_RANKS} ranks, backend {PHASE8_BACKEND}, both on "
+        f"{out[0]['device']}; {card}): world {wall:.1f} s (rank 0's "
+        f"sections: {out[0]['seconds']})")
+    for r, o in enumerate(out):
+        for what, t in o["tp"].items():
+            log(f"  (a) rank {r} {what} TP = 2: codes after every step and "
+                f"logits bit-equal to TP = 1 ({t['steps']} steps); per "
+                f"forward {t['per_forward']} by route {t['routes']}, plain "
+                f"0; all-gathers {t['all_gathers']} a forward "
+                f"({t['staged']} staged on the host: gloo takes host "
+                f"tensors); sharded nodes {t['sharded']}")
+    for r, o in enumerate(out):
+        log(f"  rank {r}: collectives staged through the host (gloo takes "
+            f"host tensors; the compute stays on the card): the TP forward "
+            f"all_gather ({o['tp']['ResNet-50 B=8']['staged']} a ResNet-50 "
+            "forward), " + "; ".join(
+                f"{what} " + (", ".join(f"{k} {v}" for k, v in c.items())
+                              or "none")
+                for what, c in o["staged"].items()))
+    ta = out[0]["timing"]
+    log(f"  (a) ResNet-50 B = 32 eager wall, {PHASE8_TIMED} forwards after "
+        f"a warm one ({card}): TP = 2 (both ranks on the one card, gloo) "
+        f"{ta['tp2_ms']:.3f} ms, TP = 1 (rank 0 alone) {ta['tp1_ms']:.3f} "
+        f"ms; the all-gathers {ta['gather_ms']:.3f} ms of a "
+        f"{ta['gather_fwd_ms']:.3f} ms synchronised forward "
+        f"({100 * ta['gather_ms'] / ta['gather_fwd_ms']:.1f}%)")
+    for r, o in enumerate(out):
+        d = o["dp"]
+        log(f"  (b) rank {r} DP = 2 lockstep serving (round_timeout_s "
+            f"{d['round_timeout_s']}): {d['served']} own requests, rounds "
+            f"{d['rounds']}, {d['idle_rounds']} idle; own rows bit-equal to "
+            f"the single-process forward")
+        s = o["spatial"]
+        log(f"  (c) rank {r} spatial sp = 2: {', '.join(s['equal'])} equal "
+            f"to the unsharded K2 raw / pool; the sharded calls' K2 "
+            f"launches by route {s['routes']}, plain 0; halo exchanges "
+            f"{s['ppermute']}")
+        log(f"  (d) rank {r} pipeline: 2 stages (layer3_1, layer3_2) x 4 "
+            f"microbatches equal to the blocks in sequence; sends "
+            f"{o['pipeline']['ppermute']}")
+    log(f"  (e) DP = 2 QAT step ({CFG5}, integer forward, B = "
+        f"{PHASE8_QAT_B}, 8 a rank) against the single-process step: loss "
+        f"{q['loss_dp']:.7f} vs {q['loss_single']:.7f} (rel "
+        f"{q['loss_rel']:.2e}); parameters off rtol 2e-4 / atol 2e-5: "
+        f"{q['param_off']} of {q['params']} (worst abs {q['param_worst_abs']:.2e}); "
+        f"observers off: {q['observer_off']}; "
+        + ("held strictly" if strict else
+           f"codes at ties move it, held as phase 5 holds; teacher-forced "
+           f"(the single step's batch statistics replayed): loss rel "
+           f"{q['forced']['loss_rel']:.2e}, parameters off "
+           f"{q['forced']['param_off']} (worst abs "
+           f"{q['forced']['param_worst_abs']:.2e}), observers off "
+           f"{q['forced']['observer_off']}"))
+
+
+def phase8_rank(work):
+    """One rank of phase 8 (module docstring); writes its results to
+    ``work/phase8_rank<r>.json``."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qtpu_torch.examples.configs import CONFIGS
+    from qtpu_torch.nn import layers as qlayers
+    from qtpu_torch.ops import qconv as k2
+    from qtpu_torch.ops import qdepthwise as k3
+    from qtpu_torch.ops import qmatmul as k1
+    from qtpu_torch.ops import qops
+    from qtpu_torch.parallel import (collectives, distributed,
+                                     make_mesh, make_pipeline_mesh,
+                                     make_spatial_mesh, pipeline_apply,
+                                     shard_variables, spatial_conv2d,
+                                     spatial_max_pool, stage_local)
+    from qtpu_torch.parallel.mesh import sharded_nodes
+    from qtpu_torch.serve.cli import build_model
+    from qtpu_torch.serve.dispatch import resnet_arch
+    from qtpu_torch.serve.engine import ServingEngine
+    from qtpu_torch.serve.fused_ops import grid_of
+    from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine, maxpool_codes
+    from qtpu_torch.train import create_train_state, train_step
+    from qtpu_torch.transform import convert_model
+    from qtpu_torch.utils import checkpoint as ckpt
+
+    distributed.initialize_from_env(backend=PHASE8_BACKEND)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = distributed.rank_device()
+    sync = dist.new_group(backend="gloo")
+    seconds, t_sec = {}, [time.monotonic()]
+
+    def section(name):
+        now = time.monotonic()
+        seconds[name] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    kernels = {"K1": (k1.qmatmul_folded, ("wgmma", "igemm")),
+               "K2": (k2.qconv2d_folded, ("wgmma", "stem", "igemm")),
+               "K3": (k3.qdepthwise_folded, ("halo", "scalar"))}
+    plains = (k1.qmatmul_folded_plain, k2.qconv2d_folded_plain,
+              k3.qdepthwise_folded_plain)
+
+    def zero():
+        for fn, routes in kernels.values():
+            fn.launches = 0
+            for r in routes:
+                setattr(fn, f"launches_{r}", 0)
+        for p in plains:
+            p.calls = 0
+        collectives.reset_counts()
+
+    def launches():
+        return ({k: fn.launches for k, (fn, _) in kernels.items()},
+                {k: {r: getattr(fn, f"launches_{r}") for r in routes}
+                 for k, (fn, routes) in kernels.items()},
+                sum(p.calls for p in plains))
+
+    def staged_by_name():
+        """The collectives staged through the host since the last reset,
+        by name (gloo's collectives take host tensors)."""
+        return {k.split(".")[0]: v for k, v in collectives.counts.items()
+                if k.endswith(".host_staged")}
+
+    out = {"backend": dist.get_backend(), "world": world, "device": str(dev),
+           "staged": {}}
+
+    # (a) TP = 2 forwards: codes after every step and logits against TP = 1
+    rn_tree = ckpt.load(os.path.join(work, "frozen_rn50"), device=dev)
+    mn_tree = ckpt.load(os.path.join(work, "frozen_mnv2"), device=dev)
+    tp_mesh = make_mesh(dp=1, tp=world)
+    cfg = CONFIGS[RN50]
+    arch = resnet_arch(cfg.model, num_classes=cfg.num_classes,
+                       image_size=cfg.image_size, width=cfg.width,
+                       cifar_stem=cfg.cifar_stem)
+    engines = {
+        "ResNet-50": (ResNetInt8Engine(rn_tree, arch, device=dev),
+                      ResNetInt8Engine(shard_variables(rn_tree, tp_mesh),
+                                       arch, device=dev),
+                      (8, 32), {"K1": 37, "K2": 16, "K3": 0}, rn_tree),
+        "MobileNet-v2": (MobileNetV2Int8Engine(mn_tree, num_classes=1000,
+                                               device=dev),
+                         MobileNetV2Int8Engine(
+                             shard_variables(mn_tree, tp_mesh),
+                             num_classes=1000, device=dev),
+                         (8,), {"K1": 35, "K2": 0, "K3": 17}, mn_tree)}
+
+    def first_grid(eng):
+        if isinstance(eng, MobileNetV2Int8Engine):
+            return eng._block_in_grid(eng._blocks()[0][0])
+        return grid_of(eng._node(eng._block_names()[0][0], "conv1"))
+
+    def walk(eng, x):
+        """The codes after the stem and every step of the plan, then the
+        logits."""
+        g = first_grid(eng)
+        codes = [eng._stem(x, g)]
+        for step in eng._plan():
+            y, g = eng._step(codes[-1], g, step)
+            codes.append(y)
+        return codes, eng.forward(x)
+
+    out["tp"] = {}
+    with torch.inference_mode():
+        for what, (ref, tp, batches, want, tree) in engines.items():
+            for B in batches:
+                x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+                    (B, 224, 224, 3)).astype(np.float32)).to(dev)
+                tp.forward(x)                               # warm
+                zero()
+                y = tp.forward(x)
+                torch.cuda.synchronize()
+                per_fwd, routes, plain = launches()
+                gathers = collectives.counts["all_gather"]
+                staged = collectives.counts["all_gather.host_staged"]
+                c_ref, y_ref = walk(ref, x)
+                c_tp, y_tp = walk(tp, x)
+                differ = [i for i, (a, b) in enumerate(zip(c_ref, c_tp))
+                          if not torch.equal(a, b)]
+                out["tp"][f"{what} B={B}"] = dict(
+                    equal=not differ and torch.equal(y, y_ref)
+                    and torch.equal(y_tp, y_ref), differ=differ,
+                    steps=len(c_ref), per_forward=per_fwd, routes=routes,
+                    plain=plain, want=want, all_gathers=gathers,
+                    staged=staged, sharded=sharded_nodes(
+                        shard_variables(tree, tp_mesh)["qweights"]))
+        # eager wall of the B = 32 ResNet-50 forward: TP = 2 on both ranks,
+        # TP = 1 on rank 0 alone, and the all-gathers' share
+        ref, tp = engines["ResNet-50"][:2]
+        x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+            (32, 224, 224, 3)).astype(np.float32)).to(dev)
+
+        def wall_ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier(group=sync)
+            t0 = time.perf_counter()
+            for _ in range(PHASE8_TIMED):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / PHASE8_TIMED
+
+        timing = {"tp2_ms": wall_ms(lambda: tp.forward(x))}
+        if rank == 0:
+            timing["tp1_ms"] = wall_ms(lambda: ref.forward(x))
+        else:
+            dist.barrier(group=sync)
+        dist.barrier(group=sync)
+        gather, spent = collectives.all_gather, [0.0]
+
+        def timed_gather(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = gather(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return y
+
+        collectives.all_gather = timed_gather
+        try:
+            tp.forward(x)
+            torch.cuda.synchronize()
+            dist.barrier(group=sync)
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            for _ in range(PHASE8_TIMED):
+                tp.forward(x)
+            torch.cuda.synchronize()
+            timing["gather_fwd_ms"] = ((time.perf_counter() - t0) * 1e3
+                                       / PHASE8_TIMED)
+            timing["gather_ms"] = spent[0] * 1e3 / PHASE8_TIMED
+        finally:
+            collectives.all_gather = gather
+        out["timing"] = timing
+    section("tp")
+
+    # (b) DP = 2 lockstep serving: own requests, an idle round on rank 1
+    dp_mesh = make_mesh(dp=world, tp=1)
+    eng = ServingEngine(None, rn_tree, mesh=dp_mesh, batch_buckets=(8, 32),
+                        max_wait_ms=20.0, round_timeout_s=60.0, device=dev,
+                        forward_factory=lambda sv: ResNetInt8Engine(
+                            sv, arch, device=dev).forward)
+    eng.warmup((224, 224, 3))
+    imgs = np.random.default_rng(100 + rank).standard_normal(
+        (7, 224, 224, 3)).astype(np.float32)
+    first = eng.predict(imgs[:3 + rank])           # both ranks: 3 and 4
+    dist.barrier(group=sync)
+    second = eng.predict(imgs[3 + rank:]) if rank == 0 else imgs[:0]
+    dist.barrier(group=sync)
+    eng.stop()
+    st = eng.stats()
+    served = np.concatenate([first, second]) if len(second) else first
+    mine = imgs[:len(served)]
+    with torch.inference_mode():
+        direct = ref.forward(torch.from_numpy(mine).to(dev)).cpu().numpy()
+    out["dp"] = dict(own_rows_equal=bool(np.array_equal(served, direct)),
+                     served=len(served), rounds=st["rounds_per_bucket"],
+                     idle_rounds=st["idle_rounds"], images=st["images"],
+                     round_timeout_s=60.0)
+    section("dp")
+
+    # (c) spatial_conv2d / spatial_max_pool at sp = 2 on K2's raw entry
+    sp = make_spatial_mesh(sp=world)
+    g = torch.Generator().manual_seed(8)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    h = rank
+    stem_x, stem_w = i8(2, 224, 224, 3), i8(7, 7, 3, 64)
+    l1_x, l1_w = i8(2, 56, 56, 64), i8(3, 3, 64, 64)
+    equal = {}
+    with torch.inference_mode():
+        def whole(x, w, s, zp):
+            w_nk = w.reshape(-1, w.shape[-1]).t().contiguous()
+            pads = qops.same_pads(x.shape[1:3], w.shape[:2], (s, s))
+            return k2.qconv2d_folded(
+                x, w_nk, None, None, kernel_hw=tuple(w.shape[:2]), stride=s,
+                pads=pads, zp=zp, tapsum=k2.tapsum_of(w_nk, w.shape[:2]),
+                raw_acc=True)
+
+        def rows(t):
+            n = t.shape[1] // world
+            return t[:, h * n:(h + 1) * n].contiguous()
+
+        def requant(acc):
+            return torch.clamp(torch.div(acc, 512, rounding_mode="floor"),
+                               -128, 127).to(torch.int8)
+
+        full_stem = whole(stem_x, stem_w, 2, -3)
+        full_codes = requant(full_stem)
+        full_pool = maxpool_codes(full_codes, qops.same_pads(
+            full_codes.shape[1:3], (3, 3), (2, 2)))
+        full_l1 = whole(l1_x, l1_w, 1, 11)
+        zero()                      # the sharded calls' launches alone
+        acc = spatial_conv2d(rows(stem_x), stem_w, sp, strides=(2, 2), zp=-3)
+        equal["7x7/2 stem"] = bool(torch.equal(acc, rows(full_stem)))
+        pooled = spatial_max_pool(requant(acc), sp)
+        equal["3x3/2 max-pool"] = bool(torch.equal(pooled, rows(full_pool)))
+        acc = spatial_conv2d(rows(l1_x), l1_w, sp, zp=11)
+        equal["layer1 3x3"] = bool(torch.equal(acc, rows(full_l1)))
+        torch.cuda.synchronize()
+    _, routes, plain = launches()
+    out["staged"]["spatial"] = staged_by_name()
+    out["spatial"] = dict(equal=equal, routes=routes["K2"], plain=plain,
+                          ppermute=collectives.counts["ppermute"])
+    section("spatial")
+
+    # (d) pipeline_apply: layer3's identity blocks 1 and 2 as two stages
+    pipe = make_pipeline_mesh(world)
+    names = [n for n, i, j in ref._block_names() if i == 2][1:1 + world]
+    grids = [grid_of(ref._node(n, "conv1")) for n in names] + [
+        ref._next_grid([n for n, _, _ in ref._block_names()].index(
+            names[-1]))]
+
+    def stage(i, x):
+        i = int(i)
+        return ref._bottleneck(x, grids[i], names[i], (1, 1), grids[i + 1])
+
+    micro = i8(4, 2, 14, 14, 1024)
+    collectives.reset_counts()
+    with torch.inference_mode():
+        got = pipeline_apply(stage, stage_local(torch.arange(world), pipe),
+                             micro, pipe)
+        want = torch.stack([stage(1, stage(0, m)) for m in micro])
+    out["staged"]["pipeline"] = staged_by_name()
+    out["pipeline"] = dict(equal=bool(torch.equal(got, want)),
+                           ppermute=collectives.counts["ppermute"])
+    section("pipeline")
+
+    # (e) one DP = 2 integer-forward QAT step of config 5 at full width
+    qcfg = CONFIGS[CFG5]
+    policy = dataclasses.replace(qcfg.policy(), qat_forward="int")
+    rs = np.random.default_rng(16)
+    xb = rs.standard_normal((PHASE8_QAT_B, 224, 224, 3)).astype(np.float32)
+    yb = rs.integers(0, qcfg.num_classes, PHASE8_QAT_B)
+    fresh = convert_model(build_model(qcfg, seed=0, device=dev), policy)
+    batch_stats = qlayers._batch_stats
+
+    def step(model, mesh, stats=None, record=None):
+        """One step; ``record`` collects the batch statistics, ``stats``
+        replays them (the values; the gradient through this step's own)."""
+        it = iter(stats or ())
+
+        def hooked(y):
+            m, v = batch_stats(y)
+            if record is not None:
+                record.append((m.detach().clone(), v.detach().clone()))
+            if stats is not None:
+                rm, rv = next(it)
+                m, v = m + (rm - m).detach(), v + (rv - v).detach()
+            return m, v
+
+        qlayers._batch_stats = hooked
+        try:
+            st = create_train_state(model, qcfg.qat_lr)
+            loss = float(train_step(st, xb, yb, mesh=mesh)["loss"])
+        finally:
+            qlayers._batch_stats = batch_stats
+        torch.cuda.synchronize()
+        return loss, model
+
+    single_stats = []
+    collectives.reset_counts()
+    if rank == 0:
+        loss_s, single = step(copy.deepcopy(fresh), None,
+                              record=single_stats)
+    obj = [[(m.cpu(), v.cpu()) for m, v in single_stats]]
+    dist.broadcast_object_list(obj, src=0, group=sync)
+    stats = [(m.to(dev), v.to(dev)) for m, v in obj[0]]
+    loss_d, dp_model = step(copy.deepcopy(fresh), dp_mesh)
+    loss_f, forced = step(copy.deepcopy(fresh), dp_mesh, stats=stats)
+    digest = torch.stack([p.detach().double().sum()
+                          for p in dp_model.parameters()]).cpu()
+    digests = [torch.empty_like(digest) for _ in range(world)]
+    dist.all_gather(digests, digest, group=sync)
+
+    def compare(a, b):
+        """(params off rtol 2e-4 / atol 2e-5, their count, worst abs, the
+        observer buffers off)."""
+        off = n = 0
+        worst = 0.0
+        for (name, p), q in zip(a.named_parameters(), b.parameters()):
+            d = (p.detach() - q.detach()).abs()
+            off += int((d > 2e-5 + 2e-4 * q.detach().abs()).sum())
+            n += p.numel()
+            worst = max(worst, float(d.max()))
+        obs = 0
+        for (name, x), y in zip(a.named_buffers(), b.buffers()):
+            if ".in_q." in f".{name}" and x.is_floating_point():
+                obs += int(((x - y).abs() > 2e-5 + 2e-4 * y.abs()).sum())
+            elif ".in_q." in f".{name}":
+                obs += int((x != y).sum())
+        return off, n, worst, obs
+
+    if rank == 0:
+        off, n, worst, obs = compare(dp_model, single)
+        foff, _, fworst, fobs = compare(forced, single)
+        out["qat"] = dict(
+            loss_dp=loss_d, loss_single=loss_s,
+            loss_rel=abs(loss_d - loss_s) / abs(loss_s), param_off=off,
+            params=n, param_worst_abs=worst, observer_off=obs,
+            lr=qcfg.qat_lr,
+            replicated=all(torch.equal(d, digests[0]) for d in digests),
+            forced=dict(loss_rel=abs(loss_f - loss_s) / abs(loss_s),
+                        param_off=foff, params=n, param_worst_abs=fworst,
+                        observer_off=fobs))
+    out["staged"]["qat"] = staged_by_name()
+    section("qat")
+    out["seconds"] = seconds
+    with open(os.path.join(work, f"phase8_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"phase8 done in {sum(seconds.values()):.1f} s: {seconds}",
+          flush=True)
+    dist.barrier(group=sync)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase8-rank"]:
+        sys.exit(phase8_rank(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

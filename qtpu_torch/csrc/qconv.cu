@@ -304,14 +304,10 @@ cudaError_t launch_stem(const int8_t* x, const int8_t* w, const ConvShape& s,
                           static_cast<uint64_t>(s.Bn) * s.OH * s.OW, SPAN,
                           SPAN, s.OW, qtpu::wg::swizzle_of(SPAN)))
     return cudaErrorInvalidValue;
-  static bool attr = false;  // once per instantiation, before its first launch
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stem_kernel<SPAN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        STEM_SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static bool attr[qtpu::wg::MAX_DEVICES] = {};  // per device
+  const cudaError_t e =
+      qtpu::wg::opt_in_smem(stem_kernel<SPAN>, STEM_SMEM_MAX, attr);
+  if (e != cudaSuccess) return e;
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_kernel<SPAN>,
                                                 STEM_THREADS, smem);

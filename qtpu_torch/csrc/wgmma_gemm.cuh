@@ -828,14 +828,39 @@ struct ConvX {
   }
 };
 
+// Per-device state.  The shared-memory opt-in (cudaFuncSetAttribute) is an
+// attribute of the current device only, and SM counts and occupancy are the
+// device's own: a process that launches on several devices keeps them apart
+// (the Python wrappers make the tensors' device current around a launch).
+constexpr int MAX_DEVICES = 64;
+
+inline int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
 inline int num_sms() {
-  static int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
+  static int n[MAX_DEVICES] = {0};
+  const int dev = current_device();
+  int v = dev < MAX_DEVICES ? n[dev] : 0;
+  if (!v) {
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
+    if (dev < MAX_DEVICES) n[dev] = v;
+  }
+  return v;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once per device: `done` is the caller's flag per device.
+template <class K>
+cudaError_t opt_in_smem(K* kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  const int dev = current_device();
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
 }
 
 // Shared-memory plan of one call: as many blocks per SM as the tiles fill
@@ -879,19 +904,21 @@ bool plan(Params& p, int osize, int rsize, bool res, long tiles, int& smem,
   return false;
 }
 
-// Blocks of this kernel one SM holds with `smem` bytes each (registers and
-// shared memory), cached per size.
+// Blocks of this kernel one SM of the current device holds with `smem`
+// bytes each (registers and shared memory), cached per device and size.
 template <int BN, int WGS, bool W4, class X>
 int resident_blocks(int smem) {
-  static int sizes[8] = {0}, blocks[8] = {0};
+  static int devs[8] = {0}, sizes[8] = {0}, blocks[8] = {0};
+  const int dev = current_device();
   for (int i = 0; i < 8 && sizes[i]; ++i)
-    if (sizes[i] == smem) return blocks[i];
+    if (sizes[i] == smem && devs[i] == dev) return blocks[i];
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, wgmma_gemm_kernel<BN, WGS, W4, X>, Cfg<BN, WGS, W4>::NTHREADS,
       smem);
   for (int i = 0; i < 8; ++i)
     if (!sizes[i]) {
+      devs[i] = dev;
       sizes[i] = smem;
       blocks[i] = n;
       break;
@@ -930,14 +957,10 @@ cudaError_t launch(const X& xl, const int8_t* w, int M, int N, int K,
   int smem = 0, per_sm = 0;
   if (!plan<BN, WGS, W4>(p, osize, rsize, res, tiles, smem, per_sm))
     return cudaErrorInvalidValue;
-  static bool attr = false;  // once per instantiation, before its first launch
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wgmma_gemm_kernel<BN, WGS, W4, X>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK_MAX);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static bool attr[MAX_DEVICES] = {};  // per device, before its first launch
+  const cudaError_t e = opt_in_smem(wgmma_gemm_kernel<BN, WGS, W4, X>,
+                                    SMEM_BLOCK_MAX, attr);
+  if (e != cudaSuccess) return e;
   const int fit = resident_blocks<BN, WGS, W4, X>(smem);
   if (fit < per_sm) per_sm = fit > 0 ? fit : 1;
   const long slots = static_cast<long>(num_sms()) * per_sm;

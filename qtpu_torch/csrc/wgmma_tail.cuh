@@ -846,14 +846,10 @@ inline bool nhwc_map(CUtensorMap* m, const void* base, int n, int h, int w,
 template <bool BLOCK, int W2, int TM>
 cudaError_t launch_kernel(const TailWg& p, int grid, int smem,
                           const CUtensorMap* maps, cudaStream_t stream) {
-  static bool attr = false;  // once per instantiation, before its first launch
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tail_wg_kernel<BLOCK, W2, TM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BLOCK_MAX);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static bool attr[wg::MAX_DEVICES] = {};  // per device, before its launch
+  const cudaError_t e0 = wg::opt_in_smem(tail_wg_kernel<BLOCK, W2, TM>,
+                                         wg::SMEM_BLOCK_MAX, attr);
+  if (e0 != cudaSuccess) return e0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(NTHREADS);

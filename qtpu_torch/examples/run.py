@@ -16,8 +16,12 @@ restored from an fp32 ``state_dict`` checkpoint (``--load-state``, loaded
 strictly; ``--save-state`` writes one after the fp32 phase,
 ``utils.checkpoint``).  Any config field can be overridden: ``--set
 fp32_epochs=5``, ``--set qat_forward=int``.  It runs on the card unless
-``--device cpu`` asks for the CPU.  ``--dp`` is not ported yet
-(ROADMAP.md A11).
+``--device cpu`` asks for the CPU.
+
+``--dp N`` trains data-parallel (``train.fit(mesh=)``) over a world of N
+ranks, one process each, started with the ``QTPU_*`` variables of
+``parallel.initialize_from_env`` (``gloo`` with ``--device cpu``); each
+rank runs the experiment on its device and prints the same JSON line.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch
 from qtpu_torch.data import load_dataset
 from qtpu_torch.examples.configs import CONFIGS, ExperimentConfig
 from qtpu_torch.nn import QuantMode
+from qtpu_torch.parallel import distributed
+from qtpu_torch.parallel.mesh import make_mesh
 from qtpu_torch.data.import_torch import (import_torch_state,
                                           load_torch_checkpoint)
 from qtpu_torch.serve.cli import build_model, check_torch_ckpt, serve_module
@@ -40,7 +46,6 @@ from qtpu_torch.serve.engine import ServingEngine
 from qtpu_torch.train import evaluate, fit
 from qtpu_torch.transform import calibrate, convert_model, freeze, set_mode
 from qtpu_torch.utils import checkpoint as ckpt
-from qtpu_torch.utils.device import resolve_device
 
 
 class Experiment(NamedTuple):
@@ -83,12 +88,19 @@ def _serve(cfg: ExperimentConfig, eval_model, eval_ds, dev) -> tuple:
 def experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
                device=None, save_state: Optional[str] = None,
                load_state: Optional[str] = None,
-               torch_ckpt: Optional[str] = None) -> Experiment:
+               torch_ckpt: Optional[str] = None,
+               dp: Optional[int] = None) -> Experiment:
     """Train (or import, or restore), quantize, evaluate (and serve)
-    ``cfg``; prints the JSON line."""
+    ``cfg``; prints the JSON line.  ``dp``: data-parallel training over
+    that many ranks (the world's, initialized from the environment)."""
     if torch_ckpt:
         check_torch_ckpt(cfg.model)
-    dev = resolve_device(device)
+    mesh = None
+    if dp is not None and dp > 1:
+        distributed.initialize_from_env(
+            backend="gloo" if device == "cpu" else None)
+        mesh = make_mesh(dp=dp, tp=1)
+    dev = distributed.rank_device(device)
     train_ds = load_dataset(cfg.dataset, "train", n=cfg.n_train, seed=seed)
     eval_ds = load_dataset(cfg.dataset, "test", n=cfg.n_eval, seed=seed)
     log_every = 50 if verbose else 0
@@ -103,8 +115,8 @@ def experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
     else:
         fit(model, train_ds, epochs=cfg.fp32_epochs,
             batch_size=cfg.batch_size, lr=cfg.lr, seed=seed,
-            log_every=log_every)
-    if save_state:
+            log_every=log_every, mesh=mesh)
+    if save_state and distributed.rank() == 0:
         ckpt.save(save_state, model.state_dict())
     fp32_top1, fp32_top5 = evaluate(model, eval_ds, cfg.batch_size)
 
@@ -118,7 +130,7 @@ def experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
     elif cfg.method == "qat":
         fit(qmodel, train_ds, epochs=cfg.qat_epochs,
             batch_size=cfg.batch_size, lr=cfg.qat_lr, seed=seed + 1,
-            log_every=log_every)
+            log_every=log_every, mesh=mesh)
         eval_model = qmodel       # QUANT_EMA: the EMA ranges in eval
     else:
         eval_model = qmodel
@@ -150,12 +162,9 @@ def run_experiment(cfg: ExperimentConfig, seed: int = 0, verbose: bool = True,
                    torch_ckpt: Optional[str] = None,
                    dp: Optional[int] = None) -> dict:
     """qtpu's ``run_experiment``: the JSON result of :func:`experiment`."""
-    if dp is not None:
-        raise SystemExit("--dp waits for data-parallel training on "
-                         "torch.distributed (ROADMAP.md A11)")
     return experiment(cfg, seed=seed, verbose=verbose, device=device,
                       save_state=save_state, load_state=load_state,
-                      torch_ckpt=torch_ckpt).result
+                      torch_ckpt=torch_ckpt, dp=dp).result
 
 
 def _override(cfg: ExperimentConfig, k: str, v: str) -> ExperimentConfig:
@@ -188,7 +197,9 @@ def main(argv=None) -> int:
     p.add_argument("--torch-ckpt",
                    help="torchvision-named .pth as the fp32 baseline (no "
                         "fp32 training)")
-    p.add_argument("--dp", type=int, help="not ported yet (ROADMAP.md A11)")
+    p.add_argument("--dp", type=int,
+                   help="data-parallel training over this many ranks "
+                        "(one process each, QTPU_* variables set)")
     args = p.parse_args(argv)
 
     cfg = CONFIGS[args.config]

@@ -17,6 +17,9 @@ fake-quantizes on its range; ``QUANT`` on the frozen ``act_scale`` /
 observers update only in training (``module.train()``): that is where
 qtpu's ``quant_stats`` collection is mutable.
 
+Inside ``parallel.collectives.synced_batch`` (data-parallel training) a
+batch's range is that of the global batch.
+
 ``emit_qparams=True`` (the integer-forward QAT conv,
 :mod:`qtpu_torch.ops.qat_int`) runs the same updates but returns the live
 ``(scale, zero point)`` grid for the caller to quantize with; PACT, whose α
@@ -32,10 +35,23 @@ import torch.nn as nn
 from qtpu_torch.calib import observers as obs
 from qtpu_torch.nn.config import LayerQuantSpec, QuantMode
 from qtpu_torch.ops import fakequant as fq
+from qtpu_torch.parallel import collectives
 
 
 def _scalar(value, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(value, dtype=dtype)
+
+
+def _batch_range(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) of the batch as float32 — of the global batch inside
+    ``collectives.synced_batch`` (data-parallel training)."""
+    xd = x.detach()
+    bmin, bmax = torch.amin(xd).float(), torch.amax(xd).float()
+    group = collectives.batch_group()
+    if group is not None:
+        bmin = collectives.all_reduce(bmin, group, "min")
+        bmax = collectives.all_reduce(bmax, group, "max")
+    return bmin, bmax
 
 
 class ActQuant(nn.Module):
@@ -98,8 +114,7 @@ class ActQuant(nn.Module):
         """The grid a quantizing mode uses for ``x``; ``QUANT_EMA`` in
         training updates the observer first."""
         if mode == QuantMode.QUANT_ONLINE:
-            xd = x.detach()
-            return self._grid(torch.amin(xd).float(), torch.amax(xd).float())
+            return self._grid(*_batch_range(x))
         if mode == QuantMode.QUANT_EMA:
             if self.training:
                 with torch.no_grad():
@@ -113,8 +128,7 @@ class ActQuant(nn.Module):
         """One min-max or EMA update of the range buffers, on the device:
         the first batch's range, then the running min/max or ``m·old +
         (1 − m)·batch`` (qtpu's observers, count 0 selected by ``where``)."""
-        xd = x.detach()
-        bmin, bmax = torch.amin(xd).float(), torch.amax(xd).float()
+        bmin, bmax = _batch_range(x)
         first = self.count == 0
         if ema:
             m = torch.tensor(self.spec.ema_momentum, dtype=torch.float32,

@@ -14,7 +14,9 @@ the conv, then ``+ bias`` as a separate add, with the same pads.
 A layer without a policy runs fp32: BatchNorm on its running statistics in
 eval (the forward calibration and freeze use), and in training on the
 batch's mean and *biased* variance (``jnp.var``'s), updating the running
-statistics as ``0.9·running + 0.1·batch``.  ``transform.convert_model``
+statistics as ``0.9·running + 0.1·batch``; inside
+``parallel.collectives.synced_batch`` (the data-parallel trainer) the
+batch statistics are those of the global batch.  ``transform.convert_model``
 attaches a :class:`~qtpu_torch.nn.config.QuantPolicy` (``quant``), each
 layer's spec and an :class:`~qtpu_torch.nn.act_quant.ActQuant` ``in_q``.
 In a quantizing mode the input is fake-quantized by ``in_q`` and the
@@ -46,6 +48,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -54,6 +57,7 @@ from qtpu_torch.nn.config import LayerQuantSpec, QuantMode, QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops.qat_int import int_forward_ok, qat_int_conv
 from qtpu_torch.ops.qops import resolve_pads
+from qtpu_torch.parallel import collectives
 from qtpu_torch.utils.device import cpu_conv_layout
 
 BN_EPS = 1e-5
@@ -146,10 +150,19 @@ class _ConvBase(Quantizable, nn.Module):
 
 
 def _batch_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance of an NCHW tensor."""
-    mean = y.mean(dim=(0, 2, 3))
+    """Per-channel mean and biased variance of an NCHW tensor — over the
+    global batch inside ``collectives.synced_batch`` (data-parallel
+    training: the sums are reduced over the data group, with autograd)."""
+    group = collectives.batch_group()
+    if group is None:
+        mean = y.mean(dim=(0, 2, 3))
+        c = y - mean.view(-1, 1, 1)
+        return mean, (c * c).mean(dim=(0, 2, 3))
+    n = y.numel() // y.shape[1] * dist.get_world_size(group)
+    mean = collectives.all_reduce_sum_grad(y.sum(dim=(0, 2, 3)), group) / n
     c = y - mean.view(-1, 1, 1)
-    return mean, (c * c).mean(dim=(0, 2, 3))
+    return mean, collectives.all_reduce_sum_grad(
+        (c * c).sum(dim=(0, 2, 3)), group) / n
 
 
 class ConvBN(_ConvBase):

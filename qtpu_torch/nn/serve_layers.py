@@ -26,6 +26,10 @@ A :class:`ServeLayer` picks its kernel by shape, each launched with
   ``tapsum`` read in the kernel where its path allows);
 * a depthwise conv → K3 (``qdepthwise_folded``).
 
+A node sliced by ``parallel.mesh.shard_variables`` runs this rank's output
+channels and gathers them over the ``model`` group after its activation
+(a depthwise one reads only its own input channels).
+
 The convs keep the model's NCHW interface: a layer takes and returns NCHW
 tensors whose memory is channels-last (the NHWC input permuted), so its
 own permutes are views and the int8 codes it quantizes are already the
@@ -118,6 +122,7 @@ class ServeLayer(nn.Module):
             y = torch.relu(y)
             if self.act == "relu6":
                 y = torch.clamp_max(y, 6.0)
+        y = fused_ops.tp_gather(y, node)
         return y if dense else y.permute(0, 3, 1, 2)
 
 

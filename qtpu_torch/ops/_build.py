@@ -92,6 +92,18 @@ def build(names: Optional[Iterable[str]] = None,
     return {n: build_info[n] for n in names}
 
 
+def launch(fn: ctypes._CFuncPtr, dev, *args) -> int:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``dev`` appended, with ``dev`` made the current device: a kernel runs
+    on the device current at its launch, and the per-device state of the
+    launchers (the shared-memory opt-in, the SM count, the occupancy) is
+    read there.  Returns the entry's CUDA error code."""
+    import torch
+
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def load(name: str, symbol: str, argtypes: Sequence,
          defines: Sequence[str] = ()) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of kernel library ``name`` (its variant built

@@ -86,13 +86,12 @@ def qblock_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     plan = plan_args(path, B, H, W, Cmid, Cin, dev, block=True, cs=cs,
                      tm=tm)
     fn = _build.load("qblock", _SYMBOLS[path], _ARGTYPES, defines)
-    err = fn(x_q.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-             co1.A.data_ptr(), co1.B.data_ptr(), co2.A.data_ptr(),
-             co2.B.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(),
-             out.data_ptr(), B, H, W, Cin, Cmid, int(zp2),
-             co1.lo, co1.hi, mode1.shift, co2.lo, co2.hi, mode2.shift,
-             co3.C, co3.lo, co3.hi, mode3.shift, *plan,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, x_q.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+        co1.A.data_ptr(), co1.B.data_ptr(), co2.A.data_ptr(), co2.B.data_ptr(),
+        co3.A.data_ptr(), co3.B.data_ptr(), out.data_ptr(), B, H, W, Cin, Cmid,
+        int(zp2), co1.lo, co1.hi, mode1.shift, co2.lo, co2.hi, mode2.shift,
+        co3.C, co3.lo, co3.hi, mode3.shift, *plan)
     if err:
         raise RuntimeError(f"qbottleneck_fused kernel ({path}) launch "
                            f"failed: CUDA error {err} (x {tuple(x_q.shape)}, "

@@ -177,12 +177,12 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     A, Bv, C, lo, hi, shift, relu, use_am, am = launch_args(
         None if raw_acc else co, mode)
     fn = _build.load("qconv", _SYMBOLS[path], _ARGTYPES)
-    err = fn(x_q.data_ptr(), w_nk.data_ptr(),
-             None if tapsum is None else tapsum.data_ptr(), A, Bv,
-             None if residual is None else residual.data_ptr(), res_kind,
-             out.data_ptr(), OUT_KIND[odt], B, H, W, Ci, Co, KH, KW, stride,
-             pt, pl, OH, OW, zp, C, lo, hi, shift, relu, use_am, am,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, x_q.data_ptr(), w_nk.data_ptr(),
+        None if tapsum is None else tapsum.data_ptr(), A, Bv,
+        None if residual is None else residual.data_ptr(), res_kind,
+        out.data_ptr(), OUT_KIND[odt], B, H, W, Ci, Co, KH, KW, stride, pt,
+        pl, OH, OW, zp, C, lo, hi, shift, relu, use_am, am)
     if err:
         raise RuntimeError(f"qconv2d_fused kernel ({path}) launch failed: "
                            f"CUDA error {err} (x {tuple(x_q.shape)}, "

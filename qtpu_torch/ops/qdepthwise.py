@@ -157,10 +157,10 @@ def qdepthwise_folded(x_q: torch.Tensor, w_taps: torch.Tensor,
     A, Bv, _, lo, hi, shift, relu, use_am, am = launch_args(
         None if raw_acc else co, mode)
     fn = _build.load("qdepthwise", _SYMBOLS[plan.path], _ARGTYPES)
-    err = fn(x_q.data_ptr(), w_taps.data_ptr(), A, Bv, out.data_ptr(),
-             OUT_KIND[odt], B, H, W, C, OH, OW, KH, KW, stride, pt, pl,
-             int(zp), lo, hi, shift, relu, use_am, am, plan.th, plan.cc,
-             plan.threads, torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, x_q.data_ptr(), w_taps.data_ptr(), A, Bv, out.data_ptr(),
+        OUT_KIND[odt], B, H, W, C, OH, OW, KH, KW, stride, pt, pl, int(zp), lo,
+        hi, shift, relu, use_am, am, plan.th, plan.cc, plan.threads)
     if err:
         raise RuntimeError(f"qdepthwise_fused kernel ({plan}) launch "
                            f"failed: CUDA error {err} (x "

@@ -135,10 +135,9 @@ def qivr_folded(x_q: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
             co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
             barrier_words(dev).data_ptr(), B, H, W, n, C, E)
     if path == "wgmma":
-        err = fn(*args, *plan, torch.cuda.current_stream(dev).cuda_stream)
+        err = _build.launch(fn, dev, *args, *plan)
     else:
-        err = fn(*args, int(C % 16 == 0),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = _build.launch(fn, dev, *args, int(C % 16 == 0))
     if err:
         raise RuntimeError(f"qivr_fused kernel ({path}) launch failed: CUDA "
                            f"error {err} (x {tuple(x_q.shape)}, {n} blocks, "

@@ -228,11 +228,11 @@ def _launch(symbol: str, x_q: torch.Tensor, w: torch.Tensor,
     A, B, C, lo, hi, shift, relu, use_am, am = launch_args(
         None if raw_acc else co, mode)
     fn = _build.load("qmatmul", symbol, _ARGTYPES)
-    err = fn(x_q.data_ptr(), w.data_ptr(), A, B,
-             None if residual is None else residual.data_ptr(),
-             res_kind, out.data_ptr(), OUT_KIND[odt], M, N, K,
-             C, lo, hi, shift, relu, use_am, am,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, x_q.data_ptr(), w.data_ptr(), A, B,
+        None if residual is None else residual.data_ptr(), res_kind,
+        out.data_ptr(), OUT_KIND[odt], M, N, K, C, lo, hi, shift, relu,
+        use_am, am)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K})")

@@ -152,12 +152,11 @@ def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
                   "K4")
     out = torch.empty((B, H, W, Cout), dtype=torch.int8, device=dev)
     fn = _build.load("qproj", _SYMBOLS[path], _ARGTYPES, defines)
-    err = fn(b_q.data_ptr(), x_q.data_ptr(), w3_nk.data_ptr(),
-             wd_nk.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(),
-             cod.A.data_ptr(), cod.B.data_ptr(), out.data_ptr(),
-             B, H, W, Hx, Wx, stride, Cmid, Cin, Cout,
-             co3.C, co3.lo, co3.hi, mode3.shift,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, b_q.data_ptr(), x_q.data_ptr(), w3_nk.data_ptr(),
+        wd_nk.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(), cod.A.data_ptr(),
+        cod.B.data_ptr(), out.data_ptr(), B, H, W, Hx, Wx, stride, Cmid, Cin,
+        Cout, co3.C, co3.lo, co3.hi, mode3.shift)
     if err:
         raise RuntimeError(f"qproj_fused kernel ({path}) launch failed: CUDA "
                            f"error {err} (b {tuple(b_q.shape)}, x "

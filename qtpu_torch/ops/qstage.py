@@ -295,9 +295,9 @@ def qstage_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             co.scal.data_ptr(), out.data_ptr(), ws.data_ptr(),
             barrier_words(dev).data_ptr(), B, H, W, n, Cin, Cmid)
     if path == "wgmma":
-        err = fn(*args, *plan, torch.cuda.current_stream(dev).cuda_stream)
+        err = _build.launch(fn, dev, *args, *plan)
     else:
-        err = fn(*args, int(vec), torch.cuda.current_stream(dev).cuda_stream)
+        err = _build.launch(fn, dev, *args, int(vec))
     if err:
         raise RuntimeError(f"qstage_fused kernel ({path}) launch failed: "
                            f"CUDA error {err} (x {tuple(x_q.shape)}, {n} "
@@ -400,11 +400,10 @@ def qstage_proj_folded(x_q: torch.Tensor, wp1: torch.Tensor,
             co.b3.data_ptr(), co.scal.data_ptr(), out.data_ptr(),
             ws.data_ptr(), barrier_words(dev).data_ptr(), B, H, W, Cp, Cm,
             n, Co, Cmid)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if path == "wgmma":
-        err = fn(*args, *plan_args(pl), stream)
+        err = _build.launch(fn, dev, *args, *plan_args(pl))
     else:
-        err = fn(*args, int(vec), stream)
+        err = _build.launch(fn, dev, *args, int(vec))
     if err:
         raise RuntimeError(f"qstage_proj_fused kernel ({path}) launch "
                            f"failed: CUDA error {err} (x {tuple(x_q.shape)}, "

@@ -316,11 +316,11 @@ def qtail_folded(a_q: torch.Tensor, r_q: torch.Tensor, w2: torch.Tensor,
     plan = plan_args(path, B, H, W, Cmid, Cout, dev, block=False, cs=cs,
                      tm=tm)
     fn = _build.load("qtail", _SYMBOLS[path], _ARGTYPES, defines)
-    err = fn(a_q.data_ptr(), r_q.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-             co2.A.data_ptr(), co2.B.data_ptr(), co3.A.data_ptr(),
-             co3.B.data_ptr(), out.data_ptr(), B, Hin, Win, pad, int(zp),
-             Cmid, Cout, co2.lo, co2.hi, mode2.shift, co3.C, co3.lo, co3.hi,
-             mode3.shift, *plan, torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch(
+        fn, dev, a_q.data_ptr(), r_q.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+        co2.A.data_ptr(), co2.B.data_ptr(), co3.A.data_ptr(), co3.B.data_ptr(),
+        out.data_ptr(), B, Hin, Win, pad, int(zp), Cmid, Cout, co2.lo, co2.hi,
+        mode2.shift, co3.C, co3.lo, co3.hi, mode3.shift, *plan)
     if err:
         raise RuntimeError(f"qtail_fused kernel ({path}) launch failed: CUDA "
                            f"error {err} (a {tuple(a_q.shape)}, Cout={Cout}, "

@@ -20,7 +20,14 @@ launchable server (port of qtpu/serve/cli.py, single host).
    ``uint8_ingest`` puts uint8 pixels on the wire, quantized on the host
    onto a quantized stem's grid or normalized on the device before an
    fp32 stem;
-3. :class:`ServingEngine`, warmed on every bucket.
+3. the ranks' mesh, ``dp`` × ``tp`` over the world's processes (one
+   device each; ``parallel.make_mesh``), the tree sliced over ``model``
+   for tensor parallelism (``parallel.shard_variables``) — with several
+   ranks rank 0 builds the tree and broadcasts it, so every rank serves
+   the same grids;
+4. :class:`ServingEngine`, warmed on every bucket (a collective with
+   several ranks, whose rounds then run in lockstep; ``round_timeout_s``
+   arms the round watchdog).
 
 As qtpu's, the engine runs int4 trees on the unpacked weights;
 ``ResNetInt8Engine(..., packed_int4=True)`` served through a forward
@@ -31,10 +38,18 @@ stride-2 geometry, so ``torch_ckpt`` implies ``torch_pad``.
 SIGTERM: the handlers are installed before the port is bound, the line
 ``QTPU_SERVE_READY {json}`` is printed once it is bound, and
 ``QTPU_SERVE_STOPPED {stats}`` when it stops; the exit code is 0 unless
-the engine died.  One card, one process: ``--tp`` other than 1, ``--dp``
-and ``--round-timeout`` (qtpu's mesh and multi-host lockstep) exit with a
-message (ROADMAP.md A11).  The server runs on the card unless
-``--device cpu`` asks for the CPU.
+the engine died.  The server runs on the card unless ``--device cpu``
+asks for the CPU.
+
+Several ranks: start one process per rank with ``QTPU_COORDINATOR``
+(``host:port`` or an ``init_method`` URL such as ``file:///tmp/rdzv``),
+``QTPU_NUM_PROCESSES`` and ``QTPU_PROCESS_ID`` set (``parallel.
+initialize_from_env``; ``QTPU_DIST_BACKEND`` picks ``nccl`` or ``gloo``,
+else ``nccl`` with a card per rank and ``gloo`` otherwise, and always
+``gloo`` with ``--device cpu``), and ``--tp`` / ``--dp`` with ``dp · tp``
+equal to the number of ranks.  Each rank binds its own HTTP front — at
+``--port`` plus its rank, or a free port with ``--port 0`` — and answers
+its own clients; ``info`` names the mesh, the processes and the backend.
 """
 from __future__ import annotations
 
@@ -54,6 +69,8 @@ from qtpu_torch.data.import_torch import (import_torch_state,
                                           supported_models)
 from qtpu_torch.models import get_model, init_weights
 from qtpu_torch.nn.serve_layers import serve_model
+from qtpu_torch.parallel import distributed
+from qtpu_torch.parallel.mesh import make_mesh, shard_variables
 from qtpu_torch.serve.dispatch import make_flat_forward
 from qtpu_torch.serve.engine import ServingEngine
 from qtpu_torch.transform import calibrate, freeze
@@ -124,20 +141,26 @@ def check_torch_ckpt(model: str) -> None:
             "qtpu_torch/data/import_torch.py for why)")
 
 
-def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
+def build_engine(cfg, *, tp: int = 1, dp: Optional[int] = None,
+                 buckets: Sequence[int] = (8, 32, 128),
                  uint8_ingest: bool = False,
                  load_state: Optional[str] = None,
                  torch_ckpt: Optional[str] = None, torch_pad: bool = False,
                  load_frozen: Optional[str] = None,
                  save_frozen: Optional[str] = None,
-                 max_wait_ms: float = 2.0, mean: Sequence[float] = (0.0,),
+                 max_wait_ms: float = 2.0,
+                 round_timeout_s: Optional[float] = None,
+                 mean: Sequence[float] = (0.0,),
                  std: Sequence[float] = (1.0,),
                  stem_dtype: Optional[torch.dtype] = None,
                  pipeline: bool = True, seed: int = 0, device=None):
     """Build the serving stack for an ExperimentConfig (module docstring);
     returns ``(engine, info)``.  ``info["calib_seconds"]``: the
     calibration's range pass, histogram pass and threshold search
-    (``calibrate``'s ``seconds``; None for a loaded tree)."""
+    (``calibrate``'s ``seconds``; None for a loaded tree or a rank other
+    than 0).  ``tp`` / ``dp``: the mesh over the world's ranks (``dp``
+    defaults to the ranks over ``tp``); ``device`` is this rank's
+    (``parallel.distributed.rank_device``)."""
     sources = [f for f, v in (("--torch-ckpt", torch_ckpt),
                               ("--load-state", load_state),
                               ("--load-frozen", load_frozen)) if v]
@@ -147,7 +170,11 @@ def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
     if torch_ckpt:
         check_torch_ckpt(cfg.model)
     torch_pad = torch_pad or bool(torch_ckpt)
-    dev = resolve_device(device)
+    dev = distributed.rank_device(device)
+    world = distributed.world_size()
+    if dp is None:
+        dp = world // tp
+    mesh = make_mesh(dp=dp, tp=tp)
     shape = (cfg.image_size, cfg.image_size,
              1 if cfg.dataset == "mnist" else 3)
     forward_factory, preprocess_fn, raw_dtype, serve_path = make_flat_forward(
@@ -155,25 +182,33 @@ def build_engine(cfg, *, buckets: Sequence[int] = (8, 32, 128),
         image_size=cfg.image_size, width=cfg.width, torch_pad=torch_pad,
         cifar_stem=cfg.cifar_stem, uint8_ingest=uint8_ingest, mean=mean,
         std=std, stem_dtype=stem_dtype, device=dev)
-    calib_seconds = None
+    calib_seconds = tree = None
     if load_frozen:
         tree = ckpt.load(load_frozen, device=dev)
-    else:
+    elif distributed.rank() == 0:
         model, policy, calib = calibrate_from_config(
             cfg, torch_pad=torch_pad, seed=seed, device=dev,
             torch_ckpt=torch_ckpt, load_state=load_state)
         tree = freeze(model, policy, calib)
         calib_seconds = dict(calib["seconds"])
-    if save_frozen:
+    if not load_frozen and world > 1:
+        tree = distributed.broadcast_tree(tree, dev)
+    if save_frozen and distributed.rank() == 0:
         ckpt.save(save_frozen, tree)
+    tree = shard_variables(tree, mesh)
     smodel = (serve_module(cfg, tree, torch_pad=torch_pad, device=dev)
               if serve_path == "module" else None)
     engine = ServingEngine(
-        smodel, tree, batch_buckets=tuple(buckets), max_wait_ms=max_wait_ms,
-        forward_factory=forward_factory, preprocess_fn=preprocess_fn,
-        raw_dtype=raw_dtype, pipeline=pipeline, device=dev)
+        smodel, tree, mesh=mesh, batch_buckets=tuple(buckets),
+        max_wait_ms=max_wait_ms, forward_factory=forward_factory,
+        preprocess_fn=preprocess_fn, raw_dtype=raw_dtype,
+        round_timeout_s=round_timeout_s, pipeline=pipeline, device=dev)
     engine.warmup(shape)
     info = dict(config=cfg.name, model=cfg.model, image_shape=shape,
+                mesh=f"dp={dp},tp={tp}", processes=world,
+                backend=distributed.backend(), rank=distributed.rank(),
+                round_timeout_s=round_timeout_s,
+                watchdog=engine.watchdog_armed,
                 buckets=list(engine.buckets), serve_path=serve_path,
                 torch_pad=torch_pad, device=str(dev),
                 raw_dtype=str(np.dtype(raw_dtype)),
@@ -195,17 +230,19 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     p.add_argument("--tp", type=int, default=1,
-                   help="model-axis size: 1 (one card; ROADMAP.md A11)")
+                   help="model-axis size: ranks that split each layer's "
+                        "output channels")
     p.add_argument("--dp", type=int, default=None,
-                   help="data-axis size: not ported (ROADMAP.md A11)")
+                   help="data-axis size (default: the ranks over --tp)")
     p.add_argument("--buckets", default="8,32,128",
                    help="comma-separated batch buckets")
     p.add_argument("--max-wait-ms", type=float, default=2.0)
     p.add_argument("--max-body-mb", type=float, default=256.0,
                    help="reject POST bodies larger than this (HTTP 413)")
     p.add_argument("--round-timeout", type=float, default=None,
-                   help="multi-host round deadline: not ported (ROADMAP.md "
-                        "A11)")
+                   help="deadline in seconds of one lockstep round of "
+                        "several ranks (a wedged peer fails the round's "
+                        "requests and /healthz)")
     p.add_argument("--uint8-ingest", action="store_true",
                    help="accept uint8 images: quantized on the host onto a "
                         "quantized stem's grid, or normalized on the card "
@@ -233,27 +270,31 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    for flag, bad in (("--tp", args.tp != 1), ("--dp", args.dp is not None),
-                      ("--round-timeout", args.round_timeout is not None)):
-        if bad:
-            p.exit(2, f"{p.prog}: {flag}: one card, one process — the mesh "
-                      "and multi-host serving are not ported (ROADMAP.md "
-                      "A11)\n")
     if args.config not in CONFIGS:
         p.error(f"unknown config {args.config!r}; "
                 f"choices: {', '.join(sorted(CONFIGS))}")
     try:
-        dev = resolve_device(args.device)
+        resolve_device(args.device)
+        distributed.initialize_from_env(
+            backend="gloo" if args.device == "cpu" else None)
+        dev = distributed.rank_device(args.device)
     except (RuntimeError, ValueError) as e:
         p.exit(2, f"{p.prog}: {e}\n")
+    world = distributed.world_size()
+    dp = args.dp if args.dp is not None else world // max(args.tp, 1)
+    if args.tp < 1 or dp * args.tp != world:
+        p.exit(2, f"{p.prog}: --dp {dp} x --tp {args.tp} needs as many "
+                  f"ranks, and {world} run: start one process a rank with "
+                  "QTPU_COORDINATOR, QTPU_NUM_PROCESSES and "
+                  "QTPU_PROCESS_ID set\n")
 
     engine, info = build_engine(
-        CONFIGS[args.config],
+        CONFIGS[args.config], tp=args.tp, dp=args.dp,
         buckets=tuple(int(b) for b in args.buckets.split(",") if b),
         uint8_ingest=args.uint8_ingest, load_state=args.load_state,
         torch_ckpt=args.torch_ckpt, torch_pad=args.torch_pad,
         load_frozen=args.load_frozen, save_frozen=args.save_frozen,
-        max_wait_ms=args.max_wait_ms,
+        max_wait_ms=args.max_wait_ms, round_timeout_s=args.round_timeout,
         mean=[float(v) for v in args.mean.split(",")],
         std=[float(v) for v in args.std.split(",")],
         stem_dtype=(torch.bfloat16 if args.stem_dtype == "bfloat16"
@@ -266,7 +307,8 @@ def main(argv=None) -> int:
     stop_evt = threading.Event()
     signal.signal(signal.SIGINT, lambda _s, _f: stop_evt.set())
     signal.signal(signal.SIGTERM, lambda _s, _f: stop_evt.set())
-    server, _ = serve_http(engine, host=args.host, port=args.port,
+    port = args.port + distributed.rank() if args.port else 0
+    server, _ = serve_http(engine, host=args.host, port=port,
                            block=False,
                            max_body_bytes=int(args.max_body_mb * 2**20))
     info.update(host=args.host, port=int(server.server_address[1]))

@@ -1,5 +1,4 @@
-"""Continuous-batching serving engine, single host (port of
-qtpu/serve/engine.py).
+"""Continuous-batching serving engine (port of qtpu/serve/engine.py).
 
 A scheduler thread drains a bounded request queue, packs requests into the
 smallest covering batch bucket (zero-padding the tail), runs the forward on
@@ -12,8 +11,24 @@ queue resolves the pending round at once.  Requests are validated at
 ``warmup``), so one malformed request fails its own caller only.  A crash in
 the scheduler fails every in-flight and queued future and marks the engine
 unhealthy.  A round is packed into its bucket by ``data.native.pack_batch``
-(one copy, only the padding tail zeroed).  The mesh, multi-host lockstep
-and watchdog parts are still to port (ROADMAP.md).
+(one copy, only the padding tail zeroed).
+
+Several ranks (``mesh=``, a ``parallel.mesh.Mesh`` over the world's ranks,
+one device each): the variables are sliced for tensor parallelism over
+``model`` (``parallel.mesh.shard_variables``), every rank takes requests
+into its own queue, and the scheduler rounds run in lockstep.  Each round
+the ranks all-gather their ``(pending, stop)`` counts — one small
+collective on a CPU gloo group, which is also the round barrier — and agree
+on the smallest covering bucket (buckets are multiples of the ranks'
+count, dp · tp); each rank packs its own rows into its share of it (an
+idle rank a zero share), the ranks of a model group concatenate their
+shares into the batch the group runs (``local_batch_to_global``), and each
+rank resolves only its own rows (:meth:`_local_rows`): no row twice, none
+to another rank's client.  ``round_timeout_s`` arms a watchdog that turns a
+round stuck on a wedged or dead peer into failed futures and ``healthy ==
+False``.  ``warmup`` is then a collective, and the rounds start after it
+(never beside it: the two would issue collectives on one group from two
+threads).
 """
 from __future__ import annotations
 
@@ -26,19 +41,24 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qtpu_torch.data.native import pack_batch
+from qtpu_torch.parallel.distributed import local_batch_to_global
+from qtpu_torch.parallel.mesh import MODEL_AXIS, shard_variables
 from qtpu_torch.utils.device import resolve_device
 
 
 class ServingEngine:
-    """Continuous-batching inference engine on one device."""
+    """Continuous-batching inference engine on one device, or in lockstep
+    over the ranks of a mesh."""
 
-    def __init__(self, model, serve_vars: Dict[str, Any], *,
+    def __init__(self, model, serve_vars: Dict[str, Any], *, mesh=None,
                  batch_buckets: Sequence[int] = (1, 2, 4, 8, 16, 32),
                  max_wait_ms: float = 2.0, forward_fn=None,
                  forward_factory=None, max_queue: int = 4096,
                  preprocess_fn=None, raw_dtype=np.float32,
+                 round_timeout_s: Optional[float] = None,
                  pipeline: bool = True, device=None):
         """``forward_fn(variables, batch) -> logits`` or
         ``forward_factory(variables) -> fn(batch)`` (e.g.
@@ -47,14 +67,37 @@ class ServingEngine:
         (``qtpu_torch.nn.serve_layers.serve_model``), as qtpu serves
         ``model.apply``.  ``device``: ``None`` means the card; ``"cpu"``
         for the plain path.
+
+        ``mesh``: the ranks' mesh (module docstring); the forward factory
+        gets the sliced variables, and a ``model`` must have been built from
+        ``shard_variables(serve_vars, mesh)``.  ``round_timeout_s``
+        (several ranks only): the deadline of one lockstep round; a
+        watchdog fails the round's futures and the queue and turns
+        ``healthy`` false when it passes (the stuck collective itself
+        cannot be cancelled: restart the process).
         """
         if forward_fn is not None and forward_factory is not None:
             raise ValueError("pass forward_fn OR forward_factory")
         self.model = model
-        self.vars = serve_vars
+        self.mesh = mesh
+        self._procs = 1 if mesh is None else mesh.size
+        self.vars = (serve_vars if mesh is None
+                     else shard_variables(serve_vars, mesh))
         self.device = resolve_device(device)
+        self._round_timeout_s = round_timeout_s
+        self._round_start: Optional[float] = None
+        self.round_age_at_timeout: Optional[float] = None
+        self._ctl = None
+        if self._procs > 1:
+            if not dist.is_initialized() or \
+                    dist.get_world_size() != self._procs:
+                raise ValueError(
+                    f"a mesh of {self._procs} ranks needs a world of as "
+                    "many processes (parallel.initialize_from_env)")
+            # the round barrier: a CPU group whatever the forward's backend
+            self._ctl = dist.new_group(backend="gloo")
         if forward_factory is not None:
-            inner = forward_factory(serve_vars)
+            inner = forward_factory(self.vars)
             forward_fn = lambda _v, x: inner(x)   # noqa: E731
         elif forward_fn is None:
             if not callable(model):
@@ -65,7 +108,11 @@ class ServingEngine:
         self._preprocess = preprocess_fn
         self._raw_dtype = np.dtype(raw_dtype)
         self._pipeline = bool(pipeline)
-        self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
+        # each rank packs an equal share of a round's bucket: every bucket
+        # is rounded up to a multiple of the ranks (qtpu: of dp, its
+        # processes each holding whole model groups)
+        self.buckets = tuple(sorted({-(-int(b) // self._procs) * self._procs
+                                     for b in batch_buckets}))
         self.max_wait_s = max_wait_ms / 1e3
         self._queue: "queue.Queue[Optional[Tuple[np.ndarray, Future, float]]]" \
             = queue.Queue(maxsize=max_queue)
@@ -77,14 +124,22 @@ class ServingEngine:
         self._busy_s = 0.0
         self._busy_mark = 0.0
         self._rounds_per_bucket: Dict[int, int] = collections.Counter()
+        self._idle_rounds = 0
         self._img_shape: Optional[Tuple[int, ...]] = None
         self._inflight: list = []
         self._started = time.monotonic()
         self._stop = threading.Event()
+        # lockstep rounds start once warmup's collectives are done: two
+        # threads must never issue collectives on one group in turn
+        self._warm = threading.Event()
         self._error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._loop_guarded,
                                         daemon=True, name="qtpu-torch-serve")
         self._thread.start()
+        self.watchdog_armed = bool(self._procs > 1 and round_timeout_s)
+        if self.watchdog_armed:
+            threading.Thread(target=self._watchdog, daemon=True,
+                             name="qtpu-torch-round-watchdog").start()
 
     # ---- client API -----------------------------------------------------
 
@@ -120,12 +175,17 @@ class ServingEngine:
         return np.stack([f.result() for f in futs])
 
     def warmup(self, image_shape: Tuple[int, ...]) -> None:
-        """Run every bucket once and pin the image shape."""
+        """Run every bucket once and pin the image shape (with several
+        ranks a collective: every rank calls it)."""
         self._img_shape = tuple(image_shape)
         for b in self.buckets:
-            out = self._fwd(self.vars, self._upload(
-                np.zeros((b, *image_shape), self._raw_dtype)))
+            x = self._upload(np.zeros((b // self._procs, *image_shape),
+                                      self._raw_dtype))
+            if self.mesh is not None:
+                x = local_batch_to_global(x, self.mesh)
+            out = self._fwd(self.vars, x)
             np.asarray(out.cpu() if isinstance(out, torch.Tensor) else out)
+        self._warm.set()
 
     def _upload(self, imgs: np.ndarray) -> torch.Tensor:
         if self._preprocess is not None:
@@ -148,18 +208,23 @@ class ServingEngine:
                 "p99_ms": lat[min(n - 1, int(n * 0.99))] * 1e3 if n else 0.0,
                 "mean_occupancy": self._occupancy / max(self._batches, 1),
                 "rounds_per_bucket": dict(self._rounds_per_bucket),
+                **({"idle_rounds": self._idle_rounds}
+                   if self._procs > 1 else {}),
             }
 
     def stop(self) -> None:
+        """Stop serving; with several ranks every rank's scheduler stops
+        after the round that carries this rank's stop flag."""
         self._stop.set()
         self._queue.put(None)
-        self._thread.join(timeout=10)
+        self._thread.join(timeout=30 if self._procs > 1 else 10)
         self._drain_queue()
 
-    def _drain_queue(self) -> None:
-        err = RuntimeError("ServingEngine stopped")
-        if self._error is not None:
-            err.__cause__ = self._error
+    def _drain_queue(self, err: Optional[BaseException] = None) -> None:
+        if err is None:
+            err = RuntimeError("ServingEngine stopped")
+            if self._error is not None:
+                err.__cause__ = self._error
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -203,6 +268,9 @@ class ServingEngine:
         return self.buckets[-1]
 
     def _loop(self) -> None:
+        if self._procs > 1:
+            self._loop_multihost()
+            return
         max_b = self.buckets[-1]
         pending = None        # (batch, bucket, out_device, t_run, event)
         while not self._stop.is_set():
@@ -300,3 +368,121 @@ class ServingEngine:
                 self._latencies.append(now - t0)
         for i, (_, fut, _) in enumerate(batch):
             fut.set_result(out[i])
+
+    # ---- lockstep scheduler over the ranks ------------------------------
+
+    def _loop_multihost(self) -> None:
+        """One round per iteration: collect up to this rank's share of the
+        largest bucket, all-gather ``(pending, stop)`` over the world (the
+        round barrier), run the round if any rank has rows, and stop
+        together once any rank asked to."""
+        max_local = self.buckets[-1] // self._procs
+        while not self._warm.wait(0.1):
+            if self._stop.is_set():
+                return
+        while True:
+            batch = []
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < max_local:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    self._stop.set()
+                    break
+                batch.append(item)
+            self._inflight = batch
+            self._round_start = time.monotonic()
+            mine = torch.tensor([len(batch), int(self._stop.is_set())],
+                                dtype=torch.int32)
+            parts = [torch.empty_like(mine) for _ in range(self._procs)]
+            dist.all_gather(parts, mine, group=self._ctl)
+            if self._error is not None:      # the watchdog fired meanwhile
+                return
+            state = torch.stack(parts)
+            n_max = int(state[:, 0].max())
+            if n_max > 0:
+                self._run_batch_multihost(batch, n_max)
+            self._round_start = None
+            self._inflight = []
+            if bool(state[:, 1].any()):
+                self._stop.set()
+                self._drain_queue()
+                return
+
+    def _watchdog(self) -> None:
+        """Fail a lockstep round that outlives ``round_timeout_s``: record a
+        TimeoutError, fail the round's futures and the queue with it, and
+        turn ``healthy`` false.  The scheduler thread stays blocked in the
+        collective; no caller does.  It reads the local clock only, every
+        ``period`` seconds (a quarter of the timeout, within [0.05, 1])."""
+        period = max(0.05, min(1.0, self._round_timeout_s / 4))
+        while not self._stop.is_set():
+            time.sleep(period)
+            start = self._round_start
+            if start is None:
+                continue
+            age = time.monotonic() - start
+            if age <= self._round_timeout_s:
+                continue
+            err = TimeoutError(
+                f"lockstep round exceeded round_timeout_s="
+                f"{self._round_timeout_s}s (a peer rank is wedged or dead; "
+                "restart the ranks)")
+            self.round_age_at_timeout = age
+            self._error = err
+            self._stop.set()
+            for _, fut, _ in list(self._inflight):
+                if not fut.done():
+                    fut.set_exception(err)
+            self._drain_queue(err)
+            return
+
+    def _local_rows(self, out: torch.Tensor, b_local: int) -> np.ndarray:
+        """This rank's rows of its model group's output: the group's batch
+        is its ranks' shares in rank order, so rank i of the group owns
+        rows ``[i·b_local, (i+1)·b_local)`` — no row twice, none of another
+        rank's clients."""
+        i = self.mesh.coord(MODEL_AXIS)
+        return out[i * b_local:(i + 1) * b_local].cpu().numpy()
+
+    def _run_batch_multihost(self, batch, n_max: int) -> None:
+        n = len(batch)
+        b = self._bucket_for(n_max * self._procs)        # the round's bucket
+        b_local = b // self._procs
+        if self._img_shape is None:
+            raise RuntimeError(
+                "lockstep serving requires warmup() before the first round "
+                "(it fixes the image shape on idle ranks)")
+        if batch:
+            imgs = pack_batch([item[0] for item in batch[:b_local]],
+                              pad_to=b_local, dtype=self._raw_dtype,
+                              shape=self._img_shape)
+        else:   # an idle rank contributes an all-padding share
+            imgs = np.zeros((b_local, *self._img_shape), self._raw_dtype)
+            self._idle_rounds += 1
+        t_run = time.monotonic()
+        try:
+            x = local_batch_to_global(self._upload(imgs), self.mesh)
+            out = self._local_rows(self._fwd(self.vars, x), b_local)
+        except BaseException as e:
+            for _, fut, _ in batch:
+                fut.set_exception(e)
+            raise
+        now = time.monotonic()
+        with self._stats_lock:
+            self._images += min(n, b_local)
+            self._batches += 1
+            self._rounds_per_bucket[b] += 1
+            self._occupancy += min(n, b_local) / b_local
+            self._busy_s += now - t_run
+            for _, _, t0 in batch[:b_local]:
+                self._latencies.append(now - t0)
+        for i, (_, fut, _) in enumerate(batch[:b_local]):
+            fut.set_result(out[i])
+        for item in batch[b_local:]:
+            self._queue.put(item)

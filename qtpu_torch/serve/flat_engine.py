@@ -22,6 +22,9 @@ the card (raises without one); pass ``"cpu"`` for the plain path, where
 the same code runs the kernels' plain versions.  ``packed_int4``: the 1×1
 int4 nodes keep their weights nibble-packed for K1's int4 entry
 (:func:`qtpu_torch.serve.fused_ops.prepare_node`).
+A tree sliced by ``parallel.mesh.shard_variables`` runs tensor parallel
+(``serve/fused_ops.py``); the fp32 stem and fc are replicated, as qtpu's
+rules replicate ``params``.
 Subclasses implement ``_forward(x, pre_quantized, raw_u8)``.
 """
 from __future__ import annotations
@@ -35,7 +38,8 @@ from qtpu_torch.nn.layers import pad3
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.fused_ops import (Grid, fc_fp32_params, fold_bn_fp32,
                                         gemm_1x1, grid_of, prepare_tree,
-                                        tree_to_device, u8_normalize_coeffs)
+                                        tp_gather, tree_to_device,
+                                        u8_normalize_coeffs)
 from qtpu_torch.utils.device import fp32_exact, resolve_device
 
 BN_EPS = 1e-5
@@ -145,7 +149,8 @@ class FlatInt8Engine:
     def _fc(self, pooled: torch.Tensor) -> torch.Tensor:
         """Logits from the pooled f32 features: the excluded fc as an fp32
         matmul, or the int8 fc on K1 (``raw_acc``) and its exact
-        ``dequant_epilogue``."""
+        ``dequant_epilogue``, gathered over the model group when the fc is
+        sharded."""
         fc = self._node("fc")
         if fc is None:
             w, b = self._fc_fp32
@@ -156,6 +161,6 @@ class FlatInt8Engine:
         B = x_fc_q.shape[0]
         acc = gemm_1x1(x_fc_q.reshape(B, 1, 1, -1), fc,
                        raw_acc=True).reshape(B, -1)
-        return qops.dequant_epilogue(
+        return tp_gather(qops.dequant_epilogue(
             acc, act_scale=g.scale, act_zp=g.zp, w_scale=fc["w_scale"],
-            colsum=fc["colsum"], bias=fc["bias"])
+            colsum=fc["colsum"], bias=fc["bias"]), fc)

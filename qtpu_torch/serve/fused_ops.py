@@ -23,6 +23,14 @@ K1/K2, ``w_taps`` (KH·KW, C) for a depthwise node, and with
 into Python numbers, so the forward never waits on the device for a
 scalar.  The folded epilogue coefficients of each call site are computed at
 its first call and kept in the prepared node.
+
+Tensor parallelism: a node that ``parallel.mesh.shard_variables`` sliced
+(tagged ``_tp``) runs this rank's output channels on K1, K2 or K3 and
+gathers the channels over the ``model`` group (:func:`tp_gather`) unless
+the caller asks for its slice (``gather=False``: a depthwise or a
+residual consumer sharded alike, :func:`same_shard`); a depthwise node
+takes only its own input channels.  The codes are those of the unsharded
+node.
 """
 from __future__ import annotations
 
@@ -170,6 +178,8 @@ def prepare_node(node: Node, device: torch.device,
         out["w_nk4"] = pack_int4_nk(out["w_nk"])
     out["grid"] = grid_of(node)
     out["_epi"] = {}
+    if "_tp" in node:
+        out["_tp"] = node["_tp"]
     return out
 
 
@@ -221,18 +231,63 @@ def _epilogue(node: Node, *, relu: bool, act_max: Optional[float],
     return hit
 
 
+# -- tensor parallelism ----------------------------------------------------
+# A node sliced by ``parallel.mesh.shard_variables`` (tagged ``_tp``) holds
+# this rank's output channels [lo, hi): the per-channel epilogue on a slice
+# is the same arithmetic, so the ops run the slice and gather the channels
+# over the model group where the consumer needs all of them.
+
+def tp_gather(y: torch.Tensor, node: Node) -> torch.Tensor:
+    """``y`` (this rank's channels of ``node``, last axis) with every
+    rank's channels, gathered over the model group; ``y`` for a node that
+    is not sharded."""
+    tp = node.get("_tp")
+    if tp is None:
+        return y
+    from qtpu_torch.parallel import collectives
+
+    return collectives.all_gather(y, tp.group, dim=-1)
+
+
+def tp_local(x: torch.Tensor, node: Node, channels: int) -> torch.Tensor:
+    """``x`` restricted to ``node``'s channels when it holds them all
+    (``channels`` is the node's local count)."""
+    tp = node.get("_tp")
+    if tp is None or x.shape[-1] == channels:
+        return x
+    return x[..., tp.lo:tp.hi].contiguous()
+
+
+def channels(node: Node) -> int:
+    """The output channels of the whole node, every rank's together."""
+    tp = node.get("_tp")
+    return node["colsum"].shape[0] * (1 if tp is None else tp.size)
+
+
+def same_shard(a: Node, b: Node) -> bool:
+    """Whether ``a``'s output feeds ``b`` channel for channel on this rank
+    (both sharded alike), so it need not be gathered in between."""
+    ta, tb = a.get("_tp"), b.get("_tp")
+    return (ta is not None and tb is not None and ta.lo == tb.lo
+            and ta.hi == tb.hi and ta.size == tb.size)
+
+
 def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
              act_max: Optional[float] = None, requant=None,
              out_dtype: torch.dtype = torch.float32,
              residual: Optional[torch.Tensor] = None, res_grid=None,
-             raw_acc: bool = False) -> torch.Tensor:
+             raw_acc: bool = False, gather: bool = True) -> torch.Tensor:
     """1×1 conv (or fc on (B, 1, 1, C)) as a fused GEMM over a frozen node
     (K1; its int4 entry when the prepared node has ``w_nk4``).  ``raw_acc``
-    returns the int32 accumulator."""
+    returns the int32 accumulator.  A sharded node takes its channels of
+    ``residual`` and, unless ``raw_acc`` or ``gather=False``, returns every
+    rank's channels."""
     B, H, W, Ci = x_q.shape
     node = _prepared(node, x_q.device)
     Co = node["w_nk"].shape[0]
     M = B * H * W
+    if residual is not None:
+        residual = tp_local(residual, node, Co)
     res2 = residual.reshape(M, Co) if residual is not None else None
     if raw_acc:
         co = mode = None
@@ -248,17 +303,19 @@ def gemm_1x1(x_q: torch.Tensor, node: Node, *, relu: bool = False,
     else:
         y = qmatmul_folded(x_q.reshape(M, Ci), node["w_nk"], co, mode, res2,
                            out_dtype=out_dtype, raw_acc=raw_acc)
-    return y.reshape(B, H, W, Co)
+    y = y.reshape(B, H, W, Co)
+    return y if raw_acc or not gather else tp_gather(y, node)
 
 
 def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
          relu: bool = False, act_max: Optional[float] = None,
-         requant=None, padding="SAME", raw_acc: bool = False
-         ) -> torch.Tensor:
+         requant=None, padding="SAME", raw_acc: bool = False,
+         gather: bool = True) -> torch.Tensor:
     """K×K conv (stride 1 or 2) over a frozen node (K2): the zero-point
     pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi))) read in
     the kernel where its path allows; int8 codes with ``requant``, f32
-    otherwise, the int32 accumulator with ``raw_acc``."""
+    otherwise, the int32 accumulator with ``raw_acc``.  A sharded node
+    gathers its output channels unless ``raw_acc`` or ``gather=False``."""
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     node = _prepared(node, x_q.device)
@@ -268,31 +325,36 @@ def conv(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
     if not raw_acc:
         co, mode = _epilogue(node, relu=relu, act_max=act_max,
                              requant=requant, res_kind=None, res_grid=None)
-    return qconv2d_folded(x_q, node["w_nk"], co, mode, kernel_hw=kh_kw,
-                          stride=strides[0], pads=pads, zp=node["grid"].zp,
-                          tapsum=node.get("tapsum"), raw_acc=raw_acc)
+    y = qconv2d_folded(x_q, node["w_nk"], co, mode, kernel_hw=kh_kw,
+                       stride=strides[0], pads=pads, zp=node["grid"].zp,
+                       tapsum=node.get("tapsum"), raw_acc=raw_acc)
+    return y if raw_acc or not gather else tp_gather(y, node)
 
 
 def depthwise(x_q: torch.Tensor, node: Node, *, strides=(1, 1),
               relu: bool = False, act_max: Optional[float] = None,
-              requant=None, padding="SAME", raw_acc: bool = False
-              ) -> torch.Tensor:
+              requant=None, padding="SAME", raw_acc: bool = False,
+              gather: bool = True) -> torch.Tensor:
     """Depthwise K×K conv (stride 1 or 2) over a frozen (KH, KW, 1, C) node
     (K3): the pads of ``padding`` ("SAME" or explicit ((lo, hi), (lo, hi)))
     read the zero point inside the kernel; int8 codes with ``requant``
     (relu6 as ``relu`` with ``act_max=6``), f32 otherwise, the int32
-    accumulator with ``raw_acc``."""
+    accumulator with ``raw_acc``.  A sharded node needs only its own input
+    channels (it takes them from a full ``x_q``) and gathers its output
+    unless ``raw_acc`` or ``gather=False``."""
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     node = _prepared(node, x_q.device, depthwise=True)
+    x_q = tp_local(x_q, node, node["w_taps"].shape[1])
     co = mode = None
     if not raw_acc:
         co, mode = _epilogue(node, relu=relu, act_max=act_max,
                              requant=requant, res_kind=None, res_grid=None)
-    return qdepthwise_folded(x_q, node["w_taps"], co, mode,
-                             kernel_hw=node["kernel_hw"], stride=strides[0],
-                             padding=padding, zp=node["grid"].zp,
-                             raw_acc=raw_acc)
+    y = qdepthwise_folded(x_q, node["w_taps"], co, mode,
+                          kernel_hw=node["kernel_hw"], stride=strides[0],
+                          padding=padding, zp=node["grid"].zp,
+                          raw_acc=raw_acc)
+    return y if raw_acc or not gather else tp_gather(y, node)
 
 
 # -- the fused bottleneck pieces (experimental engine) -------------------------

@@ -34,8 +34,8 @@ import torch
 from qtpu_torch.models.mobilenet import V2_CFG
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
-from qtpu_torch.serve.fused_ops import (Grid, conv, depthwise, gemm_1x1,
-                                        grid_of)
+from qtpu_torch.serve.fused_ops import (Grid, channels, conv, depthwise,
+                                        gemm_1x1, grid_of, same_shard)
 
 # (name, expansion t, stride) of the 17 inverted residuals; t = 1 has no
 # expand conv
@@ -92,12 +92,14 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
         project = self._node(name, "project")
         y = x_q
         if expand is not None:
+            # a depthwise sharded alike takes the expand's slice as it is
             y = gemm_1x1(y, expand, relu=True, act_max=6.0,
-                         requant=grid_of(dw), out_dtype=torch.int8)
+                         requant=grid_of(dw), out_dtype=torch.int8,
+                         gather=not same_shard(expand, dw))
         y = depthwise(y, dw, strides=(stride, stride), relu=True,
                       act_max=6.0, requant=grid_of(project),
                       padding=self._pad3)
-        if stride == 1 and x_q.shape[-1] == project["w_nk"].shape[0]:
+        if stride == 1 and x_q.shape[-1] == channels(project):
             return gemm_1x1(y, project, relu=False, requant=nxt,
                             out_dtype=torch.int8, residual=x_q,
                             res_grid=grid)

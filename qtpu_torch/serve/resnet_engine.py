@@ -33,7 +33,7 @@ import torch
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
 from qtpu_torch.serve.fused_ops import (conv, dequant, gemm_1x1, grid_of,
-                                        grid_parts)
+                                        grid_parts, same_shard)
 
 
 def maxpool_codes(y_q: torch.Tensor, pads) -> torch.Tensor:
@@ -154,7 +154,8 @@ class ResNetInt8Engine(FlatInt8Engine):
                 return self._qproj(b, x_q, name, strides, next_grid)
             x_d = x_q[:, ::strides[0], ::strides[1], :]
             res = gemm_1x1(x_d, down, relu=False, requant=None,
-                           out_dtype=torch.float32)
+                           out_dtype=torch.float32,
+                           gather=not same_shard(down, c3))
             res_grid = None          # f32 residual (projection blocks)
         else:
             res = x_q                # int8 codes reused: no extra traffic

@@ -17,7 +17,16 @@ and move the codes.
 
 ``evaluate`` keeps the remainder batch (dropping it reported accuracy over
 a truncated set).  ``fit`` shuffles each epoch with ``batches(seed=seed +
-epoch)``.  Data-parallel training (qtpu's ``mesh``) is not ported yet.
+epoch)``.
+
+Data-parallel training (``mesh=``, a ``parallel.mesh`` with a ``data``
+axis; qtpu's ``make_train_step(mesh=)`` / ``fit(mesh=)``): every rank is
+given the same global batch and runs its own rows of it; BatchNorm's batch
+statistics and the observers' min / max are those of the global batch
+(``parallel.collectives.synced_batch``, SyncBN-like), the gradients are
+averaged over ``data``, and the state stays replicated — the step is the
+single-process step on the global batch, up to f32 summation order.  A
+batch that does not divide by the axis raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from qtpu_torch.data import Dataset, batches
+from qtpu_torch.parallel import collectives
+from qtpu_torch.parallel.mesh import DATA_AXIS
 from qtpu_torch.utils.device import fp32_exact
 
 
@@ -68,25 +79,55 @@ def _tensors(model, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(np.asarray(y)).to(dev).long())
 
 
-def train_step(state: TrainState, x, y) -> dict:
+def _data_group(mesh):
+    """(the ``data`` group or None, its size, this rank's index)."""
+    if mesh is None:
+        return None, 1, 0
+    return (mesh.group(DATA_AXIS), mesh.shape[DATA_AXIS],
+            mesh.coord(DATA_AXIS))
+
+
+def _check_divides(batch_size: int, dp: int) -> None:
+    if batch_size % dp:
+        raise ValueError(f"global batch_size={batch_size} must divide by "
+                         f"the data axis ({dp})")
+
+
+def train_step(state: TrainState, x, y, mesh=None) -> dict:
     """One step on a batch (NHWC images, integer labels): ``{"loss",
-    "acc"}`` as 0-d tensors on the model's device."""
+    "acc"}`` as 0-d tensors on the model's device.  With ``mesh`` the batch
+    is the global one, every rank runs its rows and the metrics are the
+    global batch's."""
     model = state.model
+    group, dp, i = _data_group(mesh)
+    if dp > 1:
+        _check_divides(len(x), dp)
+        b = len(x) // dp
+        x, y = x[i * b:(i + 1) * b], y[i * b:(i + 1) * b]
     x, y = _tensors(model, x, y)
     model.train()
-    with fp32_exact():
+    with fp32_exact(), collectives.synced_batch(group):
         logits = model(x)
         loss = cross_entropy(logits, y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
+    for pg in state.optimizer.param_groups:
+        for p in pg["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif group is not None:
+                # the ranks' losses differentiate as one (the synced
+                # statistics' backward sums across ranks): their mean is
+                # the global batch's gradient
+                p.grad = collectives.all_reduce(p.grad, group) / dp
     state.optimizer.step()
     state.step += 1
     acc = (logits.detach().argmax(-1) == y).float().mean()
-    return {"loss": loss.detach(), "acc": acc}
+    loss = loss.detach()
+    if group is not None:
+        loss = collectives.all_reduce(loss, group) / dp
+        acc = collectives.all_reduce(acc, group) / dp
+    return {"loss": loss, "acc": acc}
 
 
 @torch.no_grad()
@@ -119,10 +160,19 @@ def evaluate(model: nn.Module, ds: Dataset, batch_size: int = 256
 def fit(model: nn.Module, train_ds: Dataset, *, epochs: int = 1,
         batch_size: int = 128, lr: float = 1e-3,
         eval_ds: Optional[Dataset] = None, log_every: int = 0,
-        json_logs: bool = False, seed: int = 0) -> TrainState:
+        json_logs: bool = False, seed: int = 0, mesh=None) -> TrainState:
     """Train ``model`` (fp32 or converted: QAT runs through the same loop)
     with a fresh AdamW for ``epochs`` epochs of shuffled, full batches.
-    ``json_logs`` prints one JSON line per log event instead of text."""
+    ``json_logs`` prints one JSON line per log event instead of text.
+    ``mesh``: data-parallel over its ``data`` axis; ``batch_size`` is the
+    global batch and must divide by it, and rank 0's model state is
+    broadcast first, so every rank starts from the same one."""
+    group, dp, _ = _data_group(mesh)
+    _check_divides(batch_size, dp)
+    if group is not None:
+        with torch.no_grad():
+            for t in (*model.parameters(), *model.buffers()):
+                t.copy_(collectives.broadcast(t, group, src=0))
     state = create_train_state(model, lr)
 
     def log(payload: dict, text: str) -> None:
@@ -131,7 +181,7 @@ def fit(model: nn.Module, train_ds: Dataset, *, epochs: int = 1,
     for epoch in range(epochs):
         for i, (x, y) in enumerate(batches(train_ds, batch_size,
                                            seed=seed + epoch)):
-            metrics = train_step(state, x, y)
+            metrics = train_step(state, x, y, mesh=mesh)
             if log_every and i % log_every == 0:
                 loss, acc = float(metrics["loss"]), float(metrics["acc"])
                 log({"event": "train", "epoch": epoch, "step": i,

@@ -28,6 +28,14 @@ def test_port_files_exist():
     assert len(FILES) > 20
 
 
+def test_parallel_package_walked():
+    """The walk covers the parallel runtime, every module of it."""
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("__init__", "collectives", "distributed", "launch", "mesh",
+                 "pipeline", "spatial"):
+        assert f"qtpu_torch/parallel/{name}.py" in walked, name
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_qtpu_imports(path):
     bad = [m for m in _imports(path)

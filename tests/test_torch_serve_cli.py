@@ -1,10 +1,14 @@
 """The launchable server of qtpu_torch on the CPU (mirrors
 tests/test_serve_cli.py): ``python -m qtpu_torch.serve`` as a subprocess
 (READY line, ``/predict``, ``/healthz``, ``/stats``, SIGTERM → rc 0 and
-the STOPPED line), the refusals (no card without ``--device cpu``,
-``--tp 2``, ``--dp``, ``--round-timeout``, ``--uint8-ingest`` on the
-module path), ``--save-frozen``/``--load-frozen``, and ``build_engine``
-against qtpu's ``build_engine`` with the same flags:
+the STOPPED line), the multi-rank flags (``--tp 2``, ``--dp 2`` and
+``--round-timeout`` each under a two-rank gloo launch: both ranks serve
+their own clients, the READY lines name the mesh, the processes and the
+backend, SIGTERM stops both with rc 0), the refusals (no card without
+``--device cpu``, a mesh of more ranks than run, ``--uint8-ingest`` on
+the module path),
+``--save-frozen``/``--load-frozen``, and ``build_engine`` against qtpu's
+``build_engine`` with the same flags:
 
 * the host int8 ingest (``--uint8-ingest`` onto a quantized stem) and the
   bf16 stem (``--stem-dtype bfloat16``), each on the tree qtpu's
@@ -151,13 +155,66 @@ def test_no_card_without_device_cpu_exits():
     assert "device='cpu'" in r.stderr and "QTPU_SERVE_READY" not in r.stdout
 
 
+def _ready_line(path, proc, timeout):
+    """The READY info a rank printed to its log file."""
+    prefix = "QTPU_SERVE_READY "
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for line in path.read_text().splitlines():
+            if line.startswith(prefix):
+                return json.loads(line[len(prefix):])
+        assert proc.poll() is None, path.read_text()
+        time.sleep(0.05)
+    raise AssertionError(f"no READY line:\n{path.read_text()}")
+
+
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
                                    ["--round-timeout", "5"]])
-def test_multi_host_flags_exit(flags, capsys):
+def test_multi_host_flags_exit(flags, tmp_path):
+    """Each multi-rank flag under a two-rank launch (``QTPU_*`` variables,
+    gloo): both ranks serve their own clients — the same tree, so the same
+    image gets the same logits from either rank — and exit 0 on SIGTERM."""
+    from qtpu_torch.parallel.launch import join_world, kill_world, start_world
+
+    cmd = [sys.executable, "-m", "qtpu_torch.serve", "--config",
+           "lenet_mnist_int8", "--device", "cpu", "--port", "0",
+           "--host", "127.0.0.1", "--buckets", "2,4", *flags]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    procs = start_world(cmd, 2, str(tmp_path / "rdzv"), env=env, cwd=ROOT)
+    try:
+        infos = [_ready_line(out, p, 120) for p, out in procs]
+        imgs = np.random.default_rng(1).normal(
+            size=(3, 28, 28, 1)).astype(np.float32)
+        got = [_post_npy(f"http://127.0.0.1:{i['port']}/predict",
+                         imgs[:2 + r]) for r, i in enumerate(infos)]
+        for p, _ in procs:
+            p.send_signal(signal.SIGTERM)
+        res = join_world(procs, 60)
+    finally:
+        kill_world(procs)
+    tp = 2 if flags[0] == "--tp" else 1
+    for r, (i, res_r) in enumerate(zip(infos, res)):
+        assert res_r.returncode == 0, res_r.output
+        assert "QTPU_SERVE_STOPPED " in res_r.output
+        assert i["mesh"] == f"dp={2 // tp},tp={tp}" and i["rank"] == r
+        assert i["processes"] == 2 and i["backend"] == "gloo"
+        assert i["buckets"] == [2, 4]
+        assert i["watchdog"] is (flags[0] == "--round-timeout")
+        assert got[r].shape == (2 + r, 10) and np.isfinite(got[r]).all()
+    if flags[0] == "--round-timeout":
+        assert infos[0]["round_timeout_s"] == 5.0
+    np.testing.assert_array_equal(got[0], got[1][:2])
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
+                                   ["--tp", "0"]])
+def test_mesh_needs_its_ranks(flags, capsys):
+    """One process cannot be a mesh of two: the CLI says how to start the
+    ranks instead of serving a mesh that is not there."""
     with pytest.raises(SystemExit) as e:
         main(["--config", "lenet_mnist_int8", "--device", "cpu", *flags])
-    assert e.value.code != 0
-    assert "A11" in capsys.readouterr().err
+    assert e.value.code == 2
+    assert "QTPU_COORDINATOR" in capsys.readouterr().err
 
 
 def test_uint8_ingest_refused_on_module_path():

@@ -29,6 +29,8 @@ batches.  Tolerances, each with its reason:
 Freeze after QAT and the QAT models' eval forward: test_torch_qat_freeze.py.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -348,15 +350,29 @@ def test_run_experiment_lenet_keys(method, capsys):
                for line in printed)
 
 
-def test_run_cli_device_and_refusals(capsys):
-    assert main(["--config", "lenet_mnist_int8", "--device", "cpu",
-                 "--quiet", "--set", "n_train=32", "--set", "n_eval=8",
-                 "--set", "fp32_epochs=1", "--set", "batch_size=16",
-                 "--set", "calib_batches=1"]) == 0
+def test_run_cli_device_and_refusals(capsys, tmp_path):
+    args = ["--config", "lenet_mnist_int8", "--device", "cpu", "--quiet",
+            "--set", "n_train=32", "--set", "n_eval=8", "--set",
+            "fp32_epochs=1", "--set", "batch_size=16", "--set",
+            "calib_batches=1"]
+    assert main(args) == 0
     assert '"method": "ptq"' in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--config", "lenet_mnist_int8", "--device", "cpu", "--dp",
-              "2"])
+    # --dp 2: two ranks (QTPU_* variables, gloo) train data-parallel and
+    # print the same result
+    from qtpu_torch.parallel.launch import run_world
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    res = run_world([sys.executable, "-m", "qtpu_torch.examples.run", *args,
+                     "--dp", "2"], 2, str(tmp_path / "rdzv"), timeout_s=120,
+                    env=env, cwd=root)
+    lines = []
+    for r in res:
+        assert r.returncode == 0, r.output
+        lines.append([ln for ln in r.output.splitlines()
+                      if ln.startswith('{"config": "lenet_mnist_int8"')])
+    assert len(lines[0]) == 1 and lines[0] == lines[1]
+    assert '"method": "ptq"' in lines[0][0]
     # --save-state, --load-state and --torch-ckpt are ported (the
     # checkpoint and import tests run them); LeNet-5 has no torchvision
     # naming, so --torch-ckpt refuses it by name
