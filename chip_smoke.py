@@ -269,16 +269,34 @@ the operation that launched them).
    rtol 5e-2) and teacher-forced: the single step's batch statistics
    replayed in the DP step, which must then meet those bounds (parameters
    but for 0.1% of them, each within AdamW's 2·lr).  Any failure in a rank
-   fails the phase.
+   fails the phase.  Rank 0 also records the collectives of one B = 32
+   TP = 2 ResNet-50 forward (``collectives.recording``) for phase 9.
+9. the tooling (``qtpu_torch/bench``): (a) ``capture_trace`` of 10
+   forwards of phase 4's ResNet-50 and MobileNet-v2 product engines at
+   B = 128, ``parse_trace`` and ``layer_table`` printed per layer: the
+   scopes must be qtpu's (stem, layer1_0 … layer4_2, head; stem, block0 …
+   block16, head), every K1/K2 (K1/K3) kernel inside one (37 + 16, 35 + 17
+   a forward), at most 1% of the device time outside every scope, and the
+   scopes' sum within 5% of phase 6's profiled busy time; (b)
+   ``time_scan_fit`` of the B = 128 ResNet-50 forward within 3% of phase
+   6's graph time; (c) ``dp_scaling`` of the ResNet-50 forward at B = 32
+   a rank through a world of ranks (dp = 1; dp = 2 only with two cards);
+   (d) ``scaling_projection.project`` of phase 8's recorded collectives
+   with the TP = 1 graph time at B = 32; (e) the rows of (a)-(c) appended
+   with ``receipts.log_receipt`` under the work directory and read back;
+   and the eager B = 8 forward with and without a trace running.
 
-Each phase's seconds are printed as it ends.  The line before the last is
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
-{...}}``.
+The graph timers (``timed``, ``timed_eager``, ``events_ms``), the peak
+rates and ``bound`` are ``qtpu_torch.bench.timing``'s; every profile goes
+through ``qtpu_torch.bench.profile.trace``.  Each phase's seconds are
+printed as it ends.  The line before the last is ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -287,9 +305,14 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate
-PEAK_CUDA_CORE_OPS = 67e12  # H100 SXM rate outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bandwidth
+from qtpu_torch.bench.profile import trace  # noqa: E402
+from qtpu_torch.bench.timing import (PEAK_CUDA_CORE_OPS,  # noqa: E402
+                                     bound, device_label, events_ms, timed,
+                                     timed_eager)
+
+# torch.profiler's Chrome traces (git-ignored, under the build directory;
+# emptied when a run starts, so it holds one run's)
+TRACE_DIR = os.path.join(ROOT, "qtpu_torch", "build", "smoke", "traces")
 SRC_K1 = "qtpu_torch/csrc/qmatmul.cu"
 SRC_K2 = "qtpu_torch/csrc/qconv.cu"
 SRC_K3 = "qtpu_torch/csrc/qdepthwise.cu"
@@ -454,47 +477,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def events_ms(torch, run, iters):
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    run()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def timed(torch, fn, iters):
-    """Device ms per call: ``iters`` calls captured in one CUDA graph, the
-    replay timed with CUDA events.  Launched one by one from Python, a call
-    of a few tens of microseconds is bound by the host's launch rate, which
-    would be timed instead of the kernel."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return events_ms(torch, graph.replay, iters)
-
-
-def timed_eager(torch, fn, iters):
-    """ms per call issued from Python (host overhead included)."""
-    fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(iters):
-            fn()
-    return events_ms(torch, run, iters)
-
-
 def tv_resnet50_state(seed):
     """A ResNet-50 ``state_dict`` in torchvision's names and shapes
     (conv1/bn1, layerN.M.convK/bnK, layerN.0.downsample.0/1, fc) from
@@ -642,15 +624,6 @@ def drive_http(url, requests, threads):
     check(not errors and all(o is not None for o in out),
           f"HTTP clients failed: {errors[:3]}")
     return out, lat, wall
-
-
-def bound(nbytes, ops, peak_ops=PEAK_INT8_OPS, cuda_core_ops=0):
-    """The least time (ms) for the work, and what bounds it: bytes at the
-    memory rate, operations at their unit's peak — the int8 tensor cores,
-    or outside them for ``cuda_core_ops`` (the depthwise taps)."""
-    tb = nbytes / PEAK_BYTES
-    to = max(ops / peak_ops, cuda_core_ops / PEAK_CUDA_CORE_OPS)
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def qat_launches(model):
@@ -819,6 +792,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device — this script measures the card "
               "and has no CPU mode", file=sys.stderr)
         return 2
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)   # this run's traces only
     import copy
 
     import numpy as np
@@ -864,11 +838,7 @@ def main() -> int:
         t_phase[0] = now
 
     # -- 1. the card ------------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = device_label(dev)
     log(card)
 
     # -- 2. build ------------------------------------------------------------------
@@ -990,7 +960,7 @@ def main() -> int:
         if M > 16 and K % 8 == 0 and N % 8 == 0:
             # torch._int_mm needs more than 16 rows, K and N multiples of 8
             lib_call = "torch._int_mm"
-            lib_ms = timed(torch, lambda: torch._int_mm(x, wt), 50)
+            lib_ms = timed(lambda: torch._int_mm(x, wt), 50)
         else:
             # cuBLAS fp32 (TF32 off) on the codes as floats: the int32
             # accumulator exactly while |acc| < 2^24
@@ -1003,14 +973,14 @@ def main() -> int:
                     torch.mm(xf, wf)
                 lib_call += " (" + ", ".join(device_kernels(
                     torch, lambda: torch.mm(xf, wf))) + ")"
-                lib_ms = timed(torch, lambda: torch.mm(xf, wf), 50)
+                lib_ms = timed(lambda: torch.mm(xf, wf), 50)
         kernels.append(dict(
             name=f"qmatmul_fused [{label}]", route="cuda", source=SRC_K1,
             replaces=TPU_K1, path=path, shape=f"M={M} K={K} N={N}",
-            k1_path=kpath, max_abs_err=err, ms=timed(torch, run_k, 50),
-            igemm_ms=timed(torch, run_old, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            k1_path=kpath, max_abs_err=err, ms=timed(run_k, 50),
+            igemm_ms=timed(run_old, 50),
+            eager_ms=timed_eager(run_k, 50),
+            plain_ms=timed(run_p, 5), bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, library_call=lib_call))
         del x, w, r, y, run_k, run_p, run_old
         torch.cuda.empty_cache()
@@ -1057,12 +1027,12 @@ def main() -> int:
             source=SRC_K1, replaces=TPU_K1, path="cfg5_packed",
             kernel="K1w4", shape=f"M={M} K={K} N={N}", max_abs_err=err,
             k1_path=k1.k1_path(x, w4, y.dtype, r, co, mode),
-            ms=timed(torch, run_k, 50), igemm_ms=timed(torch, run_old, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 5), bound_ms=b_ms, bound_by=b_by,
-            int8_ms=timed(torch, run_8, 50),
+            ms=timed(run_k, 50), igemm_ms=timed(run_old, 50),
+            eager_ms=timed_eager(run_k, 50),
+            plain_ms=timed(run_p, 5), bound_ms=b_ms, bound_by=b_by,
+            int8_ms=timed(run_8, 50),
             int8_bound_ms=bound(M * K + N * K + out_res, 2 * M * N * K)[0],
-            library_ms=timed(torch, lambda: torch._int_mm(x, wt), 50)))
+            library_ms=timed(lambda: torch._int_mm(x, wt), 50)))
     log("K1 int4 equal to K1 int8 on the unpacked weights")
 
     def conv_fp32_ms(xp, w_oihw, s, groups=1):
@@ -1072,7 +1042,7 @@ def main() -> int:
         xf = xp.float().permute(0, 3, 1, 2)
         wf = w_oihw.float().contiguous(memory_format=torch.channels_last)
         with fp32_exact():
-            return timed(torch, lambda: F.conv2d(xf, wf, stride=s,
+            return timed(lambda: F.conv2d(xf, wf, stride=s,
                                                  groups=groups), 50)
 
     # (path, label, B, H, Ci, Co, kernel, stride, TPU kernel): ResNet-50's
@@ -1139,11 +1109,11 @@ def main() -> int:
             name=f"qconv2d_fused [{label}]", route="cuda", source=SRC_K2,
             replaces=tpu, path=path, kernel="K2", k2_path=kpath,
             shape=f"B={B} H={H} Ci={Ci} Co={Co} {k}x{k}/{s}",
-            max_abs_err=err, ms=timed(torch, run_k, 50),
-            igemm_ms=timed(torch, run_old, 20),
-            igemm_pad_ms=timed(torch, run_old_pad, 20),
-            eager_ms=timed_eager(torch, run_k, 20),
-            plain_ms=timed(torch, run_p, 5 if B == 8 else 2), bound_ms=b_ms,
+            max_abs_err=err, ms=timed(run_k, 50),
+            igemm_ms=timed(run_old, 20),
+            igemm_pad_ms=timed(run_old_pad, 20),
+            eager_ms=timed_eager(run_k, 20),
+            plain_ms=timed(run_p, 5 if B == 8 else 2), bound_ms=b_ms,
             bound_by=b_by, library_ms=conv_fp32_ms(xp, w_oihw, s)))
         del x, xp, w, y, run_k, run_p, run_old, run_old_pad
         torch.cuda.empty_cache()
@@ -1182,9 +1152,9 @@ def main() -> int:
         name="qconv2d_im2col [RN50 int8 stem 7x7/2]", route="cuda",
         source=SRC_IM2COL, replaces=TPU_IM2COL, path=None, kernel="im2col",
         shape=f"B={B} H={H} Ci={Ci} Co={Co} 7x7/2 (K=147 padded to 160)",
-        max_abs_err=err, ms=timed(torch, run_k, 50),
-        eager_ms=timed_eager(torch, run_k, 50), plain_ms=timed(torch, run_p, 3),
-        k2_ms=timed(torch, run_k2, 50), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, ms=timed(run_k, 50),
+        eager_ms=timed_eager(run_k, 50), plain_ms=timed(run_p, 3),
+        k2_ms=timed(run_k2, 50), bound_ms=b_ms, bound_by=b_by,
         library_ms=conv_fp32_ms(xp, w_hwio.permute(3, 2, 0, 1), 2)))
 
     k3_cases = [
@@ -1223,9 +1193,9 @@ def main() -> int:
             replaces=TPU_K3, path="mnv2", shape=f"B={B} H={H} C={C} 3x3/{s}",
             k3_plan=f"{plan.path} rows {plan.th} channels {plan.cc} "
             f"threads {plan.threads}",
-            max_abs_err=err, ms=timed(torch, run_k, 50),
-            eager_ms=timed_eager(torch, run_k, 20),
-            plain_ms=timed(torch, run_p, 5 if B == 8 else 2), bound_ms=b_ms,
+            max_abs_err=err, ms=timed(run_k, 50),
+            eager_ms=timed_eager(run_k, 20),
+            plain_ms=timed(run_p, 5 if B == 8 else 2), bound_ms=b_ms,
             bound_by=b_by,
             library_ms=conv_fp32_ms(xp.contiguous(),
                                     w.t().reshape(C, 1, 3, 3), s, groups=C)))
@@ -1313,11 +1283,11 @@ def main() -> int:
             name=f"qconv2d_fused [{label}]", route="cuda", source=SRC_K2,
             replaces=tpu, path=path, kernel="K2", k2_path=kpath,
             shape=f"B={B} H={H} Ci={Ci} Co={Co} {k}x{k}/{s} {padding} "
-            f"zp={zp}", max_abs_err=err, ms=timed(torch, run_k, 20),
-            igemm_ms=timed(torch, run_old, 10),
-            igemm_pad_ms=timed(torch, run_old_pad, 10),
-            eager_ms=timed_eager(torch, run_k, 10),
-            plain_ms=timed(torch, run_p, 2), bound_ms=b_ms, bound_by=b_by,
+            f"zp={zp}", max_abs_err=err, ms=timed(run_k, 20),
+            igemm_ms=timed(run_old, 10),
+            igemm_pad_ms=timed(run_old_pad, 10),
+            eager_ms=timed_eager(run_k, 10),
+            plain_ms=timed(run_p, 2), bound_ms=b_ms, bound_by=b_by,
             library_ms=conv_fp32_ms(xp, w_oihw, s)))
         del x, xp, w, y, run_k, run_p, run_old, run_old_pad
         torch.cuda.empty_cache()
@@ -1352,9 +1322,9 @@ def main() -> int:
             shape=f"B={B} H=56 C=144 3x3/1 zp=-41",
             k3_plan=f"{plan.path} rows {plan.th} channels {plan.cc} "
             f"threads {plan.threads}",
-            max_abs_err=err, ms=timed(torch, run_k, 20),
-            eager_ms=timed_eager(torch, run_k, 10),
-            plain_ms=timed(torch, run_p, 2), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, ms=timed(run_k, 20),
+            eager_ms=timed_eager(run_k, 10),
+            plain_ms=timed(run_p, 2), bound_ms=b_ms, bound_by=b_by,
             library_ms=conv_fp32_ms(xp.contiguous(),
                                     w.t().reshape(144, 1, 3, 3), 1,
                                     groups=144)))
@@ -1461,10 +1431,10 @@ def main() -> int:
             name=f"{name} [{label}]", route="cuda", source=src, replaces=tpu,
             path=path, kernel=kind, case=(H, cmid, cout, cin, s),
             shape=f"B={B} H={H} Cmid={cmid} Cout={cout} Cin={cin} /{s}",
-            max_abs_err=err, ms=timed(torch, run_k, 50 if B == 8 else 20),
-            eager_ms=timed_eager(torch, run_k, 50 if B == 8 else 20),
-            plain_ms=timed(torch, run_p, 5 if B == 8 else 2),
-            unfused_ms=timed(torch, run_u, 50 if B == 8 else 20),
+            max_abs_err=err, ms=timed(run_k, 50 if B == 8 else 20),
+            eager_ms=timed_eager(run_k, 50 if B == 8 else 20),
+            plain_ms=timed(run_p, 5 if B == 8 else 2),
+            unfused_ms=timed(run_u, 50 if B == 8 else 20),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library_note=NO_LIBRARY)
         if kind == "K4":
@@ -1478,7 +1448,7 @@ def main() -> int:
             check(torch.equal(run_k("igemm"), y), f"K4 {label}: the wgmma "
                   "and igemm kernels differ")
             row.update(k4_path="wgmma",
-                       igemm_ms=timed(torch, lambda: run_k("igemm"), 50))
+                       igemm_ms=timed(lambda: run_k("igemm"), 50))
         else:
             del row["case"]
             # K5 / K6: the wgmma kernel tail_path gives them, against the
@@ -1492,7 +1462,7 @@ def main() -> int:
                   "wgmma and igemm kernels differ")
             plan = k5.tail_plan(B, H, H, cmid, cout, sms=sms,
                                 block=kind == "K6")
-            row.update(igemm_ms=timed(torch, lambda: run_k("igemm"),
+            row.update(igemm_ms=timed(lambda: run_k("igemm"),
                                       20 if B == 8 else 5),
                        plan=f"cluster {plan.cs}, 8x8 tiles {plan.tiles} "
                        f"({plan.rows:.1%} of rows in the image), grid "
@@ -1644,7 +1614,7 @@ def main() -> int:
                   "kernel forced differs from the dispatched one")
             check(kpath == "wgmma", f"{kind} {label}: dispatched to "
                   f"{kpath}")
-            extra = dict(chain_path=kpath, igemm_ms=timed(torch, run_o, 50),
+            extra = dict(chain_path=kpath, igemm_ms=timed(run_o, 50),
                          plan=None if kpath != "wgmma" else
                          f"{plan.mode}, w {plan.w}, {plan.tm} tile(s) a "
                          f"unit, {plan.stages} stages, {plan.smem} B shared, "
@@ -1657,10 +1627,10 @@ def main() -> int:
                     {"K7": ("Cin", "Cmid", "N"),
                      "K8": ("Cp", "Cm", "Co", "Cmid", "N"),
                      "K9": ("C", "E", "N")}[kind], dims)),
-            max_abs_err=err, ms=timed(torch, run_k, 50),
-            eager_ms=timed_eager(torch, run_k, 50),
-            plain_ms=timed(torch, run_p, 3),
-            unfused_ms=timed(torch, run_u, 50), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, ms=timed(run_k, 50),
+            eager_ms=timed_eager(run_k, 50),
+            plain_ms=timed(run_p, 3),
+            unfused_ms=timed(run_u, 50), bound_ms=b_ms, bound_by=b_by,
             library_ms=None, library_note=NO_LIBRARY, **extra))
         del run_k, run_p, run_u, run_o
     log("K7-K9 equal to the unfused K1/K2/K3 sequences they replace; K7, "
@@ -2522,12 +2492,10 @@ def main() -> int:
         q128 = torch.randint(-128, 128, (128, 224, 224, 3), generator=g,
                              dtype=torch.int8).to(dev)
         with torch.inference_mode():
-            t7 = {"f32 stem": timed(torch, lambda: rn50.forward(x128), 5),
-                  "bf16 stem": timed(torch, lambda: bf16.forward(x128), 5),
-                  "torchvision, f32 in": timed(
-                      torch, lambda: tv.forward(x128), 5),
-                  "torchvision, int8 ingest": timed(
-                      torch, lambda: tv.forward_codes(q128), 5)}
+            t7 = {"f32 stem": timed(lambda: rn50.forward(x128), 5),
+                  "bf16 stem": timed(lambda: bf16.forward(x128), 5),
+                  "torchvision, f32 in": timed(lambda: tv.forward(x128), 5),
+                  "torchvision, int8 ingest": timed(lambda: tv.forward_codes(q128), 5)}
         log(f"ResNet-50 forward B=128 as one CUDA graph ({card}): "
             + "; ".join(f"{k} {v:.3f} ms" for k, v in t7.items()))
         profile_forward(f"{RN50} [f32 stem]", rn50, x128, torch, by_op=True)
@@ -2543,7 +2511,7 @@ def main() -> int:
     phase_done("7 (HTTP server)")
 
     # -- 6. engine throughput and a profile ------------------------------------------
-    graph_ms = {}
+    graph_ms, busy_ms = {}, {}
     for what, flat, batches in ((LENET, lenet, (8, 128)),
                                 (RN18, rn18, (8, 128)),
                                 (RN20, rn20, (8, 128)),
@@ -2561,21 +2529,21 @@ def main() -> int:
         for B in batches:
             x = torch.randn((B, *hwc), generator=g).to(dev)
             with torch.inference_mode():
-                ms = timed_eager(torch, lambda: flat.forward(x), 10)
-                graph_ms[what, B] = timed(torch, lambda: flat.forward(x), 5)
+                ms = timed_eager(lambda: flat.forward(x), 10)
+                graph_ms[what, B] = timed(lambda: flat.forward(x), 5)
             log(f"{what} engine forward B={B}: {ms:.3f} ms, "
                 f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
                 f"{graph_ms[what, B]:.3f} ms)")
-        profile_forward(what, flat, x, torch,
-                        by_op=flat is rn50m)
+        busy_ms[what, x.shape[0]] = profile_forward(what, flat, x, torch,
+                                                    by_op=flat is rn50m)
     # the fixed-order head mean against torch.mean at the CIFAR heads
     for what, shape in ((RN18, (128, 4, 4, 512)), (RN20, (128, 8, 8, 64))):
         x = torch.randn(shape, generator=g).to(dev)
         log(f"{what} head mean B=128 {shape[1]}x{shape[2]}x{shape[3]}: "
             f"qops.spatial_mean "
-            f"{timed(torch, lambda: qops.spatial_mean(x), 10):.4f} ms, "
+            f"{timed(lambda: qops.spatial_mean(x), 10):.4f} ms, "
             f"torch.mean "
-            f"{timed(torch, lambda: torch.mean(x, dim=(1, 2)), 10):.4f} ms "
+            f"{timed(lambda: torch.mean(x, dim=(1, 2)), 10):.4f} ms "
             "(device time, CUDA graph)")
     log(f"{RN50_MODULE} on the module SERVE path B=128: "
         f"{graph_ms[RN50_MODULE, 128]:.3f} ms as one CUDA graph, the flat "
@@ -2610,14 +2578,14 @@ def main() -> int:
         y, _ = compare(f"{kern['name']} B=128", run_k, run_p)
         check(torch.equal(y, run_u()), f"{kern['name']}: kernel "
               "differs from the unfused sequence at B = 128")
-        kern["ms_b128"] = timed(torch, run_k, 10)
-        kern["unfused_ms_b128"] = timed(torch, run_u, 10)
+        kern["ms_b128"] = timed(run_k, 10)
+        kern["unfused_ms_b128"] = timed(run_u, 10)
         if run_o is not None:   # the older kernel forced
             check(torch.equal(run_o(), y) and kpath == kern.get(
                 "chain_path", kern.get("k4_path")),
                   f"{kern['name']}: the older kernel differs at B = 128, or "
                   f"the dispatch took {kpath}")
-            kern["igemm_ms_b128"] = timed(torch, run_o, 10)
+            kern["igemm_ms_b128"] = timed(run_o, 10)
             if kpath == "wgmma" and kind in chain_meta:
                 kern["plan_b128"] = (f"{plan.mode}, w {plan.w}, {plan.tm} "
                                      f"tile(s) a unit, {plan.stages} stages")
@@ -2698,8 +2666,7 @@ def main() -> int:
             for _ in range(2):
                 train_step(qst, imgs[:16], y16)
             torch.cuda.synchronize()
-            step_ms[form] = events_ms(
-                torch, lambda: [train_step(qst, imgs[:16], y16)
+            step_ms[form] = events_ms(lambda: [train_step(qst, imgs[:16], y16)
                                 for _ in range(5)], 5)
             if form == "int":
                 profile_step(f"{qcfg.name} QAT step (integer forward)",
@@ -2717,6 +2684,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8(dev, work, card, torch)
     phase_done("8 (parallel runtime)")
+
+    # -- 9. the tooling: per-layer traces, the slope fit, DP scaling, the
+    # projection, receipts --------------------------------------------------------------
+    phase9(dev, work, card, torch, {RN50: rn50, MNV2: mnv2}, graph_ms,
+           busy_ms)
+    phase_done("9 (the tooling)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2726,39 +2699,33 @@ def main() -> int:
 
 def device_kernels(torch, fn):
     """The names (cut to 60 characters) of the device kernels one call of
-    ``fn`` launches (torch.profiler)."""
+    ``fn`` launches (``bench.profile.trace``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(TRACE_DIR, "cuda") as t:
         fn()
         torch.cuda.synchronize()
-    return [e.name[:60] for e in prof.events()
-            if e.device_type == DeviceType.CUDA] or ["none reported"]
+    return [e.name[:60] for e in t.profiler.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation] or ["none reported"]
 
 
 def profiled(torch, run, record_shapes):
-    """One call of ``run`` traced by torch.profiler after one traced call
-    of warm-up — a forward traced alone lacked its first kernels on the
-    card (the fp32 stem's conv, the int8 stem kernel): (the per-kernel
-    averages, the events, the traced call's wall ms)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    held, wall = [], []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes,
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: held.append(
-                     (p.key_averages(), p.events()))) as prof:
+    """One call of ``run`` traced by ``bench.profile.trace`` after one call
+    of warm-up under its schedule — a forward traced alone lacked its first
+    kernels on the card (the fp32 stem's conv, the int8 stem kernel): (the
+    per-kernel averages, the events, the traced call's wall ms)."""
+    wall = []
+    with trace(TRACE_DIR, "cuda", warmup=1,
+               record_shapes=record_shapes) as t:
         for _ in range(2):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
-            prof.step()
-    return held[-1][0], held[-1][1], wall[-1]
+            t.step()
+    return t.profiler.key_averages(), t.profiler.events(), wall[-1]
 
 
 def elementwise_by_op(events):
@@ -2773,9 +2740,10 @@ def elementwise_by_op(events):
               if "elementwise_kernel" in k.name]
         if not ks:
             continue
-        top = e
-        while top.cpu_parent is not None and not \
-                top.cpu_parent.name.startswith("ProfilerStep"):
+        top = e      # up to the outermost op inside any span (a scope)
+        while (top.cpu_parent is not None
+               and not top.cpu_parent.is_user_annotation
+               and not top.cpu_parent.name.startswith("ProfilerStep")):
             top = top.cpu_parent
         for k in ks:
             fam = ("unvectorised" if re.search(r"\belementwise_kernel<",
@@ -2855,8 +2823,8 @@ def profile_step(what, state, x, y, torch):
         torch, lambda: train_step(state, x, y), True)
     fams = {}
     for e in averages:
-        if e.device_type != DeviceType.CUDA or e.key.startswith(
-                "ProfilerStep"):       # the step's span, not a kernel
+        if (e.device_type != DeviceType.CUDA or e.is_user_annotation
+                or e.key.startswith("ProfilerStep")):  # spans, not kernels
             continue
         fam = step_family(e.key)
         n, us = fams.get(fam, (0, 0.0))
@@ -2881,7 +2849,8 @@ def profile_step(what, state, x, y, torch):
 def profile_forward(what, flat, x, torch, by_op=False):
     """Device time of one forward by kernel (torch.profiler), and the share
     of the forward's wall time the card was busy; with ``by_op`` also the
-    elementwise kernels by the operation that launched them."""
+    elementwise kernels by the operation that launched them.  Returns the
+    busy ms (None if the profiler reported no device time)."""
     from torch.autograd import DeviceType
 
     with torch.inference_mode():
@@ -2891,8 +2860,8 @@ def profile_forward(what, flat, x, torch, by_op=False):
             torch, lambda: flat.forward(x), by_op)
     fams = {}
     for e in averages:
-        if e.device_type != DeviceType.CUDA or e.key.startswith(
-                "ProfilerStep"):       # the step's span, not a kernel
+        if (e.device_type != DeviceType.CUDA or e.is_user_annotation
+                or e.key.startswith("ProfilerStep")):  # spans, not kernels
             continue
         fam = kernel_family(e.key) or e.key[:70]
         n, us = fams.get(fam, (0, 0.0))
@@ -2900,7 +2869,7 @@ def profile_forward(what, flat, x, torch, by_op=False):
     total = sum(us for _, us in fams.values())
     if not total:
         log(f"{what} profile: no device time reported (not measured)")
-        return
+        return None
     top = sorted(fams.items(), key=lambda kv: -kv[1][1])[:10]
     log(f"{what} profile B={x.shape[0]} forward: device busy "
         f"{total / 1e3:.3f} ms of {wall_ms:.3f} ms wall (profiled); by "
@@ -2915,6 +2884,186 @@ def profile_forward(what, flat, x, torch, by_op=False):
                 f"{op} {fam} ranks {list(ranks)} x{n} {us / 1e3:.3f} ms "
                 f"({100 * us / total:.1f}%), first inputs {shapes}"
                 for (op, fam, ranks), (n, us, shapes) in ops))
+    return total / 1e3
+
+
+# -- 9. the tooling ------------------------------------------------------------------
+
+PHASE9_STEPS = 10          # (a): traced forwards a table
+# (a): each product engine's scopes (qtpu's names) and the launches of its
+# kernels a forward, every one inside a scope
+PHASE9_TRACED = {RN50: ({"K1": 37, "K2": 16},
+                        ("stem", *(f"layer{i + 1}_{j}" for i, n in
+                                   enumerate((3, 4, 6, 3)) for j in range(n)),
+                         "head")),
+                 MNV2: ({"K1": 35, "K3": 17},
+                        ("stem", *(f"block{i}" for i in range(17)), "head"))}
+PHASE9_UNATTRIBUTED = 0.01  # (a): the largest share of device time outside
+PHASE9_BUSY = 0.05          # (a): the scopes' sum against phase 6's busy
+PHASE9_FIT = 0.03           # (b): time_scan_fit against phase 6's graph
+
+
+def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
+    """The tooling of ``qtpu_torch.bench`` on the card: (a) the per-layer
+    tables of the ResNet-50 and MobileNet-v2 product engines at B = 128;
+    (b) ``time_scan_fit`` of the ResNet-50 B = 128 forward against phase
+    6's graph time; (c) ``dp_scaling`` of the ResNet-50 forward at B = 32 a
+    rank; (d) the projection of phase 8's TP = 2 collectives with the
+    TP = 1 graph time at B = 32; (e) the rows of (a)-(c) as receipts under
+    ``work``, read back; and the eager B = 8 forward with and without a
+    trace running (the scopes' host cost)."""
+    import collections
+
+    from qtpu_torch.bench.receipts import log_receipt
+    from qtpu_torch.bench.scaling import dp_scaling
+    from qtpu_torch.bench.scaling_projection import project
+    from qtpu_torch.bench.timing import time_scan_fit
+    from qtpu_torch.bench.tracing import (UNATTRIBUTED, capture_trace,
+                                          format_table, layer_table,
+                                          parse_trace)
+
+    receipts = os.path.join(work, "receipts", "phase9.jsonl")
+    if os.path.exists(receipts):
+        os.remove(receipts)
+    logged = 0
+
+    def receipt(rec):
+        nonlocal logged
+        log_receipt("phase9", dict(rec, device=card), path=receipts)
+        logged += 1
+
+    g = torch.Generator().manual_seed(9)
+    rn50 = engines[RN50]
+    # (a) the per-layer tables
+    for what, flat in engines.items():
+        want, scopes = PHASE9_TRACED[what]
+        x = torch.randn((128, 224, 224, 3), generator=g).to(dev)
+        t0 = time.monotonic()
+        path = capture_trace(flat.forward, x, steps=PHASE9_STEPS,
+                             logdir=TRACE_DIR)
+        records = parse_trace(path)
+        rows = layer_table(records, PHASE9_STEPS)
+        secs = time.monotonic() - t0
+        log(format_table(rows, title=(
+            f"phase 9 (a) {what} product engine B=128, per layer over "
+            f"{PHASE9_STEPS} traced forwards, {card} ({secs:.1f} s)")))
+        got = {r["scope"] for r in rows} - {UNATTRIBUTED}
+        check(got == set(scopes), f"{what}: traced scopes {sorted(got)}, "
+              f"expected qtpu's {list(scopes)}")
+        by_scope = collections.defaultdict(collections.Counter)
+        for r in records:
+            fam = kernel_family(r.name) if r.category == "kernel" else None
+            if fam and fam.split()[0] in want:
+                by_scope[r.scope or UNATTRIBUTED][fam.split()[0]] += 1
+        check(UNATTRIBUTED not in by_scope, f"{what}: kernels outside every "
+              f"scope: {dict(by_scope.get(UNATTRIBUTED, {}))}")
+        total = {k: sum(c[k] for c in by_scope.values()) for k in want}
+        check(total == {k: n * PHASE9_STEPS for k, n in want.items()},
+              f"{what}: traced launches {total} over {PHASE9_STEPS} "
+              f"forwards, expected {want} a forward")
+        all_us = sum(r["us"] for r in rows)
+        un_us = sum(r["us"] for r in rows if r["scope"] == UNATTRIBUTED)
+        scoped_ms = (all_us - un_us) / 1e3
+        busy = busy_ms.get((what, 128))
+        check(un_us <= PHASE9_UNATTRIBUTED * all_us,
+              f"{what}: {un_us:.1f} of {all_us:.1f} us a forward outside "
+              "every scope")
+        check(busy is not None and abs(scoped_ms - busy)
+              <= PHASE9_BUSY * busy, f"{what}: the scopes sum to "
+              f"{scoped_ms:.3f} ms a forward, phase 6 profiled {busy} ms")
+        ops = sum(r.ops + r.cuda_core_ops for r in records) / PHASE9_STEPS
+        log(f"  {what}: kernels a forward by scope "
+            + "; ".join(f"{s} " + " ".join(f"{k} x{n // PHASE9_STEPS}"
+                                          for k, n in sorted(c.items()))
+                        for s, c in by_scope.items())
+            + f"; unattributed {un_us:.1f} us of {all_us:.1f} "
+            f"({100 * un_us / all_us:.2f}%); scopes {scoped_ms:.3f} ms "
+            f"against phase 6's profiled busy {busy:.3f} ms; the kernels' "
+            f"noted work {ops / 128 / 1e9:.3f} GOP an image")
+        for r in rows:
+            receipt(dict(phase="9a", engine=what, batch=128,
+                         steps=PHASE9_STEPS, **r))
+        del x
+        torch.cuda.empty_cache()
+
+    # (b) the slope fit against phase 6's graph time
+    x = torch.randn((128, 224, 224, 3), generator=g).to(dev)
+    with torch.inference_mode():
+        fit_ms = 1e3 * time_scan_fit(
+            lambda c: c + 0.0 * rn50.forward(c).sum(), x, n_short=3,
+            n_long=13)
+    ref = graph_ms[RN50, 128]
+    log(f"phase 9 (b) {RN50} B=128: time_scan_fit {fit_ms:.3f} ms a "
+        f"forward (chains of 3 and 13, each one CUDA graph; the carry add "
+        f"included), phase 6's graph {ref:.3f} ms ({card})")
+    check(abs(fit_ms - ref) <= PHASE9_FIT * ref, f"time_scan_fit "
+          f"{fit_ms:.3f} ms against phase 6's {ref:.3f} ms")
+    receipt(dict(phase="9b", engine=RN50, batch=128, fit_ms=fit_ms,
+                 graph_ms=ref))
+    del x
+    torch.cuda.empty_cache()
+
+    # (c) DP scaling: dp = 1 on one card, dp = 2 only with two
+    cards = torch.cuda.device_count()
+    dps = (1, 2) if cards >= 2 else (1,)
+    dp_dir = os.path.join(work, "phase9_dp")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    os.makedirs(dp_dir)
+    t0 = time.monotonic()
+    sc = dp_scaling("qtpu_torch.bench.scaling:factory_forward",
+                    (224, 224, 3), dps=dps, batch_per_device=32,
+                    factory_kwargs=dict(
+                        config=RN50,
+                        load_frozen=os.path.join(work, "frozen_rn50")),
+                    device="cuda", n_short=3, n_long=13, timeout_s=300,
+                    workdir=dp_dir)
+    check(all(v > 0 for v in sc["images_per_sec"].values()),
+          f"dp_scaling: {sc}")
+    log(f"phase 9 (c) dp_scaling {RN50} B=32 a rank ({card}; "
+        f"{time.monotonic() - t0:.1f} s): " + "; ".join(
+            f"dp = {dp}: {sc['images_per_sec'][dp]:.1f} img/s, efficiency "
+            f"{sc['efficiency_vs_linear'][dp]:.3f}" for dp in dps)
+        + ("" if cards >= 2 else "; dp = 2: one card: not measured"))
+    for dp in dps:
+        receipt(dict(phase="9c", engine=RN50, batch_per_device=32, dp=dp,
+                     images_per_sec=sc["images_per_sec"][dp],
+                     efficiency_vs_linear=sc["efficiency_vs_linear"][dp]))
+
+    # (d) the projection of phase 8's TP = 2 forward
+    with open(os.path.join(work, "phase8_rank0.json")) as f:
+        tp = json.load(f)["tp_records"]
+    check(len(tp["records"]) == tp["calls"], f"phase 8 recorded "
+          f"{len(tp['records'])} collectives of {tp['calls']} calls")
+    x = torch.randn((tp["batch"], 224, 224, 3), generator=g).to(dev)
+    with torch.inference_mode():
+        t1_ms = timed(lambda: rn50.forward(x), 5)
+    proj = project(t1_ms / 1e3, tp["records"], tp["tp"], tp=tp["tp"])
+    log(f"phase 9 (d) projection of the TP = {tp['tp']} B = {tp['batch']} "
+        f"{RN50} forward ({len(tp['records'])} collectives, "
+        + ", ".join(f"{k} x{n}" for k, n in collections.Counter(
+            r["kind"] for r in tp["records"]).items())
+        + f") with the TP = 1 graph time {t1_ms:.3f} ms ({card}; NVLink "
+        f"450 GB/s each way, alpha 1 — a model): {json.dumps(proj)}")
+
+    # the scopes' host cost: the eager B = 8 forward as served, without and
+    # with a trace running
+    x = torch.randn((8, 224, 224, 3), generator=g).to(dev)
+    with torch.inference_mode():
+        plain_ms = timed_eager(lambda: rn50.forward(x), 20)
+        with trace(TRACE_DIR, "cuda"):
+            traced_ms = timed_eager(lambda: rn50.forward(x), 20)
+    log(f"phase 9 {RN50} eager B=8 forward ({card}): {plain_ms:.3f} ms "
+        f"without a trace (the scopes null contexts), {traced_ms:.3f} ms "
+        "with one running (the profiler and the scopes recording)")
+
+    # (e) the receipts, read back
+    with open(receipts) as f:
+        back = [json.loads(line) for line in f]
+    check(len(back) == logged and all(r["device"] == card and r["ts"]
+                                      for r in back),
+          f"receipts: {len(back)} lines read back, {logged} logged")
+    log(f"phase 9 (e) receipts: {logged} rows of (a)-(c) appended to "
+        f"{os.path.relpath(receipts, ROOT)} and read back")
 
 
 # -- 8. the parallel runtime: two ranks on the one card ------------------------------
@@ -3226,6 +3375,16 @@ def phase8_rank(work):
         finally:
             collectives.all_gather = gather
         out["timing"] = timing
+        # the collectives of one B = 32 TP forward, for phase 9's projection
+        collectives.reset_counts()
+        with collectives.recording() as records:
+            tp.forward(x)
+        torch.cuda.synchronize()
+        out["tp_records"] = dict(tp=world, batch=32, config=RN50,
+                                 records=records,
+                                 calls=sum(v for k, v in
+                                           collectives.counts.items()
+                                           if "." not in k))
     section("tp")
 
     # (b) DP = 2 lockstep serving: own requests, an idle round on rank 1

@@ -38,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops import qmatmul as k1
 
@@ -183,10 +184,7 @@ def main(argv=None) -> int:
         print("probe_k1: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     _build.build(["qmatmul"], DEFINES)
     g = torch.Generator().manual_seed(0)

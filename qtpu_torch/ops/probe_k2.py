@@ -37,12 +37,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops import qconv as k2
 from qtpu_torch.ops import qmatmul as k1
@@ -147,10 +147,7 @@ def main(argv=None) -> int:
         print("probe_k2: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     _build.build(["qconv"], DEFINES)
     g = torch.Generator().manual_seed(0)

@@ -27,12 +27,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label
 from qtpu_torch.ops import _build
 from qtpu_torch.ops import qproj as k4
 from qtpu_torch.ops.probe_chain import _coeffs
@@ -107,10 +107,7 @@ def main(argv=None) -> int:
         print("probe_k4: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     _build.build(["qproj"], DEFINES)
     g = torch.Generator().manual_seed(0)

@@ -36,12 +36,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops import qblock as k6
 from qtpu_torch.ops import qtail as k5
@@ -126,10 +126,7 @@ def main(argv=None) -> int:
         print("probe_tail: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     paths = [q for q in args.paths.split(",") if q]
     if not paths or any(q not in k5.PATHS for q in paths):

@@ -35,6 +35,7 @@ from typing import Dict, Optional
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
@@ -97,6 +98,10 @@ def qblock_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                            f"failed: CUDA error {err} (x {tuple(x_q.shape)}, "
                            f"Cmid={Cmid}, plan {plan})")
     count(qblock_folded, path)
+    if recording():
+        note_work(2 * B * H * W * Cmid * (2 * Cin + 9 * Cmid),
+                  x_q.numel() + out.numel() + w1.numel() + w2.numel()
+                  + w3.numel() + 8 * (2 * Cmid + Cin))
     return out
 
 

@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import (OUT_KIND, check_residual, check_vectors,
                                     fold, int_grid, launch_args,
@@ -137,6 +138,7 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     KH, KW = kernel_hw
     Co = w_nk.shape[0]
     dev = x_q.device
+    x_bytes = x_q.numel()       # the input as given, before any pad copy
     if stride not in (1, 2):
         raise ValueError(f"stride {stride} not in (1, 2)")
     if tuple(w_nk.shape) != (Co, KH * KW * Ci):
@@ -190,6 +192,12 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     qconv2d_folded.launches += 1
     name = f"launches_{path}"
     setattr(qconv2d_folded, name, getattr(qconv2d_folded, name) + 1)
+    if recording():
+        note_work(2 * B * OH * OW * Co * KH * KW * Ci,
+                  x_bytes + w_nk.numel() + out.numel() * out.element_size()
+                  + (0 if residual is None
+                     else residual.numel() * residual.element_size())
+                  + (0 if raw_acc else 8 * Co))
     return out
 
 

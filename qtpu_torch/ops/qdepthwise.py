@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import (OUT_KIND, check_vectors, fold,
                                     launch_args, out_dtype_of)
@@ -168,6 +169,12 @@ def qdepthwise_folded(x_q: torch.Tensor, w_taps: torch.Tensor,
     qdepthwise_folded.launches += 1
     name = f"launches_{plan.path}"
     setattr(qdepthwise_folded, name, getattr(qdepthwise_folded, name) + 1)
+    if recording():
+        # KH·KW multiply-adds an output on the CUDA cores
+        note_work(0, x_q.numel() + w_taps.numel()
+                  + out.numel() * out.element_size()
+                  + (0 if raw_acc else 8 * C),
+                  cuda_core_ops=2 * KH * KW * out.numel())
     return out
 
 

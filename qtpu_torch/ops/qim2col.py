@@ -75,7 +75,7 @@ def qconv2d_im2col(x_q: torch.Tensor, w_q: torch.Tensor, *,
                     requant_zp=requant_zp, relu=relu)
     y = qmatmul_folded(im2col_patches(x_q, (KH, KW), strides, act_zp),
                        im2col_weight(w_q), co, mode, out_dtype=out_dtype)
-    if x_q.is_cuda:
+    if x_q.is_cuda:            # the K1 launch noted its work for traces
         qconv2d_im2col.launches += 1
     return y.reshape(B, OH, OW, Co)
 

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, chain_plan as cp, qops
 from qtpu_torch.ops.qmatmul import check_int8
 from qtpu_torch.ops.qstage import (ChainCoeffs, barrier_words, check_chain,
@@ -143,6 +144,13 @@ def qivr_folded(x_q: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
                            f"error {err} (x {tuple(x_q.shape)}, {n} blocks, "
                            f"E={E}, plan {plan})")
     count(qivr_folded, path)
+    if recording():
+        # expand and project on the tensor cores, the 3×3 depthwise taps
+        # outside them
+        note_work(2 * M * n * E * 2 * C,
+                  x_q.numel() + out.numel() + w1.numel() + wd.numel()
+                  + w3.numel() + n * (16 * E + 8 * C + 48),
+                  cuda_core_ops=2 * M * n * E * 9)
     return out
 
 

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
@@ -236,6 +237,14 @@ def _launch(symbol: str, x_q: torch.Tensor, w: torch.Tensor,
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K})")
+    if recording():
+        # 2·M·N·K; x, the weight (packed for int4), the residual and the
+        # output once, A and B (8 bytes a column) unless raw
+        note_work(2 * M * N * K, x_q.numel() + w.numel()
+                  + out.numel() * out.element_size()
+                  + (0 if residual is None
+                     else residual.numel() * residual.element_size())
+                  + (0 if raw_acc else 8 * N))
     return out
 
 

@@ -43,6 +43,7 @@ from typing import Dict, Optional
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
@@ -162,6 +163,12 @@ def qproj_folded(b_q: torch.Tensor, x_q: torch.Tensor, w3_nk: torch.Tensor,
                            f"error {err} (b {tuple(b_q.shape)}, x "
                            f"{tuple(x_q.shape)}, Cout={Cout})")
     count(qproj_folded, path)
+    if recording():
+        # the downsample reads the strided rows of x only
+        M = B * H * W
+        note_work(2 * M * Cout * (Cmid + Cin),
+                  b_q.numel() + M * Cin + w3_nk.numel() + wd_nk.numel()
+                  + out.numel() + 16 * Cout)
     return out
 
 

@@ -59,6 +59,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, chain_plan as cp, qops
 from qtpu_torch.ops.qblock import block_coeffs, block_plain
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
@@ -303,6 +304,12 @@ def qstage_folded(x_q: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                            f"CUDA error {err} (x {tuple(x_q.shape)}, {n} "
                            f"blocks, Cmid={Cmid}, plan {plan})")
     count(qstage_folded, path)
+    if recording():
+        # x in and the run's output once, the weights, each block's
+        # coefficient rows and scalars
+        note_work(2 * M * n * Cmid * (2 * Cin + 9 * Cmid),
+                  x_q.numel() + out.numel() + w1.numel() + w2.numel()
+                  + w3.numel() + n * (16 * Cmid + 8 * Cin + 48))
     return out
 
 
@@ -410,6 +417,15 @@ def qstage_proj_folded(x_q: torch.Tensor, wp1: torch.Tensor,
                            f"Cm={Cm}, Co={Co}, {n} chained blocks, plan "
                            f"{pl})")
     count(qstage_proj_folded, path)
+    if recording():
+        # the projection block (conv1, conv2, conv3, downsample), then the
+        # chain of qstage_folded
+        note_work(2 * M * (n * Cmid * (2 * Co + 9 * Cmid)
+                           + Cm * (Cp + 9 * Cm + Co) + Cp * Co),
+                  x_q.numel() + out.numel() + wp1.numel() + wp2.numel()
+                  + wp3.numel() + wd.numel() + w1.numel() + w2.numel()
+                  + w3.numel() + n * (16 * Cmid + 8 * Co + 48) + 16 * Cm
+                  + 16 * Co + 48)
     return out
 
 

@@ -42,6 +42,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops.qmatmul import check_int8, check_vectors, int_grid
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
@@ -326,6 +327,10 @@ def qtail_folded(a_q: torch.Tensor, r_q: torch.Tensor, w2: torch.Tensor,
                            f"error {err} (a {tuple(a_q.shape)}, Cout={Cout}, "
                            f"plan {plan})")
     count(qtail_folded, path)
+    if recording():
+        note_work(2 * B * H * W * Cmid * (9 * Cmid + Cout),
+                  a_q.numel() + r_q.numel() + out.numel() + w2.numel()
+                  + w3.numel() + 8 * (Cmid + Cout))
     return out
 
 

@@ -25,12 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label, timed
 from qtpu_torch.ops import _build
 from qtpu_torch.ops import chain_plan as cp
 from qtpu_torch.ops import qconv as k2
@@ -41,7 +41,6 @@ from qtpu_torch.ops import qops
 from qtpu_torch.ops import qstage as k7
 from qtpu_torch.ops.probe_chain import RUNS, chain_case
 from qtpu_torch.ops.qproj import DOWN_MODE
-from qtpu_torch.ops.time_k3 import timed
 
 PAD1 = ((1, 1), (1, 1))
 PLAN_KIND = {"K7": "stage", "K8": "stage_proj", "K9": "ivr"}
@@ -111,7 +110,7 @@ def row(kind, label, B, H, c, cm, n, g, dev, sweep, iters, sms):
                                "plain")
     ms = {k: 0.0 for k in runs}
     for name in ("new", "old", "unfused", "unfused", "old", "new"):
-        ms[name] += timed(torch, runs[name], iters) / 2
+        ms[name] += timed(runs[name], iters) / 2
     if kind == "K8":    # c: (Cp, Cm, Co); the plan's widths Co, Cm
         path = k7.stage_proj_path(B, H, H, *c, cm, args[5], args[-1], n,
                                   *args[:5], *args[7:10], sms=sms)
@@ -129,7 +128,7 @@ def row(kind, label, B, H, c, cm, n, g, dev, sweep, iters, sms):
             if not torch.equal(fn(*args, plan=pl), ref):
                 raise RuntimeError(f"{kind} {label} B={B} {pl}: differs")
             out["sweep"].append(dict(mode=pl.mode, tm=pl.tm, ms=timed(
-                torch, lambda pl=pl: fn(*args, plan=pl), iters)))
+                lambda pl=pl: fn(*args, plan=pl), iters)))
         best = min(out["sweep"], key=lambda r: r["ms"])
         auto = next(r for r in out["sweep"] if r["mode"] == plan.mode
                     and r["tm"] == plan.tm)
@@ -152,10 +151,7 @@ def main(argv=None) -> int:
         print("time_chain: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _build.build(["qmatmul", "qconv", "qdepthwise", "qstage", "qivr",

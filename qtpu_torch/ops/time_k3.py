@@ -4,7 +4,8 @@
     python qtpu_torch/ops/time_k3.py [--root CHECKOUT] [--sweep] [--out FILE]
 
 ``--root`` times the ``qtpu_torch`` of another checkout (default: the one
-holding this file), built from that checkout's sources into its own build
+holding this file; the checkout must have ``qtpu_torch/bench/timing.py``,
+whose graph timer times the rows), built from that checkout's sources into its own build
 directory, so that one call can time a parent commit's K3 beside this
 one's; a checkout whose K3 has no plans is timed through its wrapper
 alone.  The rows: B = 8 and 128 at block1 (112² C = 96 /2), block2 (56²
@@ -21,7 +22,6 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,29 +34,7 @@ ROWS = [
     ("B=128 block2 dw 3x3/1", 128, 56, 144, 1),
     ("B=128 block14 dw 3x3/1", 128, 7, 960, 1),
 ]
-
-
-def timed(torch, fn, iters=50):
-    """Device ms per call: ``iters`` calls in one CUDA graph, its replay
-    timed with CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+ITERS = 50          # calls captured in one CUDA graph
 
 
 def plans(k3, B, H, C, s, sms):
@@ -82,16 +60,14 @@ def main(argv=None) -> int:
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
     import torch
+    from qtpu_torch.bench.timing import device_label, timed
     from qtpu_torch.ops import qdepthwise as k3
     from qtpu_torch.ops import qops
     if not torch.cuda.is_available():
         print("time_k3: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(0)
@@ -113,7 +89,7 @@ def main(argv=None) -> int:
                                         stride=s, padding="SAME", zp=-9,
                                         **kw)
 
-        row = dict(label=label, root=root, ms=timed(torch, run))
+        row = dict(label=label, root=root, ms=timed(run, ITERS))
         if hasattr(k3, "k3_plan"):
             OH = -(-H // s)
             row["plan"] = list(k3.k3_plan(B, H, H, C, OH, OH, (3, 3), s,
@@ -124,7 +100,7 @@ def main(argv=None) -> int:
             for plan in plans(k3, B, H, C, s, sms):
                 if not torch.equal(run(plan), ref):
                     raise SystemExit(f"{label}: plan {plan} differs")
-                swept.append((timed(torch, lambda: run(plan)),
+                swept.append((timed(lambda: run(plan), ITERS),
                               list(plan[1:])))
             swept.sort()
             row["best"] = swept[:5]

@@ -15,16 +15,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from qtpu_torch.bench.timing import device_label, timed
 from qtpu_torch.ops import qblock as k6
 from qtpu_torch.ops import qtail as k5
 from qtpu_torch.ops.probe_tail import _coeffs
-from qtpu_torch.ops.time_k3 import timed
 
 # (stage, H, Cmid) of ResNet-50's identity blocks
 STAGES = (("layer1", 56, 64), ("layer2", 28, 128), ("layer3", 14, 256),
@@ -57,7 +56,7 @@ def row(kind, B, stage, H, cmid, g, dev, sweep, sms):
     auto = k5.tail_plan(B, H, H, cmid, cout, sms=sms, block=block)
     ref = run()
     out = dict(kernel=kind, B=B, stage=stage, plan=auto._asdict(),
-               ms=timed(torch, run, 20), sweep=[])
+               ms=timed(run, 20), sweep=[])
     if sweep:
         for cs, tm in ((cs, tm) for cs in (1, 2, 4, 8) for tm in (1, 2)):
             if cs > k5.cluster_max(cmid, cout) or (cs, tm) == (auto.cs,
@@ -73,7 +72,7 @@ def row(kind, B, stage, H, cmid, g, dev, sweep, sms):
                                    "from the plan's")
             out["sweep"].append(dict(
                 **kw, stages=plan.stages, per_sm=plan.per_sm,
-                ms=timed(torch, lambda: run(**kw), 20)))
+                ms=timed(lambda: run(**kw), 20)))
     return out
 
 
@@ -87,10 +86,7 @@ def main(argv=None) -> int:
         print("time_tail: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,"
-         "noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_label(dev)
     print(card, flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(0)

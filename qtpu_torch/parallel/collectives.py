@@ -24,12 +24,16 @@ staged.
   variance (``nn.layers``) and the activation observers' min / max
   (``nn.act_quant``) are reduced over the group (:func:`batch_group`),
   as GSPMD reduces them over qtpu's sharded batch.
+
+Inside :func:`recording` each collective is also recorded — its kind, the
+group's size and the bytes of the tensor this rank hands in, taken before
+any host staging — for the projection of ``bench.scaling_projection``.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,6 +43,27 @@ counts: "collections.Counter[str]" = collections.Counter()
 
 def reset_counts() -> None:
     counts.clear()
+
+
+_records = None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[dict]]:
+    """Within: every collective appends ``{"kind", "group", "bytes"}`` to
+    the list this yields (``bytes``: the tensor this rank passes in)."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
+def _record(kind: str, x: torch.Tensor, group) -> None:
+    if _records is not None:
+        _records.append(dict(kind=kind, group=dist.get_world_size(group),
+                             bytes=x.numel() * x.element_size()))
 
 
 def _staged(x: torch.Tensor, group, name: str) -> torch.Tensor:
@@ -54,6 +79,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's ``x`` (equal shapes) concatenated along ``dim`` in group
     rank order, on ``x``'s device."""
     counts["all_gather"] += 1
+    _record("all_gather", x, group)
     xs = _staged(x.contiguous(), group, "all_gather")
     parts = [torch.empty_like(xs) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, xs, group=group)
@@ -64,6 +90,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The ``op`` ("sum", "min" or "max") of the group's ``x``; a new
     tensor on ``x``'s device."""
     counts["all_reduce"] += 1
+    _record("all_reduce", x, group)
     ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
            "max": dist.ReduceOp.MAX}
     y = _staged(x.detach(), group, "all_reduce").clone()
@@ -95,6 +122,7 @@ def ppermute(x: torch.Tensor, group, pairs: Sequence[Tuple[int, int]]
     ``(me, dst)`` pair and returns what its ``(src, me)`` pair sent, or
     zeros; group ranks in ``pairs``."""
     counts["ppermute"] += 1
+    _record("ppermute", x, group)
     me = dist.get_rank(group)
     xs = _staged(x.contiguous(), group, "ppermute")
     out = torch.zeros_like(xs)
@@ -115,6 +143,7 @@ def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
     """Group rank ``src``'s ``x`` on every rank of the group (equal
     shapes), on ``x``'s device."""
     counts["broadcast"] += 1
+    _record("broadcast", x, group)
     y = _staged(x.contiguous(), group, "broadcast").clone()
     dist.broadcast(y, dist.get_global_rank(group, src), group=group)
     return y.to(x.device)

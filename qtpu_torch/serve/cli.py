@@ -132,6 +132,25 @@ def serve_module(cfg, tree: dict, *, torch_pad: bool = False, device=None):
                        **_model_kwargs(cfg, torch_pad))
 
 
+def build_forward(cfg, *, load_frozen: Optional[str] = None, seed: int = 0,
+                  device=None):
+    """The forward ``build_engine`` serves for ``cfg``, alone (no
+    scheduler, one process): the flat engine's ``forward`` or the
+    SERVE-mode model, f32 NHWC images → logits, over the frozen tree at
+    ``load_frozen`` or one frozen from the config as ``build_engine``
+    freezes it (seeded weights, the config's calibration)."""
+    dev = resolve_device(device)
+    factory, _, _, serve_path = make_flat_forward(
+        cfg.model, exclude=cfg.exclude, num_classes=cfg.num_classes,
+        image_size=cfg.image_size, width=cfg.width,
+        cifar_stem=cfg.cifar_stem, device=dev)
+    tree = (ckpt.load(load_frozen, device=dev) if load_frozen
+            else freeze_from_config(cfg, seed=seed, device=dev))
+    if serve_path == "module":
+        return serve_module(cfg, tree, device=dev)
+    return factory(tree)
+
+
 def check_torch_ckpt(model: str) -> None:
     """SystemExit unless ``model`` has a torchvision importer."""
     if model not in supported_models():

@@ -31,6 +31,7 @@ from typing import Any, Dict
 
 import torch
 
+from qtpu_torch.bench.profile import annotate
 from qtpu_torch.models.mobilenet import V2_CFG
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
@@ -124,6 +125,13 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
             i += n
         return plan
 
+    def _scope(self, step) -> str:
+        """qtpu's trace scope of a :meth:`_plan` step: the block's name, or
+        ``{name}_ivrun`` (the run's first block) for a chained run."""
+        i, _, run = step
+        name = self._blocks()[i][0]
+        return f"{name}_ivrun" if run else name
+
     def _step(self, x_q: torch.Tensor, grid: Grid, step):
         """One step of :meth:`_plan` on the block input ``x_q`` on ``grid``
         → (its output, the output's grid)."""
@@ -143,10 +151,13 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
                 "ported (ROADMAP.md)")
         if raw_u8:
             x = self._normalize_u8(x)
-        grid = self._block_in_grid(self._blocks()[0][0])
-        x_q = self._stem(x, grid, pre_quantized=pre_quantized)
+        with annotate("stem"):
+            grid = self._block_in_grid(self._blocks()[0][0])
+            x_q = self._stem(x, grid, pre_quantized=pre_quantized)
         for step in self._plan():
-            x_q, grid = self._step(x_q, grid, step)
-        y = gemm_1x1(x_q, head, relu=True, act_max=6.0, requant=None,
-                     out_dtype=torch.float32)
-        return self._fc(torch.mean(y, dim=(1, 2)))
+            with annotate(self._scope(step)):
+                x_q, grid = self._step(x_q, grid, step)
+        with annotate("head"):
+            y = gemm_1x1(x_q, head, relu=True, act_max=6.0, requant=None,
+                         out_dtype=torch.float32)
+            return self._fc(torch.mean(y, dim=(1, 2)))

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from qtpu_torch.bench.profile import annotate
 from qtpu_torch.models.mobilenet import V1_CFG
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
@@ -81,13 +82,16 @@ class MobileNetV1Int8Engine(FlatInt8Engine):
                  raw_u8: bool = False) -> torch.Tensor:
         if raw_u8:
             x = self._normalize_u8(x)
-        x_q = self._stem(x, grid_of(self._node("block0", "dw")),
-                         pre_quantized=pre_quantized)
+        with annotate("stem"):
+            x_q = self._stem(x, grid_of(self._node("block0", "dw")),
+                             pre_quantized=pre_quantized)
         n = len(V1_STRIDES)
         for i in range(n):
             # the next consumer's grid: the next block's dw, or f32 out of
             # the last block (the mean-pool consumes f32, the fc requantizes)
             nxt = (grid_of(self._node(f"block{i + 1}", "dw"))
                    if i + 1 < n else None)
-            x_q = self._block(x_q, i, nxt)
-        return self._fc(torch.mean(x_q, dim=(1, 2)))
+            with annotate(f"block{i}"):
+                x_q = self._block(x_q, i, nxt)
+        with annotate("head"):
+            return self._fc(torch.mean(x_q, dim=(1, 2)))

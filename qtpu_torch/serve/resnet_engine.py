@@ -30,6 +30,7 @@ from typing import Any, Dict
 
 import torch
 
+from qtpu_torch.bench.profile import annotate
 from qtpu_torch.ops import qops
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
 from qtpu_torch.serve.fused_ops import (conv, dequant, gemm_1x1, grid_of,
@@ -213,6 +214,16 @@ class ResNetInt8Engine(FlatInt8Engine):
             idx += n
         return plan
 
+    def _scope(self, step) -> str:
+        """qtpu's trace scope of a :meth:`_plan` step: the block's name, or
+        ``layer{i}_stage`` for a chained run that includes the projection
+        block and ``layer{i}_idrun`` for an identity run."""
+        idx, _, stage = step
+        if stage is None:
+            return self._names[idx][0]
+        kind = "idrun" if self._qstage_prep[stage]["proj"] is None else "stage"
+        return f"layer{stage + 1}_{kind}"
+
     def _step(self, x_q: torch.Tensor, grid, step):
         """One step of :meth:`_plan` on the block input ``x_q`` on ``grid``
         → (its output, the output's grid)."""
@@ -232,12 +243,15 @@ class ResNetInt8Engine(FlatInt8Engine):
         fc = self._node("fc")
         if raw_u8:
             x = self._normalize_u8(x)
-        x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized)
+        with annotate("stem"):
+            x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized)
         grid = grid_of(first)
         for step in self._plan():
-            x_q, grid = self._step(x_q, grid, step)
-        if fc is None:
-            pooled = torch.mean(x_q, dim=(1, 2))   # fp32 from final block
-        else:
-            pooled = qops.spatial_mean(dequant(x_q, grid))
-        return self._fc(pooled)
+            with annotate(self._scope(step)):
+                x_q, grid = self._step(x_q, grid, step)
+        with annotate("head"):
+            if fc is None:
+                pooled = torch.mean(x_q, dim=(1, 2))  # fp32 from last block
+            else:
+                pooled = qops.spatial_mean(dequant(x_q, grid))
+            return self._fc(pooled)

@@ -1,0 +1,86 @@
+"""The tracing tooling on the card (no JAX: ``python -m pytest --noconftest
+-m gpu tests/test_torch_gpu_tracing.py``).
+
+Every test here is ``gpu``-marked and skips without a card:
+
+* the per-layer table of a full-depth ResNet-50
+  (``resnet50_imagenet_int8_ptq_fp32stem``, seeded weights, its
+  calibration) at B = 8: the scopes are qtpu's, every K1 and K2 kernel
+  lies in one — 3 K1 and 1 K2 in each projection block, 2 and 1 in the
+  others, the fc's K1 in ``head`` — and each launch's work note sits in
+  the scope of its kernel;
+* ``time_scan_fit`` on the card (each chain one CUDA graph) against the
+  graph timer on the same forward.
+"""
+import collections
+import os
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def rn50_forward():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from qtpu_torch.examples.configs import CONFIGS
+    from qtpu_torch.serve.cli import build_forward
+
+    return build_forward(CONFIGS[RN50], device="cuda")
+
+
+def _x(batch):
+    g = torch.Generator().manual_seed(batch)
+    return torch.randn((batch, 224, 224, 3), generator=g).cuda()
+
+
+@pytest.mark.gpu
+def test_resnet50_table_attributes_every_kernel(rn50_forward, tmp_path):
+    from chip_smoke import kernel_family
+    from qtpu_torch.bench.tracing import (UNATTRIBUTED, capture_trace,
+                                          layer_table, parse_trace)
+
+    path = capture_trace(rn50_forward, _x(8), steps=STEPS,
+                         logdir=str(tmp_path))
+    records = parse_trace(path)
+    kernels = [r for r in records if r.category == "kernel"]
+    assert kernels and all(r.scope for r in kernels), [
+        r.name[:60] for r in kernels if not r.scope]
+    blocks = [f"layer{i + 1}_{j}" for i, n in enumerate((3, 4, 6, 3))
+              for j in range(n)]
+    rows = layer_table(records, STEPS)
+    assert {r["scope"] for r in rows} == {"stem", *blocks, "head"}
+    assert UNATTRIBUTED not in {r["scope"] for r in rows}
+    got = collections.defaultdict(collections.Counter)
+    for r in kernels:
+        fam = kernel_family(r.name)
+        if fam and fam.split()[0] in ("K1", "K2"):
+            got[r.scope][fam.split()[0]] += 1
+    want = {b: {"K1": 3 * STEPS if b.endswith("_0") else 2 * STEPS,
+                "K2": STEPS} for b in blocks}
+    want["head"] = {"K1": STEPS}
+    assert {s: dict(c) for s, c in got.items()} == want
+    notes = collections.Counter(r.scope for r in records
+                                if r.category == "work")
+    assert notes == {s: sum(c.values()) for s, c in want.items()}
+    assert all(r["roofline_pct"] > 0 for r in rows if r["scope"] != "stem")
+
+
+@pytest.mark.gpu
+def test_time_scan_fit_matches_graph_timer(rn50_forward):
+    from qtpu_torch.bench.timing import time_scan_fit, timed
+
+    x = _x(32)
+    with torch.inference_mode():
+        ref = timed(lambda: rn50_forward(x), 5)
+        fit = 1e3 * time_scan_fit(
+            lambda c: c + 0.0 * rn50_forward(c).sum(), x, n_short=3,
+            n_long=13)
+    assert abs(fit - ref) <= 0.05 * ref, (fit, ref)

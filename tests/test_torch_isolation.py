@@ -36,6 +36,14 @@ def test_parallel_package_walked():
         assert f"qtpu_torch/parallel/{name}.py" in walked, name
 
 
+def test_bench_package_walked():
+    """The walk covers the bench tooling, every module of it."""
+    walked = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("__init__", "timing", "receipts", "profile", "tracing",
+                 "scaling", "scaling_projection"):
+        assert f"qtpu_torch/bench/{name}.py" in walked, name
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_qtpu_imports(path):
     bad = [m for m in _imports(path)
