@@ -14,16 +14,24 @@
 // clearly so.  The int32 accumulator never reaches device memory; the
 // epilogue writes one byte per int8 output.
 //
-// Two kernels, chosen per call by the wrapper (ops/qmatmul.py: k1_path):
+// Three kernels, chosen per call by the wrapper (ops/qmatmul.py: k1_path):
 // * qtpu_qmatmul_fused runs wgmma_gemm.cuh: TMA loads into a ring of stages,
 //   wgmma s8, a persistent grid and a coalesced, TMA-stored epilogue.  It
 //   takes every operand TMA can address (16-byte aligned bases, rows of x,
 //   w, the output and the residual multiples of 16 bytes): every 1x1 GEMM
 //   of ResNet-50.
+// * qtpu_qmatmul_fused_cp runs wgmma_narrow.cuh: the same consumers and
+//   ring with 32-deep stages, tiles 8-144 columns wide, and each operand
+//   by TMA where it can be, else by a producer warpgroup's cp.async (x, w)
+//   or the consumers' stores (the output, the residual).  It takes rows of
+//   4-byte multiples, and N below 64, from 512 rows: MobileNet-v2's K = 24
+//   expand and N = 16 / 24 / 32 project GEMMs, config 3's QAT GEMMs.
 // * qtpu_qmatmul_fused_igemm runs igemm.cuh's mma.sync loop (two cp.async
 //   stages, one block per output tile, an element-wise epilogue), which
-//   also takes K not a multiple of 16 (byte gathers) and unaligned rows:
-//   MobileNet-v2's K = 24 expand and N = 24 project GEMMs.
+//   also takes any K (byte gathers), unaligned rows and requant grids off
+//   the integers: the calls neither wgmma kernel takes (and a batch's
+//   narrow fc, LeNet-5's fc2 / fc3, where it is the faster), and the
+//   comparison.
 //
 // The int4 entries (qtpu_qmatmul_fused_w4, _w4_igemm) replace the same TPU
 // kernel's w_packed=True mode (its in-VMEM unpack of pack_int4_halves,
@@ -34,7 +42,7 @@
 // (igemm.cuh: StagedB4).  Main loop, tiles and epilogue are the int8
 // entry's, so both give the same codes.  No library multiplies int8 by int4.
 #include "igemm.cuh"
-#include "wgmma_gemm.cuh"
+#include "wgmma_narrow.cuh"
 
 namespace {
 
@@ -83,6 +91,29 @@ extern "C" int qtpu_qmatmul_fused_w4(K1_ARGS) {
   return qtpu::wg::launch_gemm<true>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), M, N, K,
       K1_EPILOGUE, static_cast<cudaStream_t>(stream));
+}
+
+// The narrow-row kernel at the tile width narrow_bn gives N: rows of x, w,
+// the output and the residual multiples of 4 bytes from 4-byte aligned
+// bases.
+extern "C" int qtpu_qmatmul_fused_cp(K1_ARGS) {
+  using qtpu::wg::launch_narrow_bn;
+  const int8_t* xs = static_cast<const int8_t*>(x);
+  const int8_t* ws = static_cast<const int8_t*>(w);
+  const qtpu::Epilogue ep = K1_EPILOGUE;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (qtpu::wg::narrow_bn(N)) {
+    case 8: e = launch_narrow_bn<8>(xs, ws, M, N, K, ep, s); break;
+    case 16: e = launch_narrow_bn<16>(xs, ws, M, N, K, ep, s); break;
+    case 24: e = launch_narrow_bn<24>(xs, ws, M, N, K, ep, s); break;
+    case 32: e = launch_narrow_bn<32>(xs, ws, M, N, K, ep, s); break;
+    case 48: e = launch_narrow_bn<48>(xs, ws, M, N, K, ep, s); break;
+    case 64: e = launch_narrow_bn<64>(xs, ws, M, N, K, ep, s); break;
+    case 96: e = launch_narrow_bn<96>(xs, ws, M, N, K, ep, s); break;
+    default: e = launch_narrow_bn<144>(xs, ws, M, N, K, ep, s); break;
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" int qtpu_qmatmul_fused_igemm(K1_ARGS) {

@@ -31,8 +31,9 @@ SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qstage": "qstage.cu", "qivr": "qivr.cu",
            "qstage_wg": "qstage_wg.cu", "qivr_wg": "qivr_wg.cu",
            "qstage_proj_wg": "qstage_proj_wg.cu"}
-HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "fused_tail.cuh",
-           "wgmma_tail.cuh", "grid_phase.cuh", "wgmma_phase.cuh")
+HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "wgmma_narrow.cuh",
+           "fused_tail.cuh", "wgmma_tail.cuh", "grid_phase.cuh",
+           "wgmma_phase.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

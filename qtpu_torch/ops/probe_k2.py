@@ -1,6 +1,6 @@
 """Where K2 spends its cycles, on the card: clock64 probes of its kernels.
 
-    python -m qtpu_torch.ops.probe_k2 [--out probe_k2.json]
+    python -m qtpu_torch.ops.probe_k2 [--out probe_k2.json] [--small]
 
 It builds ``csrc/qconv.cu`` once more with ``-DQTPU_IGEMM_PROBE
 -DQTPU_WGMMA_PROBE -DQTPU_STEM_PROBE`` (a library of its own; the kernels
@@ -29,7 +29,16 @@ old loop and through the kernel ``ops/qconv.k2_path`` gives it.
   cycles per band, averaged over the blocks.
 
 Each row also gives each kernel's device time by CUDA events (probe
-launches) and checks its output against the plain version.  Cycles are SM
+launches) and checks its output against the plain version.
+
+``--small`` instead times the small-channel kernel (``k2_path``'s
+``"small"``, the normal build) with each multiply forced — ``mma.sync``, a
+warp's 16 pixels, and ``wgmma`` with A from registers, a warpgroup's 64 —
+beside the old loop on its zero-point-padded copy, graph-timed (launched one
+by one they would time the host), at the rows it took over
+(:data:`SMALL_ROWS`: LeNet-5's convs, config 3's raw stem, ResNet-20's 16-
+and 32-channel 3×3s, at B = 8 and 128), each checked against the plain
+version: the measurement behind ``csrc/qconv.cu``'s ``small_wgmma``.  Cycles are SM
 clocks (``clocks.sm`` under load, read from ``nvidia-smi``).  Needs one
 CUDA device; nothing here runs on the CPU.
 """
@@ -42,7 +51,7 @@ from pathlib import Path
 
 import torch
 
-from qtpu_torch.bench.timing import device_label
+from qtpu_torch.bench.timing import device_label, timed
 from qtpu_torch.ops import _build, qops
 from qtpu_torch.ops import qconv as k2
 from qtpu_torch.ops import qmatmul as k1
@@ -58,6 +67,21 @@ ROWS = [
     ("B=128 MNv1 int8 stem 3x3/2", 128, 224, 3, 32, 3, 2),
 ]
 STEM_PHASES = ("stage_rows", "mma", "epilogue", "store_issue")
+# (label, B, H, Ci, Co, kernel, stride, padding, zp, raw)
+SMALL_ROWS = [(f"B={B} {label}", B, *shape) for B in (8, 128)
+              for label, *shape in (
+                  ("LeNet conv1 5x5 SAME raw", 28, 1, 6, 5, 1, "SAME", -17,
+                   True),
+                  ("LeNet conv2 5x5 VALID raw", 14, 6, 16, 5, 1, "VALID", 5,
+                   True),
+                  ("RN20 layer1 3x3/1", 32, 16, 16, 3, 1, "SAME", 0, False),
+                  ("RN20 layer2_0 3x3/2", 32, 16, 32, 3, 2, "SAME", 0,
+                   False),
+                  ("RN20 layer2 3x3/1", 16, 32, 32, 3, 1, "SAME", 0, False),
+                  ("RN20 layer3_0 3x3/2", 16, 32, 64, 3, 2, "SAME", 0,
+                   False))] + [
+    ("B=16 cfg3 QAT stem 3x3/2 raw", 16, 224, 3, 32, 3, 2, "SAME", -5,
+     True)]
 _SETTERS = {"igemm": "qtpu_probe_set_stamps", "wgmma": "qtpu_wgmma_probe_set",
             "stem": "qtpu_stem_probe_set"}
 
@@ -139,9 +163,39 @@ def probe_row(label, B, H, Ci, Co, k, s, g, dev):
     return row
 
 
+def small_row(label, B, H, Ci, Co, k, s, padding, zp, raw, g, dev):
+    """The small kernel with each multiply forced, and the old loop, at one
+    row: device ms a launch from a CUDA graph of 50, each output against the
+    plain one."""
+    x = torch.randint(-128, 128, (B, H, H, Ci), generator=g,
+                      dtype=torch.int8).to(dev)
+    K = k * k * Ci
+    w = torch.randint(-127, 128, (Co, K), generator=g, dtype=torch.int8).to(dev)
+    co, mode = (None, None) if raw else _coeffs(Co, K, g, dev, "requant")
+    pads = qops.resolve_pads((H, H), (k, k), (s, s), padding)
+    args = dict(kernel_hw=(k, k), stride=s, pads=pads, zp=zp, raw_acc=raw)
+    ref = k2.qconv2d_folded_plain(x, w, co, mode, **args)
+    xp = qops.pad_nhwc(x, pads, zp).contiguous()
+    runs = {"igemm": lambda: k2.qconv2d_folded(
+        xp, w, co, mode, kernel_hw=(k, k), stride=s, raw_acc=raw,
+        path="igemm")}
+    for mma in ("sync", "wgmma") if Co > 8 else ("sync",):
+        runs[f"small_{mma}"] = (lambda mma=mma: k2.qconv2d_folded(
+            x, w, co, mode, path="small", small_mma=mma, **args))
+    row = dict(label=label, M=ref.numel() // Co, K=K, N=Co,
+               path=k2.k2_path(x, w, pads, s, co, mode, kernel_hw=(k, k),
+                               out_dtype=ref.dtype))
+    for name, run in runs.items():
+        check(int(not torch.equal(run(), ref)), f"{label} ({name})")
+        row[f"{name}_ms"] = timed(run, 50)
+    return row
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write the rows as JSON here")
+    p.add_argument("--small", action="store_true",
+                   help="time the small kernel's two multiplies instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_k2: needs a CUDA device", file=sys.stderr)
@@ -149,10 +203,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = device_label(dev)
     print(card, flush=True)
-    _build.build(["qconv"], DEFINES)
     g = torch.Generator().manual_seed(0)
     rows = []
-    for label, B, H, Ci, Co, k, s in ROWS:
+    _build.build(["qconv"], () if args.small else DEFINES)
+    for spec in SMALL_ROWS if args.small else ():
+        rows.append(small_row(*spec, g, dev))
+        print(json.dumps(rows[-1]), flush=True)
+    for label, B, H, Ci, Co, k, s in () if args.small else ROWS:
         row = probe_row(label, B, H, Ci, Co, k, s, g, dev)
         row["sm_mhz"] = _sm_mhz()
         rows.append(row)

@@ -16,16 +16,21 @@ beside it.  Unlike the TPU kernel, the stride (1 or 2) is a kernel
 parameter: the strided conv needs no phase split on Hopper
 (qtpu_torch.ops.qconv_dispatch).  The epilogue modes are those of K1.
 
-Three kernels compute K2, chosen per call by :func:`k2_path` from what the
+Four kernels compute K2, chosen per call by :func:`k2_path` from what the
 operands allow (a deliberate dispatch, never a fallback after a failure),
-each counted (``launches_wgmma``, ``launches_stem``, ``launches_igemm``;
-``launches`` stays their sum); ``path=`` forces one:
+each counted (``launches_wgmma``, ``launches_stem``, ``launches_small``,
+``launches_igemm``; ``launches`` stays their sum); ``path=`` forces one:
 ``"wgmma"``, K1's TMA + ``wgmma`` ring with TMA im2col loads, for Ci a
 multiple of 64 (the zero fill at the pads corrected by ``zp · tapsum`` in
-the epilogue); ``"stem"``, for Ci = 3 (the quantized stems); ``"igemm"``,
+the epilogue); ``"stem"``, for Ci = 3 with int8 codes (the quantized
+stems); ``"small"``, the stem kernel generalised, for the small-channel
+convs (Ci·KH·KW ≤ 320: LeNet-5's, ResNet-20's 16- and 32-channel 3×3s,
+the Ci = 3 stems with f32 or raw output), its input rows staged with the
+zero-point pads written in the kernel, multiplied by ``wgmma`` or
+``mma.sync`` (``small_mma=`` forces one, for a comparison); ``"igemm"``,
 the old ``mma.sync`` loop, for the rest — on the zero-point-padded input,
-which this wrapper then writes first through ``qops.resolve_and_pad``
-(its ``calls`` count every pad copy).
+which this wrapper then writes first through ``qops.resolve_and_pad`` (its
+``calls`` count every pad copy).
 """
 from __future__ import annotations
 
@@ -44,9 +49,14 @@ from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ((_P,) * 6 + (_I, _P) + (_I,) * 14 + (_F,) * 4
              + (_I, _I, _F, _P))
-PATHS = ("wgmma", "stem", "igemm")
+PATHS = ("wgmma", "stem", "small", "igemm")
 _SYMBOLS = {"wgmma": "qtpu_qconv2d_fused", "stem": "qtpu_qconv2d_fused_stem",
+            "small": "qtpu_qconv2d_fused_small",
             "igemm": "qtpu_qconv2d_fused_igemm"}
+# the small kernel's multiply forced: mma.sync, or wgmma (Co > 8)
+_SMALL_MMA = {"sync": "qtpu_qconv2d_fused_small_sync",
+              "wgmma": "qtpu_qconv2d_fused_small_wg"}
+SMALL_K = 320     # the small kernel's Ci·KH·KW at most
 NO_PADS = ((0, 0), (0, 0))
 Pads = Sequence[Tuple[int, int]]
 
@@ -87,27 +97,40 @@ def k2_path(x: torch.Tensor, w: torch.Tensor, pads: Pads, stride: int,
     int8 codes, no residual, Co in {16, 32, 64, 128}, W·3 a multiple of 16,
     OW ≤ 256 and KH·KW·3 ≤ 256; ``"wgmma"`` for Ci a multiple of 64 where
     TMA can address every operand (16-byte aligned bases, output and
-    residual rows of multiples of 16 bytes); ``"igemm"`` for the rest."""
+    residual rows of multiples of 16 bytes); ``"small"`` for Ci·KH·KW ≤
+    320, an even Co ≤ 128 and the input and residual 4-byte aligned;
+    ``"igemm"`` for the rest."""
     if (out_dtype == torch.int8 and co is not None and mode is not None
             and not int_grid(co.lo, co.hi, mode.shift)):
         return "igemm"
     B, H, W, Ci = x.shape
     Co = w.shape[0]
     OH, OW = out_hw((H, W), kernel_hw, stride, pads)
-    if Ci == 3:
-        ok = (out_dtype == torch.int8 and residual is None
-              and Co in (16, 32, 64, 128) and W * 3 % 16 == 0
-              and x.data_ptr() % 16 == 0 and OW <= 256
-              and kernel_hw[0] * kernel_hw[1] * 3 <= 256)
-        return "stem" if ok else "igemm"
+    if Ci == 3 and (out_dtype == torch.int8 and residual is None
+                    and Co in (16, 32, 64, 128) and W * 3 % 16 == 0
+                    and x.data_ptr() % 16 == 0 and OW <= 256
+                    and kernel_hw[0] * kernel_hw[1] * 3 <= 256):
+        return "stem"
     osize = torch.empty((), dtype=out_dtype).element_size()
     rows = [(x, Ci), (w, w.shape[1]), (None, Co * osize)]
     if residual is not None:
         rows.append((residual, Co * residual.element_size()))
-    ok = Ci % 64 == 0 and all(
-        nbytes % 16 == 0 and (t is None or t.data_ptr() % 16 == 0)
-        for t, nbytes in rows)
-    return "wgmma" if ok else "igemm"
+    if Ci % 64 == 0 and all(
+            nbytes % 16 == 0 and (t is None or t.data_ptr() % 16 == 0)
+            for t, nbytes in rows):
+        return "wgmma"
+    return "small" if _small_fits(x, w, kernel_hw, residual) else "igemm"
+
+
+def _small_fits(x: torch.Tensor, w: torch.Tensor, kernel_hw: Tuple[int, int],
+                residual: Optional[torch.Tensor]) -> bool:
+    """Whether the small kernel takes these operands (the requant grid
+    aside): Ci·KH·KW ≤ 320, an even Co ≤ 128, the input and the residual
+    4-byte aligned."""
+    Co = w.shape[0]
+    return (kernel_hw[0] * kernel_hw[1] * x.shape[-1] <= SMALL_K
+            and Co % 2 == 0 and Co <= 128 and x.data_ptr() % 4 == 0
+            and (residual is None or residual.data_ptr() % 4 == 0))
 
 
 def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
@@ -119,12 +142,14 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
                    tapsum: Optional[torch.Tensor] = None,
                    out_dtype: torch.dtype = torch.float32,
                    raw_acc: bool = False,
-                   path: Optional[str] = None) -> torch.Tensor:
+                   path: Optional[str] = None,
+                   small_mma: Optional[str] = None) -> torch.Tensor:
     """Conv of the int8 (B, H, W, Ci), padded by ``pads`` with ``zp``, with
     the (Co, KH·KW·Ci) weight at ``stride`` → (B, OH, OW, Co) after the
     epilogue, with an optional int8 or f32 (B, OH, OW, Co) residual.
     ``tapsum`` (:func:`tapsum_of`) is computed here when the implicit GEMM
-    needs it and the caller did not prepare it."""
+    needs it and the caller did not prepare it.  ``small_mma`` ("sync" or
+    "wgmma") forces the small kernel's multiply; it needs that path."""
     pads = tuple(tuple(int(v) for v in p) for p in pads)
     zp = int(zp)
     if x_q.device.type == "cpu":
@@ -159,6 +184,10 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     res_kind = check_residual(residual, (B, OH, OW, Co), dev)
     path = _path(path, x_q, w_nk, pads, stride, None if raw_acc else co,
                  mode, kernel_hw, odt, residual)
+    if small_mma is not None and (path != "small"
+                                  or small_mma not in _SMALL_MMA):
+        raise ValueError(f"small_mma={small_mma!r} needs the small path "
+                         f"and 'sync' or 'wgmma' (path {path!r})")
     (pt, _), (pl, _) = pads
     if path == "igemm" and pads != NO_PADS:
         x_q = qops.resolve_and_pad(x_q, kernel_hw, (stride, stride), pads,
@@ -178,7 +207,8 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     out = torch.empty((B, OH, OW, Co), dtype=odt, device=dev)
     A, Bv, C, lo, hi, shift, relu, use_am, am = launch_args(
         None if raw_acc else co, mode)
-    fn = _build.load("qconv", _SYMBOLS[path], _ARGTYPES)
+    fn = _build.load("qconv", _SMALL_MMA[small_mma] if small_mma
+                     else _SYMBOLS[path], _ARGTYPES)
     err = _build.launch(
         fn, dev, x_q.data_ptr(), w_nk.data_ptr(),
         None if tapsum is None else tapsum.data_ptr(), A, Bv,
@@ -204,6 +234,7 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
 qconv2d_folded.launches = 0
 qconv2d_folded.launches_wgmma = 0
 qconv2d_folded.launches_stem = 0
+qconv2d_folded.launches_small = 0
 qconv2d_folded.launches_igemm = 0
 
 
@@ -213,7 +244,10 @@ def _path(path: Optional[str], x_q, w, pads, stride, co, mode, kernel_hw,
                    out_dtype=out_dtype, residual=residual)
     if path is None:
         return auto
-    if path not in PATHS or (path != "igemm" and auto != path):
+    # the small kernel may also be forced where the stem kernel goes
+    small = auto == "stem" and _small_fits(x_q, w, kernel_hw, residual)
+    if path not in PATHS or not (path in ("igemm", auto)
+                                 or (path == "small" and small)):
         raise ValueError(f"K2 path {path!r} cannot take these operands "
                          f"(they take {auto!r})")
     return path

@@ -6,18 +6,27 @@ hand-written kernel of ``csrc/qmatmul.cu`` (or raises), on a CPU tensor it
 takes ``qmatmul_folded_plain``, the same function in plain PyTorch.  Its
 ``launches`` attribute counts kernel launches and nothing else.
 
-Two kernels compute K1, chosen per call by :func:`k1_path` from what the
+Three kernels compute K1, chosen per call by :func:`k1_path` from what the
 operands allow (a deliberate dispatch, never a fallback after a failure):
 ``"wgmma"`` (``csrc/wgmma_gemm.cuh``: TMA loads, ``wgmma`` s8, a
 persistent grid, a coalesced epilogue) wherever TMA can address every
 operand — each base 16-byte aligned and each row (x, the weight, the
-output, the residual) a multiple of 16 bytes — and whose requant grid, if
-any, has integer bounds and a shift of 0 or 128 (every grid of a frozen
-tree), and ``"igemm"`` (``csrc/igemm.cuh``'s ``mma.sync`` loop) for the
-rest (MobileNet-v2's K = 24 and N = 24 GEMMs).  ``launches_wgmma`` and
-``launches_igemm`` count each; ``launches`` stays their sum.  ``path=``
-forces one (the old loop for a comparison; the new one raises on
-operands it cannot take).
+output, the residual) a multiple of 16 bytes — and N is at least 64;
+``"wgmma_cp"`` (``csrc/wgmma_narrow.cuh``: the same consumers and ring
+with 32-deep stages and tiles 8-144 columns wide, each operand by TMA where
+it can be, else by ``cp.async`` or the consumers' stores) for int8 weights
+whose rows are multiples of 4 bytes from 4-byte aligned bases where the
+first cannot go or N is below 64 (MobileNet-v2's K = 24 and N = 24 GEMMs,
+its N = 16 and 32 projects, config 3's QAT GEMMs), from 512 rows on; and
+``"igemm"`` (``csrc/igemm.cuh``'s ``mma.sync`` loop) for the rest: rows
+or bases off 4 bytes, requant grids the conversion-free requant cannot
+take (lo or hi not an integer, a shift other than 0 or 128), and the
+narrow rows of a batch's fc (LeNet-5's fc2 and fc3, the CIFAR fcs: fewer
+than 512 rows, where the old loop is faster).  Both wgmma kernels need such
+a grid; every grid of a frozen tree is one.  ``launches_wgmma``,
+``launches_wgmma_cp`` and ``launches_igemm`` count each; ``launches``
+stays their sum.  ``path=`` forces one the operands allow (the old loop
+for a comparison; the others raise on operands they cannot take).
 
 The weight is stored (N, K), K-contiguous — the kernel's layout, prepared
 once at engine build.  ``qmatmul_fused`` keeps qtpu's call form: a (K, N)
@@ -30,7 +39,9 @@ weight and the unfolded grid arguments, folded here with
 int4 weights (qtpu's ``w_packed=True`` mode): ``qmatmul_folded_w4`` takes
 the weight nibble-packed along K (:func:`pack_int4_nk`, (N, K/2) bytes) and
 launches the int4 entry of the same kernel, which unpacks in the kernel; its
-own ``launches`` count keeps int4 launches apart from int8 ones.
+own ``launches`` count keeps int4 launches apart from int8 ones.  The int4
+entry takes ``"wgmma"`` wherever TMA can address its operands (K % 32 == 0
+for the packed rows), whatever N, and the old loop otherwise.
 ``qmatmul_fused(w_packed=True, bn=...)`` keeps qtpu's call form, a
 :func:`pack_int4_halves` weight, and repacks it for the kernel.
 """
@@ -137,9 +148,11 @@ def qmatmul_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
 
 qmatmul_folded.launches = 0
 qmatmul_folded.launches_wgmma = 0
+qmatmul_folded.launches_wgmma_cp = 0
 qmatmul_folded.launches_igemm = 0
-PATHS = ("wgmma", "igemm")
+PATHS = ("wgmma", "wgmma_cp", "igemm")
 _SYMBOLS = {(False, "wgmma"): "qtpu_qmatmul_fused",
+            (False, "wgmma_cp"): "qtpu_qmatmul_fused_cp",
             (False, "igemm"): "qtpu_qmatmul_fused_igemm",
             (True, "wgmma"): "qtpu_qmatmul_fused_w4",
             (True, "igemm"): "qtpu_qmatmul_fused_w4_igemm"}
@@ -153,6 +166,38 @@ def int_grid(lo: float, hi: float, shift: float) -> bool:
         abs(v) <= 2 ** 21 and float(v).is_integer() for v in (lo, hi))
 
 
+def _k1_fit(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+            residual: Optional[torch.Tensor],
+            co: Optional[EpilogueCoeffs],
+            mode: Optional[EpilogueMode]) -> Tuple[bool, bool, bool]:
+    """(TMA can address every operand, every row is a multiple of 4 bytes
+    from a 4-byte aligned base, the weight is int4) — both of the first
+    False for a requant grid only the old loop takes."""
+    w4 = w.shape[1] != x_q.shape[1]
+    if (out_dtype == torch.int8 and co is not None and mode is not None
+            and not int_grid(co.lo, co.hi, mode.shift)):
+        return False, False, w4
+    N = w.shape[0]
+    rows = [(x_q, x_q.shape[1]), (w, w.shape[1]),
+            (None, N * torch.empty((), dtype=out_dtype).element_size())]
+    if residual is not None:
+        rows.append((residual, N * residual.element_size()))
+
+    def fits(a: int) -> bool:
+        return all(nbytes % a == 0 and (t is None or t.data_ptr() % a == 0)
+                   for t, nbytes in rows)
+
+    return fits(16), fits(4) and not w4, w4
+
+
+# Below this many rows (a batch's fc) the narrow-row kernel is one or two
+# blocks whose stages run one after another, and the old loop's 64 x 64
+# blocks finish first (LeNet-5's fc2 / fc3 at M = 8 and 128, graph-timed on
+# the H100 by chip_smoke.py phase 3 with the narrow-row kernel forced;
+# PERF.md §6).
+NARROW_MIN_M = 512
+
+
 def k1_path(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
             residual: Optional[torch.Tensor],
             co: Optional[EpilogueCoeffs] = None,
@@ -160,29 +205,29 @@ def k1_path(x_q: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
     """The kernel K1 takes for these operands (``w``: int8 (N, K) or
     packed int4 (N, K/2); ``out_dtype`` the output's; ``co``/``mode`` the
     folded epilogue): ``"wgmma"`` when TMA can address each of them — every
-    base 16-byte aligned, every row a multiple of 16 bytes — and a requant
-    grid has integer ``lo`` and ``hi`` and a ``shift`` of 0 or 128 (the
-    wgmma epilogue rounds after the clip), else ``"igemm"``."""
-    if (out_dtype == torch.int8 and co is not None and mode is not None
-            and not int_grid(co.lo, co.hi, mode.shift)):
-        return "igemm"
-    N = w.shape[0]
-    rows = [(x_q, x_q.shape[1]), (w, w.shape[1]),
-            (None, N * torch.empty((), dtype=out_dtype).element_size())]
-    if residual is not None:
-        rows.append((residual, N * residual.element_size()))
-    ok = all(nbytes % 16 == 0 and (t is None or t.data_ptr() % 16 == 0)
-             for t, nbytes in rows)
-    return "wgmma" if ok else "igemm"
+    base 16-byte aligned, every row a multiple of 16 bytes — and N is at
+    least 64 (any N for int4 weights, and below :data:`NARROW_MIN_M`
+    rows); else ``"wgmma_cp"`` for int8 weights when every row is a
+    multiple of 4 bytes from a 4-byte aligned base and M is at least
+    :data:`NARROW_MIN_M`; else ``"igemm"``.  A requant grid must have
+    integer ``lo`` and ``hi`` and a ``shift`` of 0 or 128 (the wgmma
+    epilogues round after the clip) for either wgmma kernel."""
+    tma, narrow, w4 = _k1_fit(x_q, w, out_dtype, residual, co, mode)
+    small_m = x_q.shape[0] < NARROW_MIN_M
+    if tma and (w4 or w.shape[0] >= 64 or small_m):
+        return "wgmma"
+    return "wgmma_cp" if narrow and not small_m else "igemm"
 
 
 def _path(path: Optional[str], x_q, w, co, mode, out_dtype, raw_acc,
           residual) -> str:
-    auto = k1_path(x_q, w, out_dtype_of(mode, out_dtype, raw_acc), residual,
-                   co, mode)
+    odt = out_dtype_of(mode, out_dtype, raw_acc)
+    auto = k1_path(x_q, w, odt, residual, co, mode)
     if path is None:
         return auto
-    if path not in PATHS or (path == "wgmma" and auto != "wgmma"):
+    tma, narrow, _ = _k1_fit(x_q, w, odt, residual, co, mode)
+    if path not in PATHS or not {"wgmma": tma, "wgmma_cp": narrow,
+                                 "igemm": True}[path]:
         raise ValueError(f"K1 path {path!r} cannot take these operands "
                          f"(they take {auto!r})")
     return path

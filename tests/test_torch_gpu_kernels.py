@@ -88,20 +88,44 @@ def _rows_ok(N, out_dtype, kw):
 
 
 def _k1_counts(fn):
+    return (fn.launches, fn.launches_wgmma, fn.launches_wgmma_cp,
+            fn.launches_igemm)
+
+
+def _w4_counts(fn):
+    """The int4 entry's counters: it has no narrow-row kernel."""
     return fn.launches, fn.launches_wgmma, fn.launches_igemm
 
 
+def _k1_want(M, K, N, out_dtype, kw):
+    """The kernel k1_path gives int8 operands from aligned tensors."""
+    res = kw.get("residual")
+    rows = [K, N * out_dtype.itemsize] + (
+        [] if res is None else [N * res.element_size()])
+    small_m = M < tmm.NARROW_MIN_M
+    if all(r % 16 == 0 for r in rows) and (N >= 64 or small_m):
+        return "wgmma"
+    return ("wgmma_cp" if all(r % 4 == 0 for r in rows) and not small_m
+            else "igemm")
+
+
 # M, N and K off every tile (M < 64, N = 208, K = 80), K = 24 and rows that
-# are no multiple of 16 bytes (the igemm path), persistent grids of many
-# tiles per block (M = 40000, 3000; M = 17000, K = 512: two warpgroups a
-# block, 128-row tiles with a ragged last one), the fc (M = 8, N = 1000)
+# are no multiple of 16 bytes (the narrow-row kernel, or the igemm path
+# where they are no multiple of 4), persistent grids of many tiles per
+# block (M = 40000, 3000; M = 17000, K = 512: two warpgroups a block,
+# 128-row tiles with a ragged last one), the fc (M = 8, N = 1000); the
+# narrow-row kernel's tiles: N = 24, 10 (one 16-wide tile), 12 (MobileNet-v2's
+# TP = 2 halves), 84 (one 96-wide), 32 and 144, K = 12, 84, 120, 144
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(37, 200, 13), (130, 64, 72),
                                    (8, 2048, 1000), (300, 48, 256),
                                    (2000, 256, 384), (37, 80, 208),
                                    (200, 24, 144), (40000, 64, 256),
                                    (3000, 1024, 64), (1, 16, 16),
-                                   (17000, 512, 256)])
+                                   (17000, 512, 256), (25088, 24, 144),
+                                   (5000, 144, 24), (999, 84, 10),
+                                   (8, 120, 84), (63, 12, 12),
+                                   (4000, 144, 32), (700, 96, 24)])
 @pytest.mark.parametrize("mode", K1_MODES)
 def test_qmatmul_kernel_matches_plain(cuda, M, K, N, mode):
     x = RNG.integers(-128, 128, (M, K)).astype(np.int8)
@@ -113,26 +137,40 @@ def test_qmatmul_kernel_matches_plain(cuda, M, K, N, mode):
     odt = tmm.out_dtype_of(emode, torch.float32, raw)
     w_nk = wt.t().contiguous()
     path = tmm.k1_path(xt, w_nk, odt, kw.get("residual"))
-    assert path == ("wgmma" if K % 16 == 0 and _rows_ok(N, odt, kw)
-                    else "igemm")
-    n0, nw, ni = _k1_counts(tmm.qmatmul_folded)
+    assert path == _k1_want(M, K, N, odt, kw)
+    c0 = _k1_counts(tmm.qmatmul_folded)
     got = tmm.qmatmul_fused(xt, wt, raw_acc=raw, **kw)
     torch.cuda.synchronize()
-    assert _k1_counts(tmm.qmatmul_folded) == (
-        n0 + 1, nw + (path == "wgmma"), ni + (path == "igemm"))
+    assert _k1_counts(tmm.qmatmul_folded) == tuple(
+        c + d for c, d in zip(c0, (1, path == "wgmma", path == "wgmma_cp",
+                                   path == "igemm")))
     ref = tmm.qmatmul_fused_plain(xt, wt, raw_acc=raw, **kw)
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
-    # the old loop, forced, gives the same values
-    old = tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
-                             raw_acc=raw, path="igemm")
-    np.testing.assert_array_equal(old.cpu().numpy(), ref.cpu().numpy())
-    assert tmm.qmatmul_folded.launches == (tmm.qmatmul_folded.launches_wgmma
-                                           + tmm.qmatmul_folded.launches_igemm)
-    if path == "igemm":
+    # the old loop, forced, gives the same values; so does the TMA ring
+    # forced where it can go (N < 64 takes the narrow-row kernel)
+    forced = ["igemm"] + (["wgmma"] if path == "wgmma_cp" and K % 16 == 0
+                          and _rows_ok(N, odt, kw) else [])
+    for force in forced:
+        old = tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
+                                 raw_acc=raw, path=force)
+        np.testing.assert_array_equal(old.cpu().numpy(), ref.cpu().numpy())
+    f = tmm.qmatmul_folded
+    assert f.launches == (f.launches_wgmma + f.launches_wgmma_cp
+                          + f.launches_igemm)
+    if path != "wgmma" and not (K % 16 == 0 and _rows_ok(N, odt, kw)):
         with pytest.raises(ValueError, match="cannot take"):
             tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
                                raw_acc=raw, path="wgmma")
+    if K % 4 == 0 and _k1_want(tmm.NARROW_MIN_M, K, N, odt, kw) != "igemm":
+        # the narrow-row kernel forced below 512 rows, where it can go
+        old = tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
+                                 raw_acc=raw, path="wgmma_cp")
+        np.testing.assert_array_equal(old.cpu().numpy(), ref.cpu().numpy())
+    elif path == "igemm":
+        with pytest.raises(ValueError, match="cannot take"):
+            tmm.qmatmul_folded(xt, w_nk, co, emode, kw.get("residual"),
+                               raw_acc=raw, path="wgmma_cp")
 
 
 @pytest.mark.gpu
@@ -175,11 +213,11 @@ def test_qmatmul_wgmma_captures_in_a_cuda_graph(cuda):
     x = _dev(RNG.integers(-128, 128, (M, K)).astype(np.int8), cuda)
     w_nk = _dev(w, cuda).t().contiguous()
     ref = tmm.qmatmul_folded(x, w_nk, co, emode, kw["residual"])
-    n0, nw, ni = _k1_counts(tmm.qmatmul_folded)
+    n0, nw, nc, ni = _k1_counts(tmm.qmatmul_folded)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = tmm.qmatmul_folded(x, w_nk, co, emode, kw["residual"])
-    assert _k1_counts(tmm.qmatmul_folded) == (n0 + 1, nw + 1, ni)
+    assert _k1_counts(tmm.qmatmul_folded) == (n0 + 1, nw + 1, nc, ni)
     for _ in range(2):
         out.zero_()
         graph.replay()
@@ -190,28 +228,262 @@ def test_qmatmul_wgmma_captures_in_a_cuda_graph(cuda):
             x, w_nk, co, emode, kw["residual"]).cpu().numpy())
 
 
+# The rows the narrow-row kernel took over, at B = 8 and B = 128 (M = B·56²
+# for MobileNet-v2's 56² blocks): MobileNet-v2's block1 project, block2
+# expand / project (+int8 residual) and block3 expand; and the fcs that stay
+# on the old loop below 512 rows (LeNet-5's fc2 and fc3, the CIFAR fcs, raw),
+# where the narrow-row kernel, forced, must agree
+NARROW_ROWS = [
+    ("MNv2 block1 project", 56 * 56, 96, 24, "requant", None),
+    ("MNv2 block2 expand relu6", 56 * 56, 24, 144, "relu6", None),
+    ("MNv2 block2 project +int8 res", 56 * 56, 144, 24, "requant", "i8"),
+    ("MNv2 block3 expand relu6", 56 * 56, 24, 144, "relu6", None),
+    ("LeNet fc2 raw", 1, 120, 84, "raw", None),
+    ("LeNet fc3 raw", 1, 84, 10, "raw", None),
+    ("RN20 fc raw", 1, 64, 10, "raw", None),
+    ("RN18 fc raw", 1, 512, 10, "raw", None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 128])
+@pytest.mark.parametrize("row", NARROW_ROWS, ids=lambda r: r[0])
+def test_narrow_rows_at_model_shapes(cuda, B, row):
+    """K1's narrow-row kernel at the model rows it took from the old loop:
+    bit-exact against the plain version and against the old loop forced."""
+    _, per_image, K, N, ep, res = row
+    M = B * per_image
+    x = _dev(RNG.integers(-128, 128, (M, K)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (N, K)).astype(np.int8), cuda)
+    raw = ep == "raw"
+    co = mode = None
+    if not raw:
+        co, mode = tq.epilogue_coeffs(
+            act_scale=0.02, act_zp=-9,
+            w_scale=_dev(RNG.uniform(0.001, 0.01, (N,)).astype(np.float32),
+                         cuda),
+            colsum=_dev(RNG.integers(-900, 900, N).astype(np.int32), cuda),
+            requant_scale=0.05, requant_zp=-20, relu=True,
+            act_max=6.0 if ep == "relu6" else None,
+            res_scale=0.04 if res else None, res_zp=-7 if res else None)
+    r = (_dev(RNG.integers(-128, 128, (M, N)).astype(np.int8), cuda)
+         if res else None)
+    odt = torch.int32 if raw else torch.int8
+    path = "wgmma_cp" if M >= tmm.NARROW_MIN_M else "igemm"
+    assert tmm.k1_path(x, w, odt, r, co, mode) == path
+    c0 = _k1_counts(tmm.qmatmul_folded)
+    got = tmm.qmatmul_folded(x, w, co, mode, r, raw_acc=raw)
+    torch.cuda.synchronize()
+    assert _k1_counts(tmm.qmatmul_folded) == (
+        c0[0] + 1, c0[1], c0[2] + (path == "wgmma_cp"),
+        c0[3] + (path == "igemm"))
+    assert torch.equal(got, tmm.qmatmul_folded_plain(x, w, co, mode, r,
+                                                     raw_acc=raw))
+    for force in ("igemm", "wgmma_cp"):
+        assert torch.equal(got, tmm.qmatmul_folded(
+            x, w, co, mode, r, raw_acc=raw, path=force))
+
+
+# K2's rows the small kernel took from the old loop: LeNet-5's convs (raw,
+# at zero-point pads), config 3's raw Ci = 3 stem at the trainer's B = 16,
+# ResNet-20's 16- and 32-channel 3×3s (int8 codes, an int8 residual, the
+# stride-2 convs into 32 and 64 channels) at B = 8 and 128
+SMALL_ROWS = [
+    ("LeNet conv1 5x5 SAME raw", None, 28, 1, 6, 5, 1, "SAME", -17, "raw"),
+    ("LeNet conv2 5x5 VALID raw", None, 14, 6, 16, 5, 1, "VALID", 5, "raw"),
+    ("cfg3 QAT stem 3x3/2 raw", 16, 224, 3, 32, 3, 2, "SAME", -5, "raw"),
+    ("RN20 layer1 3x3 +int8 res", None, 32, 16, 16, 3, 1, "SAME", -9,
+     "res"),
+    ("RN20 layer2_0 3x3/2", None, 32, 16, 32, 3, 2, "SAME", -9, "requant"),
+    ("RN20 layer2 3x3 +int8 res", None, 16, 32, 32, 3, 1, "SAME", -9,
+     "res"),
+    ("RN20 layer3_0 3x3/2", None, 16, 32, 64, 3, 2, "SAME", -9, "requant"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 128])
+@pytest.mark.parametrize("row", SMALL_ROWS, ids=lambda r: r[0])
+def test_small_conv_at_model_shapes(cuda, B, row):
+    """K2's small kernel at the model rows it took from the old loop, with
+    either multiply: bit-exact against the plain version and against the
+    old loop forced (on its zero-point-padded copy)."""
+    _, fixed_b, H, Ci, Co, k, s, padding, zp, ep = row
+    B = fixed_b or B
+    x = _dev(RNG.integers(-128, 128, (B, H, H, Ci)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (Co, k * k * Ci)).astype(np.int8), cuda)
+    pads = tq.resolve_pads((H, H), (k, k), (s, s), padding)
+    OH, OW = tconv.out_hw((H, H), (k, k), s, pads)
+    raw = ep == "raw"
+    co = mode = r = None
+    if not raw:
+        co, mode = tq.epilogue_coeffs(
+            act_scale=0.02, act_zp=zp,
+            w_scale=_dev(RNG.uniform(0.001, 0.01, (Co,)).astype(np.float32),
+                         cuda),
+            colsum=_dev(RNG.integers(-900, 900, Co).astype(np.int32), cuda),
+            requant_scale=0.05, requant_zp=-20, relu=True,
+            res_scale=0.04 if ep == "res" else None,
+            res_zp=-7 if ep == "res" else None)
+    if ep == "res":
+        r = _dev(RNG.integers(-128, 128, (B, OH, OW, Co)).astype(np.int8),
+                 cuda)
+    args = dict(kernel_hw=(k, k), stride=s, pads=pads, zp=zp, raw_acc=raw)
+    assert tconv.k2_path(x, w, pads, s, co, mode, kernel_hw=(k, k),
+                         out_dtype=torch.int32 if raw else torch.int8,
+                         residual=r) == "small"
+    ref = tconv.qconv2d_folded_plain(x, w, co, mode, r, **args)
+    for mma in (None, "sync") + (("wgmma",) if Co > 8 else ()):
+        c0 = _k2_counts()
+        got = tconv.qconv2d_folded(x, w, co, mode, r, small_mma=mma, **args)
+        torch.cuda.synchronize()
+        assert _k2_counts() == (c0[0] + 1, c0[1], c0[2], c0[3] + 1, c0[4],
+                                c0[5])                  # no pad copy
+        assert torch.equal(got, ref)
+    assert torch.equal(ref, tconv.qconv2d_folded(x, w, co, mode, r,
+                                                 path="igemm", **args))
+
+
+@pytest.mark.gpu
+def test_new_paths_capture_in_a_cuda_graph(cuda):
+    """K1's narrow-row kernel (an int8 residual on 24-byte rows, cp.async
+    loads and thread stores) and K2's small kernel (pads written in the
+    kernel, both multiplies) replay from one CUDA graph."""
+    M = 3000
+    x = _dev(RNG.integers(-128, 128, (M, 144)).astype(np.int8), cuda)
+    w = _dev(RNG.integers(-127, 128, (24, 144)).astype(np.int8), cuda)
+    r = _dev(RNG.integers(-128, 128, (M, 24)).astype(np.int8), cuda)
+    xe = _dev(RNG.integers(-128, 128, (M, 24)).astype(np.int8), cuda)
+    we = _dev(RNG.integers(-127, 128, (144, 24)).astype(np.int8), cuda)
+    xc = _dev(RNG.integers(-128, 128, (4, 16, 16, 16)).astype(np.int8), cuda)
+    wc = _dev(RNG.integers(-127, 128, (32, 144)).astype(np.int8), cuda)
+
+    def fold(n, **kw):
+        return tq.epilogue_coeffs(
+            act_scale=0.02, act_zp=-9,
+            w_scale=_dev(RNG.uniform(0.001, 0.01, (n,)).astype(np.float32),
+                         cuda),
+            colsum=_dev(RNG.integers(-500, 500, n).astype(np.int32), cuda),
+            requant_scale=0.05, requant_zp=-20, relu=True, **kw)
+
+    (c24, m24), (c144, m144), (c32, m32) = (
+        fold(24, res_scale=0.04, res_zp=-7), fold(144, act_max=6.0),
+        fold(32))
+    cargs = dict(kernel_hw=(3, 3), stride=1, pads=((1, 1), (1, 1)), zp=-9)
+
+    def run():
+        return (tmm.qmatmul_folded(x, w, c24, m24, r),
+                tmm.qmatmul_folded(xe, we, c144, m144),
+                tconv.qconv2d_folded(xc, wc, c32, m32, small_mma="sync",
+                                     **cargs),
+                tconv.qconv2d_folded(xc, wc, c32, m32, small_mma="wgmma",
+                                     **cargs))
+
+    refs = run()
+    c0 = (tmm.qmatmul_folded.launches_wgmma_cp,
+          tconv.qconv2d_folded.launches_small)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    assert (tmm.qmatmul_folded.launches_wgmma_cp,
+            tconv.qconv2d_folded.launches_small) == (c0[0] + 2, c0[1] + 2)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, ref in zip(outs, refs):
+            assert torch.equal(o, ref)
+    assert torch.equal(refs[0], tmm.qmatmul_folded_plain(x, w, c24, m24, r))
+    assert torch.equal(refs[2], refs[3])
+    assert torch.equal(refs[2], tconv.qconv2d_folded_plain(xc, wc, c32, m32,
+                                                           **cargs))
+
+
+@pytest.mark.gpu
+def test_new_paths_refuse_bad_inputs(cuda):
+    """The narrow-row and small kernels raise, and count nothing, on
+    operands they do not take: rows or bases off 4 bytes, int4 weights, a
+    requant grid off the integers, Ci·KH·KW > 320, an odd Co, the small
+    multiply named without the small path."""
+    x6 = torch.zeros((64, 6), dtype=torch.int8, device=cuda)
+    w6 = torch.zeros((64, 6), dtype=torch.int8, device=cuda)
+    buf = torch.zeros(64 * 24 + 16, dtype=torch.int8, device=cuda)
+    x_off = buf[2:2 + 64 * 24].view(64, 24)
+    w24 = torch.zeros((144, 24), dtype=torch.int8, device=cuda)
+    c0 = _k1_counts(tmm.qmatmul_folded)
+    for x, w in ((x6, w6), (x_off, w24)):
+        with pytest.raises(ValueError, match="cannot take"):
+            tmm.qmatmul_folded(x, w, None, None, raw_acc=True,
+                               path="wgmma_cp")
+    w4 = torch.zeros((24, 72), dtype=torch.int8, device=cuda)
+    xk = torch.zeros((64, 144), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="cannot take"):
+        tmm.qmatmul_folded_w4(xk, w4, None, None, raw_acc=True,
+                              path="wgmma_cp")
+    co, mode = tq.epilogue_coeffs(
+        act_scale=0.02, act_zp=3, w_scale=torch.full((144,), 0.01,
+                                                     device=cuda),
+        colsum=torch.zeros(144, dtype=torch.int32, device=cuda),
+        requant_scale=0.05, requant_zp=-20.5, relu=True)  # lo 107.5
+    xe = torch.zeros((64, 24), dtype=torch.int8, device=cuda)
+    assert tmm.k1_path(xe, w24, torch.int8, None, co, mode) == "igemm"
+    with pytest.raises(ValueError, match="cannot take"):
+        tmm.qmatmul_folded(xe, w24, co, mode, path="wgmma_cp")
+    assert _k1_counts(tmm.qmatmul_folded) == c0
+    k0 = _k2_counts()
+    xc = torch.zeros((1, 8, 8, 40), dtype=torch.int8, device=cuda)
+    wc = torch.zeros((40, 360), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="cannot take"):
+        tconv.qconv2d_folded(xc, wc, None, None, kernel_hw=(3, 3),
+                             pads=((1, 1), (1, 1)), raw_acc=True,
+                             path="small")
+    xo = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda)
+    wo = torch.zeros((5, 144), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="cannot take"):
+        tconv.qconv2d_folded(xo, wo, None, None, kernel_hw=(3, 3),
+                             pads=((1, 1), (1, 1)), raw_acc=True,
+                             path="small")
+    x64 = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda)
+    w64 = torch.zeros((64, 576), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="small path"):
+        tconv.qconv2d_folded(x64, w64, None, None, kernel_hw=(3, 3),
+                             pads=((1, 1), (1, 1)), raw_acc=True,
+                             small_mma="sync")
+    assert _k2_counts() == k0
+
+
 def _k2_counts():
     f = tconv.qconv2d_folded
-    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_igemm,
-            tq.resolve_and_pad.calls)
+    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_small,
+            f.launches_igemm, tq.resolve_and_pad.calls)
 
 
 # (B, H, W, Ci, Co, k, stride, padding, the path k2_path gives a requant
 # call): the stems (Ci = 3: MobileNet's 3x3/2 at Co = 32, ResNet-50's 7x7/2
 # at Co = 64, SAME and the explicit ((3, 3), (3, 3))), the implicit GEMM at
 # Ci 64-512 with M off every tile, odd and even sizes at both strides, and
-# the old loop's shapes (Ci 16, 40; Co = 136: rows of 136 bytes)
+# the small-channel kernel's (Ci 1, 3, 6, 16, 32: LeNet-5's, the stems'
+# other widths, ResNet-20's; Co 6, 16, 24, 32, 64), and the old loop's
+# (Ci·KH·KW > 320 with Ci 40; Co = 136: rows of 136 bytes)
 K2_CASES = [
     (3, 16, 16, 3, 32, 3, 2, "SAME", "stem"),
     (2, 23, 32, 3, 64, 7, 2, "SAME", "stem"),
     (1, 17, 16, 3, 16, 7, 2, ((3, 3), (3, 3)), "stem"),
-    (3, 17, 17, 3, 24, 7, 2, "SAME", "igemm"),
+    (3, 17, 17, 3, 24, 7, 2, "SAME", "small"),
+    (2, 28, 28, 1, 6, 5, 1, "SAME", "small"),
+    (3, 14, 14, 6, 16, 5, 1, "VALID", "small"),
+    (2, 32, 32, 16, 16, 3, 1, "SAME", "small"),
+    (2, 32, 31, 16, 32, 3, 2, "SAME", "small"),
+    (3, 16, 16, 32, 32, 3, 1, "SAME", "small"),
+    (2, 15, 16, 32, 64, 3, 2, "SAME", "small"),
+    (1, 33, 30, 3, 32, 3, 2, ((0, 1), (0, 1)), "small"),
     (2, 9, 9, 64, 64, 3, 1, "SAME", "wgmma"),
     (3, 14, 14, 64, 64, 3, 2, "SAME", "wgmma"),
     (1, 15, 15, 128, 64, 3, 2, "SAME", "wgmma"),
     (2, 7, 7, 512, 512, 3, 1, "SAME", "wgmma"),
     (1, 9, 11, 128, 128, 3, 1, ((1, 1), (1, 1)), "wgmma"),
-    (3, 12, 12, 16, 16, 3, 1, "SAME", "igemm"),
+    (3, 12, 12, 16, 16, 3, 1, "SAME", "small"),
     (3, 9, 9, 40, 8, 3, 1, "SAME", "igemm"),
     (3, 9, 9, 128, 136, 3, 1, "SAME", "igemm"),
 ]
@@ -224,10 +496,11 @@ K2_CASES = [
                                   "f32_res_f32"])
 def test_qconv_kernel_matches_plain(cuda, B, H, W, Ci, Co, k, stride,
                                     padding, want, zp, mode):
-    """Every K2 kernel, as k2_path chooses it and with the old loop forced,
-    pads read in the kernel (the old loop: on the copy the wrapper pads and
-    counts), exact against the plain version; qconv2d_strided (qtpu's call
-    form) too, and the raw int32 accumulator."""
+    """Every K2 kernel, as k2_path chooses it and with the old loop forced
+    (the small kernel also with either multiply forced), pads read in the
+    kernel (the old loop: on the copy the wrapper pads and counts), exact
+    against the plain version; qconv2d_strided (qtpu's call form) too, and
+    the raw int32 accumulator."""
     x = RNG.integers(-128, 128, (B, H, W, Ci)).astype(np.int8)
     w = RNG.integers(-127, 128, (k, k, Ci, Co)).astype(np.int8)
     kw = dict(act_scale=0.02, act_zp=zp,
@@ -258,18 +531,27 @@ def test_qconv_kernel_matches_plain(cuda, B, H, W, Ci, Co, k, stride,
     if mode == "requant":
         assert path == want
     ref = tconv.qconv2d_folded_plain(xt, w_nk, co, emode, res, **args)
-    for force in (None, "igemm"):
+    runs = [(None, None), ("igemm", None)]
+    if path == "small":
+        runs += [("small", "sync")] + ([("small", "wgmma")] if Co > 8
+                                        else [])
+    for force, mma in runs:
         c0 = _k2_counts()
         got = tconv.qconv2d_folded(xt, w_nk, co, emode, res, path=force,
-                                   **args)
+                                   small_mma=mma, **args)
         torch.cuda.synchronize()
         used = force or path
         pad = int(used == "igemm" and pads != ((0, 0), (0, 0)))
         assert _k2_counts() == tuple(
             c + d for c, d in zip(c0, (1, used == "wgmma", used == "stem",
-                                       used == "igemm", pad)))
+                                       used == "small", used == "igemm",
+                                       pad)))
         assert got.dtype == ref.dtype
         np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    if path == "small" and Co <= 8:
+        with pytest.raises(RuntimeError):    # no wgmma below 16 columns
+            tconv.qconv2d_folded(xt, w_nk, co, emode, res, small_mma="wgmma",
+                                 **args)
     np.testing.assert_array_equal(
         qconv2d_strided(xt, wt, strides=(stride, stride), padding=padding,
                         **kw).cpu().numpy(),
@@ -282,15 +564,17 @@ def test_qconv_kernel_matches_plain(cuda, B, H, W, Ci, Co, k, stride,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Ci,Co,k", [(64, 64, 3), (3, 32, 3), (3, 64, 7)])
+@pytest.mark.parametrize("Ci,Co,k", [(64, 64, 3), (3, 32, 3), (3, 64, 7),
+                                     (16, 32, 3), (6, 16, 5)])
 @pytest.mark.parametrize("lo,hi,shift", [(0.0, 255.0, 128.0),
                                          (-127.0, 127.0, 0.0),
                                          (-3.0, 6.0, 0.0)])
 def test_qconv_requant_rounds_ties_to_even(cuda, Ci, Co, k, lo, hi, shift):
     """K2's codes at exact ties (A = 0.5, B a multiple of 0.5) through the
-    implicit GEMM (Ci = 64) and the stem kernel (Ci = 3), which round the
-    clipped value by adding 1.5 * 2^23, and the old loop (rintf before the
-    clip): all three give the plain version's codes."""
+    implicit GEMM (Ci = 64), the stem kernel (Ci = 3) and the small kernel
+    (Ci = 16, 6), which round the clipped value by adding 1.5 * 2^23, and
+    the old loop (rintf before the clip): all give the plain version's
+    codes."""
     B, H, zp = 2, 16, 5
     x = _dev(RNG.integers(-128, 128, (B, H, H, Ci)).astype(np.int8), cuda)
     w_nk = _dev(RNG.integers(-3, 4, (Co, k * k * Ci)).astype(np.int8), cuda)
@@ -302,7 +586,7 @@ def test_qconv_requant_rounds_ties_to_even(cuda, Ci, Co, k, lo, hi, shift):
     pads = tq.same_pads((H, H), (k, k), (2, 2))
     args = dict(kernel_hw=(k, k), stride=2, pads=pads, zp=zp)
     assert tconv.k2_path(x, w_nk, pads, 2, co, mode, kernel_hw=(k, k)) == (
-        "stem" if Ci == 3 else "wgmma")
+        "stem" if Ci == 3 else "wgmma" if Ci == 64 else "small")
     got = tconv.qconv2d_folded(x, w_nk, co, mode, **args)
     old = tconv.qconv2d_folded(x, w_nk, co, mode, path="igemm", **args)
     ref = tconv.qconv2d_folded_plain(x, w_nk, co, mode, **args)
@@ -447,12 +731,12 @@ def test_qmatmul_int4_kernel_matches_plain(cuda, M, K, N, mode):
     w4 = tmm.pack_int4_nk(wt.t().contiguous())
     path = tmm.k1_path(xt, w4, tmm.out_dtype_of(emode, torch.float32, raw),
                        kw.get("residual"))
-    n0, nw, ni = _k1_counts(tmm.qmatmul_folded_w4)
+    n0, nw, ni = _w4_counts(tmm.qmatmul_folded_w4)
     n8 = tmm.qmatmul_folded.launches
     got = tmm.qmatmul_folded_w4(xt, w4, co, emode, kw.get("residual"),
                                 raw_acc=raw)
     torch.cuda.synchronize()
-    assert _k1_counts(tmm.qmatmul_folded_w4) == (
+    assert _w4_counts(tmm.qmatmul_folded_w4) == (
         n0 + 1, nw + (path == "wgmma"), ni + (path == "igemm"))
     assert tmm.qmatmul_folded.launches == n8
     assert (path == "wgmma") == (K % 32 == 0 and _rows_ok(N, got.dtype, kw))
@@ -480,11 +764,11 @@ def test_qmatmul_int4_captures_in_a_cuda_graph(cuda):
     w4 = tmm.pack_int4_nk(_dev(RNG.integers(-7, 8, (128, 256)).astype(
         np.int8), cuda))
     ref = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
-    n0, nw, ni = _k1_counts(tmm.qmatmul_folded_w4)
+    n0, nw, ni = _w4_counts(tmm.qmatmul_folded_w4)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = tmm.qmatmul_folded_w4(x, w4, None, None, raw_acc=True)
-    assert _k1_counts(tmm.qmatmul_folded_w4) == (n0 + 1, nw + 1, ni)
+    assert _w4_counts(tmm.qmatmul_folded_w4) == (n0 + 1, nw + 1, ni)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, ref)

@@ -5,8 +5,9 @@ tests/test_torch_gpu_serve.py``).
 Every test here is ``gpu``-marked and skips without a CUDA device:
 
 * K2's raw int32 accumulator at zero-point-padded shapes — LeNet-5's conv1
-  (28², Ci = 1, 5×5 SAME: the old loop on the padded copy) and conv2 (14²,
-  Ci = 6, VALID), ResNet-50's layer1 3×3 and a 3×3/2 on the implicit GEMM
+  (28², Ci = 1, 5×5 SAME) and conv2 (14², Ci = 6, VALID) on the
+  small-channel kernel (pads written in the kernel), ResNet-50's layer1 3×3
+  and a 3×3/2 on the implicit GEMM
   (TMA's zero fill repaired by ``zp · tapsum``), the 1×1/2 downsample as a
   1×1 window — exact against the plain version, on the kernel ``k2_path``
   gives and on the old loop forced, with the launches and pad copies
@@ -21,7 +22,9 @@ Every test here is ``gpu``-marked and skips without a CUDA device:
   launches per forward counted by kernel family;
 * ``build_engine`` for ``lenet_mnist_int8`` (3 K1 + 2 K2 a forward) and
   ``resnet18_cifar10_int8_kl`` (4 K1 + 17 K2 a forward, every K2 launch
-  on the stem kernel or wgmma, no pad copy), none on the plain path.
+  on the stem kernel or wgmma), none on the plain path, on the old
+  ``igemm`` loops only the narrow fcs of a batch (fewer than 512 rows),
+  no pad copy.
 """
 import dataclasses
 
@@ -56,18 +59,19 @@ def _dev(a, dev):
 
 def _k2_counts():
     f = tconv.qconv2d_folded
-    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_igemm,
-            tq.resolve_and_pad.calls)
+    return (f.launches, f.launches_wgmma, f.launches_stem, f.launches_small,
+            f.launches_igemm, tq.resolve_and_pad.calls)
 
 
 # (B, H, Ci, Co, k, stride, padding, zp, the path k2_path gives)
 K2_RAW = [
-    (8, 28, 1, 6, 5, 1, "SAME", -17, "igemm"),      # LeNet conv1
-    (8, 14, 6, 16, 5, 1, "VALID", 5, "igemm"),      # LeNet conv2
+    (8, 28, 1, 6, 5, 1, "SAME", -17, "small"),      # LeNet conv1
+    (8, 14, 6, 16, 5, 1, "VALID", 5, "small"),      # LeNet conv2
     (2, 56, 64, 64, 3, 1, "SAME", -9, "wgmma"),     # RN50 layer1 3x3
     (2, 28, 128, 128, 3, 2, "SAME", 23, "wgmma"),   # a 3x3/2
     (2, 14, 256, 512, 1, 2, "SAME", 7, "wgmma"),    # 1x1/2 downsample
-    (3, 9, 16, 24, 3, 2, ((1, 1), (1, 1)), -128, "igemm"),
+    (3, 9, 16, 24, 3, 2, ((1, 1), (1, 1)), -128, "small"),
+    (3, 9, 40, 24, 3, 2, ((1, 1), (1, 1)), -128, "igemm"),  # K = 360
 ]
 
 
@@ -92,8 +96,8 @@ def test_k2_raw_accumulator_matches_plain(cuda, B, H, Ci, Co, k, stride,
         torch.cuda.synchronize()
         used = force or path
         assert _k2_counts() == tuple(c + d for c, d in zip(c0, (
-            1, used == "wgmma", used == "stem", used == "igemm",
-            used == "igemm" and padded)))
+            1, used == "wgmma", used == "stem", used == "small",
+            used == "igemm", used == "igemm" and padded)))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
 
@@ -125,12 +129,16 @@ def test_k1_raw_at_lenet_shapes(cuda, M, K, N):
     w = _dev(RNG.integers(-127, 128, (N, K)).astype(np.int8), cuda)
     f = tmm.qmatmul_folded
     path = tmm.k1_path(x, w, torch.int32, None)
-    c0 = (f.launches, f.launches_wgmma, f.launches_igemm)
+    c0 = (f.launches, f.launches_wgmma, f.launches_wgmma_cp,
+          f.launches_igemm)
     got = f(x, w, None, None, raw_acc=True)
     torch.cuda.synchronize()
-    assert (f.launches, f.launches_wgmma, f.launches_igemm) == (
-        c0[0] + 1, c0[1] + (path == "wgmma"), c0[2] + (path == "igemm"))
-    # rows of 120 and 84 bytes and 40-byte output rows take the old loop
+    assert (f.launches, f.launches_wgmma, f.launches_wgmma_cp,
+            f.launches_igemm) == (
+        c0[0] + 1, c0[1] + (path == "wgmma"), c0[2] + (path == "wgmma_cp"),
+        c0[3] + (path == "igemm"))
+    # rows of 120 and 84 bytes and 40-byte output rows: below 512 rows the
+    # old loop, which beats the narrow-row kernel there
     assert path == ("wgmma" if K % 16 == 0 and N * 4 % 16 == 0 else "igemm")
     np.testing.assert_array_equal(
         got.cpu().numpy(),
@@ -231,26 +239,32 @@ def _to_cpu(tree):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,per_forward", [("lenet_mnist_int8", (3, 2)),
-                                              ("resnet18_cifar10_int8_kl",
-                                               (4, 17))])
-def test_build_engine_launches(cuda, name, per_forward):
+@pytest.mark.parametrize("name,per_forward,fc_igemm", [
+    ("lenet_mnist_int8", (3, 2), 2), ("resnet18_cifar10_int8_kl", (4, 17), 1)])
+def test_build_engine_launches(cuda, name, per_forward, fc_igemm):
     cfg = dataclasses.replace(CONFIGS[name], calib_batches=2, n_train=256)
     eng, info = build_engine(cfg, buckets=(8,), max_wait_ms=5.0, device=cuda)
     try:
         x = np.random.default_rng(7).standard_normal(
             (8, *info["image_shape"])).astype(np.float32)
         f2 = tconv.qconv2d_folded
-        c0 = (*_launches(), f2.launches_wgmma, f2.launches_stem,
-              tq.resolve_and_pad.calls)
+        f1 = tmm.qmatmul_folded
+
+        def counts():
+            return (*_launches(), f2.launches_wgmma, f2.launches_stem,
+                    tq.resolve_and_pad.calls, f1.launches_igemm,
+                    f2.launches_igemm)
+
+        c0 = counts()
         y = eng.predict(x)
         torch.cuda.synchronize()
-        c1 = (*_launches(), f2.launches_wgmma, f2.launches_stem,
-              tq.resolve_and_pad.calls)
-        d = tuple(b - a for a, b in zip(c0, c1))
+        d = tuple(b - a for a, b in zip(c0, counts()))
         assert d[:4] == (*per_forward, 0, 0)
+        # the old loop takes only the narrow fcs below 512 rows (LeNet-5's
+        # fc2 and fc3, the CIFAR fc)
+        assert d[6:] == (0, fc_igemm, 0)
         assert y.shape == (8, 10) and np.isfinite(y).all()
         if name.startswith("resnet18"):
-            assert d[4] + d[5] == 17 and d[5] == 1 and d[6] == 0
+            assert d[4] + d[5] == 17 and d[5] == 1
     finally:
         eng.stop()

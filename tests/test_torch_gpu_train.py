@@ -62,7 +62,9 @@ def _launches():
 CASES = [(64, 64, 1, 1, 1, 14, 4, 0), (64, 64, 3, 1, 1, 14, 4, 1),
          (64, 128, 3, 2, 1, 14, 8, 1), (64, 128, 1, 2, 1, 14, 4, 1),
          (3, 32, 3, 2, 1, 32, 8, 1), (96, 96, 3, 1, 96, 14, 8, 2),
-         (96, 96, 3, 2, 96, 14, 8, 2), (24, 144, 1, 1, 1, 14, 8, 0)]
+         (96, 96, 3, 2, 96, 14, 8, 2), (24, 144, 1, 1, 1, 14, 8, 0),
+         (144, 24, 1, 1, 1, 56, 8, 0), (24, 144, 1, 1, 1, 56, 8, 0),
+         (3, 32, 3, 2, 1, 224, 8, 1), (16, 16, 3, 1, 1, 32, 8, 1)]
 
 
 @pytest.mark.gpu
@@ -102,6 +104,38 @@ def test_qat_int_conv_kernels_equal_plain(cuda, ci, co, k, s, groups, h,
                          groups=groups)
     y = outs["kernel"][0]
     assert ((y_sim - y).norm() / y.norm()).item() <= 1e-5
+
+
+# config 3's QAT convs at the trainer's B = 16 (24-byte rows and N = 24 on
+# K1's narrow-row kernel, the Ci = 3 stem on K2's small kernel), under
+# autograd: the raw accumulators take the new paths and no old loop
+QAT_NEW_PATHS = [(24, 144, 1, 1, 56, "wgmma_cp"), (144, 24, 1, 1, 56,
+                                                   "wgmma_cp"),
+                 (3, 32, 3, 2, 224, "small")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,k,s,h,path", QAT_NEW_PATHS)
+def test_qat_int_conv_takes_the_new_paths(cuda, ci, co, k, s, h, path):
+    g = torch.Generator().manual_seed(ci + co)
+    x = (torch.randn((16, ci, h, h), generator=g) * 2).to(cuda)
+    w = (torch.randn((co, ci, k, k), generator=g) * 0.1).to(cuda)
+    scale, zp = fq.affine_qparams(x.min(), x.max(), 8)
+    f1, f2 = tmm.qmatmul_folded, tconv.qconv2d_folded
+
+    def counts():
+        return (f1.launches_wgmma_cp, f1.launches_igemm, f2.launches_small,
+                f2.launches_igemm, qops.resolve_and_pad.calls)
+
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    c0 = counts()
+    y = qat_int.qat_int_conv(xr, wr, scale, zp, w_bits=8, strides=(s, s))
+    torch.cuda.synchronize()
+    d = tuple(b - a for a, b in zip(c0, counts()))
+    assert d == ((1, 0, 0, 0, 0) if path == "wgmma_cp" else (0, 0, 1, 0, 0))
+    y_ref = qat_int.qat_int_conv_plain(x, w, scale, zp, w_bits=8,
+                                       strides=(s, s))
+    assert torch.equal(y.detach(), y_ref)
 
 
 def _teacher_forced(model, policy, cuda, hw, monkeypatch):

@@ -228,23 +228,41 @@ K2_PATH_CASES = [
     ("Co 136, f32 out (544-byte rows)", (1, 9, 9, 128), 136, 3, 1, "SAME",
      torch.float32, None, None, "wgmma"),
     ("CIFAR Ci 16", (2, 8, 8, 16), 16, 3, 1, "SAME", torch.int8, None, -20,
-     "igemm"),
+     "small"),
     ("MNv1 stem Ci 3 Co 32", (1, 32, 32, 3), 32, 3, 2, "SAME", torch.int8,
      None, -20, "stem"),
     ("RN50 stem 7x7/2 Co 64 torch pads", (1, 32, 32, 3), 64, 7, 2,
      ((3, 3), (3, 3)), torch.int8, None, -20, "stem"),
     ("stem W * 3 not a multiple of 16", (1, 17, 17, 3), 32, 3, 2, "SAME",
-     torch.int8, None, -20, "igemm"),
+     torch.int8, None, -20, "small"),
     ("stem Co 24", (1, 16, 16, 3), 24, 7, 2, "SAME", torch.int8, None, -20,
-     "igemm"),
+     "small"),
     ("stem f32 out", (1, 16, 16, 3), 32, 3, 2, "SAME", torch.float32, None,
-     None, "igemm"),
+     None, "small"),
     ("stem with a residual", (1, 16, 16, 3), 32, 3, 2, "SAME", torch.int8,
-     torch.int8, -20, "igemm"),
+     torch.int8, -20, "small"),
     ("stem OW 264 > 256", (1, 8, 528, 3), 16, 3, 2, "SAME", torch.int8, None,
-     -20, "igemm"),
+     -20, "small"),
     ("requant grid off the integers", (1, 7, 7, 64), 64, 3, 1, "SAME",
      torch.int8, None, -20.5, "igemm"),
+    ("stem raw int32 (config 3's QAT stem)", (1, 16, 16, 3), 32, 3, 2,
+     "SAME", torch.int32, None, None, "small"),
+    ("LeNet conv1 Ci 1 Co 6 5x5 SAME raw", (2, 28, 28, 1), 6, 5, 1, "SAME",
+     torch.int32, None, None, "small"),
+    ("LeNet conv2 Ci 6 Co 16 5x5 VALID raw", (2, 14, 14, 6), 16, 5, 1,
+     "VALID", torch.int32, None, None, "small"),
+    ("RN20 Ci 32 3x3 int8 residual", (2, 16, 16, 32), 32, 3, 1, "SAME",
+     torch.int8, torch.int8, -20, "small"),
+    ("RN20 Ci 32 3x3/2 Co 64", (2, 16, 16, 32), 64, 3, 2, "SAME",
+     torch.int8, None, -20, "small"),
+    ("Ci 40 3x3: K = 360 > 320", (1, 8, 8, 40), 40, 3, 1, "SAME",
+     torch.int8, None, -20, "igemm"),
+    ("Co 5 odd", (1, 8, 8, 16), 5, 3, 1, "SAME", torch.float32, None, None,
+     "igemm"),
+    ("Co 136 > 128, Ci 16", (1, 8, 8, 16), 136, 3, 1, "SAME", torch.int8,
+     None, -20, "igemm"),
+    ("small off-integer grid", (1, 8, 8, 16), 16, 3, 1, "SAME", torch.int8,
+     None, -20.5, "igemm"),
 ]
 
 
@@ -252,9 +270,10 @@ K2_PATH_CASES = [
 def test_k2_path_dispatch(case):
     """K2's per-call choice among its kernels: the implicit GEMM where TMA
     can address every operand and Ci % 64 == 0, the stem kernel for Ci = 3
-    int8 codes at the widths it tiles, the old loop otherwise (and for any
-    requant grid off the integers).  Decided from shapes, pointers and the
-    folded grid."""
+    int8 codes at the widths it tiles, the small-channel kernel for
+    Ci·KH·KW <= 320 and an even Co <= 128, the old loop otherwise (and for
+    any requant grid off the integers).  Decided from shapes, pointers and
+    the folded grid."""
     _, shape, Co, k, stride, padding, odt, rdt, zp, want = case
     x = torch.zeros(shape, dtype=torch.int8)
     w = torch.zeros((Co, k * k * shape[-1]), dtype=torch.int8)
@@ -277,6 +296,13 @@ def test_k2_path_unaligned_input():
     assert tconv.k2_path(_unaligned((1, 16, 16, 3)),
                          torch.zeros((32, 27), dtype=torch.int8),
                          ((0, 1), (0, 1)), 2, kernel_hw=(3, 3)) == "igemm"
+    # the small kernel takes a 4-byte aligned input, not a 1-byte-off one
+    x16 = torch.zeros((1 * 8 * 8 * 16 + 16,), dtype=torch.int8)
+    w16 = torch.zeros((16, 144), dtype=torch.int8)
+    for off, want in ((4, "small"), (1, "igemm")):
+        xo = x16[off:off + 1024].view(1, 8, 8, 16)
+        assert tconv.k2_path(xo, w16, ((1, 1), (1, 1)), 1,
+                             kernel_hw=(3, 3)) == want
 
 
 def test_k2_forced_path_refused_where_it_cannot_go():
@@ -290,6 +316,25 @@ def test_k2_forced_path_refused_where_it_cannot_go():
                     torch.int8, None)
     assert tconv._path("igemm", x, w, ((1, 1), (1, 1)), 1, co, mode, (3, 3),
                        torch.int8, None) == "igemm"
+    assert tconv._path("small", x, w, ((1, 1), (1, 1)), 1, co, mode, (3, 3),
+                       torch.int8, None) == "small"
+    # the small kernel may be forced where the stem kernel goes, not where
+    # the implicit GEMM does or past its depth
+    xs, ws = torch.zeros((1, 32, 32, 3), dtype=torch.int8), torch.zeros(
+        (32, 27), dtype=torch.int8)
+    co32, mode32 = _co(32)
+    assert tconv._path("small", xs, ws, ((0, 1), (0, 1)), 2, co32, mode32,
+                       (3, 3), torch.int8, None) == "small"
+    x64 = torch.zeros((1, 8, 8, 64), dtype=torch.int8)
+    w64 = torch.zeros((64, 576), dtype=torch.int8)
+    co64, mode64 = _co(64)
+    for xx, ww, c, m in ((x64, w64, co64, mode64),
+                         (torch.zeros((1, 8, 8, 40), dtype=torch.int8),
+                          torch.zeros((40, 360), dtype=torch.int8),
+                          *_co(40))):
+        with pytest.raises(ValueError):
+            tconv._path("small", xx, ww, ((1, 1), (1, 1)), 1, c, m, (3, 3),
+                        torch.int8, None)
 
 
 # (B, H, W, C, OH, OW, kernel, stride, aligned, the plan) on an H100 SXM's

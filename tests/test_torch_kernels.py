@@ -173,6 +173,8 @@ K1_PATH_CASES = [
     ("f32 out, f32 residual", 64, 64, 64, torch.float32, torch.float32, None,
      "wgmma"),
     ("raw int32, N = 1000", 8, 2048, 1000, torch.int32, None, None, "wgmma"),
+    # M = 64, below the narrow-row kernel's 512 rows: the old loop, or the
+    # TMA ring where it can address every row
     ("K = 24 rows of 24 bytes", 64, 24, 64, torch.int8, None, -20, "igemm"),
     ("N = 24 int8 out", 64, 144, 24, torch.int8, None, -20, "igemm"),
     ("N = 24 f32 out (96-byte rows)", 64, 144, 24, torch.float32, None, None,
@@ -181,15 +183,51 @@ K1_PATH_CASES = [
      None, "igemm"),
     ("requant grid off the integers", 64, 64, 64, torch.int8, None, -20.5,
      "igemm"),
+    # the same rows at MobileNet-v2's M (B = 8, 56²): the narrow-row kernel
+    ("M 25088: K = 24 rows of 24 bytes", 25088, 24, 64, torch.int8, None,
+     -20, "wgmma_cp"),
+    ("M 25088: N = 24 int8 out", 25088, 144, 24, torch.int8, None, -20,
+     "wgmma_cp"),
+    ("M 25088: N = 24 f32 out (96-byte rows)", 25088, 144, 24,
+     torch.float32, None, None, "wgmma_cp"),
+    ("M 25088: N = 24 int8 residual, f32 out", 25088, 144, 24,
+     torch.float32, torch.int8, None, "wgmma_cp"),
+    ("MNv2 expand K = 24 N = 144 relu6", 25088, 24, 144, torch.int8, None,
+     -20, "wgmma_cp"),
+    ("M 512, the narrow kernel's least", 512, 24, 144, torch.int8, None, -20,
+     "wgmma_cp"),
+    ("M 511", 511, 24, 144, torch.int8, None, -20, "igemm"),
+    # a batch's fc: fewer than 512 rows, the old loop (or the ring)
+    ("LeNet fc3 K = 84 N = 10 raw", 8, 84, 10, torch.int32, None, None,
+     "igemm"),
+    ("LeNet fc2 K = 120 N = 84 raw", 8, 120, 84, torch.int32, None, None,
+     "igemm"),
+    ("CIFAR fc K = 512 N = 10 raw, B = 128", 128, 512, 10, torch.int32, None,
+     None, "igemm"),
+    ("K = 120 N = 84 f32, int8 residual, M 1024", 1024, 120, 84,
+     torch.float32, torch.int8, None, "wgmma_cp"),
+    ("TMA rows, N = 32 int8 out", 4096, 144, 32, torch.int8, None, -20,
+     "wgmma_cp"),
+    ("TMA rows, N = 32, M 64: the ring", 64, 144, 32, torch.int8, None, -20,
+     "wgmma"),
+    ("K = 6: rows of 6 bytes", 64, 6, 64, torch.int8, None, -20, "igemm"),
+    ("N = 10 int8 out: rows of 10 bytes", 64, 64, 10, torch.int8, None, -20,
+     "igemm"),
+    ("N = 10 int8 residual: rows of 10 bytes", 64, 64, 10, torch.float32,
+     torch.int8, None, "igemm"),
+    ("K = 24 off-integer grid", 64, 24, 144, torch.int8, None, -20.5,
+     "igemm"),
 ]
 
 
 @pytest.mark.parametrize("case", K1_PATH_CASES, ids=lambda c: c[0])
 def test_k1_path_dispatch(case):
-    """K1's per-call choice between its two kernels: the TMA + wgmma one
+    """K1's per-call choice among its three kernels: the TMA + wgmma one
     where TMA can address every operand (16-byte aligned bases, rows that
-    are multiples of 16 bytes) and a requant grid is integer; the mma.sync
-    loop otherwise.  Decided from shapes, pointers and the folded grid."""
+    are multiples of 16 bytes) and N >= 64 (or M < 512), the narrow-row one
+    where every row is a multiple of 4 bytes and M >= 512, both only on an
+    integer requant grid; the mma.sync loop otherwise.  Decided from shapes,
+    pointers and the folded grid."""
     _, M, K, N, odt, rdt, zp, want = case
     x = torch.zeros((M, K), dtype=torch.int8)
     w = torch.zeros((N, K), dtype=torch.int8)
@@ -210,12 +248,53 @@ def test_k1_path_unaligned_views_and_int4_rows():
     assert tmm.k1_path(x[1:], w, torch.float32, None) == "wgmma"  # 64 B on
     xs = torch.zeros((65 * 64 + 8,), dtype=torch.int8)[8:].view(65, 64)
     assert tmm.k1_path(xs, w, torch.float32, None) == "igemm"  # 8 B off
+    # from 512 rows on, x 8 B off comes by cp.async on the narrow-row
+    # kernel; 2 B off stays on the old loop; so does a residual 4 B off
+    # below 512 rows
+    xl = torch.zeros((1024 * 64 + 16,), dtype=torch.int8)
+    assert tmm.k1_path(xl[8:8 + 1024 * 64].view(1024, 64), w, torch.float32,
+                       None) == "wgmma_cp"
+    assert tmm.k1_path(xl[2:2 + 1024 * 64].view(1024, 64), w, torch.float32,
+                       None) == "igemm"
+    r = torch.zeros((65 * 64 + 8,), dtype=torch.float32)[1:4161].view(65, 64)
+    assert tmm.k1_path(x[1:], w, torch.float32, r[1:]) == "igemm"
     # the int4 weight's rows hold K/2 bytes: K % 32 == 0 for TMA
     for K, want in ((48, "igemm"), (64, "wgmma"), (96, "wgmma"),
                     (200, "igemm")):
         w4 = torch.zeros((64, K // 2), dtype=torch.int8)
         x = torch.zeros((8, K), dtype=torch.int8)
         assert tmm.k1_path(x, w4, torch.float32, None) == want
+
+
+def test_k1_forced_path_refused_where_it_cannot_go():
+    """path= forces a kernel the operands allow: the narrow-row kernel needs
+    4-byte rows and int8 weights, the TMA ring 16-byte rows (any N when
+    forced, for a comparison); the old loop takes everything."""
+    x24, w24 = (torch.zeros((64, 24), dtype=torch.int8),
+                torch.zeros((144, 24), dtype=torch.int8))
+    assert tmm._path("wgmma_cp", x24, w24, None, None, torch.int32, True,
+                     None) == "wgmma_cp"
+    with pytest.raises(ValueError):
+        tmm._path("wgmma", x24, w24, None, None, torch.int32, True, None)
+    x6, w6 = (torch.zeros((64, 6), dtype=torch.int8),
+              torch.zeros((64, 6), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        tmm._path("wgmma_cp", x6, w6, None, None, torch.int32, True, None)
+    assert tmm._path("igemm", x6, w6, None, None, torch.int32, True,
+                     None) == "igemm"
+    # TMA rows with N = 24: narrow by default, the ring when forced
+    x, w = (torch.zeros((1024, 144), dtype=torch.int8),
+            torch.zeros((24, 144), dtype=torch.int8))
+    assert tmm._path(None, x, w, None, None, torch.int32, True,
+                     None) == "wgmma_cp"
+    assert tmm._path("wgmma", x, w, None, None, torch.int32, True,
+                     None) == "wgmma"
+    # int4 weights never take the narrow-row kernel
+    w4 = torch.zeros((24, 72), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        tmm._path("wgmma_cp", x, w4, None, None, torch.int32, True, None)
+    with pytest.raises(ValueError):
+        tmm._path("bogus", x, w, None, None, torch.int32, True, None)
 
 
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
