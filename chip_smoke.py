@@ -71,7 +71,15 @@ success):
    simulation on the card (TF32 off) against the integer forward, rel-L2
    ≤ 1e-5;
 4. the slices, each driven with the launch counters zeroed just before and
-   read just after:
+   read just after.  Every engine served through ``ServingEngine`` replays
+   one CUDA graph a bucket (``serve/graphs.py``), and ``drive`` serves it
+   under the profiler: its launches are the replayed kernels counted by
+   name in the trace, each round's equal to the direct forward's, none
+   plain, and route by route equal to what the graphs recorded at capture
+   (which each replay adds to the counters); (a) every response of every
+   round bit-equal to the engine's eager forward of the same rows padded
+   as served, (c) 24 requests through a one-bucket engine of the same
+   forward (pipelined rounds) each its own rows:
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
      width (224×224, 1000 classes, seeded random weights, calibrate,
      freeze) serves requests spanning two batch buckets through
@@ -178,8 +186,17 @@ success):
    layer by layer (each layer's CPU copy takes the input, the output
    gradient and the batch statistics the card's saw: outputs rel-L2 ≤
    1e-5, parameter gradients rel-L2 ≤ 1e-3, running statistics rtol
-   1e-6, EMA observers equal) and as a whole step (losses finite and
-   within rtol 5e-2: codes across ties amplify);
+   1e-6, EMA observers equal; weight codes that cross a tie from the
+   CPU's one-ulp-off fp32 sqrt in BatchNorm's fold held by the tie rule,
+   the CPU then run on the card's codes — C22; a layer whose output is
+   off by more than 1e-5 has its codes compared card against CPU and
+   logged) and as a whole step (losses finite and within rtol 5e-2: codes
+   across ties amplify);  ``python3 chip_smoke.py --qat-check N`` repeats
+   config 3's teacher-forced check N times alone, after measuring the fp32
+   sqrt's rounding on both devices: C22's regression check, to run after
+   a change to ``ops/qat_int.py``, BatchNorm's fold or ``nn/layers``'
+   batch statistics (the QAT step as graphs, ROADMAP's next slice, changes
+   them);
 7. the HTTP server (runs before the timings of 6): phase 4's ResNet-50
    tree (fp32 stem) saved by ``utils.checkpoint`` (``--save-frozen``'s
    code) and served by ``python -m qtpu_torch.serve --load-frozen``
@@ -209,7 +226,11 @@ success):
    stem, bf16 stem, the torchvision tree on f32 and on int8 codes)
    graph-timed at B = 128, and the f32-stem and int8-ingest forwards
    profiled by kernel, the elementwise kernels by the PyTorch operation
-   that launched them.  Both servers are killed if the phase fails;
+   that launched them.  The servers' buckets are graphed (their READY
+   lines name them and the graph memory, logged), and the served round
+   is timed eager and graphed at B = 8, 32 and 128 on the scheduler's
+   clock (``bench/serve_rounds.round_ms``).  Both servers are killed if
+   the phase fails;
 6. timings with CUDA events after warm-up: engine images/s as served
    (launched from Python) with the device time of the same forward captured
    as one CUDA graph beside it — LeNet-5, ResNet-18 KL and ResNet-20 KL at
@@ -307,7 +328,9 @@ through ``qtpu_torch.bench.profile.trace``.  Each phase's seconds are
 printed as it ends.  The line before the last is ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -477,6 +500,10 @@ QAT_INT_CASES = (
 HTTP_THREADS, HTTP_REQUESTS, HTTP_MAX_IMAGES = 4, 6, 8
 HTTP_TIMED_REQUESTS = 480   # server A's timed window: several seconds
 HTTP_BUCKETS = "8,32"
+HTTP_BUCKET_LIST = [8, 32]
+# the served round, eager and graphed (phase 7, bench.serve_rounds)
+ROUND_BUCKETS = (8, 32, 128)
+ROUND_REPEATS = 20
 RN50_FWD = (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 RN50_TV_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 # the K2 rows whose launches phase 7 counts, and their pads where not SAME
@@ -666,7 +693,43 @@ def qat_launches(model):
     return (n["gemm"], n["conv"], n["depthwise"]) + (0,) * 9
 
 
-def qat_step_vs_cpu(what, model, policy, torch):
+def qat_layer_parts(layer, x, g, run_layer):
+    """One QAT layer's forward and backward (``run_layer(layer, x, g)``)
+    with the integer forward's parts recorded from ``ops.qat_int``: the
+    activation grid and codes, the folded weight, its scale and codes, the
+    int32 accumulator, the output; all on the host."""
+    from qtpu_torch.ops import qat_int
+
+    rec = {}
+    wc, ac, ia = qat_int.weight_codes, qat_int.act_codes, qat_int.int_acc
+
+    def weight_codes(w, bits, per_channel):
+        codes, scale = wc(w, bits, per_channel)
+        rec.update(w_fold=w.detach().cpu(), w_scale=scale.cpu(),
+                   w_codes=codes.cpu())
+        return codes, scale
+
+    def act_codes(x, scale, zp_u, bits, symmetric):
+        codes = ac(x, scale, zp_u, bits, symmetric)
+        rec.update(act_scale=scale.cpu(), act_zp=zp_u.cpu(),
+                   x_codes=codes.cpu())
+        return codes
+
+    def int_acc(x_q, w_q, **kw):
+        acc = ia(x_q, w_q, **kw)
+        rec["acc"] = acc.cpu()
+        return acc
+
+    qat_int.weight_codes, qat_int.act_codes, qat_int.int_acc = (
+        weight_codes, act_codes, int_acc)
+    try:
+        rec["y"] = run_layer(layer, x, g).detach().cpu()
+    finally:
+        qat_int.weight_codes, qat_int.act_codes, qat_int.int_acc = wc, ac, ia
+    return rec
+
+
+def qat_step_vs_cpu(what, model, policy, torch, seed=7):
     """One QAT step (the integer forward) of ``model`` converted by
     ``policy``, on the card and on the CPU from the same weights and one
     B = 2 batch at full width.  The whole step: loss, gradients and
@@ -676,18 +739,25 @@ def qat_step_vs_cpu(what, model, policy, torch):
     Layer by layer, teacher-forced: each layer's CPU copy (its state
     before the step) takes the input and the output gradient the card's
     layer saw, and the batch statistics the card's layer computed (their
-    values; the gradient through them is the CPU's own), so the weights
-    fold to the same bits and the codes are the card's — outputs to
+    values; the gradient through them is the CPU's own) — outputs to
     rel-L2 ≤ 1e-5, every parameter's gradient to rel-L2 ≤ 1e-3 (cuDNN's
     and the CPU's fp32 weight gradients sum over B·H·W positions in
     other orders: MobileNet-v2's stem, 2·112², reaches 1.2e-4), BatchNorm
-    running statistics to rtol 1e-6, the EMA observers equal."""
+    running statistics to rtol 1e-6, the EMA observers equal.  The fold
+    factor γ / sqrt(var + eps) of the same statistics can come out one ulp
+    apart on the two devices (the CPU's fp32 sqrt is not correctly
+    rounded), and a folded weight then crosses a tie (C22): weight codes
+    are held by the tie rule and the CPU's copy is run again on the
+    card's codes.  A layer whose output is off by more than 1e-5 is run
+    once more on each device with the integer forward's parts recorded, and
+    the codes that differ are logged."""
     import copy
 
     import numpy as np
 
     from qtpu_torch.nn import layers as qlayers
     from qtpu_torch.nn.layers import layer_paths
+    from qtpu_torch.ops import qat_int
     from qtpu_torch.train import create_train_state, train_step
     from qtpu_torch.transform import convert_model
     from qtpu_torch.utils.device import fp32_exact
@@ -701,13 +771,13 @@ def qat_step_vs_cpu(what, model, policy, torch):
 
     def replay(y):
         m, v = batch_stats(y)
-        cm, cv = card_stats[current[0]]
+        cm, cv = (t.to(m.device) for t in card_stats[current[0]])
         return m + (cm - m).detach(), v + (cv - v).detach()
 
     gpu = convert_model(model, policy)
     cpu = copy.deepcopy(gpu).to("cpu")
     pre = copy.deepcopy(cpu)
-    rs = np.random.default_rng(7)
+    rs = np.random.default_rng(seed)
     xb = rs.standard_normal((2, 224, 224, 3)).astype(np.float32)
     yb = rs.integers(0, 1000, 2)
     seen = {}
@@ -762,22 +832,101 @@ def qat_step_vs_cpu(what, model, policy, torch):
           f"{what}: QAT step loss card {lg} vs CPU {lc}")
     worst = {"y": 0.0, "grad": 0.0, "stats": 0.0}
     where = {}
-    for path, m_pre in layer_paths(pre).items():
-        rec = seen[path]
-        layer = copy.deepcopy(m_pre).train()
-        xin = rec["x"].cpu()
-        if xin.is_floating_point():
-            xin.requires_grad_()
+    def teacher_forced(path, layer, x, g):
+        """``layer`` (a copy of the layer's state before the step) on the
+        card's input, output gradient and batch statistics."""
+        if x.is_floating_point():
+            x.requires_grad_()
         current[0] = path
         qlayers._batch_stats = replay
         try:
             with fp32_exact():
-                out = layer(xin)
-                out.backward(rec["g"].cpu())
+                out = layer(x)
+                out.backward(g)
         finally:
             qlayers._batch_stats = batch_stats
-        got = {"y": ((out.detach() - rec["y"].cpu()).norm()
-                     / rec["y"].norm().cpu().clamp_min(1e-30)).item()}
+        return out
+
+    def card_codes(codes, scale):
+        """``ops.qat_int.weight_codes`` giving the card's weight codes and
+        scales (C22 below)."""
+        def weight_codes(w, bits, per_channel):
+            return codes.to(w.device), scale.to(w.device)
+        return weight_codes
+
+    def sigmas(path, o, dev):
+        """BatchNorm's sqrt(var + eps) of channel ``o`` from the card's
+        batch statistics for ``path``, computed on the card and on the CPU
+        (a layer without BatchNorm: none)."""
+        if path not in card_stats:
+            return ""
+        var = card_stats[path][1][o:o + 1] + qlayers.BN_EPS
+        return (f"; σ on the card {float(torch.sqrt(var.to(dev))):.9g}, on "
+                f"the CPU {float(torch.sqrt(var)):.9g}")
+
+    ties = {}
+    for path, m_pre in layer_paths(pre).items():
+        rec = seen[path]
+        layer = copy.deepcopy(m_pre).train()
+        out = teacher_forced(path, layer, rec["x"].cpu(), rec["g"].cpu())
+        y_rel = ((out.detach() - rec["y"].cpu()).norm()
+                 / rec["y"].norm().cpu().clamp_min(1e-30)).item()
+        if y_rel > 1e-5:
+            # the integer forward's codes, the same copy on the card and on
+            # the CPU
+            card = qat_layer_parts(copy.deepcopy(m_pre).to(
+                rec["x"].device).train(), rec["x"].clone(), rec["g"],
+                functools.partial(teacher_forced, path))
+            host = qat_layer_parts(copy.deepcopy(m_pre).train(),
+                                   rec["x"].cpu(), rec["g"].cpu(),
+                                   functools.partial(teacher_forced, path))
+            differ = {k: int((card[k] != host[k]).sum())
+                      for k in ("x_codes", "w_codes", "acc", "y")}
+            # C22: BatchNorm's fold factor γ / sqrt(var + eps) can come out
+            # one ulp apart on the card and on the CPU from the same
+            # statistics — PyTorch's fp32 sqrt on the CPU (its AVX-512 path)
+            # misses the correctly rounded root by one ulp on about 0.6% of
+            # inputs, the card's is correctly rounded (``sqrt_rounding``) —
+            # and a folded weight then crosses a rounding tie on one side
+            # only: a weight code one step apart, the layer's output off by
+            # that step (5.31e-5 rel-L2 at block16/expand, 4.65e-5 at the
+            # head).  Held by the tie rule — weight codes equal except one
+            # step on at most 0.1% of them, activation codes equal — and the
+            # CPU's copy then runs on the card's weight codes and scales, so
+            # that everything else is held as tightly as in every other
+            # layer.
+            dw = (card["w_codes"].int() - host["w_codes"].int()).abs()
+            n_tie = int((dw > 0).sum())
+            check(int(dw.max()) <= 1 and n_tie <= 1e-3 * dw.numel()
+                  and differ["x_codes"] == 0, f"{what} {path}: y rel-L2 "
+                  f"{y_rel:.2e}, codes off the tie rule: {n_tie} of "
+                  f"{dw.numel()} weight codes differ, by up to "
+                  f"{int(dw.max())}; elements differing {differ}")
+            ties[path] = (n_tie, dw.numel())
+            co = card["w_scale"].reshape(-1, *[1] * (dw.dim() - 1))
+            ho = host["w_scale"].reshape(co.shape)
+            for i in torch.nonzero(dw.reshape(-1))[:5, 0].tolist():
+                o = i // (dw.numel() // dw.shape[0])
+                log(f"{what} {path} (y rel-L2 {y_rel:.2e}; elements "
+                    f"differing {differ}): weight {i} (channel {o}) across a "
+                    f"tie — card code {int(card['w_codes'].view(-1)[i])} = "
+                    f"round("
+                    f"{float(card['w_fold'].view(-1)[i] / co.view(-1)[o]):.7f}"
+                    f"), CPU code {int(host['w_codes'].view(-1)[i])} = round("
+                    f"{float(host['w_fold'].view(-1)[i] / ho.view(-1)[o]):.7f}"
+                    f"){sigmas(path, o, rec['x'].device)}")
+            layer = copy.deepcopy(m_pre).train()
+            wc = qat_int.weight_codes
+            qat_int.weight_codes = card_codes(card["w_codes"],
+                                              card["w_scale"])
+            try:
+                out = teacher_forced(path, layer, rec["x"].cpu(),
+                                     rec["g"].cpu())
+            finally:
+                qat_int.weight_codes = wc
+            y_rel = ((out.detach() - rec["y"].cpu()).norm()
+                     / rec["y"].norm().cpu().clamp_min(1e-30)).item()
+        got = {"y": y_rel}
         gparams = dict(glayers[path].named_parameters())
         got["grad"] = max(((p.grad - gparams[n].grad.cpu()).norm()
                            / gparams[n].grad.norm().cpu().clamp_min(1e-30)
@@ -796,6 +945,8 @@ def qat_step_vs_cpu(what, model, policy, torch):
         for k, v in got.items():
             if v >= worst[k]:
                 worst[k], where[k] = v, path
+    log(f"{what}: weight codes across a tie (C22, held by the tie rule, "
+        f"the CPU on the card's codes): {ties or 'none'}")
     log(f"{what}: teacher-forced over {len(seen)} layers (each layer's CPU "
         f"copy on the card's input, output gradient and batch statistics): "
         f"outputs worst "
@@ -838,10 +989,12 @@ def main() -> int:
     from qtpu_torch.serve.cli import (build_engine, freeze_from_config,
                                       serve_module)
     from qtpu_torch.serve.dispatch import resnet_arch
+    from qtpu_torch.data.native import pack_batch
     from qtpu_torch.serve.engine import ServingEngine
     from qtpu_torch.serve.experimental import (
         ExperimentalMobileNetV2Int8Engine, ExperimentalResNetInt8Engine)
     from qtpu_torch.serve.fused_ops import grid_of, tree_to_device
+    from qtpu_torch.serve.graphs import launch_counters, read_counters
     from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
                                                       MobileNetV1Int8Engine)
@@ -1814,14 +1967,8 @@ def main() -> int:
                 "K4": k4.qproj_folded, "K8": k78.qstage_proj_folded}
 
     def zero_counts():
-        for k in kmods:
-            k.launches = 0
-        for name, fn in split_of.items():
-            for kp in SPLIT[name]:
-                setattr(fn, f"launches_{kp}", 0)
-        for p in plains:
-            p.calls = 0
-        qops.resolve_and_pad.calls = 0
+        for fn, attr in launch_counters().values():
+            setattr(fn, attr, 0)
 
     def counts():
         """(K1 .. K9, K1 int4, im2col launches, plain-version calls, the
@@ -1866,30 +2013,155 @@ def main() -> int:
     rng = np.random.default_rng(1)
     imgs = rng.standard_normal((45, 224, 224, 3)).astype(np.float32)
 
+    def route_counts(c):
+        """{(kernel, route): launches} of a counts() tuple, nonzero only."""
+        return {(name, kp): c[i] for name, idx in SPLIT.items()
+                for kp, i in idx.items() if c[i]}
+
+    def traced_routes(events):
+        """{(kernel, route): launches} of the device kernels in ``events``,
+        counted by name (``kernel_family``)."""
+        from torch.autograd import DeviceType
+        got = collections.Counter()
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            m = re.match(r"(K\d)( int4)? \S+ \[(\w+)\]$",
+                         kernel_family(e.name) or "")
+            if m:
+                got[(m[1] + ("w4" if m[2] else ""), m[3])] += 1
+        return dict(got)
+
+    def traced_window(engine, warm, window, what):
+        """``warm()`` then ``window()`` under the profiler, ``warm`` as its
+        unrecorded warm-up step (a trace's first kernels can be lost).
+        Returns (the window's counts as counts() gives them, with the
+        launches by kernel and route counted by name from the trace's device
+        kernels — the im2col calls, plain-version calls and pad copies,
+        Python that a replay does not run, from the graphs' records —; the
+        window's rounds by bucket; window()'s result).  Raises unless the
+        counts the replays added from the graphs' records equal the kernels
+        that the trace saw, route by route."""
+        with trace(TRACE_DIR, "cuda", warmup=1) as t:
+            warm()
+            torch.cuda.synchronize()
+            t.step()
+            rpb0 = dict(engine.stats()["rounds_per_bucket"])
+            zero_counts()
+            out = window()
+            torch.cuda.synchronize()
+            added = counts()
+            rpb = engine.stats()["rounds_per_bucket"]
+        seen = traced_routes(t.profiler.events())
+        check(seen == route_counts(added), f"{what}: the kernels the trace "
+              f"saw by name {seen}, the counts the graphs' records added "
+              f"{route_counts(added)}")
+        c = [0] * NCOUNTS
+        for (name, kp), n in seen.items():
+            c[SPLIT[name][kp]] = n
+            c[KIDX[name]] += n
+        for i in (KIDX["im2col"], PLAIN, PADS):
+            c[i] = added[i]
+        by_bucket = {b: n - rpb0.get(b, 0) for b, n in rpb.items()
+                     if n > rpb0.get(b, 0)}
+        return tuple(c), by_bucket, out
+
+    def logged_rounds(engine):
+        """Record every round ``engine`` resolves: [(bucket, futures)]."""
+        rounds, resolve = [], engine._resolve_round
+
+        def logged(batch, b, *rest):
+            rounds.append((b, [fut for _, fut, _ in batch]))
+            return resolve(batch, b, *rest)
+        engine._resolve_round = logged
+        return rounds
+
+    def eager_rows(engine, rows, b):
+        """The engine's eager forward of ``rows`` packed into bucket ``b``
+        as a round packs them (zero rows after), its first len(rows)."""
+        packed = pack_batch(list(rows), pad_to=b, dtype=engine._raw_dtype,
+                            shape=engine._img_shape)
+        with torch.no_grad():
+            out = engine._fwd(engine.vars, engine._upload(packed))
+        return out.cpu().numpy()[:len(rows)]
+
+    def rounds_equal_eager(engine, rounds, sent, what):
+        """(a): every response of every logged round bit-equal to the
+        engine's eager forward of that round's rows, padded as served;
+        ``sent``: [(future, image)] of every request."""
+        image = {id(f): im for f, im in sent}
+        for b, rf in rounds:
+            ref = eager_rows(engine, [image[id(f)] for f in rf], b)
+            got = np.stack([f.result() for f in rf])
+            bad = int((~(got == ref).all(axis=-1)).sum())
+            check(bad == 0, f"{what}: {bad} of {len(rf)} responses of a "
+                  f"bucket-{b} round differ from the eager forward of the "
+                  "same rows")
+        return len(rounds)
+
     def drive(what, engine, flat, per_fwd, classes, imgs=imgs, exact=False):
-        """One direct forward, then 45 requests in two waves through
-        ``engine`` (a ServingEngine over ``flat``'s forward); ``exact``:
-        the served logits must equal the direct forward's."""
+        """One direct forward at B = 8 (its launches by kernel); then through
+        ``engine`` — a ServingEngine whose warmup captured one CUDA graph a
+        bucket — under the profiler (``traced_window``): a burst of 8 as the
+        warm-up step, then 45 requests in two waves and bursts of 20 and 8,
+        every bucket replayed, every round logged.  The run's launches are
+        the replayed kernels counted by name in the trace: each round's
+        those of the direct forward, and route by route those the graphs
+        recorded (the bucket-8 graph holds the direct forward's launches,
+        no graph a plain call or pad copy).
+        Then (a) every response bit-equal to the engine's eager forward of
+        its round's rows, padded as served; (c) 24 requests through a second
+        engine of the same forward with one bucket, 8: pipelined rounds of
+        one bucket, each response its own rows' eager forward.  The served
+        logits also against ``flat``'s direct forward of all 45 (another
+        batch size): rel-L2 ≤ 1e-4, or with ``exact`` equal."""
+        sent = []
+
+        def burst(n=8):
+            fs = [engine.submit(im) for im in imgs[:n]]
+            for f in fs:
+                f.result(timeout=300)
+            sent.extend(zip(fs, imgs[:n]))
+
+        def window():
+            wave1 = [engine.submit(im) for im in imgs[:5]]
+            got = [f.result(timeout=300) for f in wave1]
+            wave2 = [engine.submit(im) for im in imgs[5:]]
+            got += [f.result(timeout=300) for f in wave2]
+            sent.extend(zip(wave1 + wave2, imgs))
+            burst(20)               # bucket 32's round
+            burst()
+            return np.stack(got)
+
         try:
             one_forward(flat, torch.from_numpy(imgs[:8]).to(dev), per_fwd,
                         what)
-            rounds0 = engine.stats()["batches"]
-            zero_counts()
-            wave1 = [engine.submit(im) for im in imgs[:5]]
-            got1 = [f.result(timeout=300) for f in wave1]
-            wave2 = [engine.submit(im) for im in imgs[5:]]
-            served = np.stack(got1 + [f.result(timeout=300) for f in wave2])
-            torch.cuda.synchronize()
-            run_counts = counts()
+            held = {k: n for k, n in read_counters(launch_counters()).items()
+                    if n}
             st = engine.stats()
+            check(engine.graphed_buckets == list(engine.buckets) and
+                  all(st["graph_bytes"][b] > 0 for b in engine.buckets),
+                  f"{what}: buckets {engine.buckets}, graphed "
+                  f"{engine.graphed_buckets}")
+            check(st["graph_launches"][8] == held, f"{what}: the bucket-8 "
+                  f"graph holds {st['graph_launches'][8]}, the direct "
+                  f"forward launched {held}")
+            check(not any(k.endswith(".calls") for g in
+                          st["graph_launches"].values() for k in g),
+                  f"{what}: a graph holds a plain call or pad copy: "
+                  f"{st['graph_launches']}")
+            log_r = logged_rounds(engine)
+            run_counts, by_bucket, served = traced_window(engine, burst,
+                                                          window, what)
         finally:
             engine.stop()
-        rounds = st["batches"] - rounds0
+        rounds = sum(by_bucket.values())
         check(run_counts[:PLAIN + 1] == tuple(n * rounds for n in per_fwd),
-              f"{what}: serving {rounds} rounds launched K1..K9/K1 int4/"
-              f"im2col/plain = {run_counts}")
-        check(len(st["rounds_per_bucket"]) >= 2,
-              f"requests did not span two buckets: {st['rounds_per_bucket']}")
+              f"{what}: {rounds} replayed rounds {by_bucket} launched, "
+              f"counted in the trace, K1..K9/K1 int4/im2col/plain = "
+              f"{run_counts}")
+        check(sorted(by_bucket) == list(engine.buckets),
+              f"{what}: the replayed rounds {by_bucket} missed a bucket")
         check(served.shape == (45, classes) and np.isfinite(served).all(),
               "served logits not finite / mis-shaped")
         with torch.inference_mode():
@@ -1898,9 +2170,35 @@ def main() -> int:
         check(rel <= 1e-4, f"{what}: served logits vs forward: rel-L2 {rel}")
         check(not exact or np.array_equal(served, direct),
               f"{what}: served logits differ from the direct forward's")
-        log(f"{what}: served 45 requests in {rounds} rounds "
-            f"{st['rounds_per_bucket']}: {fmt_counts(run_counts)}; rel-L2 "
-            f"vs forward {rel:.2e}")
+        n_eq = rounds_equal_eager(engine, log_r, sent, what)
+        # (c) pipelined rounds of one bucket
+        pipe = ServingEngine(None, engine.vars, batch_buckets=(8,),
+                             max_wait_ms=20.0, forward_fn=engine._fwd,
+                             preprocess_fn=engine._preprocess,
+                             raw_dtype=engine._raw_dtype, device=dev)
+        try:
+            pipe.warmup(imgs.shape[1:])
+            log_p = logged_rounds(pipe)
+            futs = [pipe.submit(im) for im in imgs[:24]]
+            for f in futs:
+                f.result(timeout=300)
+            sp = pipe.stats()
+        finally:
+            pipe.stop()
+        check(sp["rounds_per_bucket"].get(8, 0) >= 2, f"{what}: 24 requests "
+              f"took {sp['rounds_per_bucket']} rounds, not two of bucket 8")
+        rounds_equal_eager(pipe, log_p, list(zip(futs, imgs)),
+                           f"{what} [pipelined]")
+        mib = {b: round(n / 2**20, 1) for b, n in st["graph_bytes"].items()}
+        log(f"{what}: 45 requests and bursts of 20 and 8 in {rounds} rounds "
+            f"{by_bucket}, each replaying its bucket's CUDA graph (graph "
+            f"memory MiB {mib}); the kernels counted by name in their trace, "
+            f"equal route by route to the graphs' records: "
+            f"{fmt_counts(run_counts)}; (a) the responses of all {n_eq} "
+            f"rounds bit-equal to the eager forward of their rows; (c) "
+            f"{sp['rounds_per_bucket'][8]} pipelined rounds of bucket 8, "
+            f"each its own rows; rel-L2 vs the direct forward of all 45 "
+            f"{rel:.2e}")
         return run_counts
 
     def serve(cfg, make_flat, per_fwd, imgs=imgs, what=None, exact=False):
@@ -1934,15 +2232,15 @@ def main() -> int:
     # the experimental engine's two configurations on the same frozen tree,
     # served as qtpu serves it: ServingEngine with a forward factory
     fused, path_counts = {}, {"rn50": rn50_counts}
-    def serve_factory(what, tree, flat, per_fwd):
+    def serve_factory(what, tree, flat, per_fwd, imgs=imgs, classes=1000):
         """``flat`` served as qtpu serves an experimental engine:
         ServingEngine with a forward factory, over ``tree``."""
         engine = ServingEngine(None, tree, batch_buckets=(8, 32, 128),
                                max_wait_ms=20.0,
                                forward_factory=lambda sv: flat.forward,
                                device=dev)
-        engine.warmup((224, 224, 3))
-        return drive(what, engine, flat, per_fwd, 1000)
+        engine.warmup(imgs.shape[1:])
+        return drive(what, engine, flat, per_fwd, classes, imgs=imgs)
 
     for cname, (flags, per_fwd) in RN50_FUSED.items():
         flat = fused[cname] = ExperimentalResNetInt8Engine(
@@ -2012,9 +2310,9 @@ def main() -> int:
         RN18, lambda v: ResNetInt8Engine(v, arch18, device=dev), RN18_FWD,
         imgs=imgs_cifar)
     rn18_mod = serve_module(cfg18, rn18_vars, device=dev)
-    path_counts["rn18_module"] = one_forward(
-        rn18_mod, torch.from_numpy(imgs_cifar[:8]).to(dev), RN18_MODULE_FWD,
-        f"{RN18} [module path]")
+    path_counts["rn18_module"] = serve_factory(
+        f"{RN18} [module path]", rn18_vars, rn18_mod, RN18_MODULE_FWD,
+        imgs=imgs_cifar, classes=cfg18.num_classes)
     cfg20 = CONFIGS[RN20]
     arch20 = resnet_arch(cfg20.model, num_classes=cfg20.num_classes,
                          image_size=cfg20.image_size, width=cfg20.width,
@@ -2128,8 +2426,8 @@ def main() -> int:
             check(c[s2["wgmma"]] == c[KIDX["K2"]] > 0, f"{key}: K2 "
                   f"launches {c[KIDX['K2']]}, on wgmma {c[s2['wgmma']]}")
         fc = FC_IGEMM.get(key, 0) * (
-            1 if key == "rn18_module" else
             c[KIDX["K1"]] // {"lenet": LENET_FWD, "rn18": RN18_FWD,
+                              "rn18_module": RN18_MODULE_FWD,
                               "rn20": RN20_FWD}.get(key, (1,))[0])
         check(c[s1["igemm"]] == fc and c[s1w4["igemm"]] == 0
               and c[s2["igemm"]] == 0,
@@ -2143,7 +2441,8 @@ def main() -> int:
     # kernels: their K1 / K2 launches a forward on the new kernels
     rounds = {k: path_counts[k][KIDX["K1"]] // fwd[0] for k, fwd in (
         ("mnv2", (35,)), ("ivr", MNV2_IVR), ("lenet", LENET_FWD),
-        ("rn20", RN20_FWD), ("rn18", RN18_FWD), ("qat_cfg3", QAT_FWD[
+        ("rn20", RN20_FWD), ("rn18", RN18_FWD),
+        ("rn18_module", RN18_MODULE_FWD), ("qat_cfg3", QAT_FWD[
             "qat_cfg3"]), ("qat_cfg3_served", QAT_SERVED["qat_cfg3"]))}
     for key, k1_new, k2_new in (
             ("mnv2", 4, 0), ("ivr", 2, 0), ("lenet", 0, 2),
@@ -2409,6 +2708,7 @@ def main() -> int:
     # counted, and serves A's tree through the same HTTP front in process
     # with the launches counted; then B answers over HTTP and stops, and A
     # answers a checked window, then a timed one.
+    from qtpu_torch.bench.serve_rounds import round_ms
     from qtpu_torch.data import native
     from qtpu_torch.serve.cli import build_engine as cli_build_engine
     from qtpu_torch.serve.http_front import serve_http
@@ -2457,6 +2757,8 @@ def main() -> int:
                                     224, 224, 3)).astype(np.float32)
                 for _ in range(HTTP_THREADS * HTTP_REQUESTS)]
         n_img = sum(len(r) for r in plan)
+        imgs_round = rs.standard_normal((max(ROUND_BUCKETS), 224, 224, 3)
+                                        ).astype(np.float32)
         with torch.inference_mode():
             direct = [rn50.forward(torch.from_numpy(r).to(dev)).cpu().numpy()
                       for r in plan]
@@ -2464,24 +2766,24 @@ def main() -> int:
             CONFIGS[RN50], buckets=(8, 32), load_frozen=frozen_a,
             device=dev)
         server, _ = serve_http(eng, host="127.0.0.1", port=0, block=False)
+        url_in = f"http://127.0.0.1:{server.server_address[1]}"
         try:
-            rounds0 = eng.stats()["batches"]
-            zero_counts()
-            got, _, _ = drive_http(
-                f"http://127.0.0.1:{server.server_address[1]}", plan,
-                HTTP_THREADS)
-            torch.cuda.synchronize()
-            c = path_counts["rn50_http"] = counts()
+            # the plan's first request as the trace's warm-up step
+            c, by_bucket, got = traced_window(
+                eng, lambda: drive_http(url_in, plan[:1], 1),
+                lambda: drive_http(url_in, plan, HTTP_THREADS)[0],
+                f"{RN50} over HTTP in process")
+            path_counts["rn50_http"] = c
             st = eng.stats()
         finally:
             server.shutdown()
             eng.stop()
-        rounds = st["batches"] - rounds0
+        rounds = sum(by_bucket.values())
         check(c[:PLAIN + 1] == tuple(n * rounds for n in RN50_FWD),
-              f"{RN50} over HTTP in process: {rounds} rounds launched "
-              f"{fmt_counts(c)}")
-        check(st["images"] == n_img, f"in-process HTTP: {st['images']} of "
-              f"{n_img} images counted")
+              f"{RN50} over HTTP in process: {rounds} rounds launched, "
+              f"counted in the trace, {fmt_counts(c)}")
+        check(st["images"] == n_img + len(plan[0]), f"in-process HTTP: "
+              f"{st['images']} of {n_img} + {len(plan[0])} images counted")
 
         def agree(got, ref, what):
             """Max |Δ| over max |ref| per response; counts bit-equal ones."""
@@ -2497,17 +2799,24 @@ def main() -> int:
             return worst, equal
 
         w_in, eq_in = agree(got, direct, f"{RN50} HTTP in process")
+        check(info["graphed_buckets"] == HTTP_BUCKET_LIST,
+              f"in-process HTTP engine: {info}")
         log(f"{RN50} through the HTTP front in process ({info['serve_path']}"
+            f", graphed buckets {info['graphed_buckets']}, graph memory "
+            f"{info['graph_bytes'] / 2**20:.1f} MiB"
             f", {len(plan)} requests, {n_img} images, {rounds} rounds "
-            f"{st['rounds_per_bucket']}): {fmt_counts(c)}; {eq_in} of "
+            f"{by_bucket}; the kernels counted by name in their trace): "
+            f"{fmt_counts(c)}; {eq_in} of "
             f"{len(plan)} responses bit-equal to the direct forward, worst "
             f"{w_in:.2e}")
 
         # server B: --torch-ckpt --uint8-ingest --save-frozen
         ready = wait_line(servers["B"], "QTPU_SERVE_READY ", SERVER_START_S)
         check(ready["serve_path"] == "flat-engine+int8-ingest"
-              and ready["raw_dtype"] == "uint8" and ready["torch_pad"],
+              and ready["raw_dtype"] == "uint8" and ready["torch_pad"]
+              and ready["graphed_buckets"] == HTTP_BUCKET_LIST,
               f"server B: READY {ready}")
+        graph_mib = {"B": ready["graph_bytes"] / 2**20}
         url_b = f"http://127.0.0.1:{ready['port']}"
         tv_tree = ckpt.load(frozen_b, device=dev)
         arch_tv = resnet_arch("resnet50", num_classes=1000, image_size=224,
@@ -2566,8 +2875,10 @@ def main() -> int:
         # through the plan, every response checked too.
         ready = wait_line(servers["A"], "QTPU_SERVE_READY ", SERVER_START_S)
         check(ready["device"] == "cuda" and ready["serve_path"] ==
-              "flat-engine" and ready["raw_dtype"] == "float32",
+              "flat-engine" and ready["raw_dtype"] == "float32"
+              and ready["graphed_buckets"] == HTTP_BUCKET_LIST,
               f"server A: READY {ready}")
+        graph_mib["A"] = ready["graph_bytes"] / 2**20
         url = f"http://127.0.0.1:{ready['port']}"
         got_a, _, _ = drive_http(url, plan, HTTP_THREADS)
         w_a, eq_a = agree(got_a, direct, f"{RN50} server A")
@@ -2612,7 +2923,45 @@ def main() -> int:
             f"{np.percentile(ms, 99):.2f} ms, max {ms.max():.2f} ms; rounds "
             f"{timed_rounds}; {eq_t} of {len(timed_plan)} responses "
             f"bit-equal (worst {w_t:.2e}); malformed body 400, healthy "
-            f"after; SIGTERM exit 0")
+            f"after; SIGTERM exit 0; one CUDA graph a bucket, graphed "
+            f"{HTTP_BUCKET_LIST}, graph memory A {graph_mib['A']:.1f} MiB, "
+            f"B {graph_mib['B']:.1f} MiB")
+
+        # the served round, eager and graphed, at B = 8, 32 and 128: the
+        # scheduler's wall time from dispatch to resolve
+        # (bench.serve_rounds), one burst a round, on phase 4's tree
+        round_rows = {}
+        for mode in ("eager", "graphed"):
+            eng = ServingEngine(
+                None, rn50_vars, batch_buckets=ROUND_BUCKETS,
+                max_wait_ms=50.0, device=dev, forward_factory=lambda v:
+                ResNetInt8Engine(v, arch, device=dev).forward)
+            if mode == "eager":
+                eng.serve_eagerly()
+            eng.warmup((224, 224, 3))
+            try:
+                for b in ROUND_BUCKETS:
+                    round_ms(eng, imgs_round, b, 1)
+                    round_rows[mode, b] = round_ms(eng, imgs_round, b,
+                                                   ROUND_REPEATS)
+                st = eng.stats()
+            finally:
+                eng.stop()
+            check(sum(st["graphed"].values()) == (len(ROUND_BUCKETS) if
+                  mode == "graphed" else 0), f"{mode} rounds: {st}")
+            if mode == "graphed":
+                graph_mib["rounds"] = {b: round(n / 2**20, 1) for b, n in
+                                       st["graph_bytes"].items()}
+        log(f"{RN50} served round, the scheduler's wall ms from dispatch to "
+            f"resolve, median [min-max] of {ROUND_REPEATS} rounds, one burst "
+            f"a round ({card}): " + "; ".join(
+                f"B = {b} eager " + " graphed ".join(
+                    f"{np.median(round_rows[m, b]):.3f} "
+                    f"[{min(round_rows[m, b]):.3f}-"
+                    f"{max(round_rows[m, b]):.3f}]"
+                    for m in ("eager", "graphed"))
+                for b in ROUND_BUCKETS)
+            + f"; graph memory MiB {graph_mib['rounds']}")
 
         # graph-timed forwards at B = 128
         x128 = torch.randn((128, 224, 224, 3), generator=g).to(dev)
@@ -3725,9 +4074,58 @@ def phase8_rank(work):
     return 0
 
 
+def sqrt_rounding(torch, dev):
+    """C22's cause, measured: fp32 ``torch.sqrt`` on the CPU and on the
+    card against the correctly rounded root (float64, rounded once) on 10M
+    uniform inputs in [1e-5, 4)."""
+    x = torch.rand(10_000_000, generator=torch.Generator().manual_seed(0)
+                   ) * 4 + 1e-5
+    exact = torch.sqrt(x.double()).float()
+    off = {"CPU": int((torch.sqrt(x) != exact).sum()),
+           "card": int((torch.sqrt(x.to(dev)).cpu() != exact).sum())}
+    log(f"fp32 sqrt against the correctly rounded root on {x.numel()} "
+        f"uniform inputs in [1e-5, 4): {off['CPU']} off by an ulp on the "
+        f"CPU ({torch.backends.cpu.get_cpu_capability()}), {off['card']} "
+        f"on the card")
+    return off
+
+
+def qat_check(n: int) -> int:
+    """``python3 chip_smoke.py --qat-check N``: phase 5's teacher-forced QAT
+    check of config 3 run N times (the B = 2 batch from seeds 7, 8, ...) on
+    one model trained as phase 4 trains it, each run's diagnostics logged;
+    exit 1 if any run fails the check."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from qtpu_torch.examples.configs import CONFIGS
+    from qtpu_torch.examples.run import experiment
+    from qtpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    log(device_label(dev))
+    _build.build()
+    qcfg = dataclasses.replace(CONFIGS[QAT_RUNS["qat_cfg3"]], **QAT_CUT)
+    qex = experiment(qcfg, seed=0, verbose=False, device=dev)
+    sqrt_rounding(torch, dev)
+    failed = 0
+    for i in range(n):
+        try:
+            qat_step_vs_cpu(f"{qcfg.name} check {i}", qex.model,
+                            qcfg.policy(), torch, seed=7 + i)
+        except SmokeFailure as e:
+            failed += 1
+            log(f"check {i} FAILED: {e}")
+    log(f"{qcfg.name}: {n - failed} of {n} teacher-forced checks passed")
+    return int(failed > 0)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase8-rank"]:
         sys.exit(phase8_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--qat-check"]:
+        sys.exit(qat_check(int(sys.argv[2])))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -135,6 +135,7 @@ def _rank_main(spec: Dict[str, Any]) -> int:
         with open(spec["out"], "w") as f:
             json.dump(dict(seconds=times, images_per_sec=(
                 len(times) * spec["batch"] / max(times))), f)
+    distributed.shutdown()
     return 0
 
 

@@ -212,6 +212,7 @@ def main(argv=None) -> int:
                    device=args.device, save_state=args.save_state,
                    load_state=args.load_state, torch_ckpt=args.torch_ckpt,
                    dp=args.dp)
+    distributed.shutdown()
     return 0
 
 

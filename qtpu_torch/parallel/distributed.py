@@ -98,6 +98,18 @@ def initialize_from_env(coordinator: Optional[str] = None,
     return num_processes > 1
 
 
+def shutdown() -> None:
+    """Leave the world cleanly: a barrier, so that no rank tears its group
+    down while a peer still talks to it, then ``destroy_process_group``
+    while the interpreter is whole.  A rank that exits with its gloo group
+    alive tears the group down during the interpreter's exit, and there it
+    can abort ("terminate called without an active exception", SIGABRT)
+    once its peer has closed the connection.  No-op without a world."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def backend() -> Optional[str]:
     """The process group's backend, or None without one."""
     return dist.get_backend() if dist.is_initialized() else None

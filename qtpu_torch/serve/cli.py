@@ -228,7 +228,10 @@ def build_engine(cfg, *, tp: int = 1, dp: Optional[int] = None,
                 backend=distributed.backend(), rank=distributed.rank(),
                 round_timeout_s=round_timeout_s,
                 watchdog=engine.watchdog_armed,
-                buckets=list(engine.buckets), serve_path=serve_path,
+                buckets=list(engine.buckets),
+                graphed_buckets=engine.graphed_buckets,
+                graph_bytes=sum(engine.stats()["graph_bytes"].values()),
+                serve_path=serve_path,
                 torch_pad=torch_pad, device=str(dev),
                 raw_dtype=str(np.dtype(raw_dtype)),
                 calib_seconds=calib_seconds)

@@ -13,6 +13,23 @@ the scheduler fails every in-flight and queued future and marks the engine
 unhealthy.  A round is packed into its bucket by ``data.native.pack_batch``
 (one copy, only the padding tail zeroed).
 
+In one process on a CUDA device (no ``mesh``, or the one-rank mesh
+``serve.cli.build_engine`` makes, which issues no collective) the forward
+is compiled per bucket, as qtpu's ``jax.jit`` compiles it: one CUDA graph a
+bucket (``serve.graphs``), captured by ``warmup`` for every bucket, or at
+the first round of a bucket ``warmup`` did not see (on the scheduler
+thread, as ``jax.jit`` compiles at its first call).  A round copies its
+packed batch into the bucket's static input, replays the graph and copies
+the static output out on the card before the next round can overwrite it;
+the ops' launch counters are advanced by what the capture recorded.  A
+forward that cannot be captured raises (``GraphCaptureError``, naming the
+bucket): no round on the card falls back to eager (``serve_eagerly()``, a
+measurement hook the server never calls, turns the graphs off by name).
+``device="cpu"`` runs the forward eagerly, and so does a mesh of several
+ranks: its collectives go through the host under gloo
+(``parallel/collectives.py``), which a graph cannot capture.  ``stats()`` reports each bucket's graph
+(``graphed``, ``graph_bytes``, ``graph_launches``).
+
 Several ranks (``mesh=``, a ``parallel.mesh.Mesh`` over the world's ranks,
 one device each): the variables are sliced for tensor parallelism over
 ``model`` (``parallel.mesh.shard_variables``), every rank takes requests
@@ -46,6 +63,7 @@ import torch.distributed as dist
 from qtpu_torch.data.native import pack_batch
 from qtpu_torch.parallel.distributed import local_batch_to_global
 from qtpu_torch.parallel.mesh import MODEL_AXIS, shard_variables
+from qtpu_torch.serve.graphs import BucketGraph, capture_bucket
 from qtpu_torch.utils.device import resolve_device
 
 
@@ -105,6 +123,12 @@ class ServingEngine:
                                  f"callable model (got {type(model).__name__})")
             forward_fn = lambda _v, x: model(x)   # noqa: E731
         self._fwd = forward_fn
+        # qtpu jits the forward per bucket: here one CUDA graph a bucket,
+        # in one process only (the collectives of a mesh of several ranks
+        # run through the host)
+        self._graphed = self.device.type == "cuda" and self._procs == 1
+        self._graphs: Dict[int, BucketGraph] = {}
+        self._graph_lock = threading.Lock()
         self._preprocess = preprocess_fn
         self._raw_dtype = np.dtype(raw_dtype)
         self._pipeline = bool(pipeline)
@@ -175,23 +199,56 @@ class ServingEngine:
         return np.stack([f.result() for f in futs])
 
     def warmup(self, image_shape: Tuple[int, ...]) -> None:
-        """Run every bucket once and pin the image shape (with several
-        ranks a collective: every rank calls it)."""
+        """Compile every bucket ahead of time — capture its CUDA graph, or
+        where the engine runs eagerly run it once — and pin the image shape
+        (with several ranks a collective: every rank calls it)."""
         self._img_shape = tuple(image_shape)
         for b in self.buckets:
-            x = self._upload(np.zeros((b // self._procs, *image_shape),
-                                      self._raw_dtype))
+            imgs = np.zeros((b // self._procs, *image_shape), self._raw_dtype)
+            if self._graphed:
+                with self._graph_lock:
+                    self._graph(b, imgs)
+                continue
+            x = self._upload(imgs)
             if self.mesh is not None:
                 x = local_batch_to_global(x, self.mesh)
             out = self._fwd(self.vars, x)
             np.asarray(out.cpu() if isinstance(out, torch.Tensor) else out)
         self._warm.set()
 
-    def _upload(self, imgs: np.ndarray) -> torch.Tensor:
+    def _host_batch(self, imgs: np.ndarray) -> torch.Tensor:
         if self._preprocess is not None:
             imgs = self._preprocess(imgs)
-        return torch.from_numpy(np.ascontiguousarray(imgs)).to(
-            self.device, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(imgs))
+
+    def _upload(self, imgs: np.ndarray) -> torch.Tensor:
+        return self._host_batch(imgs).to(self.device, non_blocking=True)
+
+    def _graph(self, b: int, imgs: np.ndarray) -> BucketGraph:
+        """Bucket ``b``'s graph, captured on first use (hold
+        ``_graph_lock``)."""
+        g = self._graphs.get(b)
+        if g is None:
+            g = self._graphs[b] = capture_bucket(
+                lambda x: self._fwd(self.vars, x), self._host_batch(imgs),
+                self.device, b)
+        return g
+
+    def serve_eagerly(self) -> None:
+        """Run this engine's rounds as eager forwards on the card too, with
+        no graph: the rounds as they ran before the graphs, for measuring the
+        eager round against the graphed one (``bench.serve_rounds``) and
+        holding replays to eager rounds.  Call it before ``warmup``; the
+        server never does, and ``stats()["graphed"]`` then reads 0."""
+        with self._graph_lock:
+            self._graphed = False
+            self._graphs.clear()
+
+    @property
+    def graphed_buckets(self) -> list:
+        """The buckets whose forward is a captured CUDA graph."""
+        with self._graph_lock:
+            return sorted(self._graphs)
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:
@@ -210,7 +267,19 @@ class ServingEngine:
                 "rounds_per_bucket": dict(self._rounds_per_bucket),
                 **({"idle_rounds": self._idle_rounds}
                    if self._procs > 1 else {}),
+                **self._graph_stats(),
             }
+
+    def _graph_stats(self) -> Dict[str, Any]:
+        """Per bucket: whether its forward is a graph (1/0), the device
+        bytes the graph holds, and the launches one replay makes by
+        counter (``serve.graphs.launch_counters``' names)."""
+        with self._graph_lock:
+            graphs = dict(self._graphs)
+        return {"graphed": {b: int(b in graphs) for b in self.buckets},
+                "graph_bytes": {b: g.nbytes for b, g in graphs.items()},
+                "graph_launches": {b: dict(g.launches)
+                                   for b, g in graphs.items()}}
 
     def stop(self) -> None:
         """Stop serving; with several ranks every rank's scheduler stops
@@ -219,6 +288,9 @@ class ServingEngine:
         self._queue.put(None)
         self._thread.join(timeout=30 if self._procs > 1 else 10)
         self._drain_queue()
+        if not self._thread.is_alive():
+            with self._graph_lock:      # the graphs' memory goes back
+                self._graphs.clear()
 
     def _drain_queue(self, err: Optional[BaseException] = None) -> None:
         if err is None:
@@ -327,14 +399,25 @@ class ServingEngine:
             self._inflight = []
 
     def _dispatch_round(self, batch):
-        """Pack, upload and enqueue one forward (no wait on the device)."""
+        """Pack, upload and enqueue one forward — the bucket's graph replayed,
+        or on the CPU the eager forward — with no wait on the device."""
         n = len(batch)
         b = self._bucket_for(n)
         try:
             imgs = pack_batch([item[0] for item in batch[:b]], pad_to=b,
                               dtype=self._raw_dtype, shape=self._img_shape)
             t_run = time.monotonic()
-            out = self._fwd(self.vars, self._upload(imgs))
+            if self._graphed:
+                with self._graph_lock:
+                    out = self._graph(b, imgs).replay(self._host_batch(imgs))
+            else:
+                out = self._fwd(self.vars, self._upload(imgs))
+            # copied out in stream order: the next replay of this bucket
+            # rewrites the graph's static output (a forward may reuse its
+            # buffer likewise), and with the pipeline this round is read
+            # back only after the next round is enqueued
+            out = (out.clone() if isinstance(out, torch.Tensor)
+                   else np.array(out))
             event = None
             if isinstance(out, torch.Tensor) and out.is_cuda:
                 event = torch.cuda.Event()

@@ -11,11 +11,14 @@ shape:
   one (H, W, C) image; response: the ``.npy`` array of logits.  uint8
   arrays go as they are to a uint8-ingest engine.
 * ``GET /stats`` — the engine's ``stats()`` as JSON (numbers as floats,
-  ``rounds_per_bucket`` as ``{bucket: rounds}``).
+  the per-bucket stats as ``{bucket: n}``: ``rounds_per_bucket``,
+  ``graphed``, ``graph_bytes``; ``graph_launches`` as ``{bucket: {counter:
+  n}}``).
 * ``GET /metrics`` — the same in Prometheus' text format 0.0.4: one
   ``qtpu_serving_<stat>`` line per number (``images``, ``batches`` and
   ``rounds_per_bucket`` counters, the rest gauges), one
-  ``qtpu_serving_rounds_per_bucket{bucket="8"}`` line per bucket, and
+  ``qtpu_serving_rounds_per_bucket{bucket="8"}`` line per bucket (and per
+  counter: ``qtpu_serving_graph_launches{bucket="8",counter="..."}``), and
   ``qtpu_serving_healthy``.
 * ``GET /healthz`` — 200 while the engine's scheduler lives, 503 after it
   crashed or stopped (``ServingEngine.healthy``).
@@ -47,11 +50,15 @@ DEFAULT_MAX_BODY_BYTES = 256 << 20   # 256 MiB ≈ B = 1024 of 224² f32 images
 COUNTERS = frozenset({"images", "batches", "rounds_per_bucket"})
 
 
+def _per_bucket(v: Mapping) -> Dict[str, Any]:
+    return {str(b): (_per_bucket(n) if isinstance(n, Mapping) else int(n))
+            for b, n in v.items()}
+
+
 def stats_json(stats: Mapping[str, Any]) -> Dict[str, Any]:
-    """``stats()`` with every number a float and the per-bucket dict as
-    ``{"8": rounds, ...}``."""
-    return {k: ({str(b): int(n) for b, n in v.items()}
-                if isinstance(v, Mapping) else float(v))
+    """``stats()`` with every number a float and each per-bucket dict as
+    ``{"8": n, ...}`` (``graph_launches``: ``{"8": {counter: n}}``)."""
+    return {k: (_per_bucket(v) if isinstance(v, Mapping) else float(v))
             for k, v in stats.items()}
 
 
@@ -63,8 +70,12 @@ def prometheus_text(stats: Mapping[str, Any], healthy: bool) -> str:
         kind = "counter" if k in COUNTERS else "gauge"
         lines.append(f"# TYPE {name} {kind}")
         if isinstance(v, Mapping):
-            lines += [f'{name}{{bucket="{b}"}} {int(n)}'
-                      for b, n in sorted(v.items())]
+            for b, n in sorted(v.items()):
+                if isinstance(n, Mapping):     # graph_launches: by counter
+                    lines += [f'{name}{{bucket="{b}",counter="{c}"}} {int(m)}'
+                              for c, m in sorted(n.items())]
+                else:
+                    lines.append(f'{name}{{bucket="{b}"}} {int(n)}')
         else:
             lines.append(f"{name} {float(v):g}")
     lines += ["# TYPE qtpu_serving_healthy gauge",

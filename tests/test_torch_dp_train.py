@@ -163,6 +163,7 @@ def _rank_dp(d):
     from qtpu_torch.models import get_model, load_flax_variables
     from qtpu_torch.nn import QuantPolicy
     from qtpu_torch.parallel import initialize_from_env, make_mesh
+    from qtpu_torch.parallel.distributed import shutdown
     from qtpu_torch.train import create_train_state, fit, train_step
     from qtpu_torch.transform import convert_model
 
@@ -212,6 +213,7 @@ def _rank_dp(d):
     out["experiment"] = run_experiment(cfg, verbose=False, device="cpu",
                                        dp=DP)
     torch.save(out, os.path.join(d, f"dp_rank{rank}.pt"))
+    shutdown()
     return 0
 
 

@@ -24,7 +24,14 @@ Every test here is ``gpu``-marked and skips without a CUDA device:
   ``resnet18_cifar10_int8_kl`` (4 K1 + 17 K2 a forward, every K2 launch
   on the stem kernel or wgmma), none on the plain path, on the old
   ``igemm`` loops only the narrow fcs of a batch (fewer than 512 rows),
-  no pad copy.
+  no pad copy;
+* ``ServingEngine``'s CUDA graphs (one a bucket) on a narrow ResNet
+  (bottleneck, width 16, CIFAR stem): every bucket graphed at ``warmup``,
+  every response of every round bit-equal to the eager forward of the
+  same rows padded as served, with and without the pipeline; a bucket
+  ``warmup`` did not see captured at its first round; a forward that
+  syncs with the host makes ``warmup`` raise, naming the bucket; the
+  launch counters a replayed round advances equal an eager round's.
 """
 import dataclasses
 
@@ -268,3 +275,153 @@ def test_build_engine_launches(cuda, name, per_forward, fc_igemm):
             assert d[4] + d[5] == 17 and d[5] == 1
     finally:
         eng.stop()
+
+
+NARROW = dict(stage_sizes=(1, 1, 1, 1), width=16, bottleneck=True,
+              cifar_stem=True, num_classes=10)
+
+
+@pytest.fixture
+def narrow_resnet(cuda):
+    """(frozen tree, a forward factory) of a narrow ResNet on the card."""
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+    m = get_model("resnet50", num_classes=10, cifar_stem=True, width=16,
+                  stage_sizes=NARROW["stage_sizes"])
+    init_weights(m, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(RNG.standard_normal((8, 32, 32, 3)).astype(
+        np.float32))
+    policy = QuantPolicy.int8_ptq()
+    tree = freeze(m, policy, calibrate(m, policy, [x]))
+    return tree, lambda v: ResNetInt8Engine(v, NARROW, device=cuda).forward
+
+
+def _logged(engine):
+    """[(bucket, futures)] of every round ``engine`` resolves."""
+    rounds, resolve = [], engine._resolve_round
+
+    def logged(batch, b, *rest):
+        rounds.append((b, [f for _, f, _ in batch]))
+        return resolve(batch, b, *rest)
+    engine._resolve_round = logged
+    return rounds
+
+
+def _eager(engine, rows, b):
+    from qtpu_torch.data.native import pack_batch
+
+    packed = pack_batch(list(rows), pad_to=b, dtype=np.float32,
+                        shape=rows[0].shape)
+    with torch.no_grad():
+        return engine._fwd(engine.vars, engine._upload(packed)).cpu(
+        ).numpy()[:len(rows)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_graphed_rounds_bit_equal_to_eager(cuda, narrow_resnet, pipeline):
+    from qtpu_torch.serve.engine import ServingEngine
+
+    tree, factory = narrow_resnet
+    eng = ServingEngine(None, tree, batch_buckets=(2, 4, 8), max_wait_ms=20.0,
+                        forward_factory=factory, pipeline=pipeline,
+                        device=cuda)
+    xs = RNG.standard_normal((40, 32, 32, 3)).astype(np.float32)
+    try:
+        eng.warmup((32, 32, 3))
+        st = eng.stats()
+        assert eng.graphed_buckets == [2, 4, 8]
+        assert st["graphed"] == {2: 1, 4: 1, 8: 1}
+        assert all(st["graph_bytes"][b] > 0 for b in (2, 4, 8))
+        rounds = _logged(eng)
+        futs = []
+        for n in (1, 2, 3, 4, 5):               # one burst a round
+            burst = [eng.submit(x) for x in xs[len(futs):len(futs) + n]]
+            for f in burst:
+                f.result(timeout=120)
+            futs += burst
+        futs += [eng.submit(x) for x in xs[len(futs):]]   # back to back
+        for f in futs:
+            f.result(timeout=120)
+    finally:
+        eng.stop()
+    index = {id(f): i for i, f in enumerate(futs)}
+    assert {b for b, _ in rounds} == {2, 4, 8}
+    assert sum(b == 8 for b, _ in rounds) >= 3
+    for b, rf in rounds:
+        rows = [xs[index[id(f)]] for f in rf]
+        got = np.stack([f.result() for f in rf])
+        np.testing.assert_array_equal(got, _eager(eng, rows, b))
+
+
+@pytest.mark.gpu
+def test_bucket_captured_at_first_round(cuda, narrow_resnet):
+    from qtpu_torch.serve.engine import ServingEngine
+
+    tree, factory = narrow_resnet
+    eng = ServingEngine(None, tree, batch_buckets=(2, 4), max_wait_ms=20.0,
+                        forward_factory=factory, device=cuda)
+    try:
+        assert eng.graphed_buckets == []
+        xs = RNG.standard_normal((3, 32, 32, 3)).astype(np.float32)
+        got = eng.predict(xs)
+        assert 4 in eng.graphed_buckets
+        np.testing.assert_array_equal(got, _eager(eng, list(xs), 4))
+    finally:
+        eng.stop()
+
+
+@pytest.mark.gpu
+def test_host_sync_in_forward_raises_at_warmup(cuda):
+    from qtpu_torch.serve.engine import ServingEngine
+    from qtpu_torch.serve.graphs import GraphCaptureError
+
+    def syncs(_v, x):
+        scale = float(x.abs().max())          # a read on the host
+        return x.reshape(x.shape[0], -1)[:, :10] * scale
+
+    eng = ServingEngine(None, {}, batch_buckets=(2, 4), forward_fn=syncs,
+                        device=cuda)
+    try:
+        with pytest.raises(GraphCaptureError, match="bucket 2"):
+            eng.warmup((8, 8, 1))
+        assert eng.graphed_buckets == []
+    finally:
+        eng.stop()
+
+
+@pytest.mark.gpu
+def test_replay_advances_the_counters_as_an_eager_round(cuda, narrow_resnet):
+    from qtpu_torch.serve import graphs
+    from qtpu_torch.serve.engine import ServingEngine
+
+    tree, factory = narrow_resnet
+    counters = graphs.launch_counters()
+
+    def moved(run):
+        before = graphs.read_counters(counters)
+        run()
+        torch.cuda.synchronize()
+        after = graphs.read_counters(counters)
+        return {k: after[k] - before[k] for k in counters
+                if after[k] != before[k]}
+
+    xs = RNG.standard_normal((8, 32, 32, 3)).astype(np.float32)
+    eager = ServingEngine(None, tree, batch_buckets=(8,), max_wait_ms=20.0,
+                          forward_factory=factory, device=cuda)
+    eager.serve_eagerly()
+    graphed = ServingEngine(None, tree, batch_buckets=(8,), max_wait_ms=20.0,
+                            forward_factory=factory, device=cuda)
+    try:
+        eager.warmup((32, 32, 3))
+        graphed.warmup((32, 32, 3))
+        want = moved(lambda: eager.predict(xs))
+        got = moved(lambda: graphed.predict(xs))
+        assert eager.stats()["rounds_per_bucket"] == {8: 1}
+        assert graphed.stats()["rounds_per_bucket"] == {8: 1}
+        held = graphed.stats()["graph_launches"][8]
+    finally:
+        eager.stop()
+        graphed.stop()
+    assert want and got == want == held
+    assert not any(k.endswith("_plain.calls") for k in got)

@@ -245,3 +245,26 @@ def test_lenet_engine_behind_the_front():
     finally:
         server.shutdown()
         eng.stop()
+
+
+def test_graph_stats_in_json_and_metrics():
+    """A card engine's graph statistics — ``graphed`` and ``graph_bytes``
+    by bucket, ``graph_launches`` by bucket and counter — in ``/stats``'s
+    JSON and as labelled ``/metrics`` lines."""
+    from qtpu_torch.serve.http_front import prometheus_text, stats_json
+
+    st = {"images": 3, "rounds_per_bucket": {8: 2},
+          "graphed": {8: 1, 32: 0}, "graph_bytes": {8: 4096},
+          "graph_launches": {8: {"qmatmul_folded.launches_wgmma": 37,
+                                 "qconv2d_folded.launches_wgmma": 16}}}
+    js = stats_json(st)
+    assert js["images"] == 3.0 and js["graphed"] == {"8": 1, "32": 0}
+    assert js["graph_launches"] == {"8": {
+        "qmatmul_folded.launches_wgmma": 37,
+        "qconv2d_folded.launches_wgmma": 16}}
+    assert json.loads(json.dumps(js)) == js
+    text = prometheus_text(st, True)
+    assert 'qtpu_serving_graphed{bucket="32"} 0' in text
+    assert 'qtpu_serving_graph_bytes{bucket="8"} 4096' in text
+    assert ('qtpu_serving_graph_launches{bucket="8",'
+            'counter="qmatmul_folded.launches_wgmma"} 37') in text

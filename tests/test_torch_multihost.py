@@ -166,6 +166,7 @@ def _rank_serve(d):
     import torch.distributed as dist
 
     from qtpu_torch.parallel import initialize_from_env, make_mesh
+    from qtpu_torch.parallel.distributed import shutdown
 
     initialize_from_env(backend="gloo")
     rank = dist.get_rank()
@@ -179,6 +180,7 @@ def _rank_serve(d):
     torch.save(dict(got=got, local=local(torch.from_numpy(imgs)).numpy(),
                     stats=eng.stats(), buckets=eng.buckets),
                os.path.join(d, f"serve_rank{rank}.pt"))
+    shutdown()
     return 0
 
 

@@ -121,6 +121,16 @@ def test_make_mesh_shapes(world):
                                                    (1, 1)]
 
 
+def test_mesh_engines_serve_eagerly(world):
+    """A mesh engine runs its forward eagerly (its collectives go through
+    the host under gloo, which a CUDA graph cannot capture): no bucket
+    graphed, no graph memory or launches in ``stats()``."""
+    for o in world["out"]:
+        st = o["served_stats"]
+        assert st["graphed"] == {b: 0 for b in o["buckets"]}
+        assert st["graph_bytes"] == {} and st["graph_launches"] == {}
+
+
 def test_specs_and_rank_devices(world):
     """qtpu's sharding rules by leaf (kernel_q on its last axis, the 1-D
     per-channel vectors alike, the grid replicated), the batch over
@@ -363,6 +373,7 @@ def _rank_world(d):
     out["conv1_kernel"] = tuple(model.conv1.conv.weight.shape)
     out["conv1_value"] = model.conv1.conv.weight.detach().numpy()
     torch.save(out, os.path.join(d, f"world_rank{rank}.pt"))
+    distributed.shutdown()
     return 0
 
 

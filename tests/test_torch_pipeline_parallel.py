@@ -116,6 +116,7 @@ def _rank_pipe(d):
 
     from qtpu_torch.parallel import (initialize_from_env, make_pipeline_mesh,
                                      pipeline_apply, stage_local)
+    from qtpu_torch.parallel.distributed import shutdown
 
     initialize_from_env(backend="gloo")
     a = {k: torch.from_numpy(v) for k, v in
@@ -132,6 +133,7 @@ def _rank_pipe(d):
     except ValueError:
         out["mismatch"] = "ValueError"
     torch.save(out, os.path.join(d, f"pipe_rank{dist.get_rank()}.pt"))
+    shutdown()
     return 0
 
 

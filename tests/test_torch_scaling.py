@@ -187,6 +187,7 @@ def _rank_tp(d):
     torch.save(dict(records=records, counts=dict(collectives.counts),
                     gathered=gathered),
                os.path.join(d, f"tp_rank{dist.get_rank()}.pt"))
+    distributed.shutdown()
     return 0
 
 

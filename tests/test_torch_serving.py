@@ -7,6 +7,14 @@ hangs a caller, and ``build_engine`` for the fp32-stem config at a tiny size
 answers ``predict`` like its flat engine, with f32 or raw-uint8 ingest.  The
 dispatch policy's ResNet branches equal qtpu's (the MobileNet branches:
 tests/test_torch_mobilenet.py).
+
+The CUDA graphs' CPU side (the graphs themselves: tests/test_torch_gpu_serve.py):
+a forward that returns one reused output buffer, as a graph's replay does,
+served over many rounds of one bucket with the pipeline on and off — every
+request gets its own rows, since a round's output is copied out before the
+next round runs; a CPU engine reports no graphs in ``stats()``; the ops'
+counters ``serve.graphs`` replays; ``bench.serve_rounds.round_ms`` times a
+round of a burst.
 """
 import dataclasses
 import threading
@@ -229,3 +237,104 @@ def test_uint8_ingest_composes_with_excluded_stem():
         eng_f32.stop()
     assert (y_u8.argmax(-1) == y_f32.argmax(-1)).all()
     assert np.linalg.norm(y_u8 - y_f32) / np.linalg.norm(y_f32) < 0.05
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_rounds_copy_out_a_reused_output_buffer(pipeline):
+    """The forward returns the same buffer every round, rewritten in place
+    (what a CUDA graph's static output is): with the pipeline, round k is
+    read back only after round k+1 has run, so without the copy-out round
+    k's requests would get round k+1's logits."""
+    buf = torch.empty(8, 5)
+
+    def reused(_v, x):
+        buf.copy_(tiny_forward(None, x))
+        return buf
+
+    eng = _engine(batch_buckets=(8,), max_wait_ms=2.0, pipeline=pipeline,
+                  forward_fn=reused)
+    try:
+        n = 96
+        xs = np.random.default_rng(3).standard_normal(
+            (n, 8, 8, 1)).astype(np.float32)
+        ref = tiny_forward(None, torch.from_numpy(xs)).numpy()
+        futs = [eng.submit(xs[i]) for i in range(n)]
+        out = np.stack([f.result(timeout=60) for f in futs])
+        buf.fill_(float("nan"))        # results must not alias the buffer
+        assert eng.stats()["rounds_per_bucket"][8] >= n // 8
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(np.stack([f.result() for f in futs]), ref,
+                                   rtol=1e-6, atol=1e-6)
+    finally:
+        eng.stop()
+
+
+def test_cpu_engine_reports_no_graphs():
+    eng = _engine(batch_buckets=(2, 4), max_wait_ms=1.0)
+    try:
+        eng.warmup((8, 8, 1))
+        eng.predict(np.zeros((3, 8, 8, 1), np.float32))
+        st = eng.stats()
+        assert st["graphed"] == {2: 0, 4: 0}
+        assert st["graph_bytes"] == {} and st["graph_launches"] == {}
+        assert eng.graphed_buckets == []
+    finally:
+        eng.stop()
+
+
+def test_launch_counters_found_and_added():
+    """``serve.graphs.launch_counters`` finds every kernel wrapper's launch
+    counters, the plain versions' call counters and the pad copies, and
+    ``add_counts`` advances them as a replay does."""
+    from qtpu_torch.ops import qconv, qmatmul, qops
+    from qtpu_torch.serve import graphs
+
+    c = graphs.launch_counters()
+    for name in ("qmatmul_folded.launches", "qmatmul_folded.launches_wgmma",
+                 "qmatmul_folded.launches_wgmma_cp",
+                 "qmatmul_folded_w4.launches_igemm",
+                 "qconv2d_folded.launches_small",
+                 "qdepthwise_folded.launches_halo",
+                 "qproj_folded.launches", "qtail_folded.launches_wgmma",
+                 "qblock_folded.launches", "qstage_folded.launches",
+                 "qstage_proj_folded.launches_wgmma",
+                 "qivr_folded.launches", "qconv2d_im2col.launches",
+                 "qmatmul_folded_plain.calls", "resolve_and_pad.calls"):
+        assert name in c, name
+    assert all(attr == "calls" or attr.startswith("launches")
+               for _, attr in c.values())
+    before = graphs.read_counters(c)
+    try:
+        graphs.add_counts(c, {"qmatmul_folded.launches": 3,
+                              "qconv2d_folded.launches_small": 2,
+                              "resolve_and_pad.calls": 1})
+        after = graphs.read_counters(c)
+        assert after["qmatmul_folded.launches"] == \
+            before["qmatmul_folded.launches"] + 3
+        assert qconv.qconv2d_folded.launches_small == \
+            before["qconv2d_folded.launches_small"] + 2
+        assert qops.resolve_and_pad.calls == \
+            before["resolve_and_pad.calls"] + 1
+        assert {k for k in c if after[k] != before[k]} == {
+            "qmatmul_folded.launches", "qconv2d_folded.launches_small",
+            "resolve_and_pad.calls"}
+    finally:
+        for k, (fn, attr) in c.items():
+            setattr(fn, attr, before[k])
+    assert qmatmul.qmatmul_folded.launches == before["qmatmul_folded.launches"]
+
+
+@pytest.mark.parametrize("batch", [1, 4, 8])
+def test_round_ms_times_one_round_a_burst(batch):
+    from qtpu_torch.bench.serve_rounds import round_ms, summary
+
+    eng = _engine(batch_buckets=(4, 8), max_wait_ms=50.0)
+    try:
+        xs = np.zeros((8, 8, 8, 1), np.float32)
+        ms = round_ms(eng, xs, batch, 3)
+        assert len(ms) == 3 and all(m > 0 for m in ms)
+        assert summary(ms)["rounds"] == 3
+        assert eng.stats()["batches"] == 3
+        assert "_dispatch_round" not in vars(eng)   # the wrappers are gone
+    finally:
+        eng.stop()

@@ -160,6 +160,7 @@ def _rank_spatial(d):
     from qtpu_torch.parallel import (initialize_from_env, make_spatial_mesh,
                                      spatial_conv2d, spatial_local,
                                      spatial_max_pool)
+    from qtpu_torch.parallel.distributed import shutdown
 
     initialize_from_env(backend="gloo")
     a = {k: torch.from_numpy(v) for k, v in
@@ -209,6 +210,7 @@ def _rank_spatial(d):
             out[name] = ("ValueError", str(e))
     out["bad_h"], out["bad_stride"] = out["bad_h"][0], out["bad_stride"][0]
     torch.save(out, os.path.join(d, f"spatial_rank{dist.get_rank()}.pt"))
+    shutdown()
     return 0
 
 
