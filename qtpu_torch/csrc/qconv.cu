@@ -54,7 +54,12 @@
 //
 // The entries take the same arguments: the unpadded input (B, H, W,
 // Ci) with its top and left pads (the bottom and right ones follow from
-// OH, OW) and zp — the igemm entry takes a padded input with pads 0.
+// OH, OW) and the pad code — the igemm entry takes a padded input with
+// pads 0.  The pad code is zp, or, where the nullable zp_dev is given, the
+// int32 it points to in device memory (the QAT step computes it on the
+// card and no host reads it): each block of the stem and small kernels
+// loads it once before its bands, the implicit GEMM once a tile in its
+// border repair.
 #include "igemm.cuh"
 #include "wgmma_narrow.cuh"
 
@@ -162,7 +167,8 @@ __global__ void __launch_bounds__(STEM_THREADS)
     sA[i] = p.ep.A[i];
     sB[i] = p.ep.B[i];
   }
-  const unsigned zw = (static_cast<unsigned>(s.zp) & 0xffu) * 0x01010101u;
+  const unsigned zw =
+      (static_cast<unsigned>(qtpu::wg::pad_code(s)) & 0xffu) * 0x01010101u;
   const uint4 zq = make_uint4(zw, zw, zw, zw);
   const unsigned flip = p.ep.shift != 0.f ? 0x8080u : 0u;
   const int row_bytes = s.W * 3;         // a multiple of 16
@@ -479,7 +485,8 @@ __global__ void __launch_bounds__(SMALL_THREADS)
   if constexpr (WG) qtpu::wg::fence_async_smem();  // to wgmma's proxy
   __syncthreads();
 
-  const unsigned zw = (static_cast<unsigned>(s.zp) & 0xffu) * 0x01010101u;
+  const unsigned zw =
+      (static_cast<unsigned>(qtpu::wg::pad_code(s)) & 0xffu) * 0x01010101u;
   const unsigned flip = p.ep.shift != 0.f ? 0x8080u : 0u;
   const int row_bytes = s.W * s.Ci;
   const int dstart = p.lead + s.pl * s.Ci;  // input column 0, ich-aligned
@@ -742,23 +749,27 @@ cudaError_t launch_small(const int8_t* x, const int8_t* w, const ConvShape& s,
   const void *x, const void *w, const void *tapsum, const void *A,           \
       const void *B, const void *res, int res_kind, void *out, int out_kind, \
       int Bn, int H, int W, int Ci, int Co, int KH, int KW, int stride,      \
-      int pad_t, int pad_l, int OH, int OW, int zp, float C, float lo,       \
-      float hi, float shift, int relu, int use_act_max, float act_max,       \
-      void *stream
+      int pad_t, int pad_l, int OH, int OW, int zp, const void *zp_dev,      \
+      float C, float lo, float hi, float shift, int relu, int use_act_max,   \
+      float act_max, void *stream
 #define K2_EPILOGUE                                                          \
   qtpu::make_epilogue(static_cast<const float*>(A),                          \
                       static_cast<const float*>(B), res, res_kind, out,      \
                       out_kind, C, lo, hi, shift, relu, use_act_max, act_max)
-#define K2_SHAPE \
-  ConvShape { Bn, H, W, Ci, Co, KH, KW, stride, pad_t, pad_l, OH, OW, zp }
+#define K2_SHAPE                                                     \
+  ConvShape {                                                        \
+    Bn, H, W, Ci, Co, KH, KW, stride, pad_t, pad_l, OH, OW, zp,      \
+        static_cast<const int*>(zp_dev)                              \
+  }
 
 // The implicit GEMM on the Hopper ring: Ci % 64 == 0, the input, weight,
 // output and residual 16-byte aligned with rows of multiples of 16 bytes;
-// tapsum given unless zp == 0 or the window never leaves the image.
+// tapsum given unless the pad code is 0 (zp == 0 and no zp_dev) or the
+// window never leaves the image.
 extern "C" int qtpu_qconv2d_fused(K2_ARGS) {
   const bool pads = pad_t || pad_l || (OH - 1) * stride + KH > H + pad_t ||
                     (OW - 1) * stride + KW > W + pad_l;
-  if (Ci % qtpu::wg::BK || (zp && pads && !tapsum))
+  if (Ci % qtpu::wg::BK || ((zp || zp_dev) && pads && !tapsum))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConvX xl{static_cast<const int8_t*>(x),
                  static_cast<const int*>(tapsum), K2_SHAPE};

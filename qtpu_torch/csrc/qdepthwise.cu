@@ -6,7 +6,10 @@
 //   out[b, oh, ow, c] = epilogue_c(sum_{kh, kw} x[b, oh*s + kh - pt,
 //                                                ow*s + kw - pl, c] * w[kh, kw, c])
 // where a tap outside the image reads the activation zero point, which is
-// what the reference computes on its zero-point-padded input.  The input is
+// what the reference computes on its zero-point-padded input.  The entries
+// take the pad code as zp or, where the nullable zp_dev is given, as the
+// int32 it points to in device memory (the QAT step's, computed on the
+// card: no host reads it); each thread loads it once.  The input is
 // int8 NHWC (B, H, W, C), unpadded: no padded copy of the activation is
 // written.  The weight is int8 tap-major (KH*KW, C), prepared once at engine
 // build.  The epilogue is epilogue.cuh's (requant to int8 codes, f32 with
@@ -53,8 +56,9 @@ using qtpu::sbyte;
 template <int S>
 __global__ void __launch_bounds__(THREADS)
     dw_halo_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   DwShape s, int zp, int TH, int Cc, int code_fast,
-                   qtpu::Epilogue ep) {
+                   DwShape s, int zp, const int* __restrict__ zp_dev, int TH,
+                   int Cc, int code_fast, qtpu::Epilogue ep) {
+  if (zp_dev) zp = __ldg(zp_dev);  // the pad code from device memory
   extern __shared__ __align__(16) uint8_t tile[];  // rows x Wt x Cc bytes
   const int tid = threadIdx.x;
   const int nchunks = s.C / Cc, bands = (s.OH + TH - 1) / TH;
@@ -195,7 +199,8 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(THREADS)
     dw_scalar_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w, DwShape s, int zp,
-                     qtpu::Epilogue ep) {
+                     const int* __restrict__ zp_dev, qtpu::Epilogue ep) {
+  if (zp_dev) zp = __ldg(zp_dev);
   const long long total = static_cast<long long>(s.B) * s.OH * s.OW * s.C;
   const long long i = static_cast<long long>(blockIdx.x) * THREADS +
                       threadIdx.x;
@@ -238,9 +243,9 @@ bool aligned16(const void* p) {
 #define K3_ARGS                                                              \
   const void *x, const void *w, const void *A, const void *B, void *out,     \
       int out_kind, int Bn, int H, int W, int C, int OH, int OW, int KH,     \
-      int KW, int stride, int pad_t, int pad_l, int zp, float lo, float hi,  \
-      float shift, int relu, int use_act_max, float act_max, int TH, int Cc, \
-      int threads, void *stream
+      int KW, int stride, int pad_t, int pad_l, int zp, const void *zp_dev,  \
+      float lo, float hi, float shift, int relu, int use_act_max,            \
+      float act_max, int TH, int Cc, int threads, void *stream
 #define K3_EPILOGUE                                                        \
   qtpu::make_epilogue(static_cast<const float*>(A),                        \
                       static_cast<const float*>(B), nullptr, qtpu::RES_NONE, \
@@ -268,11 +273,12 @@ extern "C" int qtpu_qdepthwise_fused(K3_ARGS) {
   const int8_t* ws = static_cast<const int8_t*>(w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(blocks);
+  const int* zd = static_cast<const int*>(zp_dev);
   if (stride == 1)
-    dw_halo_kernel<1><<<grid, threads, smem, st>>>(xs, ws, s, zp, TH, Cc,
+    dw_halo_kernel<1><<<grid, threads, smem, st>>>(xs, ws, s, zp, zd, TH, Cc,
                                                     fast, ep);
   else
-    dw_halo_kernel<2><<<grid, threads, smem, st>>>(xs, ws, s, zp, TH, Cc,
+    dw_halo_kernel<2><<<grid, threads, smem, st>>>(xs, ws, s, zp, zd, TH, Cc,
                                                     fast, ep);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,6 +294,6 @@ extern "C" int qtpu_qdepthwise_fused_scalar(K3_ARGS) {
       static_cast<unsigned>((items + THREADS - 1) / THREADS);
   dw_scalar_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), s, zp,
-      ep);
+      static_cast<const int*>(zp_dev), ep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -486,7 +486,7 @@ extern "C" int qtpu_qproj_fused(K4_ARGS) {
   // the 1x1 window at stride 2, no pads: K2's im2col stages
   const wg::ConvX xl{xs, nullptr,
                      wg::ConvShape{Bn, Hx, Wx, Cin, Cout, 1, 1, stride, 0, 0,
-                                   H, W, 0}};
+                                   H, W, 0, nullptr}};
   return static_cast<int>(launch_proj_tiles(xl, bs, w3s, wds, M, Cout, Cmid,
                                             Cin, ep, ad, bd, s));
 }

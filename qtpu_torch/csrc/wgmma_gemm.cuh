@@ -707,10 +707,17 @@ struct GemmX {
 };
 
 // K2 (qconv.cu) and K4's strided downsample (qproj.cu): a convolution's
-// shape, and its x stages by TMA im2col loads.
+// shape, and its x stages by TMA im2col loads.  The pad code is zp, or,
+// where zp_dev is given, the int32 that zp_dev points to in device memory
+// (the QAT step's, computed on the card: no host reads it).
 struct ConvShape {
   int Bn, H, W, Ci, Co, KH, KW, stride, pt, pl, OH, OW, zp;
+  const int* zp_dev;
 };
+
+__device__ __forceinline__ int pad_code(const ConvShape& s) {
+  return s.zp_dev ? __ldg(s.zp_dev) : s.zp;
+}
 
 typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -747,7 +754,8 @@ inline EncodeIm2col encode_im2col() {
 // outside the image reads 0.
 struct ConvX {
   const int8_t* x;
-  const int* tapsum;  // (KH*KW, Co) int32; null when zp == 0 or no pads
+  const int* tapsum;  // (KH*KW, Co) int32; null when the pad code is 0
+                      // (zp == 0, no zp_dev) or no window leaves the image
   ConvShape s;
   struct Tile {
     int w, h, n;
@@ -768,11 +776,14 @@ struct ConvX {
   // The zero-point term of the taps the zero fill dropped, on the thread's
   // two rows of its warpgroup's 64-row slab at m_base (wgmma's fragment:
   // acc[4j + 2h + e] is row 16 warp + lane / 4 + 8h, column 8j + 2 (lane %
-  // 4) + e).  Rows whose window lies inside the image skip it.
+  // 4) + e).  Rows whose window lies inside the image skip it.  The pad
+  // code is read once a tile (from device memory where zp_dev is given).
   template <int BN>
   __device__ __forceinline__ void fix(int (&acc)[BN / 2], int M, int N,
                                       int m_base, int n0, int tw) const {
-    if (s.zp == 0 || tapsum == nullptr) return;
+    if (tapsum == nullptr) return;
+    const int zp = pad_code(s);
+    if (zp == 0) return;
     const int lane = tw & 31;
     const int r0 = (tw >> 5) * 16 + (lane >> 2);
     const int cq = 2 * (lane & 3);
@@ -796,8 +807,8 @@ struct ConvX {
           for (int j = 0; j < BN / 8; ++j) {
             if (n0 + 8 * j + cq < N) {
               const int2 v = __ldg(reinterpret_cast<const int2*>(ts + 8 * j));
-              acc[4 * j + 2 * h] += s.zp * v.x;
-              acc[4 * j + 2 * h + 1] += s.zp * v.y;
+              acc[4 * j + 2 * h] += zp * v.x;
+              acc[4 * j + 2 * h + 1] += zp * v.y;
             }
           }
         }

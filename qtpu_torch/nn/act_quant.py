@@ -131,8 +131,10 @@ class ActQuant(nn.Module):
         bmin, bmax = _batch_range(x)
         first = self.count == 0
         if ema:
-            m = torch.tensor(self.spec.ema_momentum, dtype=torch.float32,
-                             device=bmin.device)
+            # fp32 m and fp32 1 − m, as calib.observers.ema_update; filled
+            # on the device (no host-to-device copy)
+            m = torch.full((), self.spec.ema_momentum, dtype=torch.float32,
+                           device=bmin.device)
             new_min = m * self.min + (1 - m) * bmin
             new_max = m * self.max + (1 - m) * bmax
         else:

@@ -3,8 +3,9 @@ weight carrier (port of ``QuantDense``, ``QuantConv`` and ``ConvBN`` of
 qtpu/nn/layers.py).
 
 ``ConvBN`` is a bias-free conv (``groups=C`` makes it depthwise), BatchNorm
-with qtpu's formula ``(y − mean) / sqrt(var + eps) · γ + β``, then an
-optional activation: ``None``, ``"relu"`` or ``"relu6"`` (``min(max(y,
+with qtpu's formula ``(y − mean) / sqrt(var + eps) · γ + β`` (every
+square root of a fold or a normalisation correctly rounded, as XLA's:
+``utils.numerics.sqrt_rn``), then an optional activation: ``None``, ``"relu"`` or ``"relu6"`` (``min(max(y,
 0), 6)``).  Inputs are NCHW inside the models; SAME pads asymmetrically
 (lo = total//2) as XLA does, explicit pads are taken as given.  ``Conv`` is
 the bias conv without BatchNorm (qtpu's ``QuantConv``, LeNet-5's layers):
@@ -59,6 +60,7 @@ from qtpu_torch.ops.qat_int import int_forward_ok, qat_int_conv
 from qtpu_torch.ops.qops import resolve_pads
 from qtpu_torch.parallel import collectives
 from qtpu_torch.utils.device import cpu_conv_layout
+from qtpu_torch.utils.numerics import sqrt_rn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -200,14 +202,14 @@ class ConvBN(_ConvBase):
         quant_conv = self._quant_conv_fn(x, spec, mode)
         fold = spec is not None and mode.quantizes and self.quant.fold_bn
         if fold and self.training and self.quant.fake_bn == "approx":
-            sigma_r = torch.sqrt(bn.running_var + BN_EPS)
+            sigma_r = sqrt_rn(bn.running_var + BN_EPS)
             factor = gamma / sigma_r
             safe = torch.where(factor == 0.0, torch.ones_like(factor),
                                factor)
             y = quant_conv(kernel * factor.view(o)) / safe.view(v)
             bmean, bvar = _batch_stats(y)
             self._update_running(bmean.detach(), bvar.detach())
-            y = ((y - bmean.view(v)) / torch.sqrt(bvar.view(v) + BN_EPS)
+            y = ((y - bmean.view(v)) / sqrt_rn(bvar.view(v) + BN_EPS)
                  * gamma.view(v) + beta.view(v))
         elif fold:
             if self.training:
@@ -215,7 +217,7 @@ class ConvBN(_ConvBase):
                 self._update_running(mean.detach(), var.detach())
             else:
                 mean, var = bn.running_mean, bn.running_var
-            sigma = torch.sqrt(var + BN_EPS)
+            sigma = sqrt_rn(var + BN_EPS)
             w_fold = kernel * (gamma / sigma).view(o)
             b_fold = beta - gamma * mean / sigma
             y = quant_conv(w_fold) + b_fold.view(v)
@@ -226,7 +228,7 @@ class ConvBN(_ConvBase):
                 self._update_running(mean.detach(), var.detach())
             else:
                 mean, var = bn.running_mean, bn.running_var
-            y = ((y - mean.view(v)) / torch.sqrt(var.view(v) + BN_EPS)
+            y = ((y - mean.view(v)) / sqrt_rn(var.view(v) + BN_EPS)
                  * gamma.view(v) + beta.view(v))
         if self.act is None:
             return y

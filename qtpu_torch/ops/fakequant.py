@@ -17,6 +17,7 @@ its reciprocal, which is another float32 number.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Tuple, Union
 
 import torch
@@ -41,8 +42,9 @@ def _f32(v: Scalar) -> torch.Tensor:
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
-    """``a / b`` as a true float32 division on ``a``'s device."""
-    return a / torch.tensor(float(b), dtype=torch.float32, device=a.device)
+    """``a / b`` as a true float32 division on ``a``'s device (by a filled
+    device tensor: no host-to-device copy, which a CUDA graph refuses)."""
+    return a / torch.full((), float(b), dtype=torch.float32, device=a.device)
 
 
 def symmetric_scale(amax: Scalar, bits: int) -> torch.Tensor:
@@ -83,8 +85,13 @@ def _quantize_to_grid(x, scale, zero_point, qmin: int, qmax: int):
 
 
 def _on(v: Scalar, like: torch.Tensor) -> torch.Tensor:
-    """``v`` as a float32 tensor on ``like``'s device, outside autograd."""
-    return torch.as_tensor(v, dtype=torch.float32).to(like.device).detach()
+    """``v`` as a float32 tensor on ``like``'s device (a tensor keeps its
+    autograd); a number is filled there (no host-to-device copy, which a
+    CUDA graph refuses)."""
+    if isinstance(v, numbers.Number):
+        return torch.full((), float(v), dtype=torch.float32,
+                          device=like.device)
+    return torch.as_tensor(v, dtype=torch.float32).to(like.device)
 
 
 def fake_quant(x: torch.Tensor, scale: Scalar, zero_point: Scalar = 0.0, *,
@@ -97,7 +104,7 @@ def fake_quant(x: torch.Tensor, scale: Scalar, zero_point: Scalar = 0.0, *,
     if ste not in ("passthrough", "clip"):
         raise ValueError(f"unknown ste {ste!r}")
     qmin, qmax = qrange(bits, signed=signed, symmetric=symmetric)
-    scale, zero_point = _on(scale, x), _on(zero_point, x)
+    scale, zero_point = _on(scale, x).detach(), _on(zero_point, x).detach()
     q = _quantize_to_grid(x, scale, zero_point, qmin, qmax)
     xq = (q - zero_point) * scale
     if ste == "passthrough":
@@ -139,7 +146,7 @@ def fake_quant_pact(x: torch.Tensor, alpha: torch.Tensor, *, bits: int = 8,
     (``jnp.clip`` and ``jnp.maximum``): x = 0 and x = α pass half to x,
     and x = α half to α; the grid's scale takes none."""
     _, qmax = qrange(bits, signed=False, symmetric=False)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = _on(alpha, x)
     alpha = _Balanced.apply(alpha, torch.full_like(alpha, 1e-6), True)
     yc = _Balanced.apply(_Balanced.apply(x, torch.zeros_like(alpha), True),
                          alpha, False)

@@ -138,7 +138,7 @@ def probe_row(label, B, H, Ci, Co, k, s, g, dev):
             check(fn(xa.data_ptr(), w.data_ptr(), tapsum.data_ptr(), A, Bv,
                      None, 0, out.data_ptr(), k1.OUT_KIND[out.dtype], B,
                      geo[0], geo[1], Ci, Co, k, k, s, geo[2], geo[3], OH, OW,
-                     zp, C, lo, hi, shift, relu, use_am, am,
+                     zp, None, C, lo, hi, shift, relu, use_am, am,
                      torch.cuda.current_stream().cuda_stream),
                   f"{path} launch")
 

@@ -29,7 +29,8 @@ the accumulator is the plain version, ``qops.qconv2d``'s exact float64
 device, to hold the kernels against it.
 
 The pad value is ``round(zp_u) − 128``, so a padded tap is a real zero on
-the grid.  :func:`int_forward_ok` sends clip-STE and PACT specs (their
+the grid.  It stays a 0-d int32 on the conv's device, as qtpu traces it:
+K2 and K3 read it from device memory, so no step reads the host.  :func:`int_forward_ok` sends clip-STE and PACT specs (their
 gradient masks and α need the fake-quant path) to the simulation.
 """
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.ops import qops
-from qtpu_torch.ops.qconv import qconv2d_folded
+from qtpu_torch.ops.qconv import PadCode, qconv2d_folded
 from qtpu_torch.ops.qdepthwise import qdepthwise_folded
 from qtpu_torch.ops.qmatmul import qmatmul_folded
 from qtpu_torch.utils.device import cpu_conv_layout
@@ -95,17 +96,20 @@ def _dequant_act(x_s: torch.Tensor, scale: torch.Tensor, zp_u: torch.Tensor,
 
 
 def int_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor, *, stride: int,
-                  padding: Padding, groups: int, zp: int) -> torch.Tensor:
+                  padding: Padding, groups: int,
+                  zp: PadCode) -> torch.Tensor:
     """Exact int32 accumulator of int8 NHWC codes with OIHW int8 weights
-    (qtpu's ``qops.qconv2d``), on any device."""
+    (qtpu's ``qops.qconv2d``), on any device; ``zp`` the pad code, an int
+    or a 0-d int32 tensor."""
     return qops.qconv2d(x_q, w_q.permute(2, 3, 1, 0), strides=(stride, stride),
                         padding=padding, groups=groups, zp=zp)
 
 
 def int_acc(x_q: torch.Tensor, w_q: torch.Tensor, *, stride: int,
-            padding: Padding, groups: int, zp: int) -> torch.Tensor:
+            padding: Padding, groups: int, zp: PadCode) -> torch.Tensor:
     """The same accumulator: the plain version for a CPU tensor, else K1,
-    K2 or K3 by :func:`conv_kind`."""
+    K2 or K3 by :func:`conv_kind` (K2 and K3 read a tensor ``zp`` from
+    device memory; K1's 1×1/1 convs have no pads)."""
     if x_q.device.type == "cpu":
         return int_acc_plain(x_q, w_q, stride=stride, padding=padding,
                              groups=groups, zp=zp)
@@ -144,8 +148,10 @@ class _QatIntConv(torch.autograd.Function):
         w_codes, w_scale = weight_codes(w, w_bits, per_channel)
         x_codes = act_codes(x.detach().permute(0, 2, 3, 1), scale, zp_u,
                             a_bits, act_symmetric).contiguous()
-        pad_zp = 0 if act_symmetric else int(torch.round(zp_u).item()
-                                             - SIGNED_OFFSET)
+        # the pad code stays a 0-d int32 on the device (qtpu traces it):
+        # no host read, so the step can be one CUDA graph
+        pad_zp = (0 if act_symmetric else
+                  (torch.round(zp_u) - SIGNED_OFFSET).to(torch.int32))
         acc = acc_fn(x_codes, w_codes, stride=stride, padding=padding,
                      groups=groups, zp=pad_zp)
         w_scale_o = w_scale.reshape(-1) if per_channel else w_scale
@@ -185,9 +191,7 @@ def _apply(x, w, act_scale, act_zp_u, acc_fn, *, a_bits, w_bits,
            per_channel, act_symmetric, strides, padding, groups):
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
-    dev = x.device
-    act_scale = torch.as_tensor(act_scale, dtype=torch.float32).to(dev)
-    act_zp_u = torch.as_tensor(act_zp_u, dtype=torch.float32).to(dev)
+    act_scale, act_zp_u = fq._on(act_scale, x), fq._on(act_zp_u, x)
     return _QatIntConv.apply(x, w, act_scale, act_zp_u, a_bits, w_bits,
                              per_channel, act_symmetric, int(strides[0]),
                              padding, groups, acc_fn)

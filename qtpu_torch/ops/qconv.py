@@ -31,11 +31,18 @@ zero-point pads written in the kernel, multiplied by ``wgmma`` or
 the old ``mma.sync`` loop, for the rest — on the zero-point-padded input,
 which this wrapper then writes first through ``qops.resolve_and_pad`` (its
 ``calls`` count every pad copy).
+
+The pad code ``zp`` is a host integer (the serving paths) or a 0-d int32
+tensor on the card (the integer-forward QAT conv computes it there, as
+qtpu traces it): every kernel then reads it from device memory, the
+implicit GEMM's ``zp · tapsum`` repair runs wherever a window leaves the
+image, and the old loop's pad copy is filled on the card — no host read,
+so a CUDA graph of the training step holds it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -47,7 +54,7 @@ from qtpu_torch.ops.qmatmul import (OUT_KIND, check_residual, check_vectors,
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I, _P) + (_I,) * 14 + (_F,) * 4
+_ARGTYPES = ((_P,) * 6 + (_I, _P) + (_I,) * 14 + (_P,) + (_F,) * 4
              + (_I, _I, _F, _P))
 PATHS = ("wgmma", "stem", "small", "igemm")
 _SYMBOLS = {"wgmma": "qtpu_qconv2d_fused", "stem": "qtpu_qconv2d_fused_stem",
@@ -59,6 +66,20 @@ _SMALL_MMA = {"sync": "qtpu_qconv2d_fused_small_sync",
 SMALL_K = 320     # the small kernel's Ci·KH·KW at most
 NO_PADS = ((0, 0), (0, 0))
 Pads = Sequence[Tuple[int, int]]
+PadCode = Union[int, torch.Tensor]
+
+
+def device_pad_code(zp: PadCode, dev: torch.device) -> Optional[torch.Tensor]:
+    """``zp`` when it is a pad code on the device — a 0-d int32 tensor on
+    ``dev``, which the kernels read from device memory — else None (a host
+    integer).  Any other tensor raises."""
+    if not isinstance(zp, torch.Tensor):
+        return None
+    if zp.dtype != torch.int32 or zp.dim() != 0 or zp.device != dev:
+        raise ValueError(f"a pad code tensor must be a 0-d int32 tensor on "
+                         f"{dev}, got {zp.dtype} {tuple(zp.shape)} on "
+                         f"{zp.device}")
+    return zp
 
 
 def weight_ohwi(w_q: torch.Tensor) -> torch.Tensor:
@@ -138,7 +159,7 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
                    mode: Optional[EpilogueMode],
                    residual: Optional[torch.Tensor] = None, *,
                    kernel_hw: Tuple[int, int], stride: int = 1,
-                   pads: Pads = NO_PADS, zp: int = 0,
+                   pads: Pads = NO_PADS, zp: PadCode = 0,
                    tapsum: Optional[torch.Tensor] = None,
                    out_dtype: torch.dtype = torch.float32,
                    raw_acc: bool = False,
@@ -147,11 +168,13 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     """Conv of the int8 (B, H, W, Ci), padded by ``pads`` with ``zp``, with
     the (Co, KH·KW·Ci) weight at ``stride`` → (B, OH, OW, Co) after the
     epilogue, with an optional int8 or f32 (B, OH, OW, Co) residual.
-    ``tapsum`` (:func:`tapsum_of`) is computed here when the implicit GEMM
-    needs it and the caller did not prepare it.  ``small_mma`` ("sync" or
-    "wgmma") forces the small kernel's multiply; it needs that path."""
+    ``zp`` is a host integer or a 0-d int32 tensor on the card (the QAT
+    step's), which every kernel reads from device memory and no host
+    reads (its range is the caller's).  ``tapsum`` (:func:`tapsum_of`) is
+    computed here when the implicit GEMM needs it and the caller did not
+    prepare it.  ``small_mma`` ("sync" or "wgmma") forces the small
+    kernel's multiply; it needs that path."""
     pads = tuple(tuple(int(v) for v in p) for p in pads)
-    zp = int(zp)
     if x_q.device.type == "cpu":
         return qconv2d_folded_plain(x_q, w_nk, co, mode, residual,
                                     kernel_hw=kernel_hw, stride=stride,
@@ -169,6 +192,8 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
     if tuple(w_nk.shape) != (Co, KH * KW * Ci):
         raise ValueError(f"weight {tuple(w_nk.shape)} does not match "
                          f"({Co}, {KH}*{KW}*{Ci})")
+    zp_dev = device_pad_code(zp, dev)
+    zp = 0 if zp_dev is not None else int(zp)
     if min(v for p in pads for v in p) < 0 or not -128 <= zp <= 127:
         raise ValueError(f"pads {pads} or zero point {zp} out of range")
     OH, OW = out_hw((H, W), kernel_hw, stride, pads)
@@ -190,11 +215,14 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
                          f"and 'sync' or 'wgmma' (path {path!r})")
     (pt, _), (pl, _) = pads
     if path == "igemm" and pads != NO_PADS:
-        x_q = qops.resolve_and_pad(x_q, kernel_hw, (stride, stride), pads,
-                                   zp).contiguous()
+        x_q = qops.resolve_and_pad(
+            x_q, kernel_hw, (stride, stride), pads,
+            zp if zp_dev is None else zp_dev).contiguous()
         _, H, W, _ = x_q.shape
         pt = pl = 0
-    if path == "wgmma" and zp and pads != NO_PADS:
+    # a pad code on the device is not known here: its repair always runs
+    # where a window leaves the image (a code of 0 adds 0)
+    if path == "wgmma" and (zp or zp_dev is not None) and pads != NO_PADS:
         if tapsum is None:
             tapsum = tapsum_of(w_nk, kernel_hw)
         if (tapsum.dtype != torch.int32 or tapsum.device != dev
@@ -214,7 +242,8 @@ def qconv2d_folded(x_q: torch.Tensor, w_nk: torch.Tensor,
         None if tapsum is None else tapsum.data_ptr(), A, Bv,
         None if residual is None else residual.data_ptr(), res_kind,
         out.data_ptr(), OUT_KIND[odt], B, H, W, Ci, Co, KH, KW, stride, pt,
-        pl, OH, OW, zp, C, lo, hi, shift, relu, use_am, am)
+        pl, OH, OW, zp, None if zp_dev is None else zp_dev.data_ptr(), C,
+        lo, hi, shift, relu, use_am, am)
     if err:
         raise RuntimeError(f"qconv2d_fused kernel ({path}) launch failed: "
                            f"CUDA error {err} (x {tuple(x_q.shape)}, "
@@ -258,18 +287,18 @@ def qconv2d_folded_plain(x_q: torch.Tensor, w_nk: torch.Tensor,
                          mode: Optional[EpilogueMode],
                          residual: Optional[torch.Tensor] = None, *,
                          kernel_hw: Tuple[int, int], stride: int = 1,
-                         pads: Pads = NO_PADS, zp: int = 0,
+                         pads: Pads = NO_PADS, zp: PadCode = 0,
                          out_dtype: torch.dtype = torch.float32,
                          raw_acc: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`qconv2d_folded`: zero-point pad,
     the exact float64 accumulator, then the folded epilogue step by
-    step."""
+    step.  ``zp`` may be an integer or a 0-d tensor."""
     qconv2d_folded_plain.calls += 1
     KH, KW = kernel_hw
     Co = w_nk.shape[0]
     w_hwio = w_nk.reshape(Co, KH, KW, -1).permute(1, 2, 3, 0)
-    acc = qops.conv_acc_f64(qops.pad_nhwc(x_q, pads, int(zp)), w_hwio,
-                            stride)
+    acc = qops.conv_acc_f64(qops.pad_nhwc(x_q, pads, qops.pad_value(zp)),
+                            w_hwio, stride)
     odt = out_dtype_of(mode, out_dtype, raw_acc)
     if raw_acc:
         return acc

@@ -35,13 +35,14 @@ import torch
 
 from qtpu_torch.bench.profile import note_work, recording
 from qtpu_torch.ops import _build, qops
+from qtpu_torch.ops.qconv import PadCode, device_pad_code
 from qtpu_torch.ops.qmatmul import (OUT_KIND, check_vectors, fold,
                                     launch_args, out_dtype_of)
 from qtpu_torch.ops.qops import EpilogueCoeffs, EpilogueMode
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ((_P, _P, _P, _P, _P) + (_I,) * 13 + (_F, _F, _F, _I, _I, _F)
-             + (_I, _I, _I, _P))
+_ARGTYPES = ((_P, _P, _P, _P, _P) + (_I,) * 13 + (_P,)
+             + (_F, _F, _F, _I, _I, _F) + (_I, _I, _I, _P))
 _SYMBOLS = {"halo": "qtpu_qdepthwise_fused",
             "scalar": "qtpu_qdepthwise_fused_scalar"}
 HALO_SMEM = 48 * 1024     # the halo tile's bytes at most
@@ -108,12 +109,14 @@ def qdepthwise_folded(x_q: torch.Tensor, w_taps: torch.Tensor,
                       co: Optional[EpilogueCoeffs],
                       mode: Optional[EpilogueMode], *,
                       kernel_hw: Tuple[int, int], stride: int = 1,
-                      padding: qops.Padding = "SAME", zp: int = 0,
+                      padding: qops.Padding = "SAME", zp: PadCode = 0,
                       out_dtype: torch.dtype = torch.float32,
                       raw_acc: bool = False,
                       plan: Optional[DwPlan] = None) -> torch.Tensor:
     """Depthwise conv of the int8 (B, H, W, C) with the (KH·KW, C) weight,
-    pads filled with ``zp`` → (B, OH, OW, C) after the epilogue.
+    pads filled with ``zp`` → (B, OH, OW, C) after the epilogue.  ``zp``
+    is a host integer or a 0-d int32 tensor on the card (the QAT step's),
+    which the kernels read from device memory and no host reads.
     ``plan`` forces a :class:`DwPlan` (default: :func:`k3_plan`)."""
     if x_q.device.type == "cpu":
         return qdepthwise_folded_plain(
@@ -134,7 +137,9 @@ def qdepthwise_folded(x_q: torch.Tensor, w_taps: torch.Tensor,
     for name, t in (("x_q", x_q), ("w_taps", w_taps)):
         if t.dtype != torch.int8 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name} must be a contiguous int8 tensor on {dev}")
-    if not -128 <= int(zp) <= 127:
+    zp_dev = device_pad_code(zp, dev)
+    zp = 0 if zp_dev is not None else int(zp)
+    if not -128 <= zp <= 127:
         raise ValueError(f"zero point {zp} off the int8 grid")
     if not raw_acc:
         check_vectors(co, C, dev)
@@ -160,8 +165,9 @@ def qdepthwise_folded(x_q: torch.Tensor, w_taps: torch.Tensor,
     fn = _build.load("qdepthwise", _SYMBOLS[plan.path], _ARGTYPES)
     err = _build.launch(
         fn, dev, x_q.data_ptr(), w_taps.data_ptr(), A, Bv, out.data_ptr(),
-        OUT_KIND[odt], B, H, W, C, OH, OW, KH, KW, stride, pt, pl, int(zp), lo,
-        hi, shift, relu, use_am, am, plan.th, plan.cc, plan.threads)
+        OUT_KIND[odt], B, H, W, C, OH, OW, KH, KW, stride, pt, pl, zp,
+        None if zp_dev is None else zp_dev.data_ptr(), lo, hi, shift, relu,
+        use_am, am, plan.th, plan.cc, plan.threads)
     if err:
         raise RuntimeError(f"qdepthwise_fused kernel ({plan}) launch "
                            f"failed: CUDA error {err} (x "
@@ -187,11 +193,12 @@ def qdepthwise_folded_plain(x_q: torch.Tensor, w_taps: torch.Tensor,
                             co: Optional[EpilogueCoeffs],
                             mode: Optional[EpilogueMode], *,
                             kernel_hw: Tuple[int, int], stride: int = 1,
-                            padding: qops.Padding = "SAME", zp: int = 0,
+                            padding: qops.Padding = "SAME", zp: PadCode = 0,
                             out_dtype: torch.dtype = torch.float32,
                             raw_acc: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`qdepthwise_folded`: zero-point pad,
-    the exact int32 tap sum, then the folded epilogue step by step."""
+    the exact int32 tap sum, then the folded epilogue step by step.  ``zp``
+    may be an integer or a 0-d tensor."""
     qdepthwise_folded_plain.calls += 1
     KH, KW = kernel_hw
     xp = qops.resolve_and_pad(x_q, kernel_hw, (stride, stride), padding, zp)

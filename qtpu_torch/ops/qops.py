@@ -58,12 +58,30 @@ def resolve_pads(in_spatial: Sequence[int], window: Sequence[int],
     return tuple(tuple(int(v) for v in p) for p in padding)
 
 
+def pad_value(zp: Optional[Scalar]):
+    """A pad code as :func:`pad_nhwc` takes it: a Python int, or a 0-d
+    tensor (the QAT step's), which no host reads."""
+    if zp is None:
+        return 0
+    return zp if isinstance(zp, torch.Tensor) else int(zp)
+
+
 def pad_nhwc(x: torch.Tensor, pads: Sequence[Tuple[int, int]],
              value) -> torch.Tensor:
-    """Constant-pad the H and W axes of an NHWC tensor."""
+    """Constant-pad the H and W axes of an NHWC tensor.  A ``value`` that
+    is a 0-d tensor fills the pads on its device — a fill, then the image
+    copied in — and is never read on the host, so a CUDA graph can hold
+    it."""
     (hlo, hhi), (wlo, whi) = pads
     if not (hlo or hhi or wlo or whi):
         return x
+    if isinstance(value, torch.Tensor):
+        B, H, W, C = x.shape
+        out = torch.empty((B, H + hlo + hhi, W + wlo + whi, C),
+                          dtype=x.dtype, device=x.device)
+        out.copy_(value.to(x.dtype).expand(out.shape))
+        out[:, hlo:hlo + H, wlo:wlo + W, :] = x
+        return out
     return F.pad(x, (0, 0, wlo, whi, hlo, hhi), value=value)
 
 
@@ -76,7 +94,7 @@ def resolve_and_pad(x_q: torch.Tensor, window: Sequence[int],
     a serving forward of the ResNet-50 or MobileNet engines makes none)."""
     resolve_and_pad.calls += 1
     pads = resolve_pads(x_q.shape[1:3], window, strides, padding)
-    return pad_nhwc(x_q, pads, 0 if zp is None else int(zp))
+    return pad_nhwc(x_q, pads, pad_value(zp))
 
 
 resolve_and_pad.calls = 0

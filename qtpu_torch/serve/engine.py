@@ -273,7 +273,7 @@ class ServingEngine:
     def _graph_stats(self) -> Dict[str, Any]:
         """Per bucket: whether its forward is a graph (1/0), the device
         bytes the graph holds, and the launches one replay makes by
-        counter (``serve.graphs.launch_counters``' names)."""
+        counter (``utils.graphs.launch_counters``' names)."""
         with self._graph_lock:
             graphs = dict(self._graphs)
         return {"graphed": {b: int(b in graphs) for b in self.buckets},

@@ -52,6 +52,7 @@ from qtpu_torch.ops.qproj import qproj_folded
 from qtpu_torch.ops.qstage import (ChainCoeffs, qstage_folded,
                                    qstage_proj_folded, stack_chain)
 from qtpu_torch.ops.qtail import qtail_folded
+from qtpu_torch.utils.numerics import sqrt_rn
 
 Node = Dict[str, object]
 
@@ -115,7 +116,7 @@ def fold_bn_fp32(params: Dict, batch_stats: Dict, name: str,
     bn = (batch_stats or {}).get(name)
     if bn is not None and "mean" in bn:
         gamma = p["scale"].to(torch.float32)
-        sigma = torch.sqrt(bn["var"].to(torch.float32) + bn_eps)
+        sigma = sqrt_rn(bn["var"].to(torch.float32) + bn_eps)
         b = p["bias"].to(torch.float32) - gamma * bn["mean"].to(
             torch.float32) / sigma
         w = w * (gamma / sigma)

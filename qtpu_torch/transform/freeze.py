@@ -37,6 +37,7 @@ from qtpu_torch.nn.config import QuantPolicy
 from qtpu_torch.ops import fakequant as fq
 from qtpu_torch.transform.convert import quant_state
 from qtpu_torch.utils import debug
+from qtpu_torch.utils.numerics import sqrt_rn
 
 
 def _set(tree: Dict, path: str, value) -> None:
@@ -112,7 +113,7 @@ def freeze(model: nn.Module, policy: QuantPolicy,
             if isinstance(m, ConvBN):
                 kernel = _hwio(m)
                 bn = m.bn
-                sigma = torch.sqrt(bn.running_var + BN_EPS)
+                sigma = sqrt_rn(bn.running_var + BN_EPS)
                 w_f = kernel * (bn.weight / sigma)
                 b_f = bn.bias - bn.weight * bn.running_mean / sigma
             elif isinstance(m, Conv):

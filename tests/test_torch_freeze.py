@@ -92,8 +92,7 @@ def test_freeze_matches_qtpu(case):
             np.testing.assert_array_equal(g[leaf], r[leaf], err_msg=path)
         for leaf in ("w_scale", "bias"):
             assert g[leaf].shape == r[leaf].shape
-            np.testing.assert_allclose(g[leaf], r[leaf], rtol=1e-6,
-                                       atol=1e-7, err_msg=path)
+            np.testing.assert_array_equal(g[leaf], r[leaf], err_msg=path)
         np.testing.assert_allclose(g["act_scale"], r["act_scale"], rtol=1e-5,
                                    err_msg=path)
         assert bool(g["act_sym"]) == bool(r["act_sym"])

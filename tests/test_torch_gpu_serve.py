@@ -374,7 +374,7 @@ def test_bucket_captured_at_first_round(cuda, narrow_resnet):
 @pytest.mark.gpu
 def test_host_sync_in_forward_raises_at_warmup(cuda):
     from qtpu_torch.serve.engine import ServingEngine
-    from qtpu_torch.serve.graphs import GraphCaptureError
+    from qtpu_torch.utils.graphs import GraphCaptureError
 
     def syncs(_v, x):
         scale = float(x.abs().max())          # a read on the host
@@ -392,8 +392,8 @@ def test_host_sync_in_forward_raises_at_warmup(cuda):
 
 @pytest.mark.gpu
 def test_replay_advances_the_counters_as_an_eager_round(cuda, narrow_resnet):
-    from qtpu_torch.serve import graphs
     from qtpu_torch.serve.engine import ServingEngine
+    from qtpu_torch.utils import graphs
 
     tree, factory = narrow_resnet
     counters = graphs.launch_counters()

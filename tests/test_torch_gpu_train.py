@@ -20,7 +20,19 @@ Every test here is ``gpu``-marked and skips without a CUDA device:
   card's bits): outputs rel-L2 ≤ 1e-5, parameter gradients rel-L2 ≤ 1e-3
   (the fp32 weight gradients sum over B·H·W positions in other orders:
   up to 1.2e-4 at full width), running statistics rtol 1e-6, EMA observers
-  equal.
+  equal;
+* K2 (implicit GEMM, small kernel, the old loop with its pad copy) and K3
+  (halo, scalar) with the pad code as a 0-d int32 on the card, read from
+  device memory: the raw accumulators equal the host-scalar entry's and
+  the plain version's;
+* the compiled steps: five training steps with graphs (two eager, a
+  capture, replays) against five with graphs off, from the same weights
+  and batches, for the narrowed configs 5 and 3 on the integer forward
+  and config 5 on the simulation and in fp32 — loss, acc, every parameter,
+  AdamW's state, BatchNorm's statistics and the observers bit-equal after
+  every step, one graph kept, the launch counters moved alike; evaluation
+  graphed against eager (a remainder batch included); a step that syncs
+  with the host refused at its capture.
 """
 import copy
 import dataclasses
@@ -39,9 +51,13 @@ from qtpu_torch.ops import qat_int, qops
 from qtpu_torch.ops import qconv as tconv
 from qtpu_torch.ops import qdepthwise as tdw
 from qtpu_torch.ops import qmatmul as tmm
-from qtpu_torch.train import create_train_state, train_step
+from qtpu_torch.data import Dataset
+from qtpu_torch.train import create_train_state, evaluate, train_step
+from qtpu_torch.train.loop import eval_graphs
 from qtpu_torch.transform import convert_model
 from qtpu_torch.utils.device import fp32_exact
+from qtpu_torch.utils.graphs import (GraphCaptureError, launch_counters,
+                                     read_counters)
 
 
 @pytest.fixture
@@ -212,3 +228,147 @@ def test_qat_step_card_vs_cpu_teacher_forced(cuda, name, monkeypatch):
                          torch.Generator().manual_seed(0))
     policy = dataclasses.replace(cfg.policy(), qat_forward="int")
     _teacher_forced(model, policy, cuda, 64, monkeypatch)
+
+
+# K2 and K3 with the pad code on the device: (kernel, Ci, Co, k, stride, H,
+# K2 path forced or None)
+DEVICE_PAD_CASES = [("K2", 64, 64, 3, 1, 14, None), ("K2", 128, 128, 3, 2,
+                                                      14, None),
+                    ("K2", 256, 128, 1, 2, 14, None),
+                    ("K2", 3, 32, 3, 2, 32, None),
+                    ("K2", 16, 16, 3, 1, 16, None),
+                    ("K2", 64, 64, 3, 1, 14, "igemm"),
+                    ("K2", 24, 40, 3, 2, 15, "igemm"),
+                    ("K3", 144, 144, 3, 1, 14, None),
+                    ("K3", 96, 96, 3, 2, 15, None), ("K3", 24, 24, 5, 1, 9,
+                                                     None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zp", [-41, 0, 23])
+@pytest.mark.parametrize("kern,ci,co,k,s,h,path", DEVICE_PAD_CASES)
+def test_device_pad_code_equals_the_scalar_entry(cuda, kern, ci, co, k, s,
+                                                 h, path, zp):
+    g = torch.Generator().manual_seed(ci + co + k + s)
+    x = torch.randint(-128, 128, (4, h, h, ci), generator=g,
+                      dtype=torch.int8).to(cuda)
+    zd = torch.tensor(zp, dtype=torch.int32, device=cuda)
+    if kern == "K2":
+        w = torch.randint(-127, 128, (co, k * k * ci), generator=g,
+                          dtype=torch.int8).to(cuda)
+        pads = qops.resolve_pads((h, h), (k, k), (s, s), "SAME")
+        kw = dict(kernel_hw=(k, k), stride=s, pads=pads, raw_acc=True)
+        host = tconv.qconv2d_folded(x, w, None, None, zp=zp, path=path, **kw)
+        dev = tconv.qconv2d_folded(x, w, None, None, zp=zd, path=path, **kw)
+        plain = tconv.qconv2d_folded_plain(x, w, None, None, zp=zp, **kw)
+    else:
+        w = torch.randint(-127, 128, (k * k, co), generator=g,
+                          dtype=torch.int8).to(cuda)
+        kw = dict(kernel_hw=(k, k), stride=s, padding="SAME", raw_acc=True)
+        host = tdw.qdepthwise_folded(x, w, None, None, zp=zp, **kw)
+        dev = tdw.qdepthwise_folded(x, w, None, None, zp=zd, **kw)
+        plain = tdw.qdepthwise_folded_plain(x, w, None, None, zp=zp, **kw)
+    assert torch.equal(dev, host) and torch.equal(dev, plain)
+
+
+def _narrow(name, form, cuda, seed=0):
+    cfg = CONFIGS[name]
+    kw = (dict(width=16, stage_sizes=(1, 1, 1, 1)) if cfg.model == "resnet50"
+          else dict(width_mult=0.25))
+    model = init_weights(get_model(cfg.model, num_classes=10, **kw),
+                         torch.Generator().manual_seed(seed)).to(cuda)
+    if form == "fp32":
+        return model
+    return convert_model(model, dataclasses.replace(cfg.policy(),
+                                                    qat_forward=form))
+
+
+def _state_equal(a, b):
+    """Parameters, buffers and AdamW's state of two train states."""
+    for (n, t), u in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(t, u), n
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,form", [
+    ("resnet50_int4w_int8a_qat", "int"),
+    ("mobilenetv2_imagenet_int8_qat", "int"),
+    ("resnet50_int4w_int8a_qat", "sim"), ("resnet50_int4w_int8a_qat",
+                                          "fp32")])
+def test_graphed_steps_equal_eager_steps(cuda, name, form):
+    rs = np.random.default_rng(5)
+    data = [(rs.standard_normal((4, 32, 32, 3)).astype(np.float32),
+             rs.integers(0, 10, 4)) for _ in range(5)]
+    graphed = create_train_state(_narrow(name, form, cuda), 1e-3)
+    eager = create_train_state(_narrow(name, form, cuda), 1e-3)
+    eager.run_eagerly()
+    assert graphed.optimizer.defaults["capturable"]
+    counters = launch_counters()
+    moved = {}
+    # cuDNN's deterministic algorithms: its default weight gradients sum
+    # with atomics at some shapes, in another order each run
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        _five_steps(data, graphed, eager, counters, moved)
+    assert not eager.graphs and graphed.graph_bytes() > 0
+
+
+def _five_steps(data, graphed, eager, counters, moved):
+    for i, (x, y) in enumerate(data):
+        out = {}
+        for key, st in (("graphed", graphed), ("eager", eager)):
+            c0 = read_counters(counters)
+            out[key] = train_step(st, x, y)
+            torch.cuda.synchronize()
+            moved[key] = {k: v - c0[k] for k, v in
+                          read_counters(counters).items() if v != c0[k]}
+        for k in ("loss", "acc"):
+            assert torch.equal(out["graphed"][k], out["eager"][k]), (i, k)
+        _state_equal(graphed, eager)
+        assert moved["graphed"] == moved["eager"], i
+        assert len(graphed.graphs) == (1 if i >= 2 else 0), i
+
+
+@pytest.mark.gpu
+def test_evaluate_graphed_equals_eager(cuda):
+    model = _narrow("mobilenetv2_imagenet_int8_qat", "int", cuda)
+    rs = np.random.default_rng(6)
+    ds = Dataset(rs.standard_normal((10, 32, 32, 3)).astype(np.float32),
+                 rs.integers(0, 10, 10), 10)
+    train_step(create_train_state(model, 1e-3), ds.images[:4],
+               ds.labels[:4])                   # the observers' first batch
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        eager = evaluate(model, ds, 4, graphed=False)
+        assert evaluate(model, ds, 4) == eager == evaluate(model, ds, 4)
+    assert len(eval_graphs(model)) == 2         # B = 4 and the remainder 2
+    for n, b in model.named_buffers():
+        assert torch.equal(b, before[n]), n
+
+
+class _Syncs(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fc = torch.nn.Linear(3, 10)
+
+    def forward(self, x):
+        y = self.fc(x.mean((1, 2)))
+        return y * float(y.abs().max())         # a host read
+
+
+@pytest.mark.gpu
+def test_a_step_that_syncs_is_refused_at_its_capture(cuda):
+    state = create_train_state(_Syncs().to(cuda), 1e-3)
+    x = np.zeros((2, 4, 4, 3), np.float32)
+    y = np.zeros(2, np.int64)
+    train_step(state, x, y)
+    train_step(state, x, y)                      # two eager steps run
+    with pytest.raises(GraphCaptureError, match="training step"):
+        train_step(state, x, y)

@@ -13,7 +13,7 @@ a forward that returns one reused output buffer, as a graph's replay does,
 served over many rounds of one bucket with the pipeline on and off — every
 request gets its own rows, since a round's output is copied out before the
 next round runs; a CPU engine reports no graphs in ``stats()``; the ops'
-counters ``serve.graphs`` replays; ``bench.serve_rounds.round_ms`` times a
+counters a replay adds (``utils.graphs``); ``bench.serve_rounds.round_ms`` times a
 round of a burst.
 """
 import dataclasses
@@ -283,11 +283,11 @@ def test_cpu_engine_reports_no_graphs():
 
 
 def test_launch_counters_found_and_added():
-    """``serve.graphs.launch_counters`` finds every kernel wrapper's launch
+    """``utils.graphs.launch_counters`` finds every kernel wrapper's launch
     counters, the plain versions' call counters and the pad copies, and
     ``add_counts`` advances them as a replay does."""
     from qtpu_torch.ops import qconv, qmatmul, qops
-    from qtpu_torch.serve import graphs
+    from qtpu_torch.utils import graphs
 
     c = graphs.launch_counters()
     for name in ("qmatmul_folded.launches", "qmatmul_folded.launches_wgmma",
@@ -322,6 +322,30 @@ def test_launch_counters_found_and_added():
         for k, (fn, attr) in c.items():
             setattr(fn, attr, before[k])
     assert qmatmul.qmatmul_folded.launches == before["qmatmul_folded.launches"]
+
+
+def test_submit_burst_reaches_the_scheduler_at_once():
+    from qtpu_torch.bench.serve_rounds import submit_burst
+
+    eng = _engine(batch_buckets=(4, 8), max_wait_ms=5.0)
+    submit = eng.submit
+
+    def slow_submit(image):     # a loaded host: 8 submits outlast 5 ms
+        time.sleep(0.004)
+        return submit(image)
+
+    eng.submit = slow_submit
+    try:
+        xs = np.random.default_rng(3).standard_normal(
+            (8, 8, 8, 1)).astype(np.float32)
+        futs = submit_burst(eng, list(xs))
+        out = np.stack([f.result(timeout=60) for f in futs])
+        ref = tiny_forward(None, torch.from_numpy(xs)).numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+        assert eng.stats()["rounds_per_bucket"] == {8: 1}
+        assert "put" not in vars(eng._queue)     # the queue's own put again
+    finally:
+        eng.stop()
 
 
 @pytest.mark.parametrize("batch", [1, 4, 8])
