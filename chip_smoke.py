@@ -235,7 +235,8 @@ success):
    clock (``bench/serve_rounds.round_ms``).  Both servers are killed if
    the phase fails;
 6. timings with CUDA events after warm-up: engine images/s as served
-   (launched from Python) with the device time of the same forward captured
+   (the eager body, ``eager_forward``, launched from Python) with the device
+   time of the same forward captured
    as one CUDA graph beside it — LeNet-5, ResNet-18 KL and ResNet-20 KL at
    B = 8 and 128, the ResNet-50 module path at B = 128 beside the flat
    engine's ResNet-50 (only its stem in fp32), ResNet-50 (product at B = 8
@@ -324,6 +325,32 @@ the operation that launched them).
    with the TP = 1 graph time at B = 32; (e) the rows of (a)-(c) appended
    with ``receipts.log_receipt`` under the work directory and read back;
    and the eager B = 8 forward with and without a trace running.
+10. the flat engines' own entry points compiled per input shape, as qtpu
+   jits them (``serve/flat_engine.py``: one CUDA graph per entry and
+   shape), on phase 4's engines at full width — ResNet-50 (product, tail,
+   block, stage), the int8-stem ResNet-50, config 5 (product, packed,
+   packed stage), MobileNet-v2 (product, ivr), MobileNet-v1 with its int8
+   stem, ResNet-18/20 KL — ``forward`` at B = 8 and 128 (MobileNet-v2 32
+   and 128), ``forward_codes`` on the int8 stems, ``forward_u8`` on the
+   fp32 stems: each graphed call bit-equal to the eager body, two outputs
+   kept across calls on other inputs (and a third call) still right, a
+   replay's launches counted by kernel name in a trace equal route by route
+   to an eager call's (one ``cudaGraphLaunch``, no capture), ms a call
+   graphed and eager (``timed_eager``, device-resident input) and each
+   graph's bytes (an engine's graphs share one pool: what each capture
+   added); every engine's graphs freed before the next; then the
+   histogram observer's update (256 partial histograms) against the same
+   update counted by ``torch.bincount`` at ResNet-18 KL's and ResNet-50's
+   layer1 (equal counts; each one's kernels' device time in a trace, the
+   port's as a graph, bincount's from Python), and each update's first
+   three calls in a fresh process (``--cold-hist``, both orders);
+   ``calibrate`` eager, graphed, graphed, eager on the same model and
+   batches (``serve.cli.calibration_inputs``) of ResNet-50 (min-max),
+   config 5 (EMA) and ResNet-18/20 KL: ``quant_stats`` and
+   ``quant_params`` bit-equal, each pass's seconds in each run.  Every earlier phase calls the
+   engines' eager bodies (``eager_forward`` …) where it times, traces or
+   counts one forward, so no engine holds a graph when phase 10 starts
+   (checked): phase 6's and 9's numbers are the eager body's, as before.
 
 The graph timers (``timed``, ``timed_eager``, ``events_ms``), the peak
 rates and ``bound`` are ``qtpu_torch.bench.timing``'s; every profile goes
@@ -526,6 +553,13 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def eager_entry(flat, entry="forward"):
+    """A flat engine's eager body of ``entry`` (``eager_forward``, ...: its
+    launches from Python, no graph); a module-path model's ``forward``,
+    which is eager."""
+    return getattr(flat, f"eager_{entry}", None) or getattr(flat, entry)
 
 
 def log(*a):
@@ -995,8 +1029,8 @@ def main() -> int:
     from qtpu_torch.ops import qtail as k5
     from qtpu_torch.ops.chain_plan import chain_plan
     from qtpu_torch.bench.serve_rounds import round_ms, submit_burst
-    from qtpu_torch.serve.cli import (build_engine, freeze_from_config,
-                                      serve_module)
+    from qtpu_torch.serve.cli import (build_engine, calibration_inputs,
+                                      freeze_from_config, serve_module)
     from qtpu_torch.serve.dispatch import resnet_arch
     from qtpu_torch.data.native import pack_batch
     from qtpu_torch.serve.engine import ServingEngine
@@ -1010,7 +1044,8 @@ def main() -> int:
     from qtpu_torch.data import Dataset
     from qtpu_torch.train import create_train_state, evaluate, train_step
     from qtpu_torch.train.loop import eval_graphs
-    from qtpu_torch.transform import convert_model, freeze
+    from qtpu_torch.calib import observers as obs
+    from qtpu_torch.transform import calibrate, convert_model, freeze
     from qtpu_torch.utils.device import fp32_exact
     from qtpu_torch.utils.graphs import launch_counters, read_counters
 
@@ -2057,7 +2092,7 @@ def main() -> int:
     def one_forward(flat, x, expect, what, entry="forward"):
         zero_counts()
         with torch.inference_mode():
-            y = getattr(flat, entry)(x)
+            y = eager_entry(flat, entry)(x)
         torch.cuda.synchronize()
         got = counts()
         check(got[:PLAIN + 1] == expect, f"{what}: one forward launched "
@@ -2243,7 +2278,7 @@ def main() -> int:
         check(served.shape == (45, classes) and np.isfinite(served).all(),
               "served logits not finite / mis-shaped")
         with torch.inference_mode():
-            direct = flat.forward(torch.from_numpy(imgs)).cpu().numpy()
+            direct = eager_entry(flat)(torch.from_numpy(imgs)).cpu().numpy()
         rel = float(np.linalg.norm(served - direct) / np.linalg.norm(direct))
         check(rel <= 1e-4, f"{what}: served logits vs forward: rel-L2 {rel}")
         check(not exact or np.array_equal(served, direct),
@@ -2315,7 +2350,7 @@ def main() -> int:
         ServingEngine with a forward factory, over ``tree``."""
         engine = ServingEngine(None, tree, batch_buckets=(8, 32, 128),
                                max_wait_ms=20.0,
-                               forward_factory=lambda sv: flat.forward,
+                               forward_factory=lambda sv: eager_entry(flat),
                                device=dev)
         engine.warmup(imgs.shape[1:])
         return drive(what, engine, flat, per_fwd, classes, imgs=imgs)
@@ -2669,8 +2704,8 @@ def main() -> int:
 
     def logits_agree(flat, cpu, what, x2=x2, entry="forward"):
         with torch.inference_mode():
-            y_gpu = getattr(flat, entry)(x2).cpu().numpy()
-            y_cpu = getattr(cpu, entry)(x2).numpy()
+            y_gpu = eager_entry(flat, entry)(x2).cpu().numpy()
+            y_cpu = eager_entry(cpu, entry)(x2).numpy()
         rel = float(np.linalg.norm(y_gpu - y_cpu) / np.linalg.norm(y_cpu))
         check(rel <= 1e-4, f"{what}: card vs CPU logits rel-L2 {rel}")
         return rel
@@ -2949,8 +2984,8 @@ def main() -> int:
         imgs_round = rs.standard_normal((max(ROUND_BUCKETS), 224, 224, 3)
                                         ).astype(np.float32)
         with torch.inference_mode():
-            direct = [rn50.forward(torch.from_numpy(r).to(dev)).cpu().numpy()
-                      for r in plan]
+            direct = [rn50.eager_forward(torch.from_numpy(r).to(dev)).cpu(
+            ).numpy() for r in plan]
         eng, info = cli_build_engine(
             CONFIGS[RN50], buckets=(8, 32), load_frozen=frozen_a,
             device=dev)
@@ -3016,10 +3051,10 @@ def main() -> int:
                              dtype=np.uint8) for _ in range(2 * HTTP_THREADS)]
         s_tv, zp_tv = tv.stem_grid()[:2]
         with torch.inference_mode():
-            direct8 = [tv.forward_codes(torch.from_numpy(
+            direct8 = [tv.eager_forward_codes(torch.from_numpy(
                 native.preprocess_quantize(r, (0.0,), (1.0,), s_tv, zp_tv)
             ).to(dev)).cpu().numpy() for r in plan8]
-            f32_8 = [tv.forward(torch.from_numpy(
+            f32_8 = [tv.eager_forward(torch.from_numpy(
                 r.astype(np.float32) / 255.0).to(dev)).cpu().numpy()
                 for r in plan8]
         got_b, _, _ = drive_http(url_b, plan8, HTTP_THREADS)
@@ -3124,7 +3159,7 @@ def main() -> int:
             eng = ServingEngine(
                 None, rn50_vars, batch_buckets=ROUND_BUCKETS,
                 max_wait_ms=50.0, device=dev, forward_factory=lambda v:
-                ResNetInt8Engine(v, arch, device=dev).forward)
+                ResNetInt8Engine(v, arch, device=dev).eager_forward)
             if mode == "eager":
                 eng.serve_eagerly()
             eng.warmup((224, 224, 3))
@@ -3157,15 +3192,17 @@ def main() -> int:
         q128 = torch.randint(-128, 128, (128, 224, 224, 3), generator=g,
                              dtype=torch.int8).to(dev)
         with torch.inference_mode():
-            t7 = {"f32 stem": timed(lambda: rn50.forward(x128), 5),
-                  "bf16 stem": timed(lambda: bf16.forward(x128), 5),
-                  "torchvision, f32 in": timed(lambda: tv.forward(x128), 5),
-                  "torchvision, int8 ingest": timed(lambda: tv.forward_codes(q128), 5)}
+            t7 = {"f32 stem": timed(lambda: rn50.eager_forward(x128), 5),
+                  "bf16 stem": timed(lambda: bf16.eager_forward(x128), 5),
+                  "torchvision, f32 in": timed(
+                      lambda: tv.eager_forward(x128), 5),
+                  "torchvision, int8 ingest": timed(
+                      lambda: tv.eager_forward_codes(q128), 5)}
         log(f"ResNet-50 forward B=128 as one CUDA graph ({card}): "
             + "; ".join(f"{k} {v:.3f} ms" for k, v in t7.items()))
         profile_forward(f"{RN50} [f32 stem]", rn50, x128, torch, by_op=True)
         profile_forward(f"{RN50_INT8STEM} torchvision [int8 ingest]",
-                        types.SimpleNamespace(forward=tv.forward_codes),
+                        types.SimpleNamespace(forward=tv.eager_forward_codes),
                         q128, torch, by_op=True)
         del x128, q128
     finally:
@@ -3194,8 +3231,9 @@ def main() -> int:
         for B in batches:
             x = torch.randn((B, *hwc), generator=g).to(dev)
             with torch.inference_mode():
-                ms = timed_eager(lambda: flat.forward(x), 10)
-                graph_ms[what, B] = timed(lambda: flat.forward(x), 5)
+                body = eager_entry(flat)
+                ms = timed_eager(lambda: body(x), 10)
+                graph_ms[what, B] = timed(lambda: body(x), 5)
             log(f"{what} engine forward B={B}: {ms:.3f} ms, "
                 f"{B / ms * 1e3:.1f} img/s (device time as one CUDA graph: "
                 f"{graph_ms[what, B]:.3f} ms)")
@@ -3378,6 +3416,170 @@ def main() -> int:
     phase9(dev, work, card, torch, {RN50: rn50, MNV2: mnv2}, graph_ms,
            busy_ms)
     phase_done("9 (the tooling)")
+
+    # -- 10. the flat engines' own entries compiled per input shape, and
+    # calibration's passes per batch shape ----------------------------------------------
+    def entry_input(eng, entry, B, hwc, seed):
+        gen = torch.Generator().manual_seed(seed)
+        if entry == "forward_u8":
+            return torch.randint(0, 256, (B, *hwc), generator=gen,
+                                 dtype=torch.uint8).to(dev)
+        x = torch.randn((B, *hwc), generator=gen).to(dev)
+        if entry == "forward_codes":
+            sg = eng.stem_grid()
+            return qops.quantize_act(x, sg.scale, sg.zp, symmetric=sg.sym)
+        return x
+
+    rows10 = []
+    for what, eng, hwc, keys in (
+            (RN50, rn50, (224, 224, 3),
+             (("forward", 8), ("forward", 128), ("forward_u8", 8))),
+            (f"{RN50} [tail]", fused["tail"], (224, 224, 3),
+             (("forward", 8), ("forward", 128))),
+            (f"{RN50} [block]", fused["block"], (224, 224, 3),
+             (("forward", 8), ("forward", 128))),
+            (f"{RN50} [stage]", fused["stage"], (224, 224, 3),
+             (("forward", 8), ("forward", 128))),
+            (RN50_INT8STEM, rn50s, (224, 224, 3),
+             (("forward", 8), ("forward_codes", 8), ("forward_codes", 128))),
+            (CFG5, prod5, (224, 224, 3), (("forward", 8), ("forward", 128))),
+            (f"{CFG5} [packed_int4]", packed5, (224, 224, 3),
+             (("forward", 8), ("forward", 128))),
+            (f"{CFG5} [stage, packed_int4]", stage5, (224, 224, 3),
+             (("forward", 8), ("forward", 128))),
+            (MNV2, mnv2, (224, 224, 3),
+             (("forward", 32), ("forward", 128), ("forward_u8", 32))),
+            (f"{MNV2} [ivr]", ivr, (224, 224, 3),
+             (("forward", 32), ("forward", 128))),
+            (MNV1[-1], mnv1, (224, 224, 3),
+             (("forward", 8), ("forward_codes", 8), ("forward", 128))),
+            (RN18, rn18, (32, 32, 3), (("forward", 8), ("forward", 128))),
+            (RN20, rn20, (32, 32, 3), (("forward", 8), ("forward", 128)))):
+        check(not eng.graphs, f"{what}: graphs before phase 10: "
+              f"{sorted(eng.graphs)}")
+        for i, (entry, B) in enumerate(keys):
+            fn, body = getattr(eng, entry), eager_entry(eng, entry)
+            name = f"{what} {entry} B={B}"
+            x = entry_input(eng, entry, B, hwc, 10 * i)
+            x2 = entry_input(eng, entry, B, hwc, 10 * i + 1)
+            with torch.inference_mode():
+                ref, ref2 = body(x), body(x2)
+                y = fn(x)                  # captured, then replayed
+                key = (entry, tuple(x.shape))
+                check(key in eng.graphs, f"{name}: no graph after the "
+                      f"first call ({sorted(eng.graphs)})")
+                y2 = fn(x2)
+                check(torch.equal(y, ref) and torch.equal(y2, ref2),
+                      f"{name}: a replay differs from the eager body")
+                check(y.data_ptr() != y2.data_ptr(), f"{name}: two calls "
+                      "returned one buffer")
+                # the launches of a replay against an eager call's, counted
+                # by kernel name in a trace, route by route
+                c_e, _, _ = traced_call(lambda: body(x), lambda: body(x),
+                                        f"{name} [eager]")
+                c_g, api, y3 = traced_call(lambda: fn(x), lambda: fn(x),
+                                           f"{name} [replay]")
+                check(c_g == c_e and c_g[PLAIN] == 0 and any(
+                    c_g[:PLAIN]), f"{name}: a replay launched "
+                      f"{fmt_counts(c_g)}, the eager body {fmt_counts(c_e)}")
+                check(api.get("cudaGraphLaunch", 0) == 1
+                      and not api.get("cudaStreamBeginCapture", 0),
+                      f"{name}: the call's runtime calls {dict(api)}")
+                check(torch.equal(y3, ref) and torch.equal(y, ref)
+                      and torch.equal(y2, ref2), f"{name}: an output held "
+                      "across calls changed, or a later replay differs")
+                ms_g = timed_eager(lambda: fn(x), 20)
+                ms_e = timed_eager(lambda: body(x), 20)
+            nbytes = eng.graphs[key].nbytes
+            rows10.append((name, ms_g, ms_e, nbytes))
+            log(f"{name} ({card}): graphed {ms_g:.3f} ms a call, eager "
+                f"{ms_e:.3f} ms (timed_eager, 20 calls from a "
+                f"device-resident input); graph {nbytes / 2 ** 20:.1f} MiB; "
+                "two calls bit-equal to the eager body and still held "
+                "after a third; a replay's launches equal the eager body's "
+                f"by route ({fmt_counts(c_g)}; one cudaGraphLaunch)")
+            del x, x2, ref, ref2, y, y2, y3
+        eng.free_graphs()
+        torch.cuda.empty_cache()
+    log("phase 10 graphed / eager ms a call and graph MiB per (entry, "
+        f"shape) ({card}): " + "; ".join(
+            f"{n} {g:.3f} / {e:.3f} ({b / 2 ** 20:.1f} MiB)"
+            for n, g, e, b in rows10))
+
+    # the histogram observer's update against the same update counted by
+    # torch.bincount (which reads its size back to the host, so a graph
+    # cannot hold it) on ReLU'd activations at ResNet-18 KL's layer1
+    # (B = 64) and ResNet-50's layer1 (B = 16): the device time of each
+    # one's kernels in a trace, the port's as a graph, bincount's launched
+    # from Python (its host read included)
+    for what, shape in ((f"{RN18} layer1 B=64", (64, 32, 32, 64)),
+                        (f"{RN50} layer1 B=16", (16, 56, 56, 256))):
+        xh = torch.relu(torch.randn(shape, generator=g)).to(dev)
+        hs = obs.hist_set_range(obs.hist_init(device=dev), xh.abs().amax())
+        check(torch.equal(obs.hist_update(hs, xh)["counts"],
+                          bincount_hist_update(torch, hs, xh)),
+              f"{what}: the histogram's counts differ from torch.bincount's")
+        dev_ms = {k: traced_kernel_ms(torch, fn, 20) for k, fn in (
+            ("port", lambda: obs.hist_update(hs, xh)),
+            ("bincount", lambda: bincount_hist_update(torch, hs, xh)))}
+        port_ms = timed(lambda: obs.hist_update(hs, xh), 20)
+        bincount_ms = timed_eager(
+            lambda: bincount_hist_update(torch, hs, xh), 20)
+        log(f"histogram update of |x| into {obs.HIST_NBINS} bins, {what} "
+            f"({xh.numel()} values, ReLU'd; {card}): device time of the "
+            f"kernels in a trace, the port's ({obs.HIST_ROWS} partial "
+            f"histograms) {fmt_ms(dev_ms['port'])} ms, on torch.bincount "
+            f"{fmt_ms(dev_ms['bincount'])} ms; the port's as a CUDA graph "
+            f"{port_ms:.4f} ms, on bincount from Python (its host read "
+            f"included) {bincount_ms:.4f} ms; the counts equal")
+        del xh, hs
+    # each update's first calls in a fresh process, both orders: what the
+    # process's first histogram pass pays to load its kernels
+    for order in ("port,bincount", "bincount,port"):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--cold-hist", order], capture_output=True,
+                             text=True, timeout=300, cwd=ROOT)
+        check(res.returncode == 0, f"--cold-hist {order}: exit "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        first = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f"histogram update, first three calls in a fresh process, "
+            f"{order} ({RN18} layer1 B=64, wall ms, synchronised; {card}): "
+            + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in ms)
+                        for k, ms in first.items()))
+
+    # calibration's passes, graphed against eager on the card, in the
+    # order eager, graphed, graphed, eager (neither way always second)
+    def cal_differs(a, b):
+        st_a, st_b = a["quant_stats"], b["quant_stats"]
+        bad = [f"{p}/{k}" for p in st_a for k, v in st_a[p].items()
+               if (not torch.equal(v, st_b[p][k])
+                   if isinstance(v, torch.Tensor) else v != st_b[p][k])]
+        bad += [f"{p}/{k}" for p, q in a["quant_params"].items()
+                for k in ("act_scale", "act_zp")
+                if not torch.equal(q[k], b["quant_params"][p][k])]
+        return bad + ([] if st_a.keys() == st_b.keys() else ["layers"])
+
+    for name in (RN50, CFG5, RN18, RN20):
+        model, policy, batches = calibration_inputs(CONFIGS[name], device=dev)
+        runs = [(graphed, calibrate(model, policy, batches, graphed=graphed))
+                for graphed in (False, True, True, False)]
+        for graphed, cal in runs[1:]:
+            bad = cal_differs(runs[0][1], cal)
+            check(not bad, f"{name}: calibration (graphed {graphed}) "
+                  f"differs from the first eager one at {bad[:8]}")
+        st = runs[0][1]["quant_stats"]
+        observers = sorted({policy.spec_for(p).act_observer for p in st})
+        log(f"{name} calibration ({', '.join(observers)}; "
+            f"{len(st)} layers, {CONFIGS[name].calib_batches} batches of "
+            f"{CONFIGS[name].batch_size}; {card}): quant_stats and "
+            "quant_params bit-equal graphed and eager; seconds in the order "
+            "eager, graphed, graphed, eager: " + ", ".join(
+                f"{k} " + " / ".join(f"{cal['seconds'][k]:.3f}"
+                                     for _, cal in runs)
+                for k in ("range", "hist", "search")))
+        del runs, model, batches
+        torch.cuda.empty_cache()
+    phase_done("10 (graphed entries and calibration)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3397,6 +3599,72 @@ def device_kernels(torch, fn):
     return [e.name[:60] for e in t.profiler.events()
             if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation] or ["none reported"]
+
+
+def traced_kernel_ms(torch, fn, n):
+    """Device ms a call of ``fn``: the time of its kernels in a trace of
+    ``n`` calls (``profiled``), over ``n``; copies between host and card
+    and the host's waits are not in it.  None if the trace held no device
+    time."""
+    from torch.autograd import DeviceType
+    averages, _, _ = profiled(torch, lambda: [fn() for _ in range(n)],
+                              False)
+    us = sum(e.self_device_time_total for e in averages
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+             and not e.key.startswith(("ProfilerStep", "Memcpy")))
+    return us / n / 1e3 if us else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def bincount_hist_update(torch, state, x):
+    """The histogram observer's update as it counted before it was
+    captured in a graph: the same bins, counted by ``torch.bincount``
+    (which on the card reads the largest index back to the host); the new
+    counts."""
+    counts = state["counts"]
+    nbins = counts.shape[0]
+    amax = torch.clamp_min(state["amax"], 1e-12)
+    ax = torch.abs(x).to(torch.float32).reshape(-1)
+    idx = torch.clamp((ax / amax * nbins).to(torch.int32), 0, nbins - 1)
+    batch = torch.bincount(idx.to(torch.int64), minlength=nbins)
+    return counts + batch.to(torch.float32)
+
+
+def cold_hist(order: str) -> int:
+    """``--cold-hist A,B``: in this fresh process, the first three calls of
+    each histogram update — ``port`` the observer's (``hist_update``),
+    ``bincount`` :func:`bincount_hist_update` — in the order given, wall
+    ms each (synchronised), on ReLU'd activations at ResNet-18 KL's layer1
+    (B = 64), after the kernels the two share (the bin index, the casts,
+    the add) have run once.  Prints one JSON line."""
+    import torch
+
+    from qtpu_torch.calib import observers as obs
+    x = torch.relu(torch.randn((64, 32, 32, 64),
+                               generator=torch.Generator().manual_seed(0)))
+    x = x.cuda()
+    hs = obs.hist_set_range(obs.hist_init(device=x.device), x.amax())
+    nb = obs.HIST_NBINS
+    idx = torch.clamp((torch.abs(x).to(torch.float32).reshape(-1)
+                       / torch.clamp_min(hs["amax"], 1e-12) * nb
+                       ).to(torch.int32), 0, nb - 1)
+    _ = hs["counts"] + idx[:nb].to(torch.int64).to(torch.float32)
+    fns = {"port": lambda: obs.hist_update(hs, x),
+           "bincount": lambda: bincount_hist_update(torch, hs, x)}
+    out = {}
+    for name in order.split(","):
+        out[name] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps(out))
+    return 0
 
 
 def profiled(torch, run, record_shapes):
@@ -3557,13 +3825,14 @@ def profile_forward(what, flat, x, torch, by_op=False):
     # a trace on the card now and then loses the forward's first kernels
     # (once all of MobileNet-v2's fp32 stem, 1.6 of its 3.6 ms; PERF.md
     # §6): of two traces, the one with more device time is the whole
+    body = eager_entry(flat)           # the eager forward's launches
     with torch.inference_mode():
-        flat.forward(x)
+        body(x)
         torch.cuda.synchronize()
         takes = []
         for _ in range(2):
             averages, events, wall_ms = profiled(
-                torch, lambda: flat.forward(x), by_op)
+                torch, lambda: body(x), by_op)
             fams = by_family(averages)
             takes.append((sum(us for _, us in fams.values()), fams, events,
                           wall_ms))
@@ -3644,7 +3913,8 @@ def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
         want, scopes = PHASE9_TRACED[what]
         x = torch.randn((128, 224, 224, 3), generator=g).to(dev)
         t0 = time.monotonic()
-        path = capture_trace(flat.forward, x, steps=PHASE9_STEPS,
+        # the eager body: a replayed graph runs none of the scopes
+        path = capture_trace(flat.eager_forward, x, steps=PHASE9_STEPS,
                              logdir=TRACE_DIR)
         records = parse_trace(path)
         rows = layer_table(records, PHASE9_STEPS)
@@ -3695,7 +3965,7 @@ def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
     x = torch.randn((128, 224, 224, 3), generator=g).to(dev)
     with torch.inference_mode():
         fit_ms = 1e3 * time_scan_fit(
-            lambda c: c + 0.0 * rn50.forward(c).sum(), x, n_short=3,
+            lambda c: c + 0.0 * rn50.eager_forward(c).sum(), x, n_short=3,
             n_long=13)
     ref = graph_ms[RN50, 128]
     log(f"phase 9 (b) {RN50} B=128: time_scan_fit {fit_ms:.3f} ms a "
@@ -3741,7 +4011,7 @@ def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
           f"{len(tp['records'])} collectives of {tp['calls']} calls")
     x = torch.randn((tp["batch"], 224, 224, 3), generator=g).to(dev)
     with torch.inference_mode():
-        t1_ms = timed(lambda: rn50.forward(x), 5)
+        t1_ms = timed(lambda: rn50.eager_forward(x), 5)
     proj = project(t1_ms / 1e3, tp["records"], tp["tp"], tp=tp["tp"])
     log(f"phase 9 (d) projection of the TP = {tp['tp']} B = {tp['batch']} "
         f"{RN50} forward ({len(tp['records'])} collectives, "
@@ -3754,9 +4024,9 @@ def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
     # with a trace running
     x = torch.randn((8, 224, 224, 3), generator=g).to(dev)
     with torch.inference_mode():
-        plain_ms = timed_eager(lambda: rn50.forward(x), 20)
+        plain_ms = timed_eager(lambda: rn50.eager_forward(x), 20)
         with trace(TRACE_DIR, "cuda"):
-            traced_ms = timed_eager(lambda: rn50.forward(x), 20)
+            traced_ms = timed_eager(lambda: rn50.eager_forward(x), 20)
     log(f"phase 9 {RN50} eager B=8 forward ({card}): {plain_ms:.3f} ms "
         f"without a trace (the scopes null contexts), {traced_ms:.3f} ms "
         "with one running (the profiler and the scopes recording)")
@@ -3818,6 +4088,9 @@ def phase8(dev, work, card, torch):
             check(t["plain"] == 0, f"rank {r} {what}: plain versions ran")
             check(t["per_forward"] == t["want"], f"rank {r} {what}: launches "
                   f"{t['per_forward']}, expected {t['want']}")
+            check(t["graphs"] == 0, f"rank {r} {what}: the TP = 2 engine's "
+                  f"forward captured {t['graphs']} graphs (a sliced tree "
+                  "runs eagerly)")
         check(o["dp"]["own_rows_equal"], f"rank {r}: DP rows differ")
         check(o["dp"]["images"] == o["dp"]["served"], f"rank {r}: served "
               f"{o['dp']['images']} images, submitted {o['dp']['served']}")
@@ -4007,7 +4280,7 @@ def phase8_rank(work):
         for step in eng._plan():
             y, g = eng._step(codes[-1], g, step)
             codes.append(y)
-        return codes, eng.forward(x)
+        return codes, eng.eager_forward(x)
 
     out["tp"] = {}
     with torch.inference_mode():
@@ -4027,6 +4300,7 @@ def phase8_rank(work):
                 differ = [i for i, (a, b) in enumerate(zip(c_ref, c_tp))
                           if not torch.equal(a, b)]
                 out["tp"][f"{what} B={B}"] = dict(
+                    graphs=len(tp.graphs) + len(ref.graphs),
                     equal=not differ and torch.equal(y, y_ref)
                     and torch.equal(y_tp, y_ref), differ=differ,
                     steps=len(c_ref), per_forward=per_fwd, routes=routes,
@@ -4051,7 +4325,7 @@ def phase8_rank(work):
 
         timing = {"tp2_ms": wall_ms(lambda: tp.forward(x))}
         if rank == 0:
-            timing["tp1_ms"] = wall_ms(lambda: ref.forward(x))
+            timing["tp1_ms"] = wall_ms(lambda: ref.eager_forward(x))
         else:
             dist.barrier(group=sync)
         dist.barrier(group=sync)
@@ -4098,7 +4372,7 @@ def phase8_rank(work):
     eng = ServingEngine(None, rn_tree, mesh=dp_mesh, batch_buckets=(8, 32),
                         max_wait_ms=20.0, round_timeout_s=60.0, device=dev,
                         forward_factory=lambda sv: ResNetInt8Engine(
-                            sv, arch, device=dev).forward)
+                            sv, arch, device=dev).eager_forward)
     eng.warmup((224, 224, 3))
     imgs = np.random.default_rng(100 + rank).standard_normal(
         (7, 224, 224, 3)).astype(np.float32)
@@ -4111,7 +4385,8 @@ def phase8_rank(work):
     served = np.concatenate([first, second]) if len(second) else first
     mine = imgs[:len(served)]
     with torch.inference_mode():
-        direct = ref.forward(torch.from_numpy(mine).to(dev)).cpu().numpy()
+        direct = ref.eager_forward(torch.from_numpy(mine).to(dev)).cpu(
+        ).numpy()
     out["dp"] = dict(own_rows_equal=bool(np.array_equal(served, direct)),
                      served=len(served), rounds=st["rounds_per_bucket"],
                      idle_rounds=st["idle_rounds"], images=st["images"],
@@ -4341,6 +4616,8 @@ if __name__ == "__main__":
         sys.exit(phase8_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--qat-check"]:
         sys.exit(qat_check(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--cold-hist"]:
+        sys.exit(cold_hist(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

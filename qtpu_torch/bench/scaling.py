@@ -23,7 +23,8 @@ structural check, not a device metric.
 
 ``factory_forward`` is the usual factory: the forward ``serve.cli.
 build_forward`` builds for a config, over a saved frozen tree or one
-frozen from the config.
+frozen from the config — a flat engine's eager body:
+``time_scan_fit`` captures each chain whole on the card.
 """
 from __future__ import annotations
 

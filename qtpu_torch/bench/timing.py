@@ -11,7 +11,12 @@ between the iterations.  On the CPU the chain is an eager loop timed with
 
 ``timed`` (``iters`` calls as one CUDA graph), ``timed_eager`` (calls
 issued from Python) and ``events_ms`` are the graph timers ``chip_smoke.py``
-and the bench modules share.  ``bound`` is the least time the card could
+and the bench modules share.  A flat engine's entry point called inside
+one of these captures runs its eager body (``serve.flat_engine.
+entry_plan``: the stream is capturing), but the warm-ups outside it would
+capture the entry's own graph: time the eager body (``eager_forward``)
+where the capture is the timer's, and ``timed_eager`` of the entry point
+times its replays.  ``bound`` is the least time the card could
 take for a piece of work at the H100 SXM's published peak rates (NVIDIA's
 data sheet, dense, at its 700 W limit; a card set lower is slower, so every
 number is kept beside ``device_label``'s name and power limit).

@@ -35,10 +35,11 @@ CLI: ``python -m qtpu_torch.bench.tracing [batch] [json_out] --model
 {resnet50,mobilenet_v2,mobilenet_v1} [--device cpu]`` builds the model's
 product engine as ``serve.cli.build_engine`` builds its config (seed-0
 weights, the config's calibration on its training set — synthetic unless
-``$QTPU_DATA_DIR`` holds it), traces 10 forwards on the card and prints
-the table; with ``--device cpu`` it measures the host's plain path, whose
-times are the CPU's and whose work columns are empty (the plain versions
-note nothing).
+``$QTPU_DATA_DIR`` holds it), traces 10 forwards of its eager body
+(``build_forward``'s: a replayed CUDA graph would run none of the scopes)
+on the card and prints the table; with ``--device cpu`` it measures the
+host's plain path, whose times are the CPU's and whose work columns are
+empty (the plain versions note nothing).
 """
 from __future__ import annotations
 

@@ -92,16 +92,15 @@ def build_model(cfg, *, torch_pad: bool = False, seed: int = 0,
     return model.to(resolve_device(device)).eval()
 
 
-def calibrate_from_config(cfg, *, torch_pad: bool = False, seed: int = 0,
-                          device=None, torch_ckpt: Optional[str] = None,
-                          load_state: Optional[str] = None):
-    """model → calibrate, as qtpu's ``_freeze_from_config``: the fp32
-    weights are the seed's, a torchvision ``.pth`` (``torch_ckpt``) or an
-    fp32 ``state_dict`` checkpoint (``load_state``, loaded strictly); the
-    calibration batches are ``ds.images[i*bs:(i+1)*bs]``, ``i <
-    calib_batches``, of the config's training set (empty ones dropped);
-    only those images are built.  Returns ``(model, policy, calib)``, the
-    arguments of ``freeze``."""
+def calibration_inputs(cfg, *, torch_pad: bool = False, seed: int = 0,
+                       device=None, torch_ckpt: Optional[str] = None,
+                       load_state: Optional[str] = None):
+    """``(model, policy, batches)`` of :func:`calibrate_from_config`: the
+    fp32 weights are the seed's, a torchvision ``.pth`` (``torch_ckpt``)
+    or an fp32 ``state_dict`` checkpoint (``load_state``, loaded
+    strictly); the calibration batches are ``ds.images[i*bs:(i+1)*bs]``,
+    ``i < calib_batches``, of the config's training set (empty ones
+    dropped); only those images are built."""
     model = build_model(cfg, torch_pad=torch_pad, seed=seed, device=device)
     if torch_ckpt:
         import_torch_state(cfg.model, load_torch_checkpoint(torch_ckpt),
@@ -113,8 +112,14 @@ def calibrate_from_config(cfg, *, torch_pad: bool = False, seed: int = 0,
                       first=bs * cfg.calib_batches)
     batches = [ds.images[i * bs:(i + 1) * bs]
                for i in range(cfg.calib_batches)]
-    batches = [b for b in batches if len(b)]
-    policy = cfg.policy()
+    return model, cfg.policy(), [b for b in batches if len(b)]
+
+
+def calibrate_from_config(cfg, **kw):
+    """model → calibrate, as qtpu's ``_freeze_from_config``, on
+    :func:`calibration_inputs` (``kw``: its keywords).  Returns ``(model,
+    policy, calib)``, the arguments of ``freeze``."""
+    model, policy, batches = calibration_inputs(cfg, **kw)
     return model, policy, calibrate(model, policy, batches)
 
 
@@ -135,10 +140,13 @@ def serve_module(cfg, tree: dict, *, torch_pad: bool = False, device=None):
 def build_forward(cfg, *, load_frozen: Optional[str] = None, seed: int = 0,
                   device=None):
     """The forward ``build_engine`` serves for ``cfg``, alone (no
-    scheduler, one process): the flat engine's ``forward`` or the
-    SERVE-mode model, f32 NHWC images → logits, over the frozen tree at
-    ``load_frozen`` or one frozen from the config as ``build_engine``
-    freezes it (seeded weights, the config's calibration)."""
+    scheduler, one process): the flat engine's eager body
+    (``eager_forward``, what ``ServingEngine`` compiles per bucket: its
+    per-layer scopes run, and a timer that captures its calls captures
+    the kernels) or the SERVE-mode model, f32 NHWC images → logits, over
+    the frozen tree at ``load_frozen`` or one frozen from the config as
+    ``build_engine`` freezes it (seeded weights, the config's
+    calibration)."""
     dev = resolve_device(device)
     factory, _, _, serve_path = make_flat_forward(
         cfg.model, exclude=cfg.exclude, num_classes=cfg.num_classes,

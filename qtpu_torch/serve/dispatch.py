@@ -117,7 +117,10 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
       wire, normalized on the device (``forward_u8``).
 
     ``stem_dtype``: an excluded stem's conv dtype (``torch.bfloat16`` or
-    None for f32)."""
+    None for f32).  The factories return the entry's eager body
+    (``eager_forward``, ``eager_forward_codes``, ``eager_forward_u8``):
+    ``ServingEngine`` compiles per bucket itself, so no graph nests in
+    another and its ``serve_eagerly()`` rounds stay eager."""
     eligible, exc = flat_engine_eligible(model, exclude)
     if not eligible:
         if uint8_ingest:
@@ -146,16 +149,17 @@ def make_flat_forward(model: str, *, exclude: Sequence[str] = (),
                                 stem_dtype=stem_dtype)
 
     if not uint8_ingest:
-        return (lambda sv: build(sv).forward), None, np.float32, "flat-engine"
+        return ((lambda sv: build(sv).eager_forward), None, np.float32,
+                "flat-engine")
     if "stem" in exc:
-        return ((lambda sv: build(sv).forward_u8), None, np.uint8,
+        return ((lambda sv: build(sv).eager_forward_u8), None, np.uint8,
                 "flat-engine+u8-ingest")
     grid = []          # the stem's (scale, zp), read once the engine is built
 
     def forward_factory(sv):
         eng = build(sv)
         grid.append(eng.stem_grid()[:2])
-        return eng.forward_codes
+        return eng.eager_forward_codes
 
     def preprocess_fn(imgs_u8):
         scale, zp = grid[-1]

@@ -63,7 +63,7 @@ import torch.distributed as dist
 from qtpu_torch.data.native import pack_batch
 from qtpu_torch.parallel.distributed import local_batch_to_global
 from qtpu_torch.parallel.mesh import MODEL_AXIS, shard_variables
-from qtpu_torch.serve.graphs import BucketGraph, capture_bucket
+from qtpu_torch.serve.graphs import ForwardGraph, capture_forward
 from qtpu_torch.utils.device import resolve_device
 
 
@@ -80,7 +80,9 @@ class ServingEngine:
                  pipeline: bool = True, device=None):
         """``forward_fn(variables, batch) -> logits`` or
         ``forward_factory(variables) -> fn(batch)`` (e.g.
-        ``lambda sv: ResNetInt8Engine(sv, arch).forward``); with neither,
+        ``lambda sv: ResNetInt8Engine(sv, arch).eager_forward``, the flat
+        engine's eager body: the engine compiles per bucket itself); with
+        neither,
         the engine serves ``model(batch)`` — the module SERVE path's model
         (``qtpu_torch.nn.serve_layers.serve_model``), as qtpu serves
         ``model.apply``.  ``device``: ``None`` means the card; ``"cpu"``
@@ -127,7 +129,7 @@ class ServingEngine:
         # in one process only (the collectives of a mesh of several ranks
         # run through the host)
         self._graphed = self.device.type == "cuda" and self._procs == 1
-        self._graphs: Dict[int, BucketGraph] = {}
+        self._graphs: Dict[int, ForwardGraph] = {}
         self._graph_lock = threading.Lock()
         self._preprocess = preprocess_fn
         self._raw_dtype = np.dtype(raw_dtype)
@@ -224,14 +226,14 @@ class ServingEngine:
     def _upload(self, imgs: np.ndarray) -> torch.Tensor:
         return self._host_batch(imgs).to(self.device, non_blocking=True)
 
-    def _graph(self, b: int, imgs: np.ndarray) -> BucketGraph:
+    def _graph(self, b: int, imgs: np.ndarray) -> ForwardGraph:
         """Bucket ``b``'s graph, captured on first use (hold
         ``_graph_lock``)."""
         g = self._graphs.get(b)
         if g is None:
-            g = self._graphs[b] = capture_bucket(
+            g = self._graphs[b] = capture_forward(
                 lambda x: self._fwd(self.vars, x), self._host_batch(imgs),
-                self.device, b)
+                self.device, f"bucket {b}: the forward")
         return g
 
     def serve_eagerly(self) -> None:

@@ -49,7 +49,7 @@ unfused 1×1 GEMMs of int4 nodes run on K1's int4 entry, while K4-K9 take
 the unpacked int8 weights.  qtpu has no CLI flag for these engines and
 neither has the port: serve one with
 ``ServingEngine(None, tree, forward_factory=lambda sv:
-ExperimentalResNetInt8Engine(sv, arch, ...).forward, ...)``.
+ExperimentalResNetInt8Engine(sv, arch, ...).eager_forward, ...)``.
 """
 from __future__ import annotations
 

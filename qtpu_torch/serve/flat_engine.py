@@ -11,6 +11,28 @@ on the device for a scalar.  The entry points are qtpu's:
   int8 ingest);
 * ``forward_u8(x8)`` — raw 0-255 uint8 pixels, normalized on the device.
 
+qtpu jits each of them (``self.forward = jax.jit(self._forward)``), so a
+call is one compiled program per input shape.  Here, on a card, each entry
+keeps one CUDA graph per input shape (``serve/graphs.py``): the first call
+of an (entry, shape) warms the body up twice on a side stream, captures
+it and replays it, every later call copies its input into the graph's
+static input and replays; the result is a new tensor, the static output
+copied on the card in stream order (a caller keeps what an earlier call
+returned).  An engine's graphs share one memory pool (``serve.graphs.
+GraphPool``), so a new input shape adds its static tensors, not a copy of
+the forward's intermediates, and their calls run one at a time.  The graph
+table and the captures are under a lock.  What a call does is
+:func:`entry_plan`'s: the eager body on the CPU, for a tree sliced by
+``shard_variables`` (its all-gathers go through the host under gloo, which
+a graph cannot hold) and when the current stream is already capturing (an
+outer graph records the kernels themselves: ``ServingEngine``'s buckets,
+``bench.timing``'s timers).  A call that cannot be captured raises
+``GraphCaptureError`` naming the entry and the shape; nothing falls back
+to eager.  ``eager_forward``, ``eager_forward_codes`` and
+``eager_forward_u8`` are the eager bodies themselves: ``ServingEngine``
+serves them (it compiles per bucket), and traces with the per-layer scopes
+and eager timings call them.
+
 ``torch_pad=True`` runs torchvision's geometry: explicit (1, 1) pads on
 the strided 3×3 convs, where SAME pads (0, 1).  ``stem_dtype=torch.bfloat16``
 runs an excluded stem's conv on bf16 inputs and weights with f32
@@ -29,20 +51,51 @@ Subclasses implement ``_forward(x, pre_quantized, raw_u8)``.
 """
 from __future__ import annotations
 
-from typing import Any, Collection, Dict, Optional
+import threading
+from typing import Any, Collection, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from qtpu_torch.nn.layers import pad3
 from qtpu_torch.ops import qops
+from qtpu_torch.parallel.mesh import sharded_nodes
 from qtpu_torch.serve.fused_ops import (Grid, fc_fp32_params, fold_bn_fp32,
                                         gemm_1x1, grid_of, prepare_tree,
                                         tp_gather, tree_to_device,
                                         u8_normalize_coeffs)
+from qtpu_torch.serve.graphs import ForwardGraph, GraphPool, capture_forward
 from qtpu_torch.utils.device import fp32_exact, resolve_device
 
 BN_EPS = 1e-5
+
+# each entry point: the dtype of its input, ``_forward``'s keywords
+ENTRIES = {"forward": (torch.float32, {}),
+           "forward_codes": (torch.int8, {"pre_quantized": True}),
+           "forward_u8": (torch.uint8, {"raw_u8": True})}
+
+
+def entry_plan(device_type: str, sharded: bool, capturing: bool,
+               captured: bool) -> str:
+    """What a call of an entry point does: ``"eager"`` (the body, launched
+    from Python) on the CPU, for a tensor-parallel tree or inside an outer
+    capture; else ``"capture"`` at the first call of its (entry, input
+    shape) — the graph is then replayed — and ``"replay"`` at every later
+    one."""
+    if device_type != "cuda" or sharded or capturing:
+        return "eager"
+    return "replay" if captured else "capture"
+
+
+def _checked(x, dtype) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    if x.dtype != dtype:
+        raise ValueError(f"expected {dtype} input, got {x.dtype}")
+    return x
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 class FlatInt8Engine:
@@ -79,6 +132,11 @@ class FlatInt8Engine:
         norm = normalize or ((0.0,), (1.0,))
         self._u8_norm = u8_normalize_coeffs(
             *norm, max(len(norm[0]), len(norm[1])), device=self.device)
+        # the compiled entries (module docstring): (entry, shape) → graph
+        self._sharded = sharded_nodes(variables["qweights"]) > 0
+        self._graphs: Dict[Tuple[str, tuple], ForwardGraph] = {}
+        self._pool: Optional[GraphPool] = None    # made at the first capture
+        self._graph_lock = threading.Lock()
 
     def stem_grid(self) -> Grid:
         """The grid host-side int8 ingest must quantize onto."""
@@ -92,25 +150,73 @@ class FlatInt8Engine:
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 NHWC images → logits (B, num_classes) on the engine's device."""
-        return self._forward(self._input(x, torch.float32))
+        """f32 NHWC images → logits (B, num_classes) on the engine's device;
+        on a card one CUDA graph per input shape."""
+        return self._call("forward", x)
 
     @torch.inference_mode()
     def forward_codes(self, x_q: torch.Tensor) -> torch.Tensor:
         """int8 codes already on the stem's grid → logits."""
-        return self._forward(self._input(x_q, torch.int8),
-                             pre_quantized=True)
+        return self._call("forward_codes", x_q)
 
     @torch.inference_mode()
     def forward_u8(self, x8: torch.Tensor) -> torch.Tensor:
         """raw 0-255 uint8 pixels, normalized on the device → logits."""
-        return self._forward(self._input(x8, torch.uint8), raw_u8=True)
+        return self._call("forward_u8", x8)
+
+    @torch.inference_mode()
+    def eager_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward`'s body, launched from Python (no graph)."""
+        return self._eager("forward", x)
+
+    @torch.inference_mode()
+    def eager_forward_codes(self, x_q: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward_codes`'s body, launched from Python."""
+        return self._eager("forward_codes", x_q)
+
+    @torch.inference_mode()
+    def eager_forward_u8(self, x8: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward_u8`'s body, launched from Python."""
+        return self._eager("forward_u8", x8)
+
+    def free_graphs(self) -> None:
+        """Give back the graphs' memory (their pool); the next call of a
+        shape captures its graph again."""
+        with self._graph_lock:
+            self._graphs.clear()
+            self._pool = None
+
+    @property
+    def graphs(self) -> Dict[Tuple[str, tuple], ForwardGraph]:
+        """The captured graphs by (entry, input shape)."""
+        with self._graph_lock:
+            return dict(self._graphs)
+
+    def _call(self, entry: str, x) -> torch.Tensor:
+        dtype, kw = ENTRIES[entry]
+        x = _checked(x, dtype)
+        key = (entry, tuple(x.shape))
+        with self._graph_lock:
+            g = self._graphs.get(key)
+            plan = entry_plan(self.device.type, self._sharded,
+                              _capturing(self.device), g is not None)
+            if plan == "capture":
+                self._pool = self._pool or GraphPool()
+                g = self._graphs[key] = capture_forward(
+                    lambda xs: self._forward(xs, **kw), x, self.device,
+                    f"{type(self).__name__}.{entry} at input "
+                    f"{tuple(x.shape)} {dtype}", self._pool)
+            if plan != "eager":
+                return g.call(x)
+        return self._forward(self._input(x, dtype), **kw)
+
+    def _eager(self, entry: str, x) -> torch.Tensor:
+        dtype, kw = ENTRIES[entry]
+        return self._forward(self._input(x, dtype), **kw)
 
     def _input(self, x, dtype) -> torch.Tensor:
-        x = torch.as_tensor(x)
-        if x.dtype != dtype:
-            raise ValueError(f"expected {dtype} input, got {x.dtype}")
-        return x.to(self.device, non_blocking=True).contiguous()
+        return _checked(x, dtype).to(self.device,
+                                     non_blocking=True).contiguous()
 
     def _forward(self, x: torch.Tensor, pre_quantized: bool = False,
                  raw_u8: bool = False) -> torch.Tensor:

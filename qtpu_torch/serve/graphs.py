@@ -1,27 +1,32 @@
-"""The served forward compiled per batch bucket: one CUDA graph a bucket.
+"""A forward compiled per input shape: one CUDA graph a shape.
 
-qtpu's ``ServingEngine`` wraps its forward in ``jax.jit`` and compiles it
-once for each batch bucket (qtpu/serve/engine.py), so a served round is one
-compiled program.  The port's counterpart is a CUDA graph: the forward's
-launches at one bucket's shape, captured once and replayed each round, with
-no Python between the kernels.
+qtpu wraps its forwards in ``jax.jit``: ``ServingEngine`` compiles its
+forward once for each batch bucket (qtpu/serve/engine.py), and the flat
+engines jit their own entries, ``forward``, ``forward_codes`` and
+``forward_u8`` (qtpu/serve/resnet_engine.py and the MobileNet engines), so a
+call is one compiled program per input shape.  The port's counterpart is a
+CUDA graph: the forward's launches at one shape, captured once and replayed
+each call, with no Python between the kernels.  ``ServingEngine`` keeps one
+a bucket, a flat engine one a (entry, input shape).
 
-A :class:`BucketGraph` holds a static input of the bucket's shape and of the
-dtype the engine's ``preprocess_fn`` emits, the captured graph, and its
-static output.  :func:`capture_bucket` warms the forward up twice on a side
-stream and captures a third call with ``torch.cuda.graph`` (as
-``bench.timing.capture`` does), in ``capture_error_mode="thread_local"``:
-the engine's scheduler and HTTP threads stay alive meanwhile.  The graph's
-memory pool is its own (one a bucket).  A forward that syncs with the host
-cannot be captured: :class:`GraphCaptureError` names the bucket and the
-cause, and nothing falls back to eager.
+A :class:`ForwardGraph` holds a static input of the shape and dtype, the
+captured graph, and its static output.  :func:`capture_forward` warms the
+forward up twice on a side stream and captures a third call with
+``torch.cuda.graph`` (as ``bench.timing.capture`` does), in
+``capture_error_mode="thread_local"``: the engine's scheduler and HTTP
+threads stay alive meanwhile.  The graph's memory pool is its own, or a
+:class:`GraphPool` that several graphs share (a flat engine's graphs: one
+pool an engine, so a new input shape adds its static tensors, not a pool
+of its own).  A forward that syncs with the host cannot be captured:
+:class:`GraphCaptureError` names what was captured and the cause, and
+nothing falls back to eager.
 
 The ops' launch counters move on every replay by the counts the capture
 recorded (``utils/graphs.py``, shared with the trainer's step graphs).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -29,21 +34,35 @@ from qtpu_torch.utils.graphs import (GraphCaptureError, add_counts,
                                      capture_call, launch_counters)
 
 
-class BucketGraph:
-    """One bucket's captured forward: ``static_in`` → ``graph`` →
+class GraphPool:
+    """A memory pool that several graphs capture into, and the event that
+    orders their calls.  A capture reuses the intermediates the pool's
+    earlier captures freed, so the graphs may not run at once: each
+    :meth:`ForwardGraph.call` waits for the last call's copy out, on
+    whatever stream it came."""
+
+    def __init__(self):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.done = torch.cuda.Event()
+
+
+class ForwardGraph:
+    """One shape's captured forward: ``static_in`` → ``graph`` →
     ``static_out``; ``launches``: the counts one replay adds (counter name →
-    n, nonzero only); ``nbytes``: the device memory the graph holds (its
-    pool and the static input)."""
+    n, nonzero only); ``nbytes``: the device memory the graph took (what
+    its capture added to the pool, and the static input); ``done``: the
+    event recorded after a call's copy out (its :class:`GraphPool`'s)."""
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", static_in: torch.Tensor,
                  static_out: torch.Tensor, launches: Dict[str, int],
-                 nbytes: int, counters):
+                 nbytes: int, counters, done: "torch.cuda.Event"):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.launches = launches
         self.nbytes = nbytes
         self._counters = counters
+        self._done = done
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         """Copy ``x`` (on the host or the card) into the static input, replay,
@@ -60,14 +79,22 @@ class BucketGraph:
         add_counts(self._counters, self.launches)
         return self.static_out
 
+    def call(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`replay`, then a new tensor: the static output copied on
+        the card in stream order, as ``jax.jit`` returns a fresh array."""
+        torch.cuda.current_stream(self.static_in.device).wait_event(self._done)
+        out = self.replay(x).clone()
+        self._done.record()
+        return out
 
-def capture_bucket(forward: Callable[[torch.Tensor], torch.Tensor],
-                   x: torch.Tensor, device: torch.device,
-                   bucket: int) -> BucketGraph:
+
+def capture_forward(forward: Callable[[torch.Tensor], torch.Tensor],
+                    x: torch.Tensor, device: torch.device, what: str,
+                    pool: Optional[GraphPool] = None) -> ForwardGraph:
     """Capture ``forward`` at ``x``'s shape and dtype on ``device`` (``x``:
-    a batch of the bucket, on the host or the card; it is copied into the
-    static input), after two warm-up calls on a side stream.  Raises
-    :class:`GraphCaptureError` naming ``bucket``."""
+    on the host or the card; it is copied into the static input), after
+    two warm-up calls on a side stream, into ``pool`` or a pool of its
+    own.  Raises :class:`GraphCaptureError` naming ``what``."""
     static_in = torch.empty(x.shape, dtype=x.dtype, device=device)
     static_in.copy_(x)
     cur = torch.cuda.current_stream(device)
@@ -78,12 +105,12 @@ def capture_bucket(forward: Callable[[torch.Tensor], torch.Tensor],
             for _ in range(2):
                 forward(static_in)
         cur.wait_stream(side)
-        graph, out, launches, pool = capture_call(
-            lambda: forward(static_in), device,
-            f"bucket {bucket}: the forward")
+        graph, out, launches, grew = capture_call(
+            lambda: forward(static_in), device, what,
+            pool.handle if pool else None)
     if not isinstance(out, torch.Tensor):
         raise GraphCaptureError(
-            f"bucket {bucket}: the forward returned {type(out).__name__}, "
-            "not a tensor")
-    return BucketGraph(graph, static_in, out, launches,
-                       pool + static_in.nbytes, launch_counters())
+            f"{what} returned {type(out).__name__}, not a tensor")
+    return ForwardGraph(graph, static_in, out, launches,
+                        grew + static_in.nbytes, launch_counters(),
+                        pool.done if pool else torch.cuda.Event())

@@ -64,14 +64,15 @@ def add_counts(counters, counts: Dict[str, int]) -> None:
         setattr(fn, attr, getattr(fn, attr) + n)
 
 
-def capture_call(fn: Callable[[], T], device: torch.device,
-                 what: str) -> Tuple["torch.cuda.CUDAGraph", T,
+def capture_call(fn: Callable[[], T], device: torch.device, what: str,
+                 pool=None) -> Tuple["torch.cuda.CUDAGraph", T,
                                      Dict[str, int], int]:
     """Capture one call of ``fn`` as a CUDA graph on ``device``
-    (``torch.cuda.graph`` in ``thread_local`` mode, a memory pool of its
-    own): (the graph, ``fn``'s result — static tensors that every replay
+    (``torch.cuda.graph`` in ``thread_local`` mode, into the memory pool
+    ``pool`` — a ``torch.cuda.graph_pool_handle()`` — or one of its own):
+    (the graph, ``fn``'s result — static tensors that every replay
     overwrites —, the counts one replay adds (counter name → n, nonzero
-    only), the bytes the pool took).  The counters are put back: a
+    only), the bytes the pool grew by).  The counters are put back: a
     captured launch has not run.  A call that breaks the capture (a host
     sync, say) raises :class:`GraphCaptureError`, ``what`` and the cause in
     its message; nothing falls back to eager."""
@@ -80,7 +81,8 @@ def capture_call(fn: Callable[[], T], device: torch.device,
     before = read_counters(counters)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
             pool0 = torch.cuda.memory_reserved(device)
             out = fn()
             pool = torch.cuda.memory_reserved(device) - pool0

@@ -31,7 +31,21 @@ Every test here is ``gpu``-marked and skips without a CUDA device:
   same rows padded as served, with and without the pipeline; a bucket
   ``warmup`` did not see captured at its first round; a forward that
   syncs with the host makes ``warmup`` raise, naming the bucket; the
-  launch counters a replayed round advances equal an eager round's.
+  launch counters a replayed round advances equal an eager round's;
+* the flat engines' own entries compiled per input shape, on the narrow
+  ResNet (int8 stem, and an fp32-stem twin for ``forward_u8``): each
+  entry's replays bit-equal to its eager body at two batch sizes, with the
+  counters a replay advances equal to an eager call's; outputs kept across
+  calls on other inputs still right; graphs at eight batch sizes in the
+  engine's one memory pool, the seven after the first growing it by less
+  than a 2 MiB segment in all, calls alternating between two streams
+  still right; a forward inside an outer capture
+  records the body's kernels and captures no graph of its own; a body
+  that syncs with the host raises ``GraphCaptureError`` naming the entry
+  and shape, and stores no graph;
+* calibration's passes replayed per batch shape: ``quant_stats`` and
+  ``quant_params`` bit-equal to the eager calibration's (min-max, EMA,
+  KL) on the narrow ResNet's fp32 model.
 """
 import dataclasses
 
@@ -293,7 +307,8 @@ def narrow_resnet(cuda):
         np.float32))
     policy = QuantPolicy.int8_ptq()
     tree = freeze(m, policy, calibrate(m, policy, [x]))
-    return tree, lambda v: ResNetInt8Engine(v, NARROW, device=cuda).forward
+    return tree, lambda v: ResNetInt8Engine(v, NARROW,
+                                            device=cuda).eager_forward
 
 
 def _logged(engine):
@@ -425,3 +440,191 @@ def test_replay_advances_the_counters_as_an_eager_round(cuda, narrow_resnet):
         graphed.stop()
     assert want and got == want == held
     assert not any(k.endswith("_plain.calls") for k in got)
+
+
+# ---- the flat engines' entries and calibration's passes, graphed ------------
+
+@pytest.fixture
+def narrow_trees(cuda):
+    """{"int8": the narrow ResNet's tree, "fp32": its fp32-stem twin}."""
+    out = {}
+    for kind, exclude in (("int8", ()), ("fp32", ("stem*",))):
+        m = get_model("resnet50", num_classes=10, cifar_stem=True, width=16,
+                      stage_sizes=NARROW["stage_sizes"])
+        init_weights(m, torch.Generator().manual_seed(0))
+        x = torch.from_numpy(RNG.standard_normal((8, 32, 32, 3)).astype(
+            np.float32))
+        policy = QuantPolicy.int8_ptq(exclude=exclude)
+        out[kind] = freeze(m, policy, calibrate(m, policy, [x]))
+    return out
+
+
+def _entry_input(eng, entry, b, seed):
+    rs = np.random.default_rng(seed)
+    if entry == "forward_u8":
+        return torch.from_numpy(rs.integers(0, 256, (b, 32, 32, 3),
+                                            dtype=np.uint8))
+    x = torch.from_numpy(rs.standard_normal((b, 32, 32, 3)).astype(
+        np.float32))
+    if entry == "forward_codes":
+        g = eng.stem_grid()
+        return tq.quantize_act(x, g.scale, g.zp, symmetric=g.sym)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,tree", [("forward", "int8"),
+                                        ("forward_codes", "int8"),
+                                        ("forward_u8", "fp32")])
+def test_graphed_entries_bit_equal_to_eager(cuda, narrow_trees, entry, tree):
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+    from qtpu_torch.utils import graphs
+
+    eng = ResNetInt8Engine(narrow_trees[tree], NARROW, device=cuda)
+    counters = graphs.launch_counters()
+
+    def moved(run):
+        before = graphs.read_counters(counters)
+        out = run()
+        torch.cuda.synchronize()
+        after = graphs.read_counters(counters)
+        return out, {k: after[k] - before[k] for k in counters
+                     if after[k] != before[k]}
+
+    eager = getattr(eng, f"eager_{entry}")
+    for b in (2, 8):
+        for seed in range(3):
+            x = _entry_input(eng, entry, b, seed).to(cuda)
+            want, n_eager = moved(lambda: eager(x))
+            got, n_call = moved(lambda: getattr(eng, entry)(x))
+            assert torch.equal(got, want), (b, seed)
+            if seed:                     # the first call also warmed up
+                assert n_call == n_eager and n_eager, (b, n_call)
+    assert sorted(eng.graphs) == [(entry, (2, 32, 32, 3)),
+                                  (entry, (8, 32, 32, 3))]
+    assert all(g.nbytes > 0 for g in eng.graphs.values())
+    assert eng.graphs[entry, (8, 32, 32, 3)].launches == n_eager
+    eng.free_graphs()
+    assert not eng.graphs
+
+
+@pytest.mark.gpu
+def test_graphed_outputs_are_new_tensors(cuda, narrow_trees):
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+    eng = ResNetInt8Engine(narrow_trees["int8"], NARROW, device=cuda)
+    xs = [_entry_input(eng, "forward", 4, s) for s in range(4)]
+    held = [eng.forward(x) for x in xs]           # on the host: copied in
+    assert len({y.data_ptr() for y in held}) == len(held)
+    for x, y in zip(xs, held):
+        assert torch.equal(y, eng.eager_forward(x))
+    assert not torch.equal(held[0], held[1])
+
+
+@pytest.mark.gpu
+def test_graphs_of_changing_batch_sizes_share_one_pool(cuda, narrow_trees):
+    """Calls at batch sizes 8, 7, ..., 1 capture eight graphs into the
+    engine's one memory pool: the first capture makes it, the later seven
+    make no other and grow it by less than one 2 MiB segment in all, where
+    a pool of each graph's own takes at least one a graph.  Calls
+    alternating between two streams keep every output equal to the eager
+    body's; ``free_graphs`` gives the pool back."""
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+    eng = ResNetInt8Engine(narrow_trees["int8"], NARROW, device=cuda)
+    xs = {b: _entry_input(eng, "forward", b, b).to(cuda)
+          for b in range(1, 9)}
+    want = {b: eng.eager_forward(x) for b, x in xs.items()}
+
+    def pools():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return {seg["segment_pool_id"] for seg in torch.cuda.memory_snapshot()}
+
+    before = pools()
+    eng.forward(xs[8])
+    after_first = pools()
+    ours = after_first - before
+    assert len(ours) == 1, (before, after_first)
+    for b in range(7, 0, -1):
+        eng.forward(xs[b])
+    assert not pools() - after_first
+    later = [eng.graphs["forward", (b, 32, 32, 3)].nbytes
+             for b in range(1, 8)]
+    assert len(eng.graphs) == 8 and sum(later) < 2 ** 21, later
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    held = []
+    for b in range(8, 0, -1):
+        with torch.cuda.stream(side if b % 2 else main):
+            held.append((b, eng.forward(xs[b])))
+    torch.cuda.synchronize()
+    for b, y in held:
+        assert torch.equal(y, want[b]), b
+    eng.free_graphs()
+    assert not pools() & ours
+
+
+@pytest.mark.gpu
+def test_forward_inside_an_outer_capture(cuda, narrow_trees):
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+
+    eng = ResNetInt8Engine(narrow_trees["int8"], NARROW, device=cuda)
+    x = _entry_input(eng, "forward", 4, 0).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            eng.eager_forward(x)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = eng.forward(x)
+    assert not eng.graphs                  # no graph nested in the capture
+    x.copy_(_entry_input(eng, "forward", 4, 1))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eng.eager_forward(x))
+
+
+@pytest.mark.gpu
+def test_host_sync_in_an_entry_raises(cuda, narrow_trees):
+    from qtpu_torch.serve.resnet_engine import ResNetInt8Engine
+    from qtpu_torch.utils.graphs import GraphCaptureError
+
+    class Syncs(ResNetInt8Engine):
+        def _forward(self, x, **kw):
+            scale = float(x.abs().max())          # a read on the host
+            return super()._forward(x * (scale / scale), **kw)
+
+    eng = Syncs(narrow_trees["int8"], NARROW, device=cuda)
+    x = _entry_input(eng, "forward", 2, 0)
+    for _ in range(2):                       # tried again, never eager
+        with pytest.raises(GraphCaptureError,
+                           match=r"Syncs\.forward at input \(2, 32, 32, 3\)"):
+            eng.forward(x)
+        assert not eng.graphs
+    assert torch.isfinite(eng.eager_forward(x)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("observer", ["minmax", "ema", "kl"])
+def test_graphed_calibration_equals_eager(cuda, observer):
+    m = get_model("resnet50", num_classes=10, cifar_stem=True, width=16,
+                  stage_sizes=NARROW["stage_sizes"])
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(cuda)
+    shapes = [(8, 32, 32, 3)] * 4 + [(3, 32, 32, 3)] + [(8, 32, 32, 3)]
+    batches = [(RNG.standard_normal(s) * (1 + 0.3 * i)).astype(np.float32)
+               for i, s in enumerate(shapes)]
+    policy = QuantPolicy(default=LayerQuantSpec(act_observer=observer))
+    ref = calibrate(m, policy, batches, graphed=False)
+    got = calibrate(m, policy, batches)
+    assert got["quant_stats"].keys() == ref["quant_stats"].keys()
+    for p, st in got["quant_stats"].items():
+        assert st["count"] == ref["quant_stats"][p]["count"] == len(shapes)
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, ref["quant_stats"][p][k]), (p, k)
+    for p, q in got["quant_params"].items():
+        for k in ("act_scale", "act_zp"):
+            assert torch.equal(q[k], ref["quant_params"][p][k]), (p, k)

@@ -9,7 +9,8 @@ against qtpu's, on the CPU (mirrors tests/test_calib.py).
   the same histograms; int4 clips no wider than int8; an empty histogram
   falls back to amax.
 * ``calibrate`` with ``act_observer="kl"`` on a narrowed ResNet-18 (CIFAR
-  stem, stage sizes (1, 1, 1, 1), width 8) and on LeNet-5, with qtpu's
+  stem, stage sizes (1, 1, 1, 1), width 8), a narrowed ResNet-20 (stage
+  sizes (1, 1, 1), width 8) and on LeNet-5, with qtpu's
   seeded weights carried across by ``load_flax_variables``, on the same
   numpy batches.  The first layer's input is the batch itself, so its
   histogram, threshold and ``act_scale`` are equal.  Deeper layers'
@@ -166,6 +167,8 @@ MODELS = {
     "resnet18": dict(kw=dict(num_classes=10, cifar_stem=True, width=8),
                      stages=(1, 1, 1, 1), shape=(4, 16, 16, 3),
                      first="stem"),
+    "resnet20": dict(kw=dict(num_classes=10, cifar_stem=True, width=8),
+                     stages=(1, 1, 1), shape=(4, 16, 16, 3), first="stem"),
     "lenet5": dict(kw=dict(num_classes=10), stages=None,
                    shape=(4, 28, 28, 1), first="conv1"),
 }
