@@ -11,8 +11,18 @@ from a missing trace would be silently empty.
 a profiler records, a null context otherwise.  qtpu's ``jax.named_scope``
 costs nothing at run time; a ``record_function`` around each of the ~20
 steps of a forward would cost host time on every served request, so
-outside a trace the scope is one flag test.  Inside a CUDA graph capture a
-``record_function`` records nothing at replay: traces are taken eagerly.
+outside a trace the scope is one flag test.
+
+A CUDA graph's replay runs no Python, so no scope records inside it.  What
+a trace of a replay carries is the graphed call's four spans, recorded
+while a profiler records (``ForwardGraph.call`` and ``replay``):
+``GRAPH_WAIT`` (the stream waits for the pool's last copy out),
+``GRAPH_UPLOAD`` (the input into the static input), ``GRAPH_REPLAY + key``
+(``graph.replay()``) and ``GRAPH_COPY_OUT`` (the static output cloned, the
+pool's event recorded); outside a trace each is the same one flag test.
+A replay runs the device ops of the eager body it captured, in the same
+order and under the same names, so the scopes of a traced eager call
+(``bench.tracing.device_op_scopes``) label a replay's ops by position.
 
 ``note_work(ops, nbytes, cuda_core_ops)`` is the kernel wrappers'
 annotation: the work of one launch, as a zero-length span named
@@ -33,6 +43,11 @@ from torch.profiler import (ProfilerAction, ProfilerActivity, profile,
 
 _NULL = contextlib.nullcontext()
 WORK = "qtpu.work"          # the name prefix of a work note's span
+# the graphed call's spans; a replay's is GRAPH_REPLAY + the graph's key
+GRAPH_WAIT = "qtpu.graph.wait"
+GRAPH_UPLOAD = "qtpu.graph.upload"
+GRAPH_REPLAY = "qtpu.graph.replay:"
+GRAPH_COPY_OUT = "qtpu.graph.copy_out"
 
 
 def recording() -> bool:

@@ -20,6 +20,11 @@ device timeline cannot say which of two adjacent scopes issued a kernel.
 On the CPU the records are the ``cpu_op`` events' self time (their time
 less that of the ops nested in them), each attributed to the innermost
 scope at its start.  Nested scopes keep their path (``layer1_1/sub``).
+The same attribution, over every device op (kernels, copies, fills)
+launched inside one span, in launch order and with the innermost scope,
+is ``device_op_scopes``: of a traced eager call, it labels by position
+the device ops of a replay of the graph that call's body was captured
+into (``bench.profile``).
 
 Work.  XLA gave qtpu each op's ``model_flops`` and ``bytes_accessed``; a
 CUDA trace carries nothing like it.  So each kernel wrapper of the port
@@ -49,7 +54,7 @@ import os
 import tempfile
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -83,10 +88,11 @@ def _scope_of(names: List[str]) -> str:
     return "/".join(names)
 
 
-def _scopes_at(spans, queries) -> Dict[int, str]:
-    """The innermost-scope path at each query time on one host thread.
+def _scopes_at(spans, queries) -> Dict[object, List[str]]:
+    """The scopes open at each query time on one host thread.
     ``spans``: (start, end, name) of the thread's scopes, which nest;
-    ``queries``: (time, key).  Returns key -> path."""
+    ``queries``: (time, key).  Returns key -> their names, outermost
+    first."""
     spans = sorted(spans, key=lambda s: (s[0], -s[1]))
     out, stack, i = {}, [], 0
     for t, key in sorted(queries, key=lambda q: q[0]):
@@ -97,7 +103,7 @@ def _scopes_at(spans, queries) -> Dict[int, str]:
             i += 1
         while stack and stack[-1][1] < t:
             stack.pop()
-        out[key] = _scope_of([s[2] for s in stack])
+        out[key] = [s[2] for s in stack]
     return out
 
 
@@ -118,15 +124,31 @@ def _self_times(ops) -> List[float]:
     return self_t
 
 
-def parse_trace(path: str) -> List[OpRecord]:
-    """The records of a Chrome trace ``torch.profiler`` exported: the
-    device kernels when the trace has any, else the CPU ops' self times;
-    plus the work notes.  Each carries its scope path (module docstring)."""
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    spans = defaultdict(list)      # host thread -> scope spans
-    launches = {}                  # correlation -> (thread, launch time)
-    kernels, cpu_ops, notes = [], defaultdict(list), []
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class _DeviceOp(NamedTuple):
+    name: str
+    dur: float
+    corr: Optional[int]      # the correlation of its launch
+    cat: str                 # one of DEVICE_CATS
+    ts: float
+
+
+@dataclass
+class _Events:
+    """A trace's events sorted for attribution: by host thread the scope
+    spans and the CPU ops; the work notes; the CUDA API calls by
+    correlation (thread, time); the device ops."""
+    spans: Dict[tuple, list]
+    cpu_ops: Dict[tuple, list]
+    notes: list
+    launches: Dict[int, tuple]
+    device: List[_DeviceOp]
+
+
+def _split(events: List[dict]) -> _Events:
+    out = _Events(defaultdict(list), defaultdict(list), [], {}, [])
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -135,48 +157,90 @@ def parse_trace(path: str) -> List[OpRecord]:
         dur = float(e.get("dur", 0.0))
         if cat == "user_annotation":
             if name.startswith(WORK):
-                notes.append((thread, ts, name))
+                out.notes.append((thread, ts, name))
             elif not name.startswith("ProfilerStep#"):
-                spans[thread].append((ts, ts + dur, name))
+                out.spans[thread].append((ts, ts + dur, name))
         elif cat and cat.startswith("cuda_"):      # a CUDA API call
             corr = e.get("args", {}).get("correlation")
             if corr is not None:
-                launches[corr] = (thread, ts)
-        elif cat == "kernel":
-            kernels.append((name, dur, e.get("args", {}).get("correlation")))
+                out.launches[corr] = (thread, ts)
+        elif cat in DEVICE_CATS:
+            out.device.append(_DeviceOp(name, dur, e.get("args", {}).get(
+                "correlation"), cat, ts))
         elif cat == "cpu_op":
-            cpu_ops[thread].append((ts, ts + dur, name))
+            out.cpu_ops[thread].append((ts, ts + dur, name))
+    return out
+
+
+def _load(path: str) -> List[dict]:
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def parse_trace(path: str) -> List[OpRecord]:
+    """The records of a Chrome trace ``torch.profiler`` exported: the
+    device kernels when the trace has any, else the CPU ops' self times;
+    plus the work notes.  Each carries its scope path (module docstring)."""
+    ev = _split(_load(path))
+    kernels = [d for d in ev.device if d.cat == "kernel"]
     queries = defaultdict(list)
-    for k, (thread, ts, _) in enumerate(notes):
+    for k, (thread, ts, _) in enumerate(ev.notes):
         queries[thread].append((ts, ("note", k)))
     if kernels:
-        for k, (_, _, corr) in enumerate(kernels):
-            if corr in launches:
-                thread, ts = launches[corr]
+        for k, d in enumerate(kernels):
+            if d.corr in ev.launches:
+                thread, ts = ev.launches[d.corr]
                 queries[thread].append((ts, ("kernel", k)))
     else:
-        for thread, ops in cpu_ops.items():
+        for thread, ops in ev.cpu_ops.items():
             for k, (s, _, _) in enumerate(ops):
                 queries[thread].append((s, ("cpu", thread, k)))
     scope = {}
     for thread, qs in queries.items():
-        scope.update(_scopes_at(spans.get(thread, []), qs))
+        scope.update((k, _scope_of(names)) for k, names in
+                     _scopes_at(ev.spans.get(thread, []), qs).items())
     out = []
     if kernels:
-        for k, (name, dur, _) in enumerate(kernels):
-            out.append(OpRecord(name, scope.get(("kernel", k), ""), dur,
+        for k, d in enumerate(kernels):
+            out.append(OpRecord(d.name, scope.get(("kernel", k), ""), d.dur,
                                 0.0, 0.0, "kernel"))
     else:
-        for thread, ops in cpu_ops.items():
+        for thread, ops in ev.cpu_ops.items():
             self_t = _self_times([(s, e) for s, e, _ in ops])
             for k, (_, _, name) in enumerate(ops):
                 out.append(OpRecord(name, scope[("cpu", thread, k)],
                                     self_t[k], 0.0, 0.0, "cpu_op"))
-    for k, (_, _, name) in enumerate(notes):
+    for k, (_, _, name) in enumerate(ev.notes):
         ops, nbytes, cc = _work_of(name)
         out.append(OpRecord(WORK, scope[("note", k)], 0.0, ops, nbytes,
                             "work", cc))
     return out
+
+
+def device_op_scopes(events: List[dict], within: str
+                     ) -> List[Tuple[str, str]]:
+    """(name, innermost scope, ``""`` for none) of each device op — kernel,
+    copy or fill — launched inside a ``within`` span, in launch order: the
+    same attribution as :func:`parse_trace`'s, through the op's
+    correlation, with ``within`` and the spans around it left out."""
+    ev = _split(events)
+    queries = defaultdict(list)
+    for k, d in enumerate(ev.device):
+        if d.corr in ev.launches:
+            thread, ts = ev.launches[d.corr]
+            queries[thread].append((ts, k))
+    order = []
+    for thread, qs in queries.items():
+        open_at = _scopes_at(ev.spans.get(thread, []), qs)
+        for ts, k in qs:
+            names = open_at[k]
+            if within not in names:
+                continue
+            inner = names[names.index(within) + 1:]
+            order.append((ts, ev.device[k].ts, ev.device[k].name,
+                          inner[-1] if inner else ""))
+    order.sort(key=lambda o: o[:2])
+    return [(name, scope) for _, _, name, scope in order]
 
 
 def latest_trace_file(logdir: str) -> Optional[str]:

@@ -233,7 +233,7 @@ class ServingEngine:
         if g is None:
             g = self._graphs[b] = capture_forward(
                 lambda x: self._fwd(self.vars, x), self._host_batch(imgs),
-                self.device, f"bucket {b}: the forward")
+                self.device, f"bucket {b}: the forward", name="bucket")
         return g
 
     def serve_eagerly(self) -> None:

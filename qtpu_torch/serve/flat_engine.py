@@ -205,7 +205,7 @@ class FlatInt8Engine:
                 g = self._graphs[key] = capture_forward(
                     lambda xs: self._forward(xs, **kw), x, self.device,
                     f"{type(self).__name__}.{entry} at input "
-                    f"{tuple(x.shape)} {dtype}", self._pool)
+                    f"{tuple(x.shape)} {dtype}", self._pool, entry)
             if plan != "eager":
                 return g.call(x)
         return self._forward(self._input(x, dtype), **kw)

@@ -23,6 +23,12 @@ nothing falls back to eager.
 
 The ops' launch counters move on every replay by the counts the capture
 recorded (``utils/graphs.py``, shared with the trainer's step graphs).
+
+A graph's ``key`` is a short stable name, ``<name>/<shape>/<dtype>``
+(``forward_u8/128x224x224x3/uint8``; a flat engine's ``name`` is the entry,
+``ServingEngine``'s ``bucket``).  While a profiler records, a call carries
+the spans ``bench.profile`` names: the wait, the upload, the replay under
+``qtpu.graph.replay:<key>``, the copy out.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from qtpu_torch.bench.profile import (GRAPH_COPY_OUT, GRAPH_REPLAY,
+                                      GRAPH_UPLOAD, GRAPH_WAIT, annotate)
 from qtpu_torch.utils.graphs import (GraphCaptureError, add_counts,
                                      capture_call, launch_counters)
 
@@ -51,11 +59,12 @@ class ForwardGraph:
     ``static_out``; ``launches``: the counts one replay adds (counter name →
     n, nonzero only); ``nbytes``: the device memory the graph took (what
     its capture added to the pool, and the static input); ``done``: the
-    event recorded after a call's copy out (its :class:`GraphPool`'s)."""
+    event recorded after a call's copy out (its :class:`GraphPool`'s);
+    ``key``: the graph's name in traces (module docstring)."""
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", static_in: torch.Tensor,
                  static_out: torch.Tensor, launches: Dict[str, int],
-                 nbytes: int, counters, done: "torch.cuda.Event"):
+                 nbytes: int, counters, done: "torch.cuda.Event", key: str):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
@@ -63,6 +72,8 @@ class ForwardGraph:
         self.nbytes = nbytes
         self._counters = counters
         self._done = done
+        self.key = key
+        self._replay_span = GRAPH_REPLAY + key
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         """Copy ``x`` (on the host or the card) into the static input, replay,
@@ -74,27 +85,40 @@ class ForwardGraph:
                 f"batch {tuple(x.shape)} {x.dtype} does not match the "
                 f"graph's input {tuple(self.static_in.shape)} "
                 f"{self.static_in.dtype}")
-        self.static_in.copy_(x, non_blocking=True)
-        self.graph.replay()
+        with annotate(GRAPH_UPLOAD):
+            self.static_in.copy_(x, non_blocking=True)
+        with annotate(self._replay_span):
+            self.graph.replay()
         add_counts(self._counters, self.launches)
         return self.static_out
 
     def call(self, x: torch.Tensor) -> torch.Tensor:
         """:meth:`replay`, then a new tensor: the static output copied on
         the card in stream order, as ``jax.jit`` returns a fresh array."""
-        torch.cuda.current_stream(self.static_in.device).wait_event(self._done)
-        out = self.replay(x).clone()
-        self._done.record()
+        with annotate(GRAPH_WAIT):
+            torch.cuda.current_stream(self.static_in.device).wait_event(
+                self._done)
+        out = self.replay(x)
+        with annotate(GRAPH_COPY_OUT):
+            out = out.clone()
+            self._done.record()
         return out
+
+
+def graph_key(name: str, x: torch.Tensor) -> str:
+    """``name/<d0>x<d1>x.../<dtype>``: a graph's key (module docstring)."""
+    dims = "x".join(str(d) for d in x.shape)
+    return f"{name}/{dims}/{str(x.dtype).replace('torch.', '')}"
 
 
 def capture_forward(forward: Callable[[torch.Tensor], torch.Tensor],
                     x: torch.Tensor, device: torch.device, what: str,
-                    pool: Optional[GraphPool] = None) -> ForwardGraph:
+                    pool: Optional[GraphPool] = None,
+                    name: str = "forward") -> ForwardGraph:
     """Capture ``forward`` at ``x``'s shape and dtype on ``device`` (``x``:
     on the host or the card; it is copied into the static input), after
-    two warm-up calls on a side stream, into ``pool`` or a pool of its
-    own.  Raises :class:`GraphCaptureError` naming ``what``."""
+    two warm-up calls on a side stream, into ``pool`` or a pool of its own, keyed ``graph_key(name, x)``.  Raises
+    :class:`GraphCaptureError` naming ``what``."""
     static_in = torch.empty(x.shape, dtype=x.dtype, device=device)
     static_in.copy_(x)
     cur = torch.cuda.current_stream(device)
@@ -113,4 +137,5 @@ def capture_forward(forward: Callable[[torch.Tensor], torch.Tensor],
             f"{what} returned {type(out).__name__}, not a tensor")
     return ForwardGraph(graph, static_in, out, launches,
                         grew + static_in.nbytes, launch_counters(),
-                        pool.done if pool else torch.cuda.Event())
+                        pool.done if pool else torch.cuda.Event(),
+                        graph_key(name, x))

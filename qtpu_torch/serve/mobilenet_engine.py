@@ -149,9 +149,9 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
             raise NotImplementedError(
                 "excluded head: needs the module SERVE path, which is not "
                 "ported (ROADMAP.md)")
-        if raw_u8:
-            x = self._normalize_u8(x)
         with annotate("stem"):
+            if raw_u8:
+                x = self._normalize_u8(x)
             grid = self._block_in_grid(self._blocks()[0][0])
             x_q = self._stem(x, grid, pre_quantized=pre_quantized)
         for step in self._plan():

@@ -80,9 +80,9 @@ class MobileNetV1Int8Engine(FlatInt8Engine):
 
     def _forward(self, x: torch.Tensor, pre_quantized: bool = False,
                  raw_u8: bool = False) -> torch.Tensor:
-        if raw_u8:
-            x = self._normalize_u8(x)
         with annotate("stem"):
+            if raw_u8:
+                x = self._normalize_u8(x)
             x_q = self._stem(x, grid_of(self._node("block0", "dw")),
                              pre_quantized=pre_quantized)
         n = len(V1_STRIDES)

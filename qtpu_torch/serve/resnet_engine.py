@@ -241,9 +241,9 @@ class ResNetInt8Engine(FlatInt8Engine):
                  raw_u8: bool = False) -> torch.Tensor:
         first = self._node(self._names[0][0], "conv1")
         fc = self._node("fc")
-        if raw_u8:
-            x = self._normalize_u8(x)
         with annotate("stem"):
+            if raw_u8:
+                x = self._normalize_u8(x)
             x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized)
         grid = grid_of(first)
         for step in self._plan():

@@ -99,11 +99,13 @@ class _Recorder:
     def __init__(self, fail=False):
         self.log = []
         self.pools = []
+        self.names = []
         self.fail = fail
 
-    def capture(self, forward, x, device, what, pool):
+    def capture(self, forward, x, device, what, pool, name):
         self.log.append(("capture", what))
         self.pools.append(pool)
+        self.names.append(name)
         if self.fail:
             raise GraphCaptureError(f"{what} cannot be captured as a CUDA "
                                     "graph (a host sync)")
@@ -162,8 +164,9 @@ def test_one_graph_per_entry_and_shape(tree, monkeypatch):
     for y, ref in zip(got, (ref4, ref4, ref2, refc, ref2)):
         assert torch.equal(y, ref)
     assert got[0] is not got[1]
-    # one pool for all of the engine's graphs
+    # one pool for all of the engine's graphs, each named by its entry
     assert len(rec.pools) == 3 and all(p is rec.pools[0] for p in rec.pools)
+    assert rec.names == ["forward", "forward", "forward_codes"]
     # the eager bodies never touch the graphs
     n = len(rec.log)
     assert torch.equal(eng.eager_forward(x4), ref4) and len(rec.log) == n
