@@ -69,7 +69,12 @@ success):
    version (``qat_int_conv_plain``, the float64 accumulator) on the card:
    the int32 accumulators, the output and both gradients equal; the fp32
    simulation on the card (TF32 off) against the integer forward, rel-L2
-   ≤ 1e-5;
+   ≤ 1e-5; the fp32 stems from uint8 pixels to int8 codes (K10,
+   ``ops/qstem.stem_fp32_codes``) at ResNet-50's 7×7/2 and MobileNet-v2's
+   3×3/2 ReLU6, B = 8 and 128, bit-equal to their plain versions
+   (cuDNN's conv, whose tap order K10 keeps, and PyTorch's glue), and
+   ResNet's max-pool on codes (K11) exactly, each timed beside that plain
+   sequence (its yardstick);
 4. the slices, each driven with the launch counters zeroed just before and
    read just after.  Every engine served through ``ServingEngine`` replays
    one CUDA graph a bucket (``serve/graphs.py``), and ``drive`` serves it
@@ -83,9 +88,12 @@ success):
    * ``build_engine`` for ``resnet50_imagenet_int8_ptq_fp32stem`` at full
      width (224×224, 1000 classes, seeded random weights, calibrate,
      freeze) serves requests spanning two batch buckets through
-     ``ServingEngine``: 37 K1 and 16 K2 launches per forward, none on the
-     plain path; the served logits are finite and match the flat engine's
-     forward;
+     ``ServingEngine``: 37 K1 and 16 K2 launches per forward, one K10
+     (the fp32 stem from the pixels to codes) and one K11 (the max-pool on
+     codes), none on the plain path; the served logits are finite and
+     match the flat engine's forward (every fp32-stem ResNet forward below
+     also launches one K10 and one K11, every fp32-stem MobileNet forward
+     one K10, every ImageNet ResNet with a quantized stem one K11);
    * the same frozen tree served by ``ExperimentalResNetInt8Engine`` in its
      three configurations, through ``ServingEngine`` with a forward factory:
      ``tail`` (``use_qtail`` + ``use_qproj``: 17 K1, 4 K2, 4 K4, 12 K5 per
@@ -93,8 +101,8 @@ success):
      4 K4, 12 K6) and ``stage`` (``use_qstage`` + ``qstage_proj`` +
      ``use_qproj``: 4 K1, 3 K2, 3 K4, 3 K7, 1 K8);
    * the same for ``mobilenetv2_imagenet_int8_ptq_fp32stem`` (17 inverted
-     residuals, the 320→1280 head): 35 K1 and 17 K3 launches per forward,
-     no K2, none on the plain path; the same tree through
+     residuals, the 320→1280 head): 35 K1, 17 K3 and 1 K10 launches per
+     forward, no K2, none on the plain path; the same tree through
      ``ExperimentalMobileNetV2Int8Engine`` ``ivr`` (``use_qivr``: 15 K1,
      7 K3, 5 K9);
    * one direct forward each of ``mobilenetv1_imagenet_int8_ptq_fp32stem``
@@ -210,7 +218,7 @@ success):
    (server B, ``--save-frozen``).  Meanwhile, in this process: the native
    ``preprocess_quantize`` equal to its plain version on 8 images; the
    bf16 stem (``stem_dtype=torch.bfloat16``) on phase 4's tree, 37 K1 +
-   16 K2 a forward, none plain, walked card against CPU; the same tree
+   16 K2 + K10 + K11 a forward, none plain, walked card against CPU; the same tree
    through ``build_engine(load_frozen=...)`` behind the HTTP front in
    process, 4 client threads × 6 requests of 1-8 images, 37 K1 + 16 K2
    a round.  Server B's uint8 answers equal ``forward_codes`` on the
@@ -391,6 +399,7 @@ SRC_K7 = "qtpu_torch/csrc/qstage_wg.cu"
 SRC_K8 = "qtpu_torch/csrc/qstage_proj_wg.cu"
 SRC_K9 = "qtpu_torch/csrc/qivr_wg.cu"
 SRC_IM2COL = "qtpu_torch/ops/qim2col.py"
+SRC_STEM = "qtpu_torch/csrc/qstem.cu"
 TPU_K1 = "qtpu/ops/pallas/qmatmul.py:108"
 TPU_K2 = "qtpu/ops/pallas/qconv.py:70"
 TPU_K2S = "qtpu/ops/pallas/qconv_dispatch.py:42"
@@ -403,6 +412,8 @@ TPU_K7 = "qtpu/ops/pallas/qstage.py:159"
 TPU_K8 = "qtpu/ops/pallas/qstage.py:268"
 TPU_K9 = "qtpu/ops/pallas/qivr.py:112"
 TPU_IM2COL = "qtpu/ops/pallas/qim2col.py:31"
+NO_TPU_STEM = ("none: qtpu left the excluded stem's conv, its glue and the "
+               "max-pool on codes to XLA")
 NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
               "or a chained run (two or more convolutions with requants "
               "between)")
@@ -411,9 +422,12 @@ NO_LIBRARY = ("no single PyTorch call computes a fused bottleneck piece "
 # on igemm, its int4 entry on wgmma, on igemm, K2 on wgmma, stem, igemm, K3
 # on halo, scalar, K5, K6, K7, K9, K4 and K8 each on wgmma, igemm, the
 # zero-point pad copies made on the way to K2 or K3, then K1's int8 entry
-# on its narrow-row kernel and K2 on its small-channel kernel); expected
-# counts give the first twelve
-KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10}
+# on its narrow-row kernel and K2 on its small-channel kernel, then the
+# fp32 stem kernel K10 and the max-pool on codes K11, each with its one
+# route); expected counts give the first twelve and K10, K11
+# (``expected_part``)
+KIDX = {**{f"K{i + 1}": i for i in range(9)}, "K1w4": 9, "im2col": 10,
+        "K10": 36, "K11": 38}
 PLAIN = 11
 SPLIT = {"K1": {"wgmma": 12, "wgmma_cp": 34, "igemm": 13},
          "K1w4": {"wgmma": 14, "igemm": 15},
@@ -421,17 +435,19 @@ SPLIT = {"K1": {"wgmma": 12, "wgmma_cp": 34, "igemm": 13},
          "K3": {"halo": 19, "scalar": 20},
          "K5": {"wgmma": 21, "igemm": 22}, "K6": {"wgmma": 23, "igemm": 24},
          "K7": {"wgmma": 25, "igemm": 26}, "K9": {"wgmma": 27, "igemm": 28},
-         "K4": {"wgmma": 29, "igemm": 30}, "K8": {"wgmma": 31, "igemm": 32}}
+         "K4": {"wgmma": 29, "igemm": 30}, "K8": {"wgmma": 31, "igemm": 32},
+         "K10": {"stem": 37}, "K11": {"pool": 39}}
 PADS = 33
-NCOUNTS = 36
+NCOUNTS = 40
 # experimental engine configurations: flags, launches per forward
 STAGE_FLAGS = dict(use_qstage=True, qstage_proj=True, use_qproj=True)
 RN50_FUSED = {"tail": (dict(use_qtail=True, use_qproj=True),
-                       (17, 4, 0, 4, 12, 0, 0, 0, 0, 0, 0, 0)),
+                       (17, 4, 0, 4, 12, 0, 0, 0, 0, 0, 0, 0, 1, 1)),
               "block": (dict(use_qblock=True, use_qproj=True),
-                        (5, 4, 0, 4, 0, 12, 0, 0, 0, 0, 0, 0)),
-              "stage": (STAGE_FLAGS, (4, 3, 0, 3, 0, 0, 3, 1, 0, 0, 0, 0))}
-MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0, 0, 0)
+                        (5, 4, 0, 4, 0, 12, 0, 0, 0, 0, 0, 0, 1, 1)),
+              "stage": (STAGE_FLAGS, (4, 3, 0, 3, 0, 0, 3, 1, 0, 0, 0, 0,
+                                      1, 1))}
+MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0, 0, 0, 1, 0)
 # config 5 (stem and fc in fp32): the product engine runs its 36 1×1 GEMMs
 # on K1's int8 entry (unpacked weights), the packed engine on the int4
 # entry; the stage engine chains layer1 (K8) and the layer2/layer3 runs
@@ -439,14 +455,14 @@ MNV2_IVR = (15, 0, 7, 0, 0, 0, 0, 0, 5, 0, 0, 0)
 # unchained (its consumer is the fp32 fc): the int4 entry runs the conv1 of
 # layer2_0-layer4_0 and layer4_1-4_2's conv1 and conv3 (7), K2 the five
 # unchained 3×3s
-CFG5_PRODUCT = (36, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-CFG5_PACKED = (0, 16, 0, 0, 0, 0, 0, 0, 0, 36, 0, 0)
-CFG5_STAGE = (0, 5, 0, 3, 0, 0, 2, 1, 0, 7, 0, 0)
+CFG5_PRODUCT = (36, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1)
+CFG5_PACKED = (0, 16, 0, 0, 0, 0, 0, 0, 0, 36, 0, 0, 1, 1)
+CFG5_STAGE = (0, 5, 0, 3, 0, 0, 2, 1, 0, 7, 0, 0, 1, 1)
 RN50 = "resnet50_imagenet_int8_ptq_fp32stem"
 # ResNet-50 with its int8 7×7/2 stem: the product engine's 37 K1 and 16 K2,
 # plus one K2 (the stem kernel) for the stem
 RN50_INT8STEM = "resnet50_imagenet_int8_ptq"
-RN50_INT8STEM_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN50_INT8STEM_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1)
 CFG5 = "resnet50_int4w_int8a_qat"
 MNV2 = "mobilenetv2_imagenet_int8_ptq_fp32stem"
 MNV1 = ("mobilenetv1_imagenet_int8_ptq_fp32stem",
@@ -470,13 +486,13 @@ RN50_MODULE_EXCLUDE = ("stem*", "*/down")
 MNV2_MODULE_EXCLUDE = ("stem*", "block1/*")
 RN50_MODULE = f"{RN50} exclude={RN50_MODULE_EXCLUDE}"
 MNV2_MODULE = f"{MNV2} exclude={MNV2_MODULE_EXCLUDE}"
-LENET_FWD = (3, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN18_FWD = (4, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN18_MODULE_FWD = (1, 20, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN20_FWD = (3, 19, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN50_MODULE_FWD = (33, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-MNV2_MODULE_FWD = (33, 0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN101_FWD = (71, 33, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+LENET_FWD = (3, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN18_FWD = (4, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN18_MODULE_FWD = (1, 20, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN20_FWD = (3, 19, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN50_MODULE_FWD = (33, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+MNV2_MODULE_FWD = (33, 0, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN101_FWD = (71, 33, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1)
 RN101_CALIB_BATCHES = 2     # of the config's 8, to keep the script short
 # every serving run launches K1 and K2 on their wgmma kernels, the stem
 # kernel, the narrow-row or the small-channel kernel, and copies no zero
@@ -497,7 +513,8 @@ QAT_CUT = dict(n_train=64, n_eval=32, fp32_epochs=1, qat_epochs=1,
 # downsample), 19 K2 (16 3×3s, three 1×1/2 downsamples); config 3: 34 K1
 # (16 expands, 17 projects, the head), 1 K2 (the Ci = 3 stem), 17 K3; the
 # quantized fc is dense and runs the simulation (qtpu's integer forward
-# covers convs only)
+# covers convs only); no K10 or K11 (the flat engines' stems), so the
+# twelve that ``qat_launches`` gives
 QAT_FWD = {"qat_cfg5": (33, 19, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
            "qat_cfg3": (34, 1, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
 # the integer-forward QAT step at B = 16 as its CUDA graph, predicted (PERF.md
@@ -506,7 +523,7 @@ QAT_STEP_PREDICTED = {"qat_cfg5": "55-90", "qat_cfg3": "30-55"}
 # the QAT-frozen models served on their flat engines: config 5 as
 # CFG5_PRODUCT; config 3 with its quantized stem (K2's stem kernel) and fc
 QAT_SERVED = {"qat_cfg5": CFG5_PRODUCT,
-              "qat_cfg3": (35, 1, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
+              "qat_cfg3": (35, 1, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
 # the integer-forward QAT conv's shapes at the trainer's B = 16: (what, Ci,
 # Co, kernel, stride, groups, H, weight bits) — config 5's layer1_1 conv1,
 # layer1 conv2, layer2_0 conv2 (3×3/2) and downsample (1×1/2), config 3's
@@ -528,8 +545,8 @@ QAT_INT_CASES = (
 # response checked too); the torchvision-named ResNet-50 that
 # the second server imports (--torch-ckpt), served with --uint8-ingest; the
 # launches one forward makes on its int8-ingest path (37 K1, 16 K2 on
-# wgmma and the stem kernel for the quantized 7×7/2 stem) and with the bf16
-# stem (37 K1, 16 K2; the stem a cuDNN fp32 conv on bf16-rounded operands)
+# wgmma and the stem kernel for the quantized 7×7/2 stem, K11 its max-pool)
+# and with the bf16 stem (37 K1, 16 K2; K10 on bf16-rounded operands, K11)
 HTTP_THREADS, HTTP_REQUESTS, HTTP_MAX_IMAGES = 4, 6, 8
 HTTP_TIMED_REQUESTS = 480   # server A's timed window: several seconds
 HTTP_BUCKETS = "8,32"
@@ -537,8 +554,8 @@ HTTP_BUCKET_LIST = [8, 32]
 # the served round, eager and graphed (phase 7, bench.serve_rounds)
 ROUND_BUCKETS = (8, 32, 128)
 ROUND_REPEATS = 20
-RN50_FWD = (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-RN50_TV_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+RN50_FWD = (37, 16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1)
+RN50_TV_FWD = (37, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1)
 # the K2 rows whose launches phase 7 counts, and their pads where not SAME
 PHASE7_PATHS = ("rn50_tv",)
 K2_PADS = {"RN50 torchvision int8 stem 7x7/2": ((3, 3), (3, 3))}
@@ -548,6 +565,13 @@ HTTP_TIMEOUT_S = 120
 
 class SmokeFailure(Exception):
     pass
+
+
+def expected_part(c):
+    """The part of a counts tuple a forward's expectation gives: K1 .. K9,
+    K1's int4 entry, the im2col conv, plain-version calls, then K10 (the
+    fp32 stem kernel) and K11 (the max-pool on codes)."""
+    return tuple(c[:PLAIN + 1]) + (c[KIDX["K10"]], c[KIDX["K11"]])
 
 
 def check(cond, msg):
@@ -1026,6 +1050,7 @@ def main() -> int:
     from qtpu_torch.ops import qmatmul as k1
     from qtpu_torch.ops import qproj as k4
     from qtpu_torch.ops import qstage as k78
+    from qtpu_torch.ops import qstem
     from qtpu_torch.ops import qtail as k5
     from qtpu_torch.ops.chain_plan import chain_plan
     from qtpu_torch.bench.serve_rounds import round_ms, submit_burst
@@ -1036,7 +1061,8 @@ def main() -> int:
     from qtpu_torch.serve.engine import ServingEngine
     from qtpu_torch.serve.experimental import (
         ExperimentalMobileNetV2Int8Engine, ExperimentalResNetInt8Engine)
-    from qtpu_torch.serve.fused_ops import grid_of, tree_to_device
+    from qtpu_torch.serve.fused_ops import (grid_of, tree_to_device,
+                                            u8_normalize_coeffs)
     from qtpu_torch.serve.mobilenet_engine import MobileNetV2Int8Engine
     from qtpu_torch.serve.mobilenet_v1_engine import (V1_STRIDES,
                                                       MobileNetV1Int8Engine)
@@ -1438,6 +1464,92 @@ def main() -> int:
         eager_ms=timed_eager(run_k, 50), plain_ms=timed(run_p, 3),
         k2_ms=timed(run_k2, 50), bound_ms=b_ms, bound_by=b_by,
         library_ms=conv_fp32_ms(xp, w_hwio.permute(3, 2, 0, 1), 2)))
+
+    # the fp32 stems from uint8 pixels to int8 codes (K10, ops/qstem.py) at
+    # ResNet-50's 7x7/2 and MobileNet-v2's 3x3/2 ReLU6, SAME pads, B = 8 and
+    # 128, and ResNet's max-pool on those codes (K11): each bit-equal to its
+    # plain version (K10 sums the taps in the order of cuDNN's fp32 NHWC
+    # conv); library = the plain sequence (cuDNN's conv and PyTorch's
+    # glue), timed as the yardstick only, beside cuDNN's conv alone; the
+    # equality holds for the cuDNN whose tap order K10 keeps, so each row
+    # names the cuDNN it ran on
+    cudnn = torch.backends.cudnn.version()
+    norm = u8_normalize_coeffs((0.485, 0.456, 0.406), (0.229, 0.224, 0.225),
+                               3, device=dev)
+    for path, label, Co, K, act_max in (
+            ("rn50", "RN50 fp32 stem 7x7/2", 64, 7, None),
+            ("mnv2", "MNv2 fp32 stem 3x3/2 relu6", 32, 3, 6.0)):
+        w_hwio = (torch.randn((K, K, 3, Co), generator=g)
+                  * (2.0 / (K * K * 3)) ** 0.5).to(dev)
+        sw = qstem.prepare_stem(
+            w_hwio, (torch.randn(Co, generator=g) * 0.1).to(dev))
+        skw = dict(strides=(2, 2), padding="SAME", act_max=act_max,
+                   grid=(0.03, -128, False), norm=norm)
+        for B in (8, 128):
+            x8 = torch.randint(0, 256, (B, 224, 224, 3), generator=g,
+                               dtype=torch.uint8).to(dev)
+
+            def run_k(x8=x8):
+                return qstem.stem_fp32_codes(x8, sw, **skw)
+
+            def run_p(x8=x8):
+                return qstem.stem_fp32_codes_plain(x8, sw, **skw)
+
+            y, y_ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            d = (y.int() - y_ref.int()).abs()
+            frac = (d > 0).float().mean().item()
+            check(y.shape == y_ref.shape and frac == 0.0,
+                  f"K10 {label} B={B}: kernel vs plain max step "
+                  f"{d.max().item()}, {frac:.2e} of codes differ (cuDNN "
+                  f"{cudnn})")
+            log(f"K10 {label} B={B}: codes equal to the plain version's "
+                f"(cuDNN {cudnn})")
+            xp = qops.pad_nhwc(x8.float() * norm[0] + norm[1], qops.same_pads(
+                (224, 224), (K, K), (2, 2)), 0.0).permute(0, 3, 1, 2)
+            with fp32_exact():
+                conv_ms = timed(lambda: F.conv2d(xp, sw.w_oihw, stride=2),
+                                50)
+            del xp
+            plain_ms = timed(run_p, 5)
+            b_ms, b_by = bound(x8.numel() + y.numel() + 4 * (
+                sw.w_taps.numel() + Co), 0,
+                cuda_core_ops=2 * y.numel() * K * K * 3)
+            kernels.append(dict(
+                name=f"stem_fp32_codes [{label}]", route="cuda",
+                source=SRC_STEM, replaces=NO_TPU_STEM, path=path,
+                kernel="K10", shape=f"B={B} 224x224x3 uint8 -> Co={Co} "
+                f"{K}x{K}/2 SAME", max_abs_err=d.max().item(),
+                codes_differ=frac, ms=timed(run_k, 50),
+                eager_ms=timed_eager(run_k, 50), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms,
+                library_call="cuDNN fp32 F.conv2d and PyTorch's normalize, "
+                "bias, activation and quantize (the plain sequence)",
+                cudnn_conv_ms=conv_ms, cudnn=cudnn))
+            if path == "rn50":
+                pads = qops.same_pads(y.shape[1:3], (3, 3), (2, 2))
+
+                def pool_k(y=y, pads=pads):
+                    return qstem.maxpool_codes(y, pads)
+
+                def pool_p(y=y, pads=pads):
+                    return qstem.maxpool_codes_plain(y, pads)
+
+                yp, err = compare(f"K11 RN50 max-pool 3x3/2 B={B}", pool_k,
+                                  pool_p)
+                pool_ms = timed(pool_p, 20)
+                b_ms, b_by = bound(y.numel() + yp.numel(), 0)
+                kernels.append(dict(
+                    name="maxpool_codes [RN50 3x3/2 on int8 codes]",
+                    route="cuda", source=SRC_STEM, replaces=NO_TPU_STEM,
+                    path=path, kernel="K11", shape=f"B={B} 112x112x64 "
+                    "int8 -> 56x56, SAME (pad -128)", max_abs_err=err,
+                    ms=timed(pool_k, 50), eager_ms=timed_eager(pool_k, 50),
+                    plain_ms=pool_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=pool_ms, library_call="the pad and nine "
+                    "strided torch.maximum (the plain sequence)"))
+            del x8, y, y_ref, d
+            torch.cuda.empty_cache()
 
     k3_cases = [
         ("block1 dw 3x3/2", 8, 112, 96, 2),
@@ -2053,7 +2165,10 @@ def main() -> int:
               k3.qdepthwise_folded_plain, k4.qproj_folded_plain,
               k5.qtail_folded_plain, k6.qblock_folded_plain,
               k78.qstage_folded_plain, k78.qstage_proj_folded_plain,
-              k9.qivr_folded_plain, k1.qmatmul_folded_w4_plain)
+              k9.qivr_folded_plain, k1.qmatmul_folded_w4_plain,
+              qstem.stem_fp32_codes_plain, qstem.maxpool_codes_plain)
+    # the kernels with one route each, counted on ``launches``
+    single = {"K10": qstem.stem_fp32_codes, "K11": qstem.maxpool_codes}
 
     split_of = {"K1": k1.qmatmul_folded, "K1w4": k1.qmatmul_folded_w4,
                 "K2": k2.qconv2d_folded, "K3": k3.qdepthwise_folded,
@@ -2068,13 +2183,17 @@ def main() -> int:
     def counts():
         """(K1 .. K9, K1 int4, im2col launches, plain-version calls, the
         launches by kernel of K1 int8, K1 int4, K2, K3, K5, K6, K7, K9, K4
-        and K8, zero-point pad copies, at SPLIT's and PADS' indices); raises
-        unless each entry's kernels add up to its launches."""
+        and K8, zero-point pad copies, K10 and K11, at SPLIT's, PADS' and
+        KIDX's indices); raises unless each entry's kernels add up to its
+        launches."""
         c = [*(k.launches for k in kmods), sum(p.calls for p in plains)]
         c += [0] * (NCOUNTS - len(c))
         for name, fn in split_of.items():
             for kp, i in SPLIT[name].items():
                 c[i] = getattr(fn, f"launches_{kp}")
+        for name, fn in single.items():
+            (i,) = SPLIT[name].values()
+            c[KIDX[name]] = c[i] = fn.launches
         c[PADS] = qops.resolve_and_pad.calls
         for name, idx in SPLIT.items():
             check(sum(c[i] for i in idx.values()) == c[KIDX[name]],
@@ -2095,9 +2214,10 @@ def main() -> int:
             y = eager_entry(flat, entry)(x)
         torch.cuda.synchronize()
         got = counts()
-        check(got[:PLAIN + 1] == expect, f"{what}: one forward launched "
+        check(expected_part(got) == expect, f"{what}: one forward launched "
               f"K1..K9/K1 "
-              f"int4/im2col/plain = {got}, expected {expect}")
+              f"int4/im2col/plain/K10/K11 = {expected_part(got)}, expected "
+              f"{expect}")
         check(bool(torch.isfinite(y).all()), f"{what}: logits not finite")
         log(f"{what}, one forward: {fmt_counts(got)}")
         return got
@@ -2121,7 +2241,7 @@ def main() -> int:
         for e in events:
             if e.device_type != DeviceType.CUDA or e.is_user_annotation:
                 continue
-            m = re.match(r"(K\d)( int4)? \S+ \[(\w+)\]$",
+            m = re.match(r"(K\d+)( int4)? \S+ \[(\w+)\]$",
                          kernel_family(e.name) or "")
             if m:
                 got[(m[1] + ("w4" if m[2] else ""), m[3])] += 1
@@ -2143,6 +2263,14 @@ def main() -> int:
             warm()
             torch.cuda.synchronize()
             t.step()
+            # the recorded step's first kernels can still be lost (an eager
+            # forward of the stage engine lacked its first five, the stem
+            # kernels among them): a few kernels and a pause open the step
+            pad = torch.zeros(1, device=dev)
+            for _ in range(8):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
             zero_counts()
             out = fn()
             torch.cuda.synchronize()
@@ -2269,10 +2397,11 @@ def main() -> int:
         finally:
             engine.stop()
         rounds = sum(by_bucket.values())
-        check(run_counts[:PLAIN + 1] == tuple(n * rounds for n in per_fwd),
+        check(expected_part(run_counts) == tuple(n * rounds
+                                                 for n in per_fwd),
               f"{what}: {rounds} replayed rounds {by_bucket} launched, "
-              f"counted in the trace, K1..K9/K1 int4/im2col/plain = "
-              f"{run_counts}")
+              f"counted in the trace, K1..K9/K1 int4/im2col/plain/K10/K11 = "
+              f"{expected_part(run_counts)}")
         check(sorted(by_bucket) == list(engine.buckets),
               f"{what}: the replayed rounds {by_bucket} missed a bucket")
         check(served.shape == (45, classes) and np.isfinite(served).all(),
@@ -2363,7 +2492,7 @@ def main() -> int:
     mnv2, mnv2_counts, mnv2_vars = serve(
         MNV2, lambda v: MobileNetV2Int8Engine(v, num_classes=1000,
                                               device=dev),
-        (35, 0, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0))
+        (35, 0, 17, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0))
     ivr = ExperimentalMobileNetV2Int8Engine(mnv2_vars, num_classes=1000,
                                             device=dev, use_qivr=True)
     check(sum(p["nrun"] for p in ivr._qivr_prep.values()) == 10
@@ -2379,7 +2508,9 @@ def main() -> int:
                                      device=dev)
         mnv1_counts = one_forward(mnv1, torch.from_numpy(imgs[:8]).to(dev),
                                   (14, int("stem" in tree["qweights"]), 13,
-                                   0, 0, 0, 0, 0, 0, 0, 0, 0), name)
+                                   0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                   int("stem" not in tree["qweights"]), 0),
+                                  name)
     # the last of MNV1 has the quantized stem: K2 at Ci = 3
     check(mnv1_counts[1] == 1, f"{MNV1[-1]}: the int8 stem did not run K2")
     path_counts.update(mnv2=mnv2_counts, mnv1=mnv1_counts)
@@ -2503,9 +2634,9 @@ def main() -> int:
         qn = steps * qcfg.qat_epochs + evals + 2 * shapes
         check(qfwd == QAT_FWD[key], f"{cname}: the module path's routing "
               f"gives {qfwd} launches a QAT forward, not {QAT_FWD[key]}")
-        check(qrun[:PLAIN + 1] == tuple(qn * n for n in qfwd),
+        check(expected_part(qrun) == tuple(qn * n for n in qfwd) + (0, 0),
               f"{cname}: the run's {qn} QAT forwards launched "
-              f"K1..K9/K1 int4/im2col/plain = {qrun}")
+              f"K1..K9/K1 int4/im2col/plain/K10/K11 = {expected_part(qrun)}")
         check(all(bool(torch.isfinite(p).all())
                   for p in qex.eval_model.parameters()),
               f"{cname}: non-finite parameters after QAT")
@@ -2515,8 +2646,9 @@ def main() -> int:
                         labels16)
         torch.cuda.synchronize()
         qone = counts()
-        check(qone[:PLAIN + 1] == qfwd, f"{cname}: one QAT step launched "
-              f"{qone}, expected {qfwd}")
+        check(expected_part(qone) == qfwd + (0, 0), f"{cname}: one QAT step "
+              f"launched {expected_part(qone)}, expected {qfwd} and no K10 "
+              "or K11")
         check(bool(torch.isfinite(qm["loss"])), f"{cname}: QAT loss "
               f"{float(qm['loss'])}")
         del probe
@@ -3003,7 +3135,7 @@ def main() -> int:
             server.shutdown()
             eng.stop()
         rounds = sum(by_bucket.values())
-        check(c[:PLAIN + 1] == tuple(n * rounds for n in RN50_FWD),
+        check(expected_part(c) == tuple(n * rounds for n in RN50_FWD),
               f"{RN50} over HTTP in process: {rounds} rounds launched, "
               f"counted in the trace, {fmt_counts(c)}")
         check(st["images"] == n_img + len(plan[0]), f"in-process HTTP: "
@@ -3675,7 +3807,9 @@ def profiled(torch, run, record_shapes):
     wall = []
     with trace(TRACE_DIR, "cuda", warmup=1,
                record_shapes=record_shapes) as t:
-        for _ in range(2):
+        for i in range(2):
+            if i:       # the recorded call starts after the recording does
+                time.sleep(0.05)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -3716,6 +3850,8 @@ def kernel_family(key):
     """The port's kernel (and which of its kernels) a device kernel name
     belongs to, or None."""
     return (
+        "K10 stem_fp32_codes [stem]" if "stem_codes_kernel" in key else
+        "K11 maxpool_codes [pool]" if "maxpool_codes_kernel" in key else
         "K8 qstage_proj_fused [igemm]"
         if re.search(r"qstage_kernel<\w+, true>", key) else
         "K8 qstage_proj_fused [wgmma]"
@@ -3866,15 +4002,18 @@ def profile_forward(what, flat, x, torch, by_op=False):
 PHASE9_STEPS = 10          # (a): traced forwards a table
 # (a): each product engine's scopes (qtpu's names) and the launches of its
 # kernels a forward, every one inside a scope
-PHASE9_TRACED = {RN50: ({"K1": 37, "K2": 16},
+PHASE9_TRACED = {RN50: ({"K1": 37, "K2": 16, "K10": 1, "K11": 1},
                         ("stem", *(f"layer{i + 1}_{j}" for i, n in
                                    enumerate((3, 4, 6, 3)) for j in range(n)),
                          "head")),
-                 MNV2: ({"K1": 35, "K3": 17},
+                 MNV2: ({"K1": 35, "K3": 17, "K10": 1},
                         ("stem", *(f"block{i}" for i in range(17)), "head"))}
 PHASE9_UNATTRIBUTED = 0.01  # (a): the largest share of device time outside
 PHASE9_BUSY = 0.05          # (a): the scopes' sum against phase 6's busy
 PHASE9_FIT = 0.03           # (b): time_scan_fit against phase 6's graph
+# (b): the chains' lengths; 20 forwards apart, so the slope's noise stays
+# inside PHASE9_FIT of a 5 ms forward (chains of 3 and 13 read +3.4% once)
+PHASE9_CHAINS = (5, 25)
 
 
 def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
@@ -3965,11 +4104,12 @@ def phase9(dev, work, card, torch, engines, graph_ms, busy_ms):
     x = torch.randn((128, 224, 224, 3), generator=g).to(dev)
     with torch.inference_mode():
         fit_ms = 1e3 * time_scan_fit(
-            lambda c: c + 0.0 * rn50.eager_forward(c).sum(), x, n_short=3,
-            n_long=13)
+            lambda c: c + 0.0 * rn50.eager_forward(c).sum(), x,
+            n_short=PHASE9_CHAINS[0], n_long=PHASE9_CHAINS[1])
     ref = graph_ms[RN50, 128]
     log(f"phase 9 (b) {RN50} B=128: time_scan_fit {fit_ms:.3f} ms a "
-        f"forward (chains of 3 and 13, each one CUDA graph; the carry add "
+        f"forward (chains of {PHASE9_CHAINS[0]} and {PHASE9_CHAINS[1]}, "
+        "each one CUDA graph; the carry add "
         f"included), phase 6's graph {ref:.3f} ms ({card})")
     check(abs(fit_ms - ref) <= PHASE9_FIT * ref, f"time_scan_fit "
           f"{fit_ms:.3f} ms against phase 6's {ref:.3f} ms")

@@ -52,6 +52,7 @@ import glob
 import json
 import os
 import tempfile
+import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -261,8 +262,11 @@ def capture_trace(fn: Callable, *args, steps: int = 10,
 
     A call before the trace warms up (builds, allocator); one more runs
     under the profiler's schedule unrecorded (a forward traced alone lost
-    its first kernels on the card); the device is synchronized before the
-    trace stops.  Raises if a card's trace holds no device kernel."""
+    its first kernels on the card), and the recorded steps start 50 ms
+    after the recording does (kernels launched at once after it were still
+    lost now and then: the stem kernel, a forward's first); the device is
+    synchronized before the trace stops.  Raises if a card's trace holds
+    no device kernel."""
     devs = [a.device for a in args if isinstance(a, torch.Tensor)]
     if not devs:
         raise ValueError("capture_trace: no tensor argument names a device")
@@ -274,6 +278,7 @@ def capture_trace(fn: Callable, *args, steps: int = 10,
         fn(*args)
         _sync(dev)
         t.step()
+        time.sleep(0.05)
         for _ in range(steps):
             fn(*args)
         _sync(dev)

@@ -30,7 +30,7 @@ SOURCES = {"qmatmul": "qmatmul.cu", "qconv": "qconv.cu",
            "qtail": "qtail.cu", "qblock": "qblock.cu",
            "qstage": "qstage.cu", "qivr": "qivr.cu",
            "qstage_wg": "qstage_wg.cu", "qivr_wg": "qivr_wg.cu",
-           "qstage_proj_wg": "qstage_proj_wg.cu"}
+           "qstage_proj_wg": "qstage_proj_wg.cu", "qstem": "qstem.cu"}
 HEADERS = ("epilogue.cuh", "igemm.cuh", "wgmma_gemm.cuh", "wgmma_narrow.cuh",
            "fused_tail.cuh", "wgmma_tail.cuh", "grid_phase.cuh",
            "wgmma_phase.cuh")

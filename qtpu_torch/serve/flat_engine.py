@@ -34,11 +34,16 @@ serves them (it compiles per bucket), and traces with the per-layer scopes
 and eager timings call them.
 
 ``torch_pad=True`` runs torchvision's geometry: explicit (1, 1) pads on
-the strided 3×3 convs, where SAME pads (0, 1).  ``stem_dtype=torch.bfloat16``
-runs an excluded stem's conv on bf16 inputs and weights with f32
-accumulation, as qtpu's ``preferred_element_type=float32`` conv: both are
-rounded to bf16 and back, and the conv runs in full f32 (every product of
-two bf16 values is exact in f32), so the output is not rounded to bf16.
+the strided 3×3 convs, where SAME pads (0, 1).  An excluded stem runs from
+the entry's input (uint8 pixels normalized in its loads, or f32 images) to
+int8 codes on the first block's grid in one kernel on a card
+(``ops/qstem.stem_fp32_codes``); on the CPU its plain version runs the
+normalize, ``F.conv2d`` in full fp32, ``+ b``, the activation and
+``quantize_act``.  ``stem_dtype=torch.bfloat16`` runs an excluded stem's
+conv on bf16 inputs and weights with f32 accumulation, as qtpu's
+``preferred_element_type=float32`` conv: both are rounded to bf16 and
+back, and the conv runs in full f32 (every product of two bf16 values is
+exact in f32), so the output is not rounded to bf16.
 ``device``: ``None`` means
 the card (raises without one); pass ``"cpu"`` for the plain path, where
 the same code runs the kernels' plain versions.  ``packed_int4``: the 1×1
@@ -55,10 +60,9 @@ import threading
 from typing import Any, Collection, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from qtpu_torch.nn.layers import pad3
-from qtpu_torch.ops import qops
+from qtpu_torch.ops import qops, qstem
 from qtpu_torch.parallel.mesh import sharded_nodes
 from qtpu_torch.serve.fused_ops import (Grid, fc_fp32_params, fold_bn_fp32,
                                         gemm_1x1, grid_of, prepare_tree,
@@ -125,8 +129,9 @@ class FlatInt8Engine:
         if self._node("stem") is None:
             w, b = fold_bn_fp32(self.params, self.batch_stats, "stem",
                                 BN_EPS)
-            # OIHW for F.conv2d, bias added after as in the reference
-            self._stem_fp32 = (w.permute(3, 2, 0, 1).contiguous(), b)
+            # bias added after the conv, as in the reference
+            self._stem_fp32 = qstem.prepare_stem(
+                w, b, bf16=stem_dtype == torch.bfloat16)
         self._fc_fp32 = (fc_fp32_params(self.params)
                          if self._node("fc") is None else None)
         norm = normalize or ((0.0,), (1.0,))
@@ -236,21 +241,17 @@ class FlatInt8Engine:
         a, b = self._u8_norm
         return x.to(torch.float32) * a + b
 
-    def _stem_conv_fp32(self, x: torch.Tensor, strides, padding
-                        ) -> torch.Tensor:
-        """The excluded stem's conv (BN folded at build) in full fp32 — no
-        TF32 — on NHWC ``x``, bias added; NHWC out, before the activation.
-        With the bf16 ``stem_dtype`` ``x`` and the folded weight are rounded
-        to bf16 first."""
-        w, b = self._stem_fp32
-        pads = qops.resolve_pads(x.shape[1:3], w.shape[2:], strides, padding)
-        xp = qops.pad_nhwc(x, pads, 0.0).permute(0, 3, 1, 2)
-        if self.stem_dtype == torch.bfloat16:
-            xp = xp.to(torch.bfloat16).to(torch.float32)
-            w = w.to(torch.bfloat16).to(torch.float32)
-        with fp32_exact():
-            y = F.conv2d(xp, w, stride=strides)
-        return y.permute(0, 2, 3, 1) + b
+    def _stem_codes(self, x: torch.Tensor, strides, padding,
+                    act_max: Optional[float], grid: Grid) -> torch.Tensor:
+        """The excluded stem (BN folded at build, full fp32 — no TF32 —,
+        on bf16-rounded operands with the bf16 ``stem_dtype``) from the
+        entry's NHWC input — uint8 pixels, normalized on the device, or f32
+        images — through ``+ b`` and ReLU (clamped at ``act_max`` if given)
+        to int8 codes on ``grid``."""
+        return qstem.stem_fp32_codes(
+            x, self._stem_fp32, strides=strides, padding=padding,
+            act_max=act_max, grid=grid,
+            norm=self._u8_norm if x.dtype == torch.uint8 else None)
 
     def _fc(self, pooled: torch.Tensor) -> torch.Tensor:
         """Logits from the pooled f32 features: the excluded fc as an fp32

@@ -10,7 +10,8 @@ An int8-resident pipeline over a frozen MobileNet-v2 tree:
   inside the kernel;
 * activations stay int8 between layers on each consumer's calibrated grid;
   the head emits f32 (relu6) for the mean-pool, then the fc re-quantizes;
-* an excluded stem runs in fp32 (BN folded at build, TF32 off); a quantized
+* an excluded stem runs in fp32 (BN folded at build, TF32 off) from the
+  entry's input to int8 codes (``ops/qstem.stem_fp32_codes``); a quantized
   stem is K2 at 3×3/2.
 
 The chained inverted-residual runs (K9) run only through
@@ -67,17 +68,17 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
         return grid_of(self._node(name, "expand") or self._node(name, "dw"))
 
     def _stem(self, x: torch.Tensor, first: Grid,
-              pre_quantized: bool = False) -> torch.Tensor:
+              pre_quantized: bool = False, raw_u8: bool = False
+              ) -> torch.Tensor:
         """3×3/2 stem with relu6 → int8 codes on block0's grid."""
         stem = self._node("stem")
         if stem is None:
             if pre_quantized:
                 raise ValueError("int8 ingest is unavailable with an "
                                  "excluded fp32 stem")
-            y = torch.clamp(self._stem_conv_fp32(x, (2, 2), self._pad3),
-                            0.0, 6.0)
-            return qops.quantize_act(y, first.scale, first.zp,
-                                     symmetric=first.sym)
+            return self._stem_codes(x, (2, 2), self._pad3, 6.0, first)
+        if raw_u8:
+            x = self._normalize_u8(x)
         if not pre_quantized:
             g = grid_of(stem)
             x = qops.quantize_act(x, g.scale, g.zp, symmetric=g.sym)
@@ -150,10 +151,9 @@ class MobileNetV2Int8Engine(FlatInt8Engine):
                 "excluded head: needs the module SERVE path, which is not "
                 "ported (ROADMAP.md)")
         with annotate("stem"):
-            if raw_u8:
-                x = self._normalize_u8(x)
             grid = self._block_in_grid(self._blocks()[0][0])
-            x_q = self._stem(x, grid, pre_quantized=pre_quantized)
+            x_q = self._stem(x, grid, pre_quantized=pre_quantized,
+                             raw_u8=raw_u8)
         for step in self._plan():
             with annotate(self._scope(step)):
                 x_q, grid = self._step(x_q, grid, step)

@@ -4,7 +4,8 @@ qtpu/serve/mobilenet_v1_engine.py).
 An int8-resident pipeline over a frozen MobileNet-v1 tree — a plain
 depthwise-separable stack, no residuals, plain relu:
 
-* stem 3×3/2: fp32 when excluded (BN folded at build, TF32 off), else K2
+* stem 3×3/2: fp32 when excluded (BN folded at build, TF32 off; from the
+  entry's input to int8 codes, ``ops/qstem.stem_fp32_codes``), else K2
   with relu and the requant onto block0's grid;
 * 13 blocks of depthwise 3×3 on K3 (relu and the requant onto the
   pointwise grid in its epilogue) and pointwise 1×1 on K1; the last
@@ -44,17 +45,17 @@ class MobileNetV1Int8Engine(FlatInt8Engine):
         self.num_classes = num_classes
 
     def _stem(self, x: torch.Tensor, first: Grid,
-              pre_quantized: bool = False) -> torch.Tensor:
+              pre_quantized: bool = False, raw_u8: bool = False
+              ) -> torch.Tensor:
         """3×3/2 stem with relu → int8 codes on block0's dw grid."""
         stem = self._node("stem")
         if stem is None:
             if pre_quantized:
                 raise ValueError("int8 ingest is unavailable with an "
                                  "excluded fp32 stem")
-            y = torch.clamp_min(self._stem_conv_fp32(x, (2, 2), self._pad3),
-                                0.0)
-            return qops.quantize_act(y, first.scale, first.zp,
-                                     symmetric=first.sym)
+            return self._stem_codes(x, (2, 2), self._pad3, None, first)
+        if raw_u8:
+            x = self._normalize_u8(x)
         if not pre_quantized:
             g = grid_of(stem)
             x = qops.quantize_act(x, g.scale, g.zp, symmetric=g.sym)
@@ -81,10 +82,8 @@ class MobileNetV1Int8Engine(FlatInt8Engine):
     def _forward(self, x: torch.Tensor, pre_quantized: bool = False,
                  raw_u8: bool = False) -> torch.Tensor:
         with annotate("stem"):
-            if raw_u8:
-                x = self._normalize_u8(x)
             x_q = self._stem(x, grid_of(self._node("block0", "dw")),
-                             pre_quantized=pre_quantized)
+                             pre_quantized=pre_quantized, raw_u8=raw_u8)
         n = len(V1_STRIDES)
         for i in range(n):
             # the next consumer's grid: the next block's dw, or f32 out of

@@ -12,8 +12,9 @@ pipeline:
 * a block input's codes, quantized once on the reduce conv's grid, are
   reused by the downsample branch;
 * max-pool commutes with the monotonic quantizer, so the stem max-pool runs
-  on int8 codes (padding −128);
-* an excluded stem runs in fp32 (BN folded at build, TF32 off), an excluded
+  on int8 codes (padding −128; ``ops/qstem.maxpool_codes``);
+* an excluded stem runs in fp32 (BN folded at build, TF32 off) from the
+  entry's input to int8 codes (``ops/qstem.stem_fp32_codes``), an excluded
   fc as a plain fp32 matmul.
 
 The fused bottleneck kernels (K4-K6) and the chained runs (K7/K8) run only
@@ -32,23 +33,10 @@ import torch
 
 from qtpu_torch.bench.profile import annotate
 from qtpu_torch.ops import qops
+from qtpu_torch.ops.qstem import maxpool_codes
 from qtpu_torch.serve.flat_engine import FlatInt8Engine
 from qtpu_torch.serve.fused_ops import (conv, dequant, gemm_1x1, grid_of,
                                         grid_parts, same_shard)
-
-
-def maxpool_codes(y_q: torch.Tensor, pads) -> torch.Tensor:
-    """3×3/2 max-pool of int8 NHWC codes, padded with −128: the max of the
-    nine strided window slices."""
-    yp = qops.pad_nhwc(y_q, pads, -128)
-    Hp, Wp = yp.shape[1:3]
-    OH, OW = (Hp - 3) // 2 + 1, (Wp - 3) // 2 + 1
-    out = None
-    for dy in range(3):
-        for dx in range(3):
-            s = yp[:, dy:dy + 2 * (OH - 1) + 1:2, dx:dx + 2 * (OW - 1) + 1:2]
-            out = s if out is None else torch.maximum(out, s)
-    return out.contiguous()
 
 
 class ResNetInt8Engine(FlatInt8Engine):
@@ -100,8 +88,8 @@ class ResNetInt8Engine(FlatInt8Engine):
 
     # -- network --------------------------------------------------------------
 
-    def _stem(self, x: torch.Tensor, first_grid, pre_quantized: bool = False
-              ) -> torch.Tensor:
+    def _stem(self, x: torch.Tensor, first_grid, pre_quantized: bool = False,
+              raw_u8: bool = False) -> torch.Tensor:
         node = self._node("stem")
         cifar = self.arch.get("cifar_stem", False)
         strides = (1, 1) if cifar else (2, 2)
@@ -116,11 +104,10 @@ class ResNetInt8Engine(FlatInt8Engine):
             if pre_quantized:
                 raise ValueError(
                     "int8 ingest is unavailable with an excluded fp32 stem")
-            y = torch.clamp_min(
-                self._stem_conv_fp32(x, strides, conv_pad), 0.0)
-            fs, fz, fsym = first_grid
-            y_q = qops.quantize_act(y, fs, fz, symmetric=fsym)
+            y_q = self._stem_codes(x, strides, conv_pad, None, first_grid)
         else:
+            if raw_u8:
+                x = self._normalize_u8(x)
             if pre_quantized:
                 x_q = x
             else:
@@ -242,9 +229,8 @@ class ResNetInt8Engine(FlatInt8Engine):
         first = self._node(self._names[0][0], "conv1")
         fc = self._node("fc")
         with annotate("stem"):
-            if raw_u8:
-                x = self._normalize_u8(x)
-            x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized)
+            x_q = self._stem(x, grid_of(first), pre_quantized=pre_quantized,
+                             raw_u8=raw_u8)
         grid = grid_of(first)
         for step in self._plan():
             with annotate(self._scope(step)):

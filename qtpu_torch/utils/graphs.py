@@ -21,7 +21,7 @@ import torch
 
 # the ops modules whose wrappers carry launch or call counters
 COUNTER_MODULES = ("qmatmul", "qconv", "qdepthwise", "qproj", "qtail",
-                   "qblock", "qstage", "qivr", "qim2col", "qops")
+                   "qblock", "qstage", "qivr", "qim2col", "qops", "qstem")
 
 
 T = TypeVar("T")
